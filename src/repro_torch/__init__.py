@@ -1,0 +1,39 @@
+"""HyperSense on PyTorch and CUDA (NVIDIA Hopper).
+
+The port of the JAX package ``repro`` to PyTorch, with the TPU's Pallas
+kernels rewritten by hand in CUDA C++ for ``sm_90a``. It mirrors the JAX
+package's layout (``repro_torch.kernels.sliding_scores`` is the twin of
+``repro.kernels.sliding_scores``, and so on) and imports neither JAX nor
+anything of ``repro``.
+
+Device rule: every entry point runs on the card unless the caller asks for
+the CPU. ``device=None`` means ``"cuda"`` and raises when CUDA is absent;
+there is no silent CPU fallback. On a CPU tensor a kernel wrapper runs its
+plain PyTorch version (the twin the tests hold against JAX); on a CUDA
+tensor it launches the hand-written kernel or raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device: str | torch.device | None = None) -> torch.device:
+    """``None`` -> ``cuda`` (raising without CUDA); anything else as given."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "repro_torch runs on a CUDA device by default and none is "
+                "available; pass device='cpu' to run the plain versions")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+def pin_fp32_matmul() -> None:
+    """Keep float32 matmuls in full float32 on the card (no TF32).
+
+    TF32 keeps about three decimal digits, far outside the 5e-5 score
+    tolerance the port is held to; every module that calls a matmul sets
+    this right before it.
+    """
+    torch.backends.cuda.matmul.allow_tf32 = False
