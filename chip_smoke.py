@@ -7,7 +7,7 @@ from the root of a checkout, on a machine with one CUDA card (built for
 sm_90a: an H100). It
 
 1. prints the card's name and power limit (``nvidia-smi``);
-2. builds both scoring kernels from ``src/repro_torch/kernels/csrc`` with
+2. builds all five kernels from ``src/repro_torch/kernels/csrc`` with
    nvcc, one process per source, all at once;
 3. makes a HyperSense model at the paper's operating point (128x128
    frames, 96x96 fragments, stride 8, D=5000, RFF) from a seeded
@@ -26,7 +26,18 @@ sm_90a: an H100). It
    bitwise the same when fed in 32-frame slices;
 6. profiles one float32 and one int8 run (device busy share, top
    kernels);
-7. prints one JSON line per phase, a ``kernels`` line, and last
+7. drives the training path (paper Fig. 5a) at the same width: samples
+   balanced fragments from 256 synthetic training frames and 128 held-out
+   frames (``sensing.fragments``), trains the Fragment model on the
+   permutation base (``train_fragment_model``, 20 epochs), scores the
+   held-out fragments (fragment AUC and partial AUC) and the held-out
+   frames through ``from_fragment_model`` (frame AUC); the whole path runs
+   twice and must be bitwise the same. It then holds the three training
+   kernels (``hdc_encode_perm``, ``hdc_encode``, ``similarity``) against
+   their plain versions at the path's shapes — hypervectors within 1e-4,
+   scores within 5e-5, two runs bitwise equal, ``hdc_encode_perm`` against
+   ``hdc_encode`` on the expanded base — and times them;
+8. prints one JSON line per phase, a ``kernels`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises: the script exits non-zero and prints no result.
@@ -50,21 +61,30 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch import pin_fp32_matmul  # noqa: E402
 from repro_torch.convert import model_from_arrays  # noqa: E402
-from repro_torch.core import encoding, hypersense  # noqa: E402
+from repro_torch.core import (encoding, fragment_model,  # noqa: E402
+                              hypersense, metrics)
 from repro_torch.core.hypersense import frame_detection_score  # noqa: E402
 from repro_torch.core.online import AdaptConfig  # noqa: E402
 from repro_torch.core.sensor_control import (  # noqa: E402
     CaptureConfig, ControllerConfig)
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import hdc_encode as enc  # noqa: E402
+from repro_torch.kernels import hdc_encode_perm as enc_perm  # noqa: E402
+from repro_torch.kernels import similarity as sim  # noqa: E402
 from repro_torch.kernels import sliding_scores as ss  # noqa: E402
 from repro_torch.kernels import sliding_scores_int as ssi  # noqa: E402
-from repro_torch.sensing import adc, stream  # noqa: E402
+from repro_torch.sensing import adc, fragments, stream  # noqa: E402
 
 # the paper's operating point (configs/hypersense.py)
 FRAME, FRAG, STRIDE, DIM, BLOCK_D = 128, 96, 8, 5000, 512
 CHUNK, N_STREAM = 32, 256
 SCORE_ATOL = 5e-5
+# the training path: frames sampled for training and held out, fragments
+# per frame of each, retraining epochs; hypervector tolerance
+N_TRAIN, N_HELD_OUT, EPOCHS = 256, 128, 20
+HV_ATOL = 1e-4
 SEED = 0
 DEVICE = "cuda"
 
@@ -109,18 +129,26 @@ def synthetic_frames(g, labels):
     frames = 0.3 + 0.1 * torch.randn((n, FRAME, FRAME), generator=g,
                                      device=dev)
     centres = 24 + torch.rand((n, 2), generator=g, device=dev) * (FRAME - 48)
-    yy = torch.arange(FRAME, device=dev, dtype=torch.float32)
-    dy = (yy[None, :] - centres[:, :1]) ** 2
-    dx = (yy[None, :] - centres[:, 1:]) ** 2
-    blob = torch.exp(-(dy[:, :, None] + dx[:, None, :]) / (2 * 12.0 ** 2))
-    frames = frames + 0.9 * labels[:, None, None].to(torch.float32) * blob
+    frames = frames + 0.9 * labels[:, None, None].to(torch.float32) * blobs(
+        centres)
     return frames.clamp(0.0, 1.5), centres
 
 
+def blobs(centres):
+    """``(n, FRAME, FRAME)`` Gaussian blobs (sigma 12 pixels, peak 1) at
+    each ``(row, col)`` centre."""
+    yy = torch.arange(FRAME, device=centres.device, dtype=torch.float32)
+    dy = (yy[None, :] - centres[:, :1]) ** 2
+    dx = (yy[None, :] - centres[:, 1:]) ** 2
+    return torch.exp(-(dy[:, :, None] + dx[:, None, :]) / (2 * 12.0 ** 2))
+
+
 def make_model(g):
-    """Paper-shape model: bundled class hypervectors (the rule of
-    ``fragment_model.bundle_init``) from 64 object and 64 background
-    crops. Also returns 64 held-out calibration frames and their labels."""
+    """Paper-shape model: class hypervectors bundled
+    (``fragment_model.bundle_init``) from 64 object and 64 background
+    crops, without retraining; the stream phases drive this model and the
+    train phase trains its own. Also returns 64 held-out calibration
+    frames and their labels."""
     B0, b = encoding.make_perm_base_rows(g, FRAG, DIM)
     labels = torch.arange(128, device=g.device) % 2
     frames, centres = synthetic_frames(g, labels)
@@ -132,8 +160,7 @@ def make_model(g):
                          in zip(frames, top.tolist())])
     hvs = encoding.encode_fragments(crops, encoding.flat_perm_base(B0, FRAG),
                                     b)
-    one_hot = torch.nn.functional.one_hot(labels, 2).to(torch.float32)
-    class_hvs = one_hot.T @ hvs                               # (2, D)
+    class_hvs = fragment_model.bundle_init(hvs, labels)      # (2, D)
     model = model_from_arrays(class_hvs.cpu().numpy(), B0.cpu().numpy(),
                               b.cpu().numpy(), h=FRAG, w=FRAG, stride=STRIDE,
                               t_score=0.0, t_detection=0, device=DEVICE)
@@ -388,24 +415,269 @@ def profile_phase(base_model, cal, raw):
                                 adc_bits=bits, precision=precision,
                                 device=DEVICE)
         r.process(raw[:CHUNK])
-        torch.cuda.synchronize()
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            r.process(raw)
-            wall_us = (time.perf_counter() - t0) * 1e6
-        rows = sorted(((e.key, e.self_device_time_total)
-                       for e in prof.key_averages()
-                       if e.self_device_time_total > 0),
-                      key=lambda kv: -kv[1])
-        device_us = sum(us for _, us in rows)
-        out[precision] = dict(
-            wall_ms=wall_us / 1e3, device_ms=device_us / 1e3,
-            device_busy_share=(device_us / wall_us if device_us > 0
-                               else "not measured"),
-            top_kernels_ms={k[:80]: us / 1e3 for k, us in rows[:6]})
+        out[precision] = device_profile(lambda: r.process(raw))
     return out
+
+
+def device_profile(fn, top: int = 6) -> dict:
+    """``fn`` once under ``torch.profiler``: the device busy share of its
+    wall time and the device time of its top kernels. The profiler's own
+    overhead lengthens the wall time the share is taken of. A window's
+    first kernel went unrecorded on the H100, so each window opens with a
+    one-element fill before ``fn``."""
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.zeros(1, device=DEVICE)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    # device events only: an operator's row repeats the time of the
+    # kernels it launched
+    rows = sorted(((e.key, e.self_device_time_total)
+                   for e in prof.key_averages()
+                   if e.device_type != torch.autograd.DeviceType.CPU
+                   and e.self_device_time_total > 0), key=lambda kv: -kv[1])
+    device_us = sum(us for _, us in rows)
+    return dict(wall_ms=wall_us / 1e3, device_ms=device_us / 1e3,
+                device_busy_share=(device_us / wall_us if device_us > 0
+                                   else "not measured"),
+                top_kernels_ms={k[:80]: us / 1e3 for k, us in rows[:top]})
+
+
+TRAIN_KERNELS = {"hdc_encode_perm": enc_perm, "hdc_encode": enc,
+                 "similarity": sim, "sliding_scores_f32": ss}
+
+
+def fragment_sets(g):
+    """Training and held-out sets: half the frames carry a blob; balanced
+    fragments sampled from each (2 and 3 per frame, seeds 0 and 1)."""
+    sets = []
+    for n, per_frame, seed in ((N_TRAIN, 2, 0), (N_HELD_OUT, 3, 1)):
+        labels = torch.arange(n, device=g.device) % 2
+        frames, centres = synthetic_frames(g, labels)
+        # object mask: where a labelled frame's blob is above half its peak
+        masks = (blobs(centres) > 0.5) & (labels[:, None, None] == 1)
+        frags, flabels = fragments.sample_fragments(
+            frames.cpu().numpy(), masks.cpu().numpy(), h=FRAG, w=FRAG,
+            per_frame=per_frame, seed=seed)
+        sets.append((frames, labels.cpu().numpy(), frags, flabels))
+    return sets
+
+
+def generators(B):
+    """The ``(h, D)`` permutation generators of a flat ``(h*w, D)`` base:
+    row ``r*w`` is ``roll(B0[r], 0)``."""
+    return B.reshape(FRAG, FRAG, DIM)[:, 0, :].contiguous()
+
+
+def train_path(frags, flabels, test):
+    """The training path once: train, score the held-out fragments and
+    frames. Returns the model, its outputs and each step's wall seconds."""
+    test_frames, test_labels, tfrags, tflabels = test
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 1)
+    wall = {}
+
+    def step(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall[name] = time.perf_counter() - t0
+        return out
+
+    model, info = step("train_s", lambda: fragment_model.train_fragment_model(
+        gen, frags, flabels, dim=DIM, epochs=EPOCHS, base_kind="perm",
+        device=DEVICE))
+    hv_te = step("encode_held_out_s", lambda: fragment_model.encode(
+        model, torch.as_tensor(tfrags, device=DEVICE)))
+    scores = step("positive_score_s", lambda: fragment_model.positive_score(
+        model.class_hvs, hv_te)).cpu().numpy()
+    fpr, tpr, _ = metrics.roc_curve(scores, tflabels)
+    B0 = generators(model.B)
+    hs = hypersense.from_fragment_model(model, B0, h=FRAG, w=FRAG,
+                                        stride=STRIDE)
+    frame_scores = step("frame_scores_s", lambda: hypersense.frame_scores_batch(
+        hs, test_frames)).cpu().numpy()
+    ffpr, ftpr, _ = metrics.roc_curve(frame_scores, test_labels)
+    out = dict(val_accuracy=info["val_accuracy"], best=info["best"],
+               fragment_auc=metrics.auc(fpr, tpr),
+               fragment_partial_auc=metrics.partial_auc_above_tpr(fpr, tpr),
+               frame_auc=metrics.auc(ffpr, ftpr))
+    return model, hv_te, scores, frame_scores, out, wall
+
+
+def train_phase(g):
+    """The training path at the paper's width, counted, then again for a
+    bitwise comparison; then its three kernels against their plain
+    versions at the path's shapes. Returns the path's record, its
+    launches per kernel and the kernels' records."""
+    t0 = time.perf_counter()
+    (_, _, frags, flabels), test = fragment_sets(g)
+    sample_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    for mod in TRAIN_KERNELS.values():
+        mod.LAUNCHES = 0
+    model, hv_te, scores, frame_scores, out, wall = train_path(
+        frags, flabels, test)
+    launches = {k: mod.LAUNCHES for k, mod in TRAIN_KERNELS.items()}
+    again = train_path(frags, flabels, test)
+    check(torch.equal(model.class_hvs, again[0].class_hvs)
+          and np.array_equal(scores, again[2])
+          and np.array_equal(frame_scores, again[3]) and out == again[4],
+          "the training path differs run to run")
+    check(np.isfinite(scores).all() and scores.shape == (len(test[2]),)
+          and np.isfinite(frame_scores).all()
+          and frame_scores.shape == (N_HELD_OUT,),
+          "held-out scores not finite or of the wrong shape")
+    check(out["fragment_auc"] > 0.6 and out["frame_auc"] > 0.6,
+          f"the fragment model did not learn the blobs: {out}")
+
+    # the retraining loop alone: one epoch of per-sample updates
+    x_tr = encoding.normalize_flat(torch.as_tensor(
+        frags, device=DEVICE).reshape(len(frags), -1))
+    B0 = generators(model.B)
+    hv_tr = enc_perm.hdc_encode_perm(x_tr, B0, model.b, h=FRAG, w=FRAG)
+    labels_t = torch.as_tensor(flabels, device=DEVICE).long()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fragment_model.retrain_epoch(model.class_hvs, hv_tr, labels_t)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    epoch_profile = device_profile(lambda: fragment_model.retrain_epoch(
+        model.class_hvs, hv_tr, labels_t))
+
+    record = dict(
+        frames=N_TRAIN, held_out_frames=N_HELD_OUT,
+        fragments=len(frags), positives=int(flabels.sum()),
+        held_out_fragments=len(test[2]), epochs=EPOCHS, sample_s=sample_s,
+        **wall, retrain_epoch_s=epoch_s,
+        update_us=epoch_s / len(frags) * 1e6,
+        retrain_epoch_profile=epoch_profile, launches=launches,
+        run_to_run_bitwise=True, **out)
+    x_te = encoding.normalize_flat(torch.as_tensor(
+        test[2], device=DEVICE).reshape(len(test[2]), -1))
+    return record, launches, train_kernel_checks(model, B0, x_tr, x_te,
+                                                 hv_te)
+
+
+def train_kernel_checks(model, B0, x_tr, x_te, hv_te):
+    """Each training kernel against its plain version, a second run
+    bitwise, and timings, on the training path's own inputs: the training
+    fragments through ``hdc_encode_perm``, the held-out ones through
+    ``hdc_encode`` against the expanded base, and the held-out
+    hypervectors through ``similarity``."""
+    B, b = model.B, model.b
+    check(sim.MAX_CLASSES == _build.load("similarity").similarity_max_classes(),
+          "python and CUDA class limits differ")
+    pin_fp32_matmul()
+    records = []
+    K = FRAG * FRAG
+
+    def hold(name, got, again, plain, atol):
+        torch.cuda.synchronize()
+        err = float((got - plain).abs().max())
+        check(err <= atol, f"{name} kernel vs plain: {err}")
+        check(torch.equal(got, again), f"{name} kernel differs run to run")
+        check(bool(torch.isfinite(got).all()), f"{name}: not finite")
+        return err
+
+    # --- hdc_encode_perm: the training encode
+    N = x_tr.shape[0]
+    got = enc_perm.hdc_encode_perm(x_tr, B0, b, h=FRAG, w=FRAG)
+    err = hold("hdc_encode_perm", got,
+               enc_perm.hdc_encode_perm(x_tr, B0, b, h=FRAG, w=FRAG),
+               enc_perm.hdc_encode_perm_plain(x_tr, B0, b, w=FRAG),
+               HV_ATOL)
+    dense = enc.hdc_encode(x_tr, B, b)
+    derr = float((got - dense).abs().max())
+    check(derr <= HV_ATOL, f"hdc_encode_perm vs hdc_encode: {derr}")
+    records.append(dict(
+        name="hdc_encode_perm", route="cuda",
+        source="src/repro_torch/kernels/csrc/hdc_encode_perm.cu",
+        replaces="src/repro/kernels/hdc_encode_perm.py:36",
+        max_abs_err=err, vs_dense_max_abs_err=derr,
+        vs_dense_bitwise=torch.equal(got, dense), run_to_run_bitwise=True,
+        shape=[N, K, DIM],
+        ms=time_ms(lambda: enc_perm.hdc_encode_perm(x_tr, B0, b, h=FRAG,
+                                                    w=FRAG)),
+        plain_ms=time_ms(lambda: enc_perm.hdc_encode_perm_plain(
+            x_tr, B0, b, w=FRAG)),
+        library_ms=time_ms(lambda: torch.matmul(x_tr, B)),
+        **bound(4 * (N * K + FRAG * DIM + DIM + N * DIM), 2 * N * K * DIM,
+                F32_OPS_S)))
+
+    # --- hdc_encode: the held-out encode against the expanded base
+    N = x_te.shape[0]
+    got = enc.hdc_encode(x_te, B, b)
+    err = hold("hdc_encode", got, enc.hdc_encode(x_te, B, b),
+               enc.hdc_encode_plain(x_te, B, b), HV_ATOL)
+    records.append(dict(
+        name="hdc_encode", route="cuda",
+        source="src/repro_torch/kernels/csrc/hdc_encode.cu",
+        replaces="src/repro/kernels/hdc_encode.py:27",
+        max_abs_err=err, run_to_run_bitwise=True, shape=[N, K, DIM],
+        ms=time_ms(lambda: enc.hdc_encode(x_te, B, b)),
+        plain_ms=time_ms(lambda: enc.hdc_encode_plain(x_te, B, b)),
+        library_ms=time_ms(lambda: torch.matmul(x_te, B)),
+        **bound(4 * (N * K + K * DIM + DIM + N * DIM), 2 * N * K * DIM,
+                F32_OPS_S)))
+
+    # --- similarity: the held-out hypervectors against the two classes
+    C = model.class_hvs
+    got = sim.similarity(hv_te, C)
+    err = hold("similarity", got, sim.similarity(hv_te, C),
+               sim.similarity_plain(hv_te, C), SCORE_ATOL)
+    nc = C.shape[0]
+    records.append(dict(
+        name="similarity", route="cuda",
+        source="src/repro_torch/kernels/csrc/similarity.cu",
+        replaces="src/repro/kernels/similarity.py:26",
+        max_abs_err=err, run_to_run_bitwise=True, shape=[N, DIM, nc],
+        ms=time_ms(lambda: sim.similarity(hv_te, C)),
+        plain_ms=time_ms(lambda: sim.similarity_plain(hv_te, C)),
+        library_ms=time_ms(lambda: torch.nn.functional.cosine_similarity(
+            hv_te[:, None], C[None], dim=-1)),
+        **bound(4 * (N * DIM + nc * DIM + N * nc),
+                2 * N * DIM * (nc + 1) + 2 * nc * DIM, F32_OPS_S)))
+    # each kernel's device time alone, from the profiler: ``ms`` above is a
+    # whole wrapper call, which includes the host's enqueue
+    calls = {"hdc_encode_perm": (lambda: enc_perm.hdc_encode_perm(
+                 x_tr, B0, b, h=FRAG, w=FRAG), ("encode_kernel",)),
+             "hdc_encode": (lambda: enc.hdc_encode(x_te, B, b),
+                            ("encode_kernel",)),
+             "similarity": (lambda: sim.similarity(hv_te, C),
+                            ("class_sumsq", "sim_rows"))}
+    for r in records:
+        r["kernel_device_ms"], r["kernel_device_by_kernel_ms"] = \
+            kernel_device_ms(*calls[r["name"]])
+    return records
+
+
+def kernel_device_ms(fn, names, calls: int = 5):
+    """Device time of one call of ``fn`` spent in the kernels whose names
+    contain one of ``names``: ``calls`` calls under ``torch.profiler``, each
+    kernel's mean over the launches the profiler recorded (it has dropped
+    single launches on the H100), summed over the kernels. "not measured"
+    if a kernel was never recorded. Returns the sum and the means."""
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    means = {n: e.self_device_time_total / e.count / 1e3
+             for e in prof.key_averages()
+             if e.device_type != torch.autograd.DeviceType.CPU
+             and e.self_device_time_total > 0
+             for n in names if n in e.key}
+    total = sum(means.values()) if len(means) == len(names) else \
+        "not measured"
+    return total, means
 
 
 def main() -> int:
@@ -443,9 +715,19 @@ def main() -> int:
         emit({"kernel_check": r})
     runs, launches = stream_phase(model, cal, raw, labels)
     emit({"profile": profile_phase(model, cal, raw)})
+    train, train_launches, train_records = train_phase(g)
+    emit({"train": train})
+    for r in train_records:
+        emit({"kernel_check": r})
+    records += train_records
+    # launches: the six stream runs' and the training path's, each counted
+    # from zero right before its run
     for r in records:
-        r["launches"] = launches[r["name"]]
-        check(r["launches"] > 0, f"{r['name']} never ran on the main path")
+        r["launches"] = launches.get(r["name"], 0) + train_launches.get(
+            r["name"], 0)
+        check(r["launches"] > 0, f"{r['name']} never ran on a main path")
+    for name, n in train_launches.items():
+        check(n > 0, f"{name} never ran on the training path")
     emit({"kernels": [{k: r[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}

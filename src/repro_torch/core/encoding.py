@@ -32,6 +32,13 @@ NonLin = Literal["rff", "linear", "sign"]
 # Base generation
 # ---------------------------------------------------------------------------
 
+def make_iid_base(generator: torch.Generator, n_features: int, dim: int
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """i.i.d. Gaussian base ``B (n, D)`` and uniform phase ``b (D,)`` ~
+    U(0, 2 pi) (paper §III-A), drawn on the generator's device."""
+    return make_perm_base_rows(generator, n_features, dim)
+
+
 def make_perm_base_rows(generator: torch.Generator, h: int, dim: int
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """The ``h`` random generator hypervectors ``B0 (h, D)`` ~ N(0, 1) and

@@ -18,6 +18,7 @@ import torch
 from repro_torch.core import hdc
 from repro_torch.core.encoding import (NonLin, encode_frame_naive,
                                        encode_frame_reuse, num_windows)
+from repro_torch.core.fragment_model import FragmentModel
 from repro_torch.kernels import ops
 from repro_torch.sensing import adc as adc_sim
 
@@ -44,6 +45,17 @@ class HyperSenseModel:
         """The same model with its tensors on ``device``."""
         return dataclasses.replace(self, class_hvs=self.class_hvs.to(device),
                                    B0=self.B0.to(device), b=self.b.to(device))
+
+
+def from_fragment_model(model: FragmentModel, B0: torch.Tensor, *, h: int,
+                        w: int, stride: int, t_score: float = 0.0,
+                        t_detection: int = 0, nonlinearity: NonLin = "rff"
+                        ) -> HyperSenseModel:
+    """Assemble a HyperSense model from a trained Fragment model and its
+    ``(h, D)`` permutation generators (no further training, paper
+    §III-C)."""
+    return HyperSenseModel(model.class_hvs, B0, model.b, h, w, stride,
+                           t_score, t_detection, nonlinearity)
 
 
 def fragment_score_map(frame: torch.Tensor, class_hvs: torch.Tensor,

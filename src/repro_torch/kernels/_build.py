@@ -28,13 +28,15 @@ import torch
 
 CSRC = pathlib.Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
-HEADERS = ("score_common.cuh",)
-SOURCES = ("sliding_scores", "sliding_scores_int")
+HEADERS = ("score_common.cuh", "encode_common.cuh")
+SOURCES = ("sliding_scores", "sliding_scores_int", "similarity", "hdc_encode",
+           "hdc_encode_perm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+F = ctypes.c_float
 
 #: the C entry points and their ctypes signatures, per library
 SIGNATURES: dict[str, dict[str, tuple]] = {
@@ -45,6 +47,16 @@ SIGNATURES: dict[str, dict[str, tuple]] = {
     "sliding_scores_int": {
         "sliding_scores_int": (I, [P] * 11 + [I] * 11 + [P]),
         "sliding_scores_int_smem_bytes": (ctypes.c_size_t, [I, I]),
+    },
+    "similarity": {
+        "similarity_f32": (I, [P] * 4 + [I] * 4 + [F, P]),
+        "similarity_max_classes": (I, []),
+    },
+    "hdc_encode": {
+        "hdc_encode_f32": (I, [P] * 4 + [I] * 4 + [P]),
+    },
+    "hdc_encode_perm": {
+        "hdc_encode_perm_f32": (I, [P] * 4 + [I] * 5 + [P]),
     },
 }
 

@@ -1,19 +1,47 @@
-"""Public scorer dispatch and precompute re-exports, twin of
+"""Public kernel dispatch and precompute re-exports, twin of
 ``repro.kernels.ops``.
 
-Each scorer runs where its tensors live: on the card through the
-hand-written kernels, on the CPU through their plain versions (see
-:mod:`repro_torch.kernels.sliding_scores`). ``hdc_encode`` and
-``similarity`` are not ported yet: their kernels come in a later slice.
+Each entry point runs where its tensors live: on the card through the
+hand-written kernels, on the CPU through their plain versions. The
+fragment encoder (:func:`hdc_encode`, ``csrc/hdc_encode.cu``) and the
+cosine classifier (:func:`similarity`, ``csrc/similarity.cu``) serve the
+training path; the scorers (``csrc/sliding_scores*.cu``) the stream.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.encoding import NonLin
+from repro_torch.core.encoding import NonLin, normalize_flat
+from repro_torch.kernels import hdc_encode as _enc
+from repro_torch.kernels import similarity as _sim
 from repro_torch.kernels import sliding_scores as _ss
 from repro_torch.kernels import sliding_scores_int as _ssi
+
+
+def hdc_encode(x: torch.Tensor, B: torch.Tensor, b: torch.Tensor, *,
+               nonlinearity: NonLin = "rff", normalize: bool = True,
+               block_n: int = 128, block_d: int = 512,
+               block_k: int = 512) -> torch.Tensor:
+    """Normalize + project + nonlinearity through the encode kernel:
+    ``(N, h, w)`` or ``(N, K)`` fragments -> ``(N, D)``. Rows are
+    L2-normalized (``max(norm, 1e-8)``) before the kernel."""
+    if x.ndim > 2:
+        x = x.reshape(x.shape[0], -1)
+    if normalize:
+        x = normalize_flat(x)
+    return _enc.hdc_encode(x, B, b, nonlinearity=nonlinearity,
+                           block_n=block_n, block_d=block_d,
+                           block_k=block_k)
+
+
+def similarity(queries: torch.Tensor, class_hvs: torch.Tensor, *,
+               block_n: int = 256, block_d: int = 1024) -> torch.Tensor:
+    """Cosine class scores ``(N, D), (C, D) -> (N, C)`` through the
+    similarity kernel."""
+    return _sim.similarity(queries, class_hvs, block_n=block_n,
+                           block_d=block_d)
+
 
 precompute_tiles = _ss.precompute_tiles
 precompute_geometry = _ss.precompute_geometry
