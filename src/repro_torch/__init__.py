@@ -34,6 +34,9 @@ def pin_fp32_matmul() -> None:
 
     TF32 keeps about three decimal digits, far outside the 5e-5 score
     tolerance the port is held to; every module that calls a matmul sets
-    this right before it.
+    this right before it. The encoder kernels' tensor-core path is not
+    this TF32: they split each float32 operand into two TF32 parts and sum
+    three products (3xTF32, ``kernels/csrc/encode_common.cuh``), which
+    keeps float32 accuracy.
     """
     torch.backends.cuda.matmul.allow_tf32 = False

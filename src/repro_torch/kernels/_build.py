@@ -54,9 +54,11 @@ SIGNATURES: dict[str, dict[str, tuple]] = {
     },
     "hdc_encode": {
         "hdc_encode_f32": (I, [P] * 4 + [I] * 4 + [P]),
+        "hdc_encode_occupancy": (I, [I] * 2 + [P] * 4),
     },
     "hdc_encode_perm": {
         "hdc_encode_perm_f32": (I, [P] * 4 + [I] * 5 + [P]),
+        "hdc_encode_perm_occupancy": (I, [I] * 2 + [P] * 4),
     },
 }
 

@@ -17,6 +17,7 @@ from repro.kernels import ops as jops
 from repro.kernels import similarity as jk_sim
 from repro.kernels.hdc_encode_perm import hdc_encode_perm as j_perm
 from repro_torch.convert import fragment_model_from_arrays
+from repro_torch.core import encoding as tenc
 from repro_torch.core import fragment_model as tfm
 from repro_torch.kernels import _build
 from repro_torch.kernels import hdc_encode as tk_enc
@@ -27,7 +28,7 @@ from repro_torch.kernels import similarity as tk_sim
 jax.config.update("jax_platform_name", "cpu")
 torch.set_num_threads(2)
 
-#: hypervector tolerance (float32 projections of unit rows, K <= 1000)
+#: hypervector tolerance (float32 projections of unit rows)
 HV_ATOL = 1e-4
 #: the JAX kernel tests' bf16 tolerance (tests/test_kernels.py)
 BF16_TOL = 5e-2
@@ -135,6 +136,66 @@ def test_hdc_encode_perm_equals_encode_on_expanded_base():
         tk_perm.hdc_encode_perm(x, B0, b, h=h + 1, w=w)
     with pytest.raises(ValueError, match="encode takes"):
         tk_perm.hdc_encode_perm(x, B0, b, h=h, w=w + 1)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA encoders' numeric design (csrc/encode_common.cuh), emulated: each
+# operand v is split into big = tf32(v) and small = tf32(v - big), and every
+# 32-deep K step sums big*small + small*big + big*big (exact products of
+# TF32 values, as the tensor cores take them) into a partial that joins a
+# float32 accumulator with one float32 add
+# ---------------------------------------------------------------------------
+
+def tf32_rna(a):
+    """Round float32 to TF32 (10 mantissa bits), to nearest with ties away
+    from zero, by integer bit masking: the bits of cvt.rna.tf32.f32."""
+    bits = a.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_encode_projection(x, B, *, split, step=32):
+    """``x @ B`` as the kernel sums it, with the 3xTF32 split or (``split``
+    False) one TF32 product."""
+    xb, Bb = tf32_rna(x), tf32_rna(B)
+    xs, Bs = tf32_rna(x - xb), tf32_rna(B - Bb)
+    acc = torch.zeros((x.shape[0], B.shape[1]), dtype=torch.float32)
+    for k0 in range(0, x.shape[1], step):
+        k = slice(k0, k0 + step)
+        big = xb[:, k].double() @ Bb[k].double()
+        part = (xb[:, k].double() @ Bs[k].double()
+                + xs[:, k].double() @ Bb[k].double() + big) if split else big
+        acc = acc + part.float()
+    return acc
+
+
+@pytest.fixture(scope="module")
+def paper_depth_encode():
+    """64 fragments of the paper's 96 x 96 (K = 9216) against a (9216, 512)
+    base: the port's unit-norm rows and the JAX ``encode_fragments``."""
+    rng = np.random.default_rng(9)
+    frags = rng.uniform(0, 1.5, (64, 96, 96)).astype(np.float32)
+    B = rng.standard_normal((96 * 96, 512)).astype(np.float32)
+    b = rng.uniform(0, 2 * np.pi, 512).astype(np.float32)
+    want = jenc.encode_fragments(jnp.asarray(frags), jnp.asarray(B),
+                                 jnp.asarray(b))
+    x = tenc.normalize_flat(t(frags).reshape(64, -1))
+    return x, t(B), t(b), np.asarray(want)
+
+
+def test_tf32_split_encode_matches_jax_at_paper_depth(paper_depth_encode):
+    x, B, b, want = paper_depth_encode
+    got = tenc.apply_nonlinearity(
+        tf32_encode_projection(x, B, split=True), b, "rff")
+    close(got, want, HV_ATOL)
+
+
+def test_single_tf32_product_misses_hv_tolerance(paper_depth_encode):
+    """Why the split exists: one TF32 product keeps 10 mantissa bits and
+    lands outside the hypervector tolerance at K = 9216."""
+    x, B, b, want = paper_depth_encode
+    got = tenc.apply_nonlinearity(
+        tf32_encode_projection(x, B, split=False), b, "rff").numpy()
+    assert np.abs(got - want).max() > 5 * HV_ATOL
 
 
 # ---------------------------------------------------------------------------
