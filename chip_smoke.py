@@ -18,7 +18,11 @@ sm_90a: an H100). It
    at the main path's shape (a 32-frame chunk) — scores within 5e-5, the
    int kernel's int32 window sums bitwise, two runs bitwise equal — and
    times kernel, plain version, a library matmul of the same projection
-   and the card's bound;
+   and the card's bound; the int kernel (int8 tensor cores) also at
+   10-bit uint16 codes, in each of its row tiles and B-operand reads,
+   for frames scored inside a 7-frame call (bitwise), and at ragged
+   shapes (odd stride, W not a multiple of 4, K steps that straddle base
+   rows, M and td off the tiles, two D-tiles, per-stream classes);
 5. drives the main path, ``StreamRunner.process``, over 256 frames six
    times (float32, int8, int4, binary, the closed capture loop, online
    adaptation): each chunk must launch its kernel exactly once, the frame
@@ -243,53 +247,171 @@ def kernel_phase(model, raw):
         library_ms=time_ms(lambda: torch.matmul(win, base)),
         **bound(f_bytes, 2 * macs, F32_OPS_S)))
 
-    # --- integer kernel (int8 timed; int4 and binary checked and timed)
-    ms_by_precision, errs = {}, {}
-    for precision, bits in (("int8", 8), ("int4", 4), ("binary", 8)):
-        packed = precision == "int4"
+    records.append(int_kernel_record(model, raw, windows(
+        stream.adc_view_codes(raw, 8)), base))
+    return records
+
+
+# the int kernel's precisions: (geometry mode, ADC bits, packed int4)
+INT_CASES = {"int8": ("int8", 8, False), "int4": ("int8", 4, True),
+             "binary": ("binary", 8, False), "u10": ("int8", 10, False)}
+
+# ragged int shapes (N, S, H, W, h, w, stride, D, block_d): an odd stride,
+# W not a multiple of 4, w % 32 != 0 (K steps straddle base rows; w = 7
+# puts 4 rows in one step), M and td off the 64/128 x 128 tiles, n_dt = 2,
+# S streams of N / S frames with their own class tiles
+RAGGED_INT = ((6, 2, 45, 46, 21, 21, 3, 600, 300),
+              (5, 1, 22, 30, 5, 7, 5, 131, 512))
+
+
+def int_variants(fn) -> dict:
+    """``fn(tile_m, b_read)`` for each row tile and B read the kernel has."""
+    return {f"{tm}x{ssi.COL_TILE}_{br}": fn(tm, ssi.B_READS[br])
+            for tm in (64, 128) for br in ("funnel", "shifted")}
+
+
+def int_kernel_record(model, raw, win, base):
+    """The int kernel at the main path's chunk, per precision (int8, packed
+    int4, binary and 10-bit uint16 codes): int32 window sums bitwise equal
+    to the plain version's, scores within SCORE_ATOL, bitwise run to run,
+    in every row tile and B read, and for frames scored inside a 7-frame
+    call; then its timings, occupancy and bounds, and the RAGGED_INT
+    shapes."""
+    kw = dict(h=FRAG, w=FRAG, stride=STRIDE)
+    lib = _build.load("sliding_scores_int")
+    check(ssi.COL_TILE == lib.sliding_scores_int_col_tile()
+          and all(ssi.smem_bytes(tm, br) == lib.sliding_scores_int_smem_bytes(
+              tm, br) for tm in (64, 128) for br in ssi.B_READS.values()),
+          "python and CUDA int block sizes differ")
+    N = raw.shape[0]
+    my = mx = (FRAME - FRAG) // STRIDE + 1
+    ms_by_precision, errs, variants_ms = {}, {}, {}
+    for precision, (mode, bits, packed) in INT_CASES.items():
         codes = stream.adc_view_codes(raw, bits)
         kcodes = adc.pack_nibbles(codes) if packed else codes
-        itiles = stream.model_tiles(model, FRAME, BLOCK_D, precision)
-        got = ssi.fragment_scores_batch_int(kcodes, itiles, packed=packed,
-                                            **kw)
-        again = ssi.fragment_scores_batch_int(kcodes, itiles, packed=packed,
-                                              **kw)
-        plain = ssi.fragment_scores_batch_int_plain(kcodes, itiles,
-                                                    packed=packed, **kw)
-        acc = ssi.int_window_acc(kcodes, itiles.geom, packed=packed, **kw)
+        itiles = stream.model_tiles(model, FRAME, BLOCK_D,
+                                    "binary" if mode == "binary" else "int8")
+        pkw = dict(packed=packed, **kw)
+        got = ssi.fragment_scores_batch_int(kcodes, itiles, **pkw)
+        again = ssi.fragment_scores_batch_int(kcodes, itiles, **pkw)
+        seven = ssi.fragment_scores_batch_int(kcodes[20:27], itiles, **pkw)
+        forced = int_variants(lambda tm, br: ssi._launch(
+            kcodes, itiles, nonlinearity="rff", C=N, tile_m=tm, b_read=br,
+            **pkw))
+        plain = ssi.fragment_scores_batch_int_plain(kcodes, itiles, **pkw)
+        acc = ssi.int_window_acc(kcodes, itiles.geom, **pkw)
         acc_plain = ssi.int_window_acc(
-            kcodes.cpu(), _geometry_to(itiles.geom, "cpu"), packed=packed,
-            **kw)
+            kcodes.cpu(), _geometry_to(itiles.geom, "cpu"), **pkw)
         torch.cuda.synchronize()
         errs[precision] = float((got - plain).abs().max())
         check(errs[precision] <= SCORE_ATOL,
               f"{precision} kernel vs plain: {errs[precision]}")
         check(torch.equal(got, again), f"{precision} kernel run to run")
+        check(torch.equal(seven, got[20:27]),
+              f"{precision}: a 7-frame call differs from the 32-frame one")
+        check(all(torch.equal(v, got) for v in forced.values()),
+              f"{precision}: row tiles or B reads differ")
         check(torch.equal(acc.cpu(), acc_plain),
               f"{precision} int32 window sums differ from the plain ones")
+        check(bool(torch.isfinite(got).all()) and got.shape == (N, my, mx),
+              f"{precision} scores not finite or of the wrong shape")
         ms_by_precision[precision] = time_ms(
-            lambda: ssi.fragment_scores_batch_int(
-                kcodes, itiles, packed=packed, **kw))
+            lambda: ssi.fragment_scores_batch_int(kcodes, itiles, **pkw))
         if precision == "int8":
-            int8 = dict(codes=codes, tiles=itiles, kcodes=kcodes)
+            int8 = dict(codes=codes, tiles=itiles)
+            variants_ms = int_variants(lambda tm, br: time_ms(
+                lambda: ssi._launch(kcodes, itiles, nonlinearity="rff", C=N,
+                                    tile_m=tm, b_read=br, **pkw)))
     codes, itiles = int8["codes"], int8["tiles"]
-    win = windows(codes)
+    n_dt, td = itiles.geom.slabs_q.shape[0], itiles.geom.block_d
+    M, n_ct = N * my * mx, n_dt * -(-td // ssi.COL_TILE)
     i_bytes = (codes.numel() + itiles.geom.slabs_q.numel()
                + 4 * itiles.geom.bias_t.numel() + 2 * itiles.cpos_t.numel()
-               + 4 * 2 * N * my * mx)
-    records.append(dict(
+               + 4 * 2 * M)
+    # the reuse form's h*W multiply-adds per (n, ky, column); this GEMM's
+    # h*w per window
+    macs = N * my * n_dt * td * FRAG * FRAME
+    tc = bound(i_bytes, 2 * M * FRAG * FRAG * n_dt * td, INT8_OPS_S)
+    device_ms, device_by_kernel = kernel_device_ms(
+        lambda: ssi.fragment_scores_batch_int(codes, itiles, **kw),
+        ("window_norms", "im2col", "score_int", "fold_epilogue"))
+    return dict(
         name="sliding_scores_int", route="cuda",
         source="src/repro_torch/kernels/csrc/sliding_scores_int.cu",
         replaces="src/repro/kernels/sliding_scores_int.py:463",
         max_abs_err=max(errs.values()), max_abs_err_by_precision=errs,
-        acc_bitwise=True, run_to_run_bitwise=True,
-        ms=ms_by_precision["int8"],
-        ms_by_precision=ms_by_precision,
+        acc_bitwise=True, run_to_run_bitwise=True, batch_position_bitwise=True,
+        ms=ms_by_precision["int8"], ms_by_precision=ms_by_precision,
+        variants_ms=variants_ms,
+        kernel_device_ms=device_ms,
+        kernel_device_by_kernel_ms=device_by_kernel,
         plain_ms=time_ms(lambda: ssi.fragment_scores_batch_int_plain(
             codes, itiles, **kw)),
         library_ms=time_ms(lambda: torch.matmul(win, base)),
-        **bound(i_bytes, 2 * macs, INT8_OPS_S)))
-    return records
+        shape=[M, FRAG * FRAG, n_dt * td],
+        **int_occupancy(N * my, mx, n_ct),
+        **bound(i_bytes, 2 * macs, INT8_OPS_S),
+        bound_tc_ms=tc["bound_ms"], bound_tc_by=tc["bound_by"],
+        ragged_max_abs_err=ragged_int_checks())
+
+
+def int_occupancy(R: int, mx: int, n_ct: int) -> dict:
+    """The int kernel's launch for R = N*my rows per fragment column, mx
+    columns and n_ct column tiles: its tile, blocks, resident blocks per
+    SM, shared memory per block, waves on this card and the share of the
+    waves' block slots the blocks fill."""
+    vals = [ctypes.c_int() for _ in range(4)]
+    _build.check(_build.load("sliding_scores_int").sliding_scores_int_occupancy(
+        R, mx, n_ct, *map(ctypes.byref, vals)),
+        "sliding_scores_int_occupancy")
+    tile_m, blocks, per_sm, smem = (v.value for v in vals)
+    slots = per_sm * torch.cuda.get_device_properties(0).multi_processor_count
+    waves = math.ceil(blocks / slots)
+    return dict(tile=[tile_m, ssi.COL_TILE], blocks=blocks,
+                blocks_per_sm=per_sm, smem_bytes=smem, waves=waves,
+                wave_efficiency=blocks / (waves * slots))
+
+
+def ragged_int_checks() -> float:
+    """The int kernel at the RAGGED_INT shapes, per precision: int32 window
+    sums bitwise equal to the plain version's, scores within SCORE_ATOL
+    with per-stream class tiles, bitwise run to run and across row tiles
+    and B reads. Returns the largest score error."""
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(SEED + 3)
+    worst = 0.0
+    for N, S, H, W, h, w, stride, D, block_d in RAGGED_INT:
+        kw = dict(h=h, w=w, stride=stride)
+        frames = 1.5 * torch.rand((N, H, W), generator=g, device=DEVICE)
+        B0 = torch.randn((h, D), generator=g, device=DEVICE)
+        b = 2 * math.pi * torch.rand(D, generator=g, device=DEVICE)
+        chvs = torch.randn((S, 2, D), generator=g, device=DEVICE)
+        for precision, (mode, bits, packed) in INT_CASES.items():
+            what = f"{precision} at {(N, S, H, W, h, w, stride, D)}"
+            geom = ssi.precompute_geometry_int(B0, b, W=W, w=w, stride=stride,
+                                               block_d=block_d, mode=mode)
+            tiles = ssi.retile_classes_int_fleet(geom, chvs)
+            codes = stream.adc_view_codes(frames, bits)
+            kcodes = adc.pack_nibbles(codes) if packed else codes
+            pkw = dict(packed=packed, frames_per_stream=N // S, **kw)
+            got = ssi.fragment_scores_batch_int(kcodes, tiles, **pkw)
+            forced = int_variants(lambda tm, br: ssi._launch(
+                kcodes, tiles, nonlinearity="rff", C=N // S, tile_m=tm,
+                b_read=br, packed=packed, **kw))
+            plain = ssi.fragment_scores_batch_int_plain(kcodes, tiles, **pkw)
+            acc = ssi.int_window_acc(kcodes, geom, packed=packed, **kw)
+            acc_plain = ssi.int_window_acc(kcodes.cpu(),
+                                           _geometry_to(geom, "cpu"),
+                                           packed=packed, **kw)
+            torch.cuda.synchronize()
+            err = float((got - plain).abs().max())
+            check(err <= SCORE_ATOL, f"{what}: kernel vs plain {err}")
+            check(torch.equal(acc.cpu(), acc_plain),
+                  f"{what}: int32 window sums differ from the plain ones")
+            check(all(torch.equal(v, got) for v in forced.values()),
+                  f"{what}: row tiles, B reads or reruns differ")
+            worst = max(worst, err)
+    return worst
 
 
 def bound(n_bytes: int, n_ops: int, ops_s: float) -> dict:

@@ -1,33 +1,88 @@
-// Low-precision integer HyperSense frame scoring for Hopper: raw ADC codes
-// in, float score maps out.
+// Low-precision integer HyperSense frame scoring for Hopper, on the int8
+// tensor cores: raw ADC codes in, float score maps out.
 //
 // Replaces the TPU kernel
 // src/repro/kernels/sliding_scores_int.py::_score_kernel_int (reached
 // through fragment_scores_batch_int). Same function: for frame n, fragment
-// row ky and hypervector column j, the exact int32 window sum
+// row ky and column kx, D-tile dt and hypervector column j, the exact int32
+// window sum
 //
-//   acc[kx] = sum_r sum_{i in [kx*s, kx*s + w)} codes[ky*s + r, i] * slab_q[r, i + j]
+//   acc[(n, ky, kx), j] = sum_{r<h} sum_{i<w} codes[n, ky*s + r, kx*s + i]
+//                                           * slabs_q[dt, r, kx*s + i + j]
 //
-// (int8 or +-1 slab values, 8/4-bit or wider codes), then the float
-// epilogue acc / norm, the nonlinearity and the classifier partials, a
-// fold in fixed order and the cosine epilogue.
+// (int8 or +-1 slab values; 8-bit, packed 4-bit or wider codes; the slabs
+// are in the unrolled orientation, so a window reads them from its own
+// first pixel on), then the float epilogue acc / norm, the nonlinearity and
+// the classifier partials, a fold in fixed order and the cosine epilogue.
 //
-// What bounds it on the H100: operations, h*W integer multiply-adds per
-// (frame, row band, column). This version runs them as int32 multiply-adds
-// on the CUDA cores, not on the int8 tensor cores.
+// The sum as one GEMM per D-tile and fragment column kx: rows (n, ky),
+// R = N*my of them; columns j < td; depth k = (r, i) with i running over w
+// rounded up to a multiple of 4 (w4; i >= w reads code 0), K = h*w4:
 //
-// Design. The TPU kernel builds the windows from an int32 MXU matmul
-// codes^T @ slabs, log2(W) roll-and-select passes (_roll_diagonals) and a
-// window-mask matmul, per 128-column chunk: all of that exists for the
-// TPU's vector unit. Integer sums are exact in any order, so this kernel
-// takes the float kernel's simplest right shape: one block per (column
-// chunk, row band, frame), one thread per column carrying a running
-// prefix; window sums are prefix differences in wrapping 32-bit unsigned
-// arithmetic, exact whenever the window sum itself fits in int32 (the
-// int_datapath_bounds contract). The result equals
-// sliding_scores_int._int_window_acc bit for bit; acc_out, when not null,
-// receives it for that check. Packed int4 codes are unpacked on the way
-// into shared memory, low nibble first.
+//   A[(n, ky), k] = codes[n, ky*s + r, kx*s + i]   u8, one byte per code
+//   B[k, j]       = slabs_q[dt, r, kx*s + i + j]   s8, a Hankel view
+//
+// run with mma.sync m16n8k32 s32.u8.s8.s32 into int32 registers. Integer
+// adds wrap modulo 2^32 and wrapping addition is associative, so the tensor
+// cores' accumulate gives the same bits in any order: the true sum wherever
+// it fits in int32 (the int_datapath_bounds contract), bitwise equal to
+// sliding_scores_int._int_window_acc. acc_out, when not null, receives it
+// in the (N, my, n_dt, mx, td) layout for that check. This form does h*w
+// multiply-adds per window, not the h*W per row band of the paper's reuse
+// (the reuse bound stays the kernel's bound_ms; bound_tc_ms is this GEMM's
+// own): 2*800*9216*5000 operations at the paper's 32-frame chunk, 0.037 ms
+// at the int8 tensor cores' 1,979 TOPS.
+//
+// Codes wider than 8 bits (uint16, int32) run Horner over their bytes with
+// one accumulator: the K loop over the highest byte of every code, then the
+// accumulator shifted left by 8 (wrapping) and the next byte's products
+// added into the same registers, down to byte 0. Exact modulo 2^32.
+//
+// Three launches per call:
+// 1. window_norms: each window's exact int32 sum of squared codes, then
+//    max(sqrt, 1e-8) / slab_scale, the plain version's float steps.
+// 2. im2col: A as a dense u8 matrix per byte pass and kx, (passes, mx, R,
+//    Kp) with Kp = K rounded up to 32, zero past w and K. It takes the
+//    codes' layout (bytes, packed nibbles low nibble first, the bytes of
+//    uint16 or int32 codes), any stride and any width, so the main loop
+//    sees one aligned operand: 7.4 MB at the paper's chunk, L2-resident.
+// 3. score_int, the GEMM with the fused scoring epilogue, then
+//    fold_epilogue.
+//
+// Operands of score_int. A step covers kBK = 32*kSub of k (kSub m16n8k32
+// products per warp tile): kBK/4 groups of 4 consecutive k, each inside
+// one base row (w4 is a multiple of 4), so each group is one B register
+// per column: the 4 slab bytes at slabs_q[dt, r, kx*s + j0 + i + c ...].
+// A step may straddle base rows (w4 not a multiple of kBK); each group
+// finds its own row. Per step and group the block stages the
+// column tile's slab window from its 16-byte-aligned start (ten 16-byte
+// copies, zero past the slabs' end) and its byte shift (0..15); a B
+// register is read as a Hankel view in one of two ways (kShifted):
+//   - false: two shared loads joined with __funnelshift_r at the byte
+//     offset;
+//   - true: one aligned shared load from the window's four byte shifts,
+//     interleaved (word c holds bytes c .. c+3), built from the staged
+//     words after they land, behind a second barrier per step.
+// The launcher uses kDefaultShifted; the other stays for the comparison
+// chip_smoke.py times (PERF.md). A rows (kBK bytes a step) are read back
+// with ldmatrix from rows padded by 16 bytes (conflict-free).
+//
+// Pipeline: a ring of kStages stages of dynamic shared memory filled with
+// 16-byte cp.async copies, kStages - 1 steps in
+// flight while one is multiplied; K advances by counters, with no division
+// in the loop. The whole K loop runs inside one block.
+//
+// Tiles: 256 threads, 8 warps, 2 along M x 4 along N; a block computes
+// kBM rows (n, ky) of one kx by 128 columns (kBM = 64 or 128: the one whose
+// waves on this card's SMs take the least rows x waves). The column tile is
+// fixed: which columns share a partial, and in what order they are summed,
+// is a function of td alone, never of N, M or the SM count, so a frame's
+// scores are bitwise the same at any batch position, in any chunking, in a
+// fleet or alone. A row's epilogue: each thread sums its 8 columns in
+// order, the 4 threads of a row combine in a fixed butterfly, the 4 warps
+// along N left to right through shared memory; partials (n_col_tiles, M, 3)
+// are folded left to right by fold_epilogue. cosf/sinf stay IEEE
+// (score_common.cuh).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -38,140 +93,619 @@ using namespace score_common;
 
 namespace {
 
-enum CodesLayout { kU8 = 0, kPackedNibbles = 1, kI32 = 2 };
+enum CodesLayout { kU8 = 0, kPackedNibbles = 1, kI32 = 2, kU16 = 3 };
 
-__device__ __forceinline__ int load_code(const void* codes, size_t row_off,
-                                         int i, int layout) {
-  if (layout == kU8) return ((const uint8_t*)codes)[row_off + i];
+constexpr int kThreads = 256;
+constexpr int kWarpsN = 4;              // 2 warps along M
+constexpr int kBN = 128;                // the column tile (fixed)
+constexpr int kNT = kBN / kWarpsN / 8;  // n8 tiles per warp
+constexpr int kSub = 2;                 // m16n8k32 products per step
+constexpr int kBK = 32 * kSub;          // k per step
+constexpr int kGroups = kBK / 4;        // 4-k groups per step
+constexpr int kAStride = kBK + 16;      // bytes per staged A row
+constexpr int kWinChunks = 10;  // 16-byte copies over a group's window
+constexpr int kWinWords = 4 * kWinChunks;
+constexpr int kStages = 4;              // cp.async ring depth
+constexpr bool kDefaultShifted = false;
+
+template <int kMT, bool kShifted>
+struct Cfg {
+  static constexpr int kBM = 2 * 16 * kMT;
+  static constexpr int kABytes = kBM * kAStride;
+  // words per group window: = 8 (mod 32), so the 4 groups a warp reads at
+  // once fall in distinct banks; the shifted copies likewise. A window
+  // from its 16-byte-aligned start: shift (< 16) + 128 columns + 3 bytes.
+  static constexpr int kGroupWords = kWinWords;
+  static constexpr int kCopyWords = kShifted ? kBN + 8 : 0;
+  static constexpr int kBWords = kGroups * (kGroupWords + kCopyWords);
+  static constexpr int kBTasks = kGroups * kWinChunks;  // 16-byte copies
+  static constexpr int kBPerThread = (kBTasks + kThreads - 1) / kThreads;
+  static_assert(kGroupWords % 32 == 8 && kCopyWords % 32 == 8 * kShifted,
+                "B reads would conflict");
+  static_assert(4 * kWinWords >= 15 + kBN + 4, "window too short");
+  static constexpr int kAPerThread = kBM * kBK / 16 / kThreads;
+  static constexpr int kStageBytes = kABytes + 4 * kBWords + 4 * kGroups;
+  static constexpr int kSmemBytes = kStages * kStageBytes;
+  static_assert(kWarpsN * kBM * 3 * 4 <= kSmemBytes, "no room to reduce");
+  static_assert(kAPerThread * kThreads * 16 == kBM * kBK, "A copies");
+  static_assert(kStageBytes % 16 == 0, "stages 16-byte aligned");
+};
+
+__device__ __forceinline__ int load_code(const void* codes, size_t off,
+                                         int layout) {
+  if (layout == kU8) return ((const uint8_t*)codes)[off];
   if (layout == kPackedNibbles) {
-    const int byte = ((const uint8_t*)codes)[row_off + (i >> 1)];
-    return (byte >> ((i & 1) * 4)) & 0xF;
+    const int byte = ((const uint8_t*)codes)[off >> 1];
+    return (byte >> ((off & 1) * 4)) & 0xF;
   }
-  return ((const int32_t*)codes)[row_off + i];
+  if (layout == kU16) return ((const uint16_t*)codes)[off];
+  return ((const int32_t*)codes)[off];
 }
 
-__global__ void __launch_bounds__(kColChunk)
-    score_int(const void* __restrict__ codes,     // (N, H, Wc)
-              const int8_t* __restrict__ slabs,   // (n_dt, h, td + W - 1)
-              const float* __restrict__ bias,     // (n_dt, mx, td)
-              const int8_t* __restrict__ cpos,    // (S * n_dt, mx, td)
-              const int8_t* __restrict__ cneg,    // (S * n_dt, mx, td)
-              const float* __restrict__ norms,    // (N, my, mx), scale folded in
-              float* __restrict__ partials,       // (n_chunks, N*my*mx, 3)
-              int32_t* __restrict__ acc_out,      // (N, my, n_dt, mx, td) or null
-              int N, int H, int W, int Wc, int h, int w, int stride, int my,
-              int mx, int td, int n_dt, int chunks_per_tile,
-              int frames_per_stream, int nonlinearity, int layout) {
-  extern __shared__ float smem[];
-  const int cw = kColChunk;
-  int* xrow = (int*)smem;                      // W
-  int* seg = xrow + W;                         // cw + W - 1
-  unsigned* lo = (unsigned*)(seg + cw + W - 1);  // mx * cw
-  unsigned* acc = lo + mx * cw;                // mx * cw
-  float* red = (float*)(acc + mx * cw);        // 3 * kWarps
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
 
-  const int chunk = blockIdx.x, ky = blockIdx.y, n = blockIdx.z;
-  const int dt = chunk / chunks_per_tile;
-  const int j0 = (chunk % chunks_per_tile) * cw;
-  const int t = threadIdx.x;
-  const int j = j0 + t;
-  const int slab_len = td + W - 1;
-  const int seg_len = min(cw, td - j0) + W - 1;
-  const int last = (mx - 1) * stride + w;
+// Copy 16 bytes to shared memory; only the first n of them are read, the
+// rest are zero-filled (n = 0: src must still be a valid address).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int n) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(n)
+               : "memory");
+}
 
-  for (int k = 0; k < mx; ++k) acc[k * cw + t] = 0u;
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
 
-  const int8_t* tile = slabs + (size_t)dt * h * slab_len;
-  for (int r = 0; r < h; ++r) {
-    __syncthreads();
-    const size_t row_off = ((size_t)n * H + ky * stride + r) * Wc;
-    for (int i = t; i < last; i += cw) xrow[i] = load_code(codes, row_off, i, layout);
-    const int8_t* srow = tile + (size_t)r * slab_len + j0;
-    for (int i = t; i < seg_len; i += cw) seg[i] = srow[i];
-    __syncthreads();
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
 
-    unsigned P = 0u;
-    int nl = 0, nh = 0, p = 0;
-    for (;;) {
-      while (nl < mx && nl * stride == p) lo[nl++ * cw + t] = P;
-      while (nh < mx && nh * stride + w == p) {
-        acc[nh * cw + t] += P - lo[nh * cw + t];
-        ++nh;
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4],
+                                            const uint8_t* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+// d (16 x 8, s32) += a (16 x 32, u8, row) * b (32 x 8, s8, col), wrapping.
+__device__ __forceinline__ void mma_u8s8(int (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.u8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+struct Geometry {
+  int N, H, W, h, w, stride, my, mx;
+  int w4, Kp, passes, layout;
+};
+
+// norms[m] = max(sqrt(sum of the window's squared codes), 1e-8) / scale,
+// one block per window: the exact int32 sum (wrapping, as the summed-area
+// table of the plain version wraps) and the same float steps, so the same
+// bits as sliding_scores_int._scaled_norms.
+__global__ void __launch_bounds__(256)
+    window_norms(const void* __restrict__ codes, const Geometry gm,
+                 const float* __restrict__ scale, float* __restrict__ norms) {
+  __shared__ unsigned red[8];
+  const int m = blockIdx.x;
+  const int n = m / (gm.my * gm.mx), rem = m - n * gm.my * gm.mx;
+  const int ky = rem / gm.mx, kx = rem - ky * gm.mx;
+  const size_t base = ((size_t)n * gm.H + (size_t)ky * gm.stride) * gm.W +
+                      (size_t)kx * gm.stride;
+  unsigned sum = 0;
+  for (int e = threadIdx.x; e < gm.h * gm.w; e += blockDim.x) {
+    const int r = e / gm.w;
+    const unsigned c = (unsigned)load_code(
+        codes, base + (size_t)r * gm.W + (e - r * gm.w), gm.layout);
+    sum += c * c;
+  }
+  for (int o = 16; o > 0; o >>= 1)
+    sum += __shfl_down_sync(0xffffffffu, sum, o);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = sum;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int i = 1; i < (int)(blockDim.x >> 5); ++i) sum += red[i];
+    const float nm = sqrtf((float)(int)sum);
+    norms[m] = (nm < 1e-8f ? 1e-8f : nm) / scale[0];  // keeps a NaN
+  }
+}
+
+// acol[pass, kx, (n, ky), k]: byte (passes - 1 - pass) of the code A reads,
+// 0 past w and K. One block per row (pass, kx, n, ky), a 4-byte group per
+// thread and loop.
+__global__ void __launch_bounds__(256)
+    im2col(const void* __restrict__ codes, const Geometry gm,
+           uint32_t* __restrict__ acol) {
+  const int R = gm.N * gm.my, K4 = gm.h * gm.w4;
+  const int row = blockIdx.x, rr = row % R, kx = (row / R) % gm.mx;
+  const int byte = gm.passes - 1 - row / (R * gm.mx);
+  const int n = rr / gm.my, ky = rr - n * gm.my;
+  const size_t base = ((size_t)n * gm.H + (size_t)ky * gm.stride) * gm.W +
+                      (size_t)kx * gm.stride;
+  uint32_t* out = acol + (size_t)row * (gm.Kp / 4);
+  for (int kw = threadIdx.x; kw < gm.Kp / 4; kw += blockDim.x) {
+    const int k = 4 * kw;
+    uint32_t v = 0;
+    if (k < K4) {
+      const int r = k / gm.w4, i = k - r * gm.w4;
+      const size_t off = base + (size_t)r * gm.W + i;
+      for (int e = 0; e < min(4, gm.w - i); ++e)
+        v |= (((uint32_t)load_code(codes, off + e, gm.layout) >> (8 * byte)) &
+              0xFFu) << (8 * e);
+    }
+    out[kw] = v;
+  }
+}
+
+struct Args {
+  const uint8_t* acol;   // (passes, mx, R, Kp) from im2col
+  const int8_t* slabs;   // (n_dt, h, td + W - 1), 16-byte aligned
+  const float* bias;     // (n_dt, mx, td)
+  const int8_t* cpos;    // (S * n_dt, mx, td)
+  const int8_t* cneg;    // (S * n_dt, mx, td)
+  const float* norms;    // (N, my, mx), slab scale folded in
+  float* partials;       // (n_col_tiles, M, 3)
+  int32_t* acc_out;      // (N, my, n_dt, mx, td) or null
+  Geometry gm;
+  int td, n_dt, tiles_per_dt, frames_per_stream, nonlinearity;
+};
+
+template <int kMT, bool kShifted>
+__global__ void __launch_bounds__(kThreads) score_int(const Args p) {
+  using C = Cfg<kMT, kShifted>;
+  constexpr int kBM = C::kBM;
+  extern __shared__ __align__(16) uint8_t smem[];  // C::kSmemBytes
+
+  const Geometry gm = p.gm;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const int warp_n = warp % kWarpsN;
+  const int wm = (warp / kWarpsN) * 16 * kMT, wn = warp_n * 8 * kNT;
+  const int ct = blockIdx.x, dt = ct / p.tiles_per_dt;
+  const int j0 = (ct - dt * p.tiles_per_dt) * kBN;
+  const int r0 = blockIdx.y * kBM, kx = blockIdx.z;
+  const int R = gm.N * gm.my, M = R * gm.mx;
+  const int w4 = gm.w4, nk = gm.Kp / kBK, steps = gm.passes * nk;
+  const int L = p.td + gm.W - 1;
+  const long long slab_bytes = (long long)p.n_dt * gm.h * L;
+  // the slab byte of B[(r, i) = (0, 0), j0] for this block's windows,
+  // which start at pixel kx*s
+  const long long b_base =
+      (long long)dt * gm.h * L + (long long)kx * gm.stride + j0;
+
+  // A: thread t copies 16-byte chunk v*kThreads + t of each step (chunk
+  // c: row c / (kBK/16), part c % (kBK/16)); rows past R are zero-filled
+  int a_dst[C::kAPerThread];
+  bool a_in[C::kAPerThread];
+  const uint8_t* a_src[C::kAPerThread];
+#pragma unroll
+  for (int v = 0; v < C::kAPerThread; ++v) {
+    const int c = v * kThreads + t, row = c / (kBK / 16);
+    const int part = c - row * (kBK / 16);
+    a_in[v] = r0 + row < R;
+    a_dst[v] = row * kAStride + 16 * part;
+    a_src[v] = p.acol +
+               ((size_t)kx * R + (a_in[v] ? r0 + row : 0)) * gm.Kp +
+               16 * part;
+  }
+  const size_t a_pass = (size_t)gm.mx * R * gm.Kp;  // one byte plane
+  // B: task u of this thread copies chunk b_x of group b_gi's window; its
+  // cursor (br, bi) is the group's base row and position at the step loaded
+  int b_gi[C::kBPerThread], b_x[C::kBPerThread], br[C::kBPerThread],
+      bi[C::kBPerThread];
+#pragma unroll
+  for (int u = 0; u < C::kBPerThread; ++u) {
+    const int task = min(u * kThreads + t, C::kBTasks - 1);
+    b_gi[u] = task / kWinChunks;
+    b_x[u] = task - b_gi[u] * kWinChunks;
+  }
+  int sr = 0, si = 0;  // group t's cursor, for the byte shifts
+  int ld_kt = 0, ld_pass = 0;  // the step being loaded
+
+  // issue step (ld_pass, ld_kt)'s copies into stage st and advance
+  const auto load = [&](int st) {
+    uint8_t* base = smem + st * C::kStageBytes;
+    uint32_t* Bs = (uint32_t*)(base + C::kABytes);
+    if (ld_kt == 0) {  // a byte pass starts over at k = 0
+#pragma unroll
+      for (int u = 0; u < C::kBPerThread; ++u) {
+        br[u] = 4 * b_gi[u] / w4;
+        bi[u] = 4 * b_gi[u] - br[u] * w4;
       }
-      if (nh == mx) break;
-      int next = nh * stride + w;
-      if (nl < mx) next = min(next, nl * stride);
-      for (int i = p; i < next; ++i) P += (unsigned)(xrow[i] * seg[i + t]);
-      p = next;
+      sr = 4 * (t & (kGroups - 1)) / w4;
+      si = 4 * (t & (kGroups - 1)) - sr * w4;
     }
-  }
+#pragma unroll
+    for (int v = 0; v < C::kAPerThread; ++v)
+      cp_async16(base + a_dst[v],
+                 a_src[v] + ld_pass * a_pass + (size_t)ld_kt * kBK,
+                 a_in[v] ? 16 : 0);
+#pragma unroll
+    for (int u = 0; u < C::kBPerThread; ++u) {
+      if (u * kThreads + t >= C::kBTasks) continue;
+      int n = 0;
+      long long off = 0;
+      if (br[u] < gm.h) {
+        const long long src = b_base + (long long)br[u] * L + bi[u];
+        off = (src & ~15LL) + 16LL * b_x[u];
+        n = (int)max(0LL, min(16LL, slab_bytes - off));
+      }
+      cp_async16(Bs + b_gi[u] * C::kGroupWords + 4 * b_x[u],
+                 n > 0 ? p.slabs + off : p.slabs, n);
+    }
+    if (t < kGroups)
+      ((int*)(Bs + C::kBWords))[t] =
+          sr < gm.h ? (int)((b_base + (long long)sr * L + si) & 15) : 0;
+    if (++ld_kt == nk) {
+      ld_kt = 0;
+      ++ld_pass;
+    } else {
+#pragma unroll
+      for (int u = 0; u < C::kBPerThread; ++u) {
+        bi[u] += kBK;
+        while (bi[u] >= w4) {
+          bi[u] -= w4;
+          ++br[u];
+        }
+      }
+      si += kBK;
+      while (si >= w4) {
+        si -= w4;
+        ++sr;
+      }
+    }
+  };
 
-  const bool live = j < td;
-  const int stream = n / frames_per_stream;
-  const size_t btile = (size_t)dt * mx * td;
-  const size_t ctile = ((size_t)stream * n_dt + dt) * mx * td;
-  const int M = N * my * mx;
-  for (int kx = 0; kx < mx; ++kx) {
-    float dp = 0.f, dn = 0.f, qq = 0.f;
-    if (live) {
-      const int a = (int)acc[kx * cw + t];
-      if (acc_out != nullptr)
-        acc_out[((((size_t)n * my + ky) * n_dt + dt) * mx + kx) * td + j] = a;
-      const float phi = apply_nonlinearity(
-          (float)a / norms[((size_t)n * my + ky) * mx + kx],
-          bias[btile + (size_t)kx * td + j], nonlinearity);
-      dp = phi * (float)cpos[ctile + (size_t)kx * td + j];
-      dn = phi * (float)cneg[ctile + (size_t)kx * td + j];
-      qq = phi * phi;
+  int acc[kMT][kNT][4];
+#pragma unroll
+  for (int mi = 0; mi < kMT; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < kNT; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0;
+
+  // Iteration s loads step s + kStages - 1 (one cp.async group each, empty
+  // past the last step) and multiplies step s; s < 0 only fills the ring.
+  // load has this one call site, so its state stays in registers.
+  int kt = 0;  // the step multiplied, within its byte pass
+  for (int s = 1 - kStages; s < steps; ++s) {
+    if (s >= 0) {
+      cp_async_wait<kStages - 2>();  // step s has landed (this thread's part)
+      __syncthreads();               // ... everyone's; step s-1 is consumed
     }
-    block_sum3(dp, dn, qq, red);
-    if (t == 0) {
-      float* o = partials + 3 * ((size_t)chunk * M + ((size_t)n * my + ky) * mx + kx);
-      o[0] = dp;
-      o[1] = dn;
-      o[2] = qq;
+    if (s + kStages - 1 < steps) load((s + kStages - 1) % kStages);
+    cp_async_commit();
+    if (s < 0) continue;
+
+    const uint8_t* base = smem + (s % kStages) * C::kStageBytes;
+    const uint32_t* Bs = (const uint32_t*)(base + C::kABytes);
+    const int* shs = (const int*)(Bs + C::kBWords);
+    if (kShifted) {
+      // the window's byte shifts: copy word c = bytes sh + c .. of the
+      // aligned words, for the 128 columns of each group
+      uint32_t* cs = (uint32_t*)Bs + kGroups * C::kGroupWords;
+      for (int e = t; e < kGroups * kBN; e += kThreads) {
+        const int gi = e / kBN, c = e - gi * kBN;
+        const uint32_t* win = Bs + gi * C::kGroupWords;
+        const int o = shs[gi] + c;
+        cs[gi * C::kCopyWords + c] =
+            __funnelshift_r(win[o >> 2], win[(o >> 2) + 1], 8 * (o & 3));
+      }
+      __syncthreads();
+    }
+
+    if (kt == nk) {  // Horner: the next (lower) byte of the codes
+      kt = 0;
+#pragma unroll
+      for (int mi = 0; mi < kMT; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < kNT; ++ni)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[mi][ni][e] = (int)((unsigned)acc[mi][ni][e] << 8);
+    }
+    ++kt;
+#pragma unroll
+    for (int sub = 0; sub < kSub; ++sub) {
+      uint32_t af[kMT][4], bf[kNT][2];
+#pragma unroll
+      for (int mi = 0; mi < kMT; ++mi)
+        ldmatrix_x4(af[mi], base + (wm + mi * 16 + (lane & 7) +
+                                    ((lane >> 3) & 1) * 8) * kAStride +
+                                32 * sub + (lane >> 4) * 16);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int gi = 8 * sub + q + 4 * half;
+        if (kShifted) {
+          const uint32_t* row =
+              Bs + kGroups * C::kGroupWords + gi * C::kCopyWords;
+#pragma unroll
+          for (int ni = 0; ni < kNT; ++ni) bf[ni][half] = row[wn + ni * 8 + g];
+        } else {
+          // column c = wn + 8 ni + g is byte o = sh + c of the window; the
+          // byte offset within a word is the same for every ni
+          const int o = shs[gi] + wn + g, sh8 = 8 * (o & 3);
+          const uint32_t* row = Bs + gi * C::kGroupWords + (o >> 2);
+#pragma unroll
+          for (int ni = 0; ni < kNT; ++ni)
+            bf[ni][half] = __funnelshift_r(row[2 * ni], row[2 * ni + 1], sh8);
+        }
+      }
+#pragma unroll
+      for (int mi = 0; mi < kMT; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < kNT; ++ni) mma_u8s8(acc[mi][ni], af[mi], bf[ni]);
     }
   }
+  cp_async_wait<0>();  // only empty groups remain; leave none behind
+  __syncthreads();     // the stages are consumed: the reduction reuses them
+
+  // epilogue. Accumulator e holds row g + 8*(e/2), column 2q + e%2 of its
+  // 16 x 8 tile.
+  float* red = (float*)smem;  // (kWarpsN, kBM, 3)
+#pragma unroll
+  for (int mi = 0; mi < kMT; ++mi)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = wm + mi * 16 + g + 8 * half, rr = r0 + row;
+      float dp = 0.f, dn = 0.f, qq = 0.f;
+      if (rr < R) {
+        const int n = rr / gm.my, ky = rr - n * gm.my;
+        const float nm = p.norms[(size_t)rr * gm.mx + kx];
+        const int stream = n / p.frames_per_stream;
+        const size_t brow = ((size_t)dt * gm.mx + kx) * p.td;
+        const size_t crow =
+            (((size_t)stream * p.n_dt + dt) * gm.mx + kx) * p.td;
+        int32_t* arow =
+            p.acc_out == nullptr
+                ? nullptr
+                : p.acc_out +
+                      ((((size_t)n * gm.my + ky) * p.n_dt + dt) * gm.mx + kx) *
+                          p.td;
+#pragma unroll
+        for (int ni = 0; ni < kNT; ++ni)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int j = j0 + wn + ni * 8 + 2 * q + e;
+            if (j < p.td) {
+              const int a = acc[mi][ni][2 * half + e];
+              if (arow != nullptr) arow[j] = a;
+              const float phi = apply_nonlinearity(
+                  (float)a / nm, p.bias[brow + j], p.nonlinearity);
+              dp += phi * (float)p.cpos[crow + j];
+              dn += phi * (float)p.cneg[crow + j];
+              qq += phi * phi;
+            }
+          }
+      }
+#pragma unroll
+      for (int o = 1; o < 4; o <<= 1) {
+        dp += __shfl_xor_sync(0xffffffffu, dp, o);
+        dn += __shfl_xor_sync(0xffffffffu, dn, o);
+        qq += __shfl_xor_sync(0xffffffffu, qq, o);
+      }
+      if (q == 0) {
+        float* o = red + 3 * (warp_n * kBM + row);
+        o[0] = dp;
+        o[1] = dn;
+        o[2] = qq;
+      }
+    }
+  __syncthreads();
+  for (int row = t; row < kBM; row += kThreads) {
+    const int rr = r0 + row;
+    if (rr >= R) continue;
+    const size_t m = (size_t)rr * gm.mx + kx;
+    float dp = red[3 * row], dn = red[3 * row + 1], qq = red[3 * row + 2];
+    for (int k = 1; k < kWarpsN; ++k) {
+      const float* o = red + 3 * (k * kBM + row);
+      dp = dp + o[0];
+      dn = dn + o[1];
+      qq = qq + o[2];
+    }
+    float* out = p.partials + 3 * ((size_t)ct * M + m);
+    out[0] = dp;
+    out[1] = dn;
+    out[2] = qq;
+  }
+}
+
+// Per-device facts a launch needs, looked up once per device (the first
+// kMaxDevices of them): each launch pays the host's time.
+constexpr int kMaxDevices = 64;
+
+int sm_count(int dev) {
+  static int known[kMaxDevices] = {};
+  if (dev < kMaxDevices && known[dev] > 0) return known[dev];
+  int sms = 0;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (sms <= 0) return 1;
+  if (dev < kMaxDevices) known[dev] = sms;
+  return sms;
+}
+
+// Let score_int<kMT, kShifted> take its dynamic shared memory (over 48 KB
+// for some) on this device.
+template <int kMT, bool kShifted>
+cudaError_t allow_smem(int dev) {
+  static bool done[kMaxDevices] = {};
+  if (dev < kMaxDevices && done[dev]) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      score_int<kMT, kShifted>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Cfg<kMT, kShifted>::kSmemBytes);
+  if (dev < kMaxDevices) done[dev] = err == cudaSuccess;
+  return err;
+}
+
+template <int kMT, bool kShifted>
+int blocks_per_sm(int dev) {
+  static int known[kMaxDevices] = {};
+  if (dev < kMaxDevices && known[dev] > 0) return known[dev];
+  int per = 0;
+  allow_smem<kMT, kShifted>(dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per, score_int<kMT, kShifted>, kThreads,
+      Cfg<kMT, kShifted>::kSmemBytes);
+  if (per <= 0) return 1;
+  if (dev < kMaxDevices) known[dev] = per;
+  return per;
+}
+
+template <int kMT, bool kShifted>
+int launch_tile(const Args& a, dim3 grid, int dev, cudaStream_t stream) {
+  const cudaError_t err = allow_smem<kMT, kShifted>(dev);
+  if (err != cudaSuccess) return (int)err;
+  score_int<kMT, kShifted>
+      <<<grid, kThreads, Cfg<kMT, kShifted>::kSmemBytes, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+int grid_blocks(int R, int mx, int n_ct, int bm) {
+  return n_ct * mx * ((R + bm - 1) / bm);
+}
+
+// The row tile for R = N*my rows per kx: the one whose waves take the
+// fewest rows x waves on this card (a tie goes to 128). Rows are
+// independent, so the choice changes no result.
+template <bool kShifted>
+int row_tile(int R, int mx, int n_ct, int dev) {
+  const int sms = sm_count(dev);
+  const auto cost = [&](int bm, int per) {
+    const int slots = per * sms;
+    return (grid_blocks(R, mx, n_ct, bm) + slots - 1) / slots * bm;
+  };
+  return cost(64, blocks_per_sm<2, kShifted>(dev)) <
+                 cost(128, blocks_per_sm<4, kShifted>(dev))
+             ? 64
+             : 128;
+}
+
+template <bool kShifted>
+int launch(const Args& a, int n_ct, int tile_m, int dev, cudaStream_t stream) {
+  const int R = a.gm.N * a.gm.my;
+  if (tile_m == 0) tile_m = row_tile<kShifted>(R, a.gm.mx, n_ct, dev);
+  if (tile_m != 64 && tile_m != 128) return (int)cudaErrorInvalidValue;
+  const dim3 grid(n_ct, (R + tile_m - 1) / tile_m, a.gm.mx);
+  return tile_m == 64 ? launch_tile<2, kShifted>(a, grid, dev, stream)
+                      : launch_tile<4, kShifted>(a, grid, dev, stream);
+}
+
+int passes(int layout) {
+  return layout == kU16 ? 2 : (layout == kI32 ? 4 : 1);
+}
+
+bool use_shifted(int b_read) {
+  return b_read == 0 ? kDefaultShifted : b_read == 2;
 }
 
 }  // namespace
 
 extern "C" {
 
-size_t sliding_scores_int_smem_bytes(int W, int mx) {
-  return score_smem_bytes(W, mx);
+// The column tile: the partition of td into partials.
+int sliding_scores_int_col_tile() { return kBN; }
+
+// Dynamic shared memory of one block: tile_m 64 or 128; b_read 0 (the
+// default), 1 (funnel-shift reads) or 2 (shifted copies).
+size_t sliding_scores_int_smem_bytes(int tile_m, int b_read) {
+  const bool sh = use_shifted(b_read);
+  if (tile_m == 64)
+    return sh ? Cfg<2, true>::kSmemBytes : Cfg<2, false>::kSmemBytes;
+  return sh ? Cfg<4, true>::kSmemBytes : Cfg<4, false>::kSmemBytes;
 }
 
-// Scores (N, my, mx) from integer codes in one call. layout: 0 = uint8
-// codes (N, H, W), 1 = packed nibbles (N, H, W/2), 2 = int32 (N, H, W).
+// For a launch over R = N*my rows, mx fragment columns and n_ct column
+// tiles with the default B read: the row tile chosen, blocks, resident
+// blocks per SM and shared memory per block, for the wave arithmetic in
+// PERF.md.
+int sliding_scores_int_occupancy(int R, int mx, int n_ct, int* tile_m,
+                                 int* blocks, int* per_sm, int* smem_bytes) {
+  int dev = 0;
+  const cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  *tile_m = row_tile<kDefaultShifted>(R, mx, n_ct, dev);
+  *blocks = grid_blocks(R, mx, n_ct, *tile_m);
+  *per_sm = *tile_m == 64 ? blocks_per_sm<2, kDefaultShifted>(dev)
+                          : blocks_per_sm<4, kDefaultShifted>(dev);
+  *smem_bytes = (int)sliding_scores_int_smem_bytes(*tile_m, 0);
+  return 0;
+}
+
+// Scores (N, my, mx) from integer codes in one call: the window norms,
+// im2col, the scoring kernel and the fold. layout: 0 = uint8 codes
+// (N, H, W), 1 = packed nibbles (N, H, W/2), 2 = int32 (N, H, W),
+// 3 = uint16 (N, H, W). slab_scale: the geometry's scalar scale, on the
+// device. Scratch from the caller: norms, N*my*mx floats; acol, passes *
+// mx * N*my * Kp bytes (passes: 1, 1, 4, 2 by layout; Kp = h * w4 rounded
+// up to kBK, w4 = w rounded up to 4), 16-byte aligned; partials,
+// n_dt * ceil(td / 128) * N*my*mx * 3 floats. tile_m: 0 (chosen here), 64
+// or 128; b_read: 0 (the default), 1 or 2 (see
+// sliding_scores_int_smem_bytes). The slabs must be 16-byte aligned.
 // Returns cudaGetLastError().
 int sliding_scores_int(const void* codes, const int8_t* slabs,
                        const float* bias, const int8_t* cpos,
-                       const int8_t* cneg, const float* norms,
-                       const float* cpos_norm, const float* cneg_norm,
-                       float* partials, float* out, int32_t* acc_out, int N,
-                       int H, int W, int h, int w, int stride, int td,
-                       int n_dt, int frames_per_stream, int nonlinearity,
-                       int layout, cudaStream_t stream) {
-  const int my = (H - h) / stride + 1;
-  const int mx = (W - w) / stride + 1;
-  const int Wc = layout == kPackedNibbles ? W / 2 : W;
-  const int chunks_per_tile = (td + kColChunk - 1) / kColChunk;
-  const int n_chunks = n_dt * chunks_per_tile;
-  const size_t smem = score_smem_bytes(W, mx);
-  cudaError_t err = cudaFuncSetAttribute(
-      score_int, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                       const int8_t* cneg, const float* slab_scale,
+                       float* norms, uint8_t* acol, const float* cpos_norm,
+                       const float* cneg_norm, float* partials, float* out,
+                       int32_t* acc_out, int N, int H, int W, int h, int w,
+                       int stride, int td, int n_dt, int frames_per_stream,
+                       int nonlinearity, int layout, int tile_m, int b_read,
+                       cudaStream_t stream) {
+  if ((uintptr_t)slabs % 16 != 0 || (uintptr_t)acol % 16 != 0 ||
+      layout < kU8 || layout > kU16)
+    return (int)cudaErrorInvalidValue;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(n_chunks, my, N);
-  score_int<<<grid, kColChunk, smem, stream>>>(
-      codes, slabs, bias, cpos, cneg, norms, partials, acc_out, N, H, W, Wc,
-      h, w, stride, my, mx, td, n_dt, chunks_per_tile, frames_per_stream,
-      nonlinearity, layout);
+  Geometry gm;
+  gm.N = N;
+  gm.H = H;
+  gm.W = W;
+  gm.h = h;
+  gm.w = w;
+  gm.stride = stride;
+  gm.my = (H - h) / stride + 1;
+  gm.mx = (W - w) / stride + 1;
+  gm.w4 = (w + 3) & ~3;
+  gm.Kp = (h * gm.w4 + kBK - 1) / kBK * kBK;
+  gm.passes = passes(layout);
+  gm.layout = layout;
+  const int M = N * gm.my * gm.mx;
+  window_norms<<<M, 256, 0, stream>>>(codes, gm, slab_scale, norms);
+  im2col<<<gm.passes * M, 256, 0, stream>>>(codes, gm, (uint32_t*)acol);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int M = N * my * mx;
+  Args a;
+  a.acol = acol;
+  a.slabs = slabs;
+  a.bias = bias;
+  a.cpos = cpos;
+  a.cneg = cneg;
+  a.norms = norms;
+  a.partials = partials;
+  a.acc_out = acc_out;
+  a.gm = gm;
+  a.td = td;
+  a.n_dt = n_dt;
+  a.tiles_per_dt = (td + kBN - 1) / kBN;
+  a.frames_per_stream = frames_per_stream;
+  a.nonlinearity = nonlinearity;
+  const int n_ct = n_dt * a.tiles_per_dt;
+  const int rc = use_shifted(b_read)
+                     ? launch<true>(a, n_ct, tile_m, dev, stream)
+                     : launch<false>(a, n_ct, tile_m, dev, stream);
+  if (rc != 0) return rc;
   fold_epilogue<<<(M + 255) / 256, 256, 0, stream>>>(
-      partials, cpos_norm, cneg_norm, out, n_chunks, M, my * mx,
+      partials, cpos_norm, cneg_norm, out, n_ct, M, gm.my * gm.mx,
       frames_per_stream);
   return (int)cudaGetLastError();
 }

@@ -10,7 +10,8 @@ cosine, so int scores live on the float path's scale. ``packed=True``
 consumes the int4 wire format (two codes per byte, low nibble first).
 
 :func:`fragment_scores_batch_int` is the wrapper: a CUDA tensor launches
-``csrc/sliding_scores_int.cu``; a CPU tensor runs
+``csrc/sliding_scores_int.cu``, an int8 tensor-core GEMM (u8 codes times
+s8 slabs into exact int32 sums); a CPU tensor runs
 :func:`fragment_scores_batch_int_plain`. :func:`int_window_acc` exposes the
 exact int32 window accumulators of either, for bitwise checks against
 ``repro.kernels.sliding_scores_int._int_window_acc``.
@@ -40,7 +41,26 @@ _QMAX = 127
 INT_MODES = ("int8", "binary")
 
 #: codes layouts the kernel reads (``CodesLayout`` in the CUDA source)
-_LAYOUT_U8, _LAYOUT_NIBBLES, _LAYOUT_I32 = 0, 1, 2
+_LAYOUT_U8, _LAYOUT_NIBBLES, _LAYOUT_I32, _LAYOUT_U16 = 0, 1, 2, 3
+
+#: codes the kernel reads as they are; uint16 and int32 codes run one K
+#: loop per byte (Horner), the others one
+_LAYOUTS = {torch.uint8: _LAYOUT_U8, torch.uint16: _LAYOUT_U16,
+            torch.int32: _LAYOUT_I32}
+_PASSES = {_LAYOUT_U8: 1, _LAYOUT_NIBBLES: 1, _LAYOUT_U16: 2, _LAYOUT_I32: 4}
+
+#: hypervector columns per CUDA block (``kBN``): the fixed partition of a
+#: D-tile into the partials that ``fold_epilogue`` folds
+COL_TILE = 128
+
+#: the kernel's B operand reads (``b_read`` of the C entry): the default
+#: (``kDefaultShifted``), two aligned words joined by a funnel shift, or one
+#: word per column from the byte-shifted copies
+B_READS = {"default": 0, "funnel": 1, "shifted": 2}
+DEFAULT_SHIFTED = False
+
+#: the kernel's cp.async ring depth (``kStages``) and k per step (``kBK``)
+_STAGES, _STEP_K = 4, 64
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,8 +91,23 @@ class IntScoreTiles:
 
 
 # ---------------------------------------------------------------------------
-# Bounds: exact int32 accumulation AND a block that fits the card
+# Bounds: exact int32 accumulation; the block's shared memory
 # ---------------------------------------------------------------------------
+
+def smem_bytes(tile_m: int = 128, b_read: int = 0) -> int:
+    """Shared memory of one int scoring block (``Cfg::kSmemBytes`` in
+    ``csrc/sliding_scores_int.cu``, dynamic): a ring of 4 stages, each
+    ``tile_m`` code rows of one ``_STEP_K``-deep K step padded by 16
+    bytes, the slab windows of its groups of 4 k over ``COL_TILE``
+    columns from their
+    16-byte-aligned starts (40 words each, plus one word per column for
+    the byte-shifted copies) and the groups' byte shifts."""
+    shifted = DEFAULT_SHIFTED if b_read == 0 else b_read == 2
+    group_words = 40 + (COL_TILE + 8 if shifted else 0)
+    groups = _STEP_K // 4
+    return _STAGES * (tile_m * (_STEP_K + 16) + 4 * groups * group_words
+                      + 4 * groups)
+
 
 def int_datapath_bounds(adc_bits: int, H: int, W: int, h: int, w: int,
                         stride: int = 1) -> dict:
@@ -81,18 +116,17 @@ def int_datapath_bounds(adc_bits: int, H: int, W: int, h: int, w: int,
     ``sumsq`` (the summed-area table of squared codes over a frame) and
     ``acc`` (one fragment projection, ``h*w`` products of a max code with a
     max slab entry) must stay below ``INT32_MAX``. ``smem_bytes`` is the
-    CUDA kernel's dynamic shared memory per block, which must fit the
-    H100's 227 KB. It does not depend on the geometry's tile width: the
-    kernel cuts every tile, however wide (5000 at the paper's D), into
-    column chunks of ``COL_CHUNK``, and it unpacks int4 codes into 4-byte
-    slots, so only ``W`` and the window count ``mx`` size a block.
-    ``stride=1`` (the most windows) is the conservative default.
+    CUDA kernel's shared memory per block at its larger row tile: 128 code
+    rows by ``COL_TILE`` columns through a 4-stage ring of K steps. No
+    frame, window or tile width sizes it (any W, mx and D-tile, 5000 wide
+    at the paper's D, runs in the same block), so it always fits the
+    H100's 227 KB. ``stride=1`` (the most windows) is the conservative
+    default.
     """
     cmax = (1 << adc_bits) - 1
     sumsq = H * W * cmax * cmax
     acc = h * w * cmax * _QMAX
-    mx = max((W - w) // stride + 1, 1)
-    smem = _ss.smem_bytes(W, mx)
+    smem = smem_bytes(128)
     return {"sumsq": sumsq, "acc": acc, "int32_max": INT32_MAX,
             "smem_bytes": smem, "smem_limit_bytes": _ss.SMEM_LIMIT_BYTES,
             "fits": (max(sumsq, acc) <= INT32_MAX
@@ -101,7 +135,7 @@ def int_datapath_bounds(adc_bits: int, H: int, W: int, h: int, w: int,
 
 def assert_int_datapath_fits(adc_bits: int, H: int, W: int, h: int, w: int,
                              stride: int = 1) -> None:
-    """Raise unless the int datapath is exact AND its block fits the card."""
+    """Raise unless the int datapath is exact (its block fits any size)."""
     b = int_datapath_bounds(adc_bits, H, W, h, w, stride=stride)
     if max(b["sumsq"], b["acc"]) > INT32_MAX:
         raise ValueError(
@@ -109,11 +143,6 @@ def assert_int_datapath_fits(adc_bits: int, H: int, W: int, h: int, w: int,
             f"frame {H}x{W}, window {h}x{w}: worst-case accumulators "
             f"sumsq={b['sumsq']}, acc={b['acc']} exceed {INT32_MAX}; "
             f"use fewer ADC bits / smaller frames or precision='float32'")
-    if b["smem_bytes"] > b["smem_limit_bytes"]:
-        raise ValueError(
-            f"int scoring block needs {b['smem_bytes']} B of shared memory, "
-            f"over the {b['smem_limit_bytes']} B a block may use, at frame "
-            f"{H}x{W}, window {h}x{w}, stride {stride}")
 
 
 # ---------------------------------------------------------------------------
@@ -330,7 +359,10 @@ def _check_geometry(geom, h, w, stride, W, mx):
 
 def _launch(codes: torch.Tensor, tiles: IntScoreTiles, *, h: int, w: int,
             stride: int, nonlinearity: NonLin, C: int, packed: bool,
-            acc_out: torch.Tensor | None = None) -> torch.Tensor:
+            acc_out: torch.Tensor | None = None, tile_m: int = 0,
+            b_read: int = 0) -> torch.Tensor:
+    """One kernel launch. ``tile_m`` (0: the launcher's choice; 64 or 128)
+    and ``b_read`` (:data:`B_READS`) force a variant for a timing probe."""
     geom = tiles.geom
     N, H, Wc = codes.shape
     W = Wc * 2 if packed else Wc
@@ -338,33 +370,35 @@ def _launch(codes: torch.Tensor, tiles: IntScoreTiles, *, h: int, w: int,
     my = (H - h) // stride + 1
     n_dt = geom.slabs_q.shape[0]
     td = geom.block_d
-    if _ss.smem_bytes(W, mx) > _ss.SMEM_LIMIT_BYTES:
-        raise ValueError(f"int scoring block needs {_ss.smem_bytes(W, mx)}"
-                         f" B of shared memory at W={W}, mx={mx}")
     lib = _build.load("sliding_scores_int")
     dev = codes.device
     if packed:
         layout = _LAYOUT_NIBBLES
-        full = unpack_nibbles(codes)
-    elif codes.dtype == torch.uint8:
-        layout, full = _LAYOUT_U8, codes
-    else:  # uint16 / wider codes: widened at the kernel boundary only
+    elif codes.dtype in _LAYOUTS:
+        layout = _LAYOUTS[codes.dtype]
+    else:  # other integer codes: widened at the kernel boundary only
         layout = _LAYOUT_I32
-        codes = full = codes.to(torch.int32)
+        codes = codes.to(torch.int32)
     codes = codes.contiguous()
-    norms = _scaled_norms(full, geom, h, w, stride).contiguous()
     cpos_norm, cneg_norm = _ss._flat_norms(tiles)
-    n_chunks = n_dt * -(-td // _ss.COL_CHUNK)
-    partials = torch.empty((n_chunks, N * my * mx, 3), device=dev)
+    n_col_tiles = n_dt * -(-td // COL_TILE)
+    # the kernel's scratch: window norms, A as (passes, mx, N*my, Kp) bytes
+    # (Kp: h * w rounded up to 4 per row, rounded up to _STEP_K), partials
+    kp = -(-h * -(-w // 4) * 4 // _STEP_K) * _STEP_K
+    norms = torch.empty((N, my, mx), device=dev)
+    acol = torch.empty((_PASSES[layout], mx, N * my, kp), dtype=torch.uint8,
+                       device=dev)
+    partials = torch.empty((n_col_tiles, N * my * mx, 3), device=dev)
     out = torch.empty((N, my, mx), device=dev)
     args = (codes, geom.slabs_q, geom.bias_t, tiles.cpos_t.contiguous(),
-            tiles.cneg_t.contiguous(), norms, cpos_norm, cneg_norm, partials,
-            out)
+            tiles.cneg_t.contiguous(), geom.slab_scale, norms, acol,
+            cpos_norm, cneg_norm, partials, out)
     err = lib.sliding_scores_int(
         *(a.data_ptr() for a in args),
         None if acc_out is None else acc_out.data_ptr(),
         N, H, W, h, w, stride, td, n_dt, C,
-        _ss.NONLINEARITIES[nonlinearity], layout, _build.stream_ptr())
+        _ss.NONLINEARITIES[nonlinearity], layout, tile_m, b_read,
+        _build.stream_ptr())
     _build.check(err, "sliding_scores_int")
     return out
 
