@@ -19,8 +19,8 @@ sm_90a: an H100). It
    int kernel's int32 window sums bitwise, two runs bitwise equal — and
    times kernel, plain version, a library matmul of the same projection
    and the card's bound; the int kernel (int8 tensor cores) also at
-   10-bit uint16 codes, in each of its row tiles and B-operand reads,
-   for frames scored inside a 7-frame call (bitwise), and at ragged
+   10-bit uint16 codes, for frames scored inside a 7-frame call
+   (bitwise), and at ragged
    shapes (odd stride, W not a multiple of 4, K steps that straddle base
    rows, M and td off the tiles, two D-tiles, per-stream classes);
 5. drives the main path, ``StreamRunner.process``, over 256 frames six
@@ -258,34 +258,26 @@ INT_CASES = {"int8": ("int8", 8, False), "int4": ("int8", 4, True),
 
 # ragged int shapes (N, S, H, W, h, w, stride, D, block_d): an odd stride,
 # W not a multiple of 4, w % 32 != 0 (K steps straddle base rows; w = 7
-# puts 4 rows in one step), M and td off the 64/128 x 128 tiles, n_dt = 2,
+# puts 8 rows in one 64-deep step), M and td off the 64 x 128 tile, n_dt = 2,
 # S streams of N / S frames with their own class tiles
 RAGGED_INT = ((6, 2, 45, 46, 21, 21, 3, 600, 300),
               (5, 1, 22, 30, 5, 7, 5, 131, 512))
 
 
-def int_variants(fn) -> dict:
-    """``fn(tile_m, b_read)`` for each row tile and B read the kernel has."""
-    return {f"{tm}x{ssi.COL_TILE}_{br}": fn(tm, ssi.B_READS[br])
-            for tm in (64, 128) for br in ("funnel", "shifted")}
-
-
 def int_kernel_record(model, raw, win, base):
     """The int kernel at the main path's chunk, per precision (int8, packed
     int4, binary and 10-bit uint16 codes): int32 window sums bitwise equal
-    to the plain version's, scores within SCORE_ATOL, bitwise run to run,
-    in every row tile and B read, and for frames scored inside a 7-frame
-    call; then its timings, occupancy and bounds, and the RAGGED_INT
+    to the plain version's, scores within SCORE_ATOL, bitwise run to run
+    and for frames scored inside a 7-frame call; then its timings, occupancy and bounds, and the RAGGED_INT
     shapes."""
     kw = dict(h=FRAG, w=FRAG, stride=STRIDE)
     lib = _build.load("sliding_scores_int")
     check(ssi.COL_TILE == lib.sliding_scores_int_col_tile()
-          and all(ssi.smem_bytes(tm, br) == lib.sliding_scores_int_smem_bytes(
-              tm, br) for tm in (64, 128) for br in ssi.B_READS.values()),
+          and ssi.smem_bytes() == lib.sliding_scores_int_smem_bytes(),
           "python and CUDA int block sizes differ")
     N = raw.shape[0]
     my = mx = (FRAME - FRAG) // STRIDE + 1
-    ms_by_precision, errs, variants_ms = {}, {}, {}
+    ms_by_precision, errs = {}, {}
     for precision, (mode, bits, packed) in INT_CASES.items():
         codes = stream.adc_view_codes(raw, bits)
         kcodes = adc.pack_nibbles(codes) if packed else codes
@@ -295,9 +287,6 @@ def int_kernel_record(model, raw, win, base):
         got = ssi.fragment_scores_batch_int(kcodes, itiles, **pkw)
         again = ssi.fragment_scores_batch_int(kcodes, itiles, **pkw)
         seven = ssi.fragment_scores_batch_int(kcodes[20:27], itiles, **pkw)
-        forced = int_variants(lambda tm, br: ssi._launch(
-            kcodes, itiles, nonlinearity="rff", C=N, tile_m=tm, b_read=br,
-            **pkw))
         plain = ssi.fragment_scores_batch_int_plain(kcodes, itiles, **pkw)
         acc = ssi.int_window_acc(kcodes, itiles.geom, **pkw)
         acc_plain = ssi.int_window_acc(
@@ -309,8 +298,6 @@ def int_kernel_record(model, raw, win, base):
         check(torch.equal(got, again), f"{precision} kernel run to run")
         check(torch.equal(seven, got[20:27]),
               f"{precision}: a 7-frame call differs from the 32-frame one")
-        check(all(torch.equal(v, got) for v in forced.values()),
-              f"{precision}: row tiles or B reads differ")
         check(torch.equal(acc.cpu(), acc_plain),
               f"{precision} int32 window sums differ from the plain ones")
         check(bool(torch.isfinite(got).all()) and got.shape == (N, my, mx),
@@ -319,9 +306,6 @@ def int_kernel_record(model, raw, win, base):
             lambda: ssi.fragment_scores_batch_int(kcodes, itiles, **pkw))
         if precision == "int8":
             int8 = dict(codes=codes, tiles=itiles)
-            variants_ms = int_variants(lambda tm, br: time_ms(
-                lambda: ssi._launch(kcodes, itiles, nonlinearity="rff", C=N,
-                                    tile_m=tm, b_read=br, **pkw)))
     codes, itiles = int8["codes"], int8["tiles"]
     n_dt, td = itiles.geom.slabs_q.shape[0], itiles.geom.block_d
     M, n_ct = N * my * mx, n_dt * -(-td // ssi.COL_TILE)
@@ -342,7 +326,6 @@ def int_kernel_record(model, raw, win, base):
         max_abs_err=max(errs.values()), max_abs_err_by_precision=errs,
         acc_bitwise=True, run_to_run_bitwise=True, batch_position_bitwise=True,
         ms=ms_by_precision["int8"], ms_by_precision=ms_by_precision,
-        variants_ms=variants_ms,
         kernel_device_ms=device_ms,
         kernel_device_by_kernel_ms=device_by_kernel,
         plain_ms=time_ms(lambda: ssi.fragment_scores_batch_int_plain(
@@ -375,8 +358,8 @@ def int_occupancy(R: int, mx: int, n_ct: int) -> dict:
 def ragged_int_checks() -> float:
     """The int kernel at the RAGGED_INT shapes, per precision: int32 window
     sums bitwise equal to the plain version's, scores within SCORE_ATOL
-    with per-stream class tiles, bitwise run to run and across row tiles
-    and B reads. Returns the largest score error."""
+    with per-stream class tiles, bitwise run to run. Returns the largest
+    score error."""
     g = torch.Generator(device=DEVICE)
     g.manual_seed(SEED + 3)
     worst = 0.0
@@ -395,9 +378,7 @@ def ragged_int_checks() -> float:
             kcodes = adc.pack_nibbles(codes) if packed else codes
             pkw = dict(packed=packed, frames_per_stream=N // S, **kw)
             got = ssi.fragment_scores_batch_int(kcodes, tiles, **pkw)
-            forced = int_variants(lambda tm, br: ssi._launch(
-                kcodes, tiles, nonlinearity="rff", C=N // S, tile_m=tm,
-                b_read=br, packed=packed, **kw))
+            again = ssi.fragment_scores_batch_int(kcodes, tiles, **pkw)
             plain = ssi.fragment_scores_batch_int_plain(kcodes, tiles, **pkw)
             acc = ssi.int_window_acc(kcodes, geom, packed=packed, **kw)
             acc_plain = ssi.int_window_acc(kcodes.cpu(),
@@ -408,8 +389,7 @@ def ragged_int_checks() -> float:
             check(err <= SCORE_ATOL, f"{what}: kernel vs plain {err}")
             check(torch.equal(acc.cpu(), acc_plain),
                   f"{what}: int32 window sums differ from the plain ones")
-            check(all(torch.equal(v, got) for v in forced.values()),
-                  f"{what}: row tiles, B reads or reruns differ")
+            check(torch.equal(got, again), f"{what}: kernel run to run")
             worst = max(worst, err)
     return worst
 

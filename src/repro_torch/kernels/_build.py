@@ -45,8 +45,8 @@ SIGNATURES: dict[str, dict[str, tuple]] = {
         "sliding_scores_f32_smem_bytes": (ctypes.c_size_t, [I, I]),
     },
     "sliding_scores_int": {
-        "sliding_scores_int": (I, [P] * 13 + [I] * 13 + [P]),
-        "sliding_scores_int_smem_bytes": (ctypes.c_size_t, [I, I]),
+        "sliding_scores_int": (I, [P] * 13 + [I] * 11 + [P]),
+        "sliding_scores_int_smem_bytes": (ctypes.c_size_t, []),
         "sliding_scores_int_col_tile": (I, []),
         "sliding_scores_int_occupancy": (I, [I] * 3 + [P] * 4),
     },

@@ -38,7 +38,7 @@
 // accumulator shifted left by 8 (wrapping) and the next byte's products
 // added into the same registers, down to byte 0. Exact modulo 2^32.
 //
-// Three launches per call:
+// Four launches per call:
 // 1. window_norms: each window's exact int32 sum of squared codes, then
 //    max(sqrt, 1e-8) / slab_scale, the plain version's float steps.
 // 2. im2col: A as a dense u8 matrix per byte pass and kx, (passes, mx, R,
@@ -46,8 +46,8 @@
 //    codes' layout (bytes, packed nibbles low nibble first, the bytes of
 //    uint16 or int32 codes), any stride and any width, so the main loop
 //    sees one aligned operand: 7.4 MB at the paper's chunk, L2-resident.
-// 3. score_int, the GEMM with the fused scoring epilogue, then
-//    fold_epilogue.
+// 3. score_int, the GEMM with the fused scoring epilogue;
+// 4. fold_epilogue.
 //
 // Operands of score_int. A step covers kBK = 32*kSub of k (kSub m16n8k32
 // products per warp tile): kBK/4 groups of 4 consecutive k, each inside
@@ -57,15 +57,9 @@
 // finds its own row. Per step and group the block stages the
 // column tile's slab window from its 16-byte-aligned start (ten 16-byte
 // copies, zero past the slabs' end) and its byte shift (0..15); a B
-// register is read as a Hankel view in one of two ways (kShifted):
-//   - false: two shared loads joined with __funnelshift_r at the byte
-//     offset;
-//   - true: one aligned shared load from the window's four byte shifts,
-//     interleaved (word c holds bytes c .. c+3), built from the staged
-//     words after they land, behind a second barrier per step.
-// The launcher uses kDefaultShifted; the other stays for the comparison
-// chip_smoke.py times (PERF.md). A rows (kBK bytes a step) are read back
-// with ldmatrix from rows padded by 16 bytes (conflict-free).
+// register is read as a Hankel view: two aligned shared loads joined with
+// __funnelshift_r at the byte offset. A rows (kBK bytes a step) are read
+// back with ldmatrix from rows padded by 16 bytes (conflict-free).
 //
 // Pipeline: a ring of kStages stages of dynamic shared memory filled with
 // 16-byte cp.async copies, kStages - 1 steps in
@@ -73,8 +67,7 @@
 // in the loop. The whole K loop runs inside one block.
 //
 // Tiles: 256 threads, 8 warps, 2 along M x 4 along N; a block computes
-// kBM rows (n, ky) of one kx by 128 columns (kBM = 64 or 128: the one whose
-// waves on this card's SMs take the least rows x waves). The column tile is
+// kBM = 64 rows (n, ky) of one kx by 128 columns. The column tile is
 // fixed: which columns share a partial, and in what order they are summed,
 // is a function of td alone, never of N, M or the SM count, so a frame's
 // scores are bitwise the same at any batch position, in any chunking, in a
@@ -106,30 +99,25 @@ constexpr int kAStride = kBK + 16;      // bytes per staged A row
 constexpr int kWinChunks = 10;  // 16-byte copies over a group's window
 constexpr int kWinWords = 4 * kWinChunks;
 constexpr int kStages = 4;              // cp.async ring depth
-constexpr bool kDefaultShifted = false;
-
-template <int kMT, bool kShifted>
-struct Cfg {
-  static constexpr int kBM = 2 * 16 * kMT;
-  static constexpr int kABytes = kBM * kAStride;
-  // words per group window: = 8 (mod 32), so the 4 groups a warp reads at
-  // once fall in distinct banks; the shifted copies likewise. A window
-  // from its 16-byte-aligned start: shift (< 16) + 128 columns + 3 bytes.
-  static constexpr int kGroupWords = kWinWords;
-  static constexpr int kCopyWords = kShifted ? kBN + 8 : 0;
-  static constexpr int kBWords = kGroups * (kGroupWords + kCopyWords);
-  static constexpr int kBTasks = kGroups * kWinChunks;  // 16-byte copies
-  static constexpr int kBPerThread = (kBTasks + kThreads - 1) / kThreads;
-  static_assert(kGroupWords % 32 == 8 && kCopyWords % 32 == 8 * kShifted,
-                "B reads would conflict");
-  static_assert(4 * kWinWords >= 15 + kBN + 4, "window too short");
-  static constexpr int kAPerThread = kBM * kBK / 16 / kThreads;
-  static constexpr int kStageBytes = kABytes + 4 * kBWords + 4 * kGroups;
-  static constexpr int kSmemBytes = kStages * kStageBytes;
-  static_assert(kWarpsN * kBM * 3 * 4 <= kSmemBytes, "no room to reduce");
-  static_assert(kAPerThread * kThreads * 16 == kBM * kBK, "A copies");
-  static_assert(kStageBytes % 16 == 0, "stages 16-byte aligned");
-};
+constexpr int kMT = 2;                  // m16 tiles per warp
+constexpr int kBM = 2 * 16 * kMT;       // the row tile
+constexpr int kABytes = kBM * kAStride;
+// words per group window: = 8 (mod 32), so the 4 groups a warp reads at
+// once fall in distinct banks. A window from its 16-byte-aligned start:
+// shift (< 16) + 128 columns + 3 bytes.
+constexpr int kGroupWords = kWinWords;
+constexpr int kBWords = kGroups * kGroupWords;
+constexpr int kBTasks = kGroups * kWinChunks;  // 16-byte copies
+constexpr int kBPerThread = (kBTasks + kThreads - 1) / kThreads;
+static_assert(kGroupWords % 32 == 8, "B reads would conflict");
+static_assert(4 * kWinWords >= 15 + kBN + 4, "window too short");
+constexpr int kAPerThread = kBM * kBK / 16 / kThreads;
+constexpr int kStageBytes = kABytes + 4 * kBWords + 4 * kGroups;
+constexpr int kSmemBytes = kStages * kStageBytes;
+static_assert(kWarpsN * kBM * 3 * 4 <= kSmemBytes, "no room to reduce");
+static_assert(kAPerThread * kThreads * 16 == kBM * kBK, "A copies");
+static_assert(kStageBytes % 16 == 0, "stages 16-byte aligned");
+static_assert(kSmemBytes <= 48 * 1024, "needs no opt-in to launch");
 
 __device__ __forceinline__ int load_code(const void* codes, size_t off,
                                          int layout) {
@@ -259,11 +247,8 @@ struct Args {
   int td, n_dt, tiles_per_dt, frames_per_stream, nonlinearity;
 };
 
-template <int kMT, bool kShifted>
 __global__ void __launch_bounds__(kThreads) score_int(const Args p) {
-  using C = Cfg<kMT, kShifted>;
-  constexpr int kBM = C::kBM;
-  extern __shared__ __align__(16) uint8_t smem[];  // C::kSmemBytes
+  extern __shared__ __align__(16) uint8_t smem[];  // kSmemBytes
 
   const Geometry gm = p.gm;
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
@@ -284,11 +269,11 @@ __global__ void __launch_bounds__(kThreads) score_int(const Args p) {
 
   // A: thread t copies 16-byte chunk v*kThreads + t of each step (chunk
   // c: row c / (kBK/16), part c % (kBK/16)); rows past R are zero-filled
-  int a_dst[C::kAPerThread];
-  bool a_in[C::kAPerThread];
-  const uint8_t* a_src[C::kAPerThread];
+  int a_dst[kAPerThread];
+  bool a_in[kAPerThread];
+  const uint8_t* a_src[kAPerThread];
 #pragma unroll
-  for (int v = 0; v < C::kAPerThread; ++v) {
+  for (int v = 0; v < kAPerThread; ++v) {
     const int c = v * kThreads + t, row = c / (kBK / 16);
     const int part = c - row * (kBK / 16);
     a_in[v] = r0 + row < R;
@@ -300,24 +285,24 @@ __global__ void __launch_bounds__(kThreads) score_int(const Args p) {
   const size_t a_pass = (size_t)gm.mx * R * gm.Kp;  // one byte plane
   // B: task u of this thread copies chunk b_x of group b_gi's window; its
   // cursor (br, bi) is the group's base row and position at the step loaded
-  int b_gi[C::kBPerThread], b_x[C::kBPerThread], br[C::kBPerThread],
-      bi[C::kBPerThread];
+  int b_gi[kBPerThread], b_x[kBPerThread], br[kBPerThread],
+      bi[kBPerThread];
 #pragma unroll
-  for (int u = 0; u < C::kBPerThread; ++u) {
-    const int task = min(u * kThreads + t, C::kBTasks - 1);
+  for (int u = 0; u < kBPerThread; ++u) {
+    const int task = min(u * kThreads + t, kBTasks - 1);
     b_gi[u] = task / kWinChunks;
     b_x[u] = task - b_gi[u] * kWinChunks;
   }
-  int sr = 0, si = 0;  // group t's cursor, for the byte shifts
+  int sr = 0, si = 0;  // group t's cursor, for its byte shift
   int ld_kt = 0, ld_pass = 0;  // the step being loaded
 
   // issue step (ld_pass, ld_kt)'s copies into stage st and advance
   const auto load = [&](int st) {
-    uint8_t* base = smem + st * C::kStageBytes;
-    uint32_t* Bs = (uint32_t*)(base + C::kABytes);
+    uint8_t* base = smem + st * kStageBytes;
+    uint32_t* Bs = (uint32_t*)(base + kABytes);
     if (ld_kt == 0) {  // a byte pass starts over at k = 0
 #pragma unroll
-      for (int u = 0; u < C::kBPerThread; ++u) {
+      for (int u = 0; u < kBPerThread; ++u) {
         br[u] = 4 * b_gi[u] / w4;
         bi[u] = 4 * b_gi[u] - br[u] * w4;
       }
@@ -325,13 +310,13 @@ __global__ void __launch_bounds__(kThreads) score_int(const Args p) {
       si = 4 * (t & (kGroups - 1)) - sr * w4;
     }
 #pragma unroll
-    for (int v = 0; v < C::kAPerThread; ++v)
+    for (int v = 0; v < kAPerThread; ++v)
       cp_async16(base + a_dst[v],
                  a_src[v] + ld_pass * a_pass + (size_t)ld_kt * kBK,
                  a_in[v] ? 16 : 0);
 #pragma unroll
-    for (int u = 0; u < C::kBPerThread; ++u) {
-      if (u * kThreads + t >= C::kBTasks) continue;
+    for (int u = 0; u < kBPerThread; ++u) {
+      if (u * kThreads + t >= kBTasks) continue;
       int n = 0;
       long long off = 0;
       if (br[u] < gm.h) {
@@ -339,18 +324,18 @@ __global__ void __launch_bounds__(kThreads) score_int(const Args p) {
         off = (src & ~15LL) + 16LL * b_x[u];
         n = (int)max(0LL, min(16LL, slab_bytes - off));
       }
-      cp_async16(Bs + b_gi[u] * C::kGroupWords + 4 * b_x[u],
+      cp_async16(Bs + b_gi[u] * kGroupWords + 4 * b_x[u],
                  n > 0 ? p.slabs + off : p.slabs, n);
     }
     if (t < kGroups)
-      ((int*)(Bs + C::kBWords))[t] =
+      ((int*)(Bs + kBWords))[t] =
           sr < gm.h ? (int)((b_base + (long long)sr * L + si) & 15) : 0;
     if (++ld_kt == nk) {
       ld_kt = 0;
       ++ld_pass;
     } else {
 #pragma unroll
-      for (int u = 0; u < C::kBPerThread; ++u) {
+      for (int u = 0; u < kBPerThread; ++u) {
         bi[u] += kBK;
         while (bi[u] >= w4) {
           bi[u] -= w4;
@@ -386,22 +371,9 @@ __global__ void __launch_bounds__(kThreads) score_int(const Args p) {
     cp_async_commit();
     if (s < 0) continue;
 
-    const uint8_t* base = smem + (s % kStages) * C::kStageBytes;
-    const uint32_t* Bs = (const uint32_t*)(base + C::kABytes);
-    const int* shs = (const int*)(Bs + C::kBWords);
-    if (kShifted) {
-      // the window's byte shifts: copy word c = bytes sh + c .. of the
-      // aligned words, for the 128 columns of each group
-      uint32_t* cs = (uint32_t*)Bs + kGroups * C::kGroupWords;
-      for (int e = t; e < kGroups * kBN; e += kThreads) {
-        const int gi = e / kBN, c = e - gi * kBN;
-        const uint32_t* win = Bs + gi * C::kGroupWords;
-        const int o = shs[gi] + c;
-        cs[gi * C::kCopyWords + c] =
-            __funnelshift_r(win[o >> 2], win[(o >> 2) + 1], 8 * (o & 3));
-      }
-      __syncthreads();
-    }
+    const uint8_t* base = smem + (s % kStages) * kStageBytes;
+    const uint32_t* Bs = (const uint32_t*)(base + kABytes);
+    const int* shs = (const int*)(Bs + kBWords);
 
     if (kt == nk) {  // Horner: the next (lower) byte of the codes
       kt = 0;
@@ -424,21 +396,14 @@ __global__ void __launch_bounds__(kThreads) score_int(const Args p) {
                                 32 * sub + (lane >> 4) * 16);
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
+        // column c = wn + 8 ni + g is byte o = sh + c of the window; the
+        // byte offset within a word is the same for every ni
         const int gi = 8 * sub + q + 4 * half;
-        if (kShifted) {
-          const uint32_t* row =
-              Bs + kGroups * C::kGroupWords + gi * C::kCopyWords;
+        const int o = shs[gi] + wn + g, sh8 = 8 * (o & 3);
+        const uint32_t* row = Bs + gi * kGroupWords + (o >> 2);
 #pragma unroll
-          for (int ni = 0; ni < kNT; ++ni) bf[ni][half] = row[wn + ni * 8 + g];
-        } else {
-          // column c = wn + 8 ni + g is byte o = sh + c of the window; the
-          // byte offset within a word is the same for every ni
-          const int o = shs[gi] + wn + g, sh8 = 8 * (o & 3);
-          const uint32_t* row = Bs + gi * C::kGroupWords + (o >> 2);
-#pragma unroll
-          for (int ni = 0; ni < kNT; ++ni)
-            bf[ni][half] = __funnelshift_r(row[2 * ni], row[2 * ni + 1], sh8);
-        }
+        for (int ni = 0; ni < kNT; ++ni)
+          bf[ni][half] = __funnelshift_r(row[2 * ni], row[2 * ni + 1], sh8);
       }
 #pragma unroll
       for (int mi = 0; mi < kMT; ++mi)
@@ -519,92 +484,12 @@ __global__ void __launch_bounds__(kThreads) score_int(const Args p) {
   }
 }
 
-// Per-device facts a launch needs, looked up once per device (the first
-// kMaxDevices of them): each launch pays the host's time.
-constexpr int kMaxDevices = 64;
-
-int sm_count(int dev) {
-  static int known[kMaxDevices] = {};
-  if (dev < kMaxDevices && known[dev] > 0) return known[dev];
-  int sms = 0;
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (sms <= 0) return 1;
-  if (dev < kMaxDevices) known[dev] = sms;
-  return sms;
-}
-
-// Let score_int<kMT, kShifted> take its dynamic shared memory (over 48 KB
-// for some) on this device.
-template <int kMT, bool kShifted>
-cudaError_t allow_smem(int dev) {
-  static bool done[kMaxDevices] = {};
-  if (dev < kMaxDevices && done[dev]) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      score_int<kMT, kShifted>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      Cfg<kMT, kShifted>::kSmemBytes);
-  if (dev < kMaxDevices) done[dev] = err == cudaSuccess;
-  return err;
-}
-
-template <int kMT, bool kShifted>
-int blocks_per_sm(int dev) {
-  static int known[kMaxDevices] = {};
-  if (dev < kMaxDevices && known[dev] > 0) return known[dev];
-  int per = 0;
-  allow_smem<kMT, kShifted>(dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per, score_int<kMT, kShifted>, kThreads,
-      Cfg<kMT, kShifted>::kSmemBytes);
-  if (per <= 0) return 1;
-  if (dev < kMaxDevices) known[dev] = per;
-  return per;
-}
-
-template <int kMT, bool kShifted>
-int launch_tile(const Args& a, dim3 grid, int dev, cudaStream_t stream) {
-  const cudaError_t err = allow_smem<kMT, kShifted>(dev);
-  if (err != cudaSuccess) return (int)err;
-  score_int<kMT, kShifted>
-      <<<grid, kThreads, Cfg<kMT, kShifted>::kSmemBytes, stream>>>(a);
-  return (int)cudaGetLastError();
-}
-
-int grid_blocks(int R, int mx, int n_ct, int bm) {
-  return n_ct * mx * ((R + bm - 1) / bm);
-}
-
-// The row tile for R = N*my rows per kx: the one whose waves take the
-// fewest rows x waves on this card (a tie goes to 128). Rows are
-// independent, so the choice changes no result.
-template <bool kShifted>
-int row_tile(int R, int mx, int n_ct, int dev) {
-  const int sms = sm_count(dev);
-  const auto cost = [&](int bm, int per) {
-    const int slots = per * sms;
-    return (grid_blocks(R, mx, n_ct, bm) + slots - 1) / slots * bm;
-  };
-  return cost(64, blocks_per_sm<2, kShifted>(dev)) <
-                 cost(128, blocks_per_sm<4, kShifted>(dev))
-             ? 64
-             : 128;
-}
-
-template <bool kShifted>
-int launch(const Args& a, int n_ct, int tile_m, int dev, cudaStream_t stream) {
-  const int R = a.gm.N * a.gm.my;
-  if (tile_m == 0) tile_m = row_tile<kShifted>(R, a.gm.mx, n_ct, dev);
-  if (tile_m != 64 && tile_m != 128) return (int)cudaErrorInvalidValue;
-  const dim3 grid(n_ct, (R + tile_m - 1) / tile_m, a.gm.mx);
-  return tile_m == 64 ? launch_tile<2, kShifted>(a, grid, dev, stream)
-                      : launch_tile<4, kShifted>(a, grid, dev, stream);
+dim3 grid_of(int R, int mx, int n_ct) {
+  return dim3(n_ct, (R + kBM - 1) / kBM, mx);
 }
 
 int passes(int layout) {
   return layout == kU16 ? 2 : (layout == kI32 ? 4 : 1);
-}
-
-bool use_shifted(int b_read) {
-  return b_read == 0 ? kDefaultShifted : b_read == 2;
 }
 
 }  // namespace
@@ -614,30 +499,22 @@ extern "C" {
 // The column tile: the partition of td into partials.
 int sliding_scores_int_col_tile() { return kBN; }
 
-// Dynamic shared memory of one block: tile_m 64 or 128; b_read 0 (the
-// default), 1 (funnel-shift reads) or 2 (shifted copies).
-size_t sliding_scores_int_smem_bytes(int tile_m, int b_read) {
-  const bool sh = use_shifted(b_read);
-  if (tile_m == 64)
-    return sh ? Cfg<2, true>::kSmemBytes : Cfg<2, false>::kSmemBytes;
-  return sh ? Cfg<4, true>::kSmemBytes : Cfg<4, false>::kSmemBytes;
-}
+// Dynamic shared memory of one score_int block.
+size_t sliding_scores_int_smem_bytes() { return kSmemBytes; }
 
 // For a launch over R = N*my rows, mx fragment columns and n_ct column
-// tiles with the default B read: the row tile chosen, blocks, resident
-// blocks per SM and shared memory per block, for the wave arithmetic in
-// PERF.md.
+// tiles: the row tile, blocks, resident blocks per SM and shared memory
+// per block, for the wave arithmetic in PERF.md. Returns the occupancy
+// query's error.
 int sliding_scores_int_occupancy(int R, int mx, int n_ct, int* tile_m,
                                  int* blocks, int* per_sm, int* smem_bytes) {
-  int dev = 0;
-  const cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  *tile_m = row_tile<kDefaultShifted>(R, mx, n_ct, dev);
-  *blocks = grid_blocks(R, mx, n_ct, *tile_m);
-  *per_sm = *tile_m == 64 ? blocks_per_sm<2, kDefaultShifted>(dev)
-                          : blocks_per_sm<4, kDefaultShifted>(dev);
-  *smem_bytes = (int)sliding_scores_int_smem_bytes(*tile_m, 0);
-  return 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      per_sm, score_int, kThreads, kSmemBytes);
+  const dim3 grid = grid_of(R, mx, n_ct);
+  *tile_m = kBM;
+  *blocks = (int)(grid.x * grid.y * grid.z);
+  *smem_bytes = kSmemBytes;
+  return (int)err;
 }
 
 // Scores (N, my, mx) from integer codes in one call: the window norms,
@@ -647,10 +524,9 @@ int sliding_scores_int_occupancy(int R, int mx, int n_ct, int* tile_m,
 // device. Scratch from the caller: norms, N*my*mx floats; acol, passes *
 // mx * N*my * Kp bytes (passes: 1, 1, 4, 2 by layout; Kp = h * w4 rounded
 // up to kBK, w4 = w rounded up to 4), 16-byte aligned; partials,
-// n_dt * ceil(td / 128) * N*my*mx * 3 floats. tile_m: 0 (chosen here), 64
-// or 128; b_read: 0 (the default), 1 or 2 (see
-// sliding_scores_int_smem_bytes). The slabs must be 16-byte aligned.
-// Returns cudaGetLastError().
+// n_dt * ceil(td / 128) * N*my*mx * 3 floats. The slabs must be 16-byte
+// aligned. Four launches: window_norms, im2col, score_int, fold_epilogue.
+// Returns the first launch error.
 int sliding_scores_int(const void* codes, const int8_t* slabs,
                        const float* bias, const int8_t* cpos,
                        const int8_t* cneg, const float* slab_scale,
@@ -658,14 +534,10 @@ int sliding_scores_int(const void* codes, const int8_t* slabs,
                        const float* cneg_norm, float* partials, float* out,
                        int32_t* acc_out, int N, int H, int W, int h, int w,
                        int stride, int td, int n_dt, int frames_per_stream,
-                       int nonlinearity, int layout, int tile_m, int b_read,
-                       cudaStream_t stream) {
+                       int nonlinearity, int layout, cudaStream_t stream) {
   if ((uintptr_t)slabs % 16 != 0 || (uintptr_t)acol % 16 != 0 ||
       layout < kU8 || layout > kU16)
     return (int)cudaErrorInvalidValue;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
   Geometry gm;
   gm.N = N;
   gm.H = H;
@@ -682,7 +554,7 @@ int sliding_scores_int(const void* codes, const int8_t* slabs,
   const int M = N * gm.my * gm.mx;
   window_norms<<<M, 256, 0, stream>>>(codes, gm, slab_scale, norms);
   im2col<<<gm.passes * M, 256, 0, stream>>>(codes, gm, (uint32_t*)acol);
-  err = cudaGetLastError();
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   Args a;
   a.acol = acol;
@@ -700,10 +572,10 @@ int sliding_scores_int(const void* codes, const int8_t* slabs,
   a.frames_per_stream = frames_per_stream;
   a.nonlinearity = nonlinearity;
   const int n_ct = n_dt * a.tiles_per_dt;
-  const int rc = use_shifted(b_read)
-                     ? launch<true>(a, n_ct, tile_m, dev, stream)
-                     : launch<false>(a, n_ct, tile_m, dev, stream);
-  if (rc != 0) return rc;
+  score_int<<<grid_of(N * gm.my, gm.mx, n_ct), kThreads, kSmemBytes,
+              stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
   fold_epilogue<<<(M + 255) / 256, 256, 0, stream>>>(
       partials, cpos_norm, cneg_norm, out, n_ct, M, gm.my * gm.mx,
       frames_per_stream);

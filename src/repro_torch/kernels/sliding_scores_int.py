@@ -29,7 +29,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import sliding_scores as _ss
 from repro_torch.sensing.adc import unpack_nibbles
 
-#: kernel launches made by :func:`fragment_scores_batch_int`
+#: calls of the C entry (four kernel launches each) made by
+#: :func:`fragment_scores_batch_int`
 LAUNCHES = 0
 
 INT32_MAX = 2**31 - 1
@@ -53,14 +54,9 @@ _PASSES = {_LAYOUT_U8: 1, _LAYOUT_NIBBLES: 1, _LAYOUT_U16: 2, _LAYOUT_I32: 4}
 #: D-tile into the partials that ``fold_epilogue`` folds
 COL_TILE = 128
 
-#: the kernel's B operand reads (``b_read`` of the C entry): the default
-#: (``kDefaultShifted``), two aligned words joined by a funnel shift, or one
-#: word per column from the byte-shifted copies
-B_READS = {"default": 0, "funnel": 1, "shifted": 2}
-DEFAULT_SHIFTED = False
-
-#: the kernel's cp.async ring depth (``kStages``) and k per step (``kBK``)
-_STAGES, _STEP_K = 4, 64
+#: the kernel's row tile (``kBM``), cp.async ring depth (``kStages``) and
+#: k per step (``kBK``)
+ROW_TILE, _STAGES, _STEP_K = 64, 4, 64
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,18 +90,15 @@ class IntScoreTiles:
 # Bounds: exact int32 accumulation; the block's shared memory
 # ---------------------------------------------------------------------------
 
-def smem_bytes(tile_m: int = 128, b_read: int = 0) -> int:
-    """Shared memory of one int scoring block (``Cfg::kSmemBytes`` in
+def smem_bytes() -> int:
+    """Shared memory of one int scoring block (``kSmemBytes`` in
     ``csrc/sliding_scores_int.cu``, dynamic): a ring of 4 stages, each
-    ``tile_m`` code rows of one ``_STEP_K``-deep K step padded by 16
+    ``ROW_TILE`` code rows of one ``_STEP_K``-deep K step padded by 16
     bytes, the slab windows of its groups of 4 k over ``COL_TILE``
-    columns from their
-    16-byte-aligned starts (40 words each, plus one word per column for
-    the byte-shifted copies) and the groups' byte shifts."""
-    shifted = DEFAULT_SHIFTED if b_read == 0 else b_read == 2
-    group_words = 40 + (COL_TILE + 8 if shifted else 0)
+    columns from their 16-byte-aligned starts (40 words each) and the
+    groups' byte shifts."""
     groups = _STEP_K // 4
-    return _STAGES * (tile_m * (_STEP_K + 16) + 4 * groups * group_words
+    return _STAGES * (ROW_TILE * (_STEP_K + 16) + 4 * groups * 40
                       + 4 * groups)
 
 
@@ -116,8 +109,8 @@ def int_datapath_bounds(adc_bits: int, H: int, W: int, h: int, w: int,
     ``sumsq`` (the summed-area table of squared codes over a frame) and
     ``acc`` (one fragment projection, ``h*w`` products of a max code with a
     max slab entry) must stay below ``INT32_MAX``. ``smem_bytes`` is the
-    CUDA kernel's shared memory per block at its larger row tile: 128 code
-    rows by ``COL_TILE`` columns through a 4-stage ring of K steps. No
+    CUDA kernel's shared memory per block: ``ROW_TILE`` code rows by
+    ``COL_TILE`` columns through a 4-stage ring of K steps. No
     frame, window or tile width sizes it (any W, mx and D-tile, 5000 wide
     at the paper's D, runs in the same block), so it always fits the
     H100's 227 KB. ``stride=1`` (the most windows) is the conservative
@@ -126,7 +119,7 @@ def int_datapath_bounds(adc_bits: int, H: int, W: int, h: int, w: int,
     cmax = (1 << adc_bits) - 1
     sumsq = H * W * cmax * cmax
     acc = h * w * cmax * _QMAX
-    smem = smem_bytes(128)
+    smem = smem_bytes()
     return {"sumsq": sumsq, "acc": acc, "int32_max": INT32_MAX,
             "smem_bytes": smem, "smem_limit_bytes": _ss.SMEM_LIMIT_BYTES,
             "fits": (max(sumsq, acc) <= INT32_MAX
@@ -359,10 +352,9 @@ def _check_geometry(geom, h, w, stride, W, mx):
 
 def _launch(codes: torch.Tensor, tiles: IntScoreTiles, *, h: int, w: int,
             stride: int, nonlinearity: NonLin, C: int, packed: bool,
-            acc_out: torch.Tensor | None = None, tile_m: int = 0,
-            b_read: int = 0) -> torch.Tensor:
-    """One kernel launch. ``tile_m`` (0: the launcher's choice; 64 or 128)
-    and ``b_read`` (:data:`B_READS`) force a variant for a timing probe."""
+            acc_out: torch.Tensor | None = None) -> torch.Tensor:
+    """One call of the C entry: four kernel launches (window norms,
+    im2col, the GEMM with its scoring epilogue, the fold)."""
     geom = tiles.geom
     N, H, Wc = codes.shape
     W = Wc * 2 if packed else Wc
@@ -397,8 +389,7 @@ def _launch(codes: torch.Tensor, tiles: IntScoreTiles, *, h: int, w: int,
         *(a.data_ptr() for a in args),
         None if acc_out is None else acc_out.data_ptr(),
         N, H, W, h, w, stride, td, n_dt, C,
-        _ss.NONLINEARITIES[nonlinearity], layout, tile_m, b_read,
-        _build.stream_ptr())
+        _ss.NONLINEARITIES[nonlinearity], layout, _build.stream_ptr())
     _build.check(err, "sliding_scores_int")
     return out
 
@@ -408,7 +399,9 @@ def fragment_scores_batch_int(codes: torch.Tensor, tiles: IntScoreTiles, *,
                               nonlinearity: NonLin = "rff",
                               frames_per_stream: int | None = None,
                               packed: bool = False) -> torch.Tensor:
-    """(N, H, W) integer ADC codes -> (N, my, mx) score maps, ONE launch.
+    """(N, H, W) integer ADC codes -> (N, my, mx) score maps in one call
+    of the C entry, which launches its four kernels; :data:`LAUNCHES` counts
+    the calls.
 
     A CUDA tensor launches ``csrc/sliding_scores_int.cu`` (or raises); a
     CPU tensor runs :func:`fragment_scores_batch_int_plain`. ``packed``

@@ -263,7 +263,7 @@ def test_int_datapath_bounds():
     # the paper's operating point fits one H100 block (the int kernel's own
     # block: no frame, window or tile width sizes it)
     paper = tssi.int_datapath_bounds(4, 128, 128, 96, 96, stride=8)
-    assert paper["fits"] and paper["smem_bytes"] == tssi.smem_bytes(128)
+    assert paper["fits"] and paper["smem_bytes"] == tssi.smem_bytes()
     assert paper["smem_bytes"] < paper["smem_limit_bytes"] == 232_448
     tssi.assert_int_datapath_fits(8, 128, 128, 96, 96, stride=8)
     with pytest.raises(ValueError, match="overflow int32"):

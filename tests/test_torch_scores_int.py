@@ -4,9 +4,9 @@ held against the JAX package.
 ``csrc/sliding_scores_int.cu`` runs only on the card, so these tests
 replay its index maps and its float epilogue in plain PyTorch: (a) the GEMM
 ``A (M, K) @ B (K, td)`` with A the im2col of the codes over a depth padded
-to groups of 4, B the Hankel view of the int8 slabs read the two ways the
-kernel reads it (two aligned words joined by a funnel shift, or the
-byte-shifted copies), and codes wider than 8 bits summed by Horner over
+to groups of 4, B the Hankel view of the int8 slabs read as the kernel
+reads it (two aligned words joined by a funnel shift), and codes wider
+than 8 bits summed by Horner over
 their bytes with wrapping int32 arithmetic, bitwise equal to the JAX
 ``_int_window_acc``; (b) the kernel's column partition (``COL_TILE``
 columns per partial, summed per thread, across a quad, then across the
@@ -28,8 +28,8 @@ jax.config.update("jax_platform_name", "cpu")
 torch.set_num_threads(2)
 
 #: ragged shapes (H, W, h, w, stride): odd strides, W not a multiple of 4,
-#: w % 4 != 0 (padded groups), K steps of 32 that straddle 4+ base rows
-#: (w = 7) or two (w = 37)
+#: w % 4 != 0 (padded groups), K steps of 64 that straddle 8 base rows
+#: (w = 7, 8 with padding) or two (w = 37, 40 with padding)
 SHAPES = [(23, 23, 7, 7, 3), (40, 45, 5, 37, 5)]
 #: (geometry mode, ADC bits) of each precision; 4-bit codes unpacked
 PRECISIONS = {"int8": ("int8", 8), "int4": ("int8", 4),
@@ -64,15 +64,14 @@ def _funnel(lo, hi, shift):
     return ((hi << 32 | lo) >> shift) & 0xFFFFFFFF
 
 
-def _b_operand(slabs_q, h, w, dt, x0, j0, shifted):
+def _b_operand(slabs_q, h, w, dt, x0, j0):
     """The B registers of one column tile as the kernel reads them:
     ``(K4 / 4, COL_TILE)`` words, group ``k / 4`` at column ``c`` holding
     ``B[k .. k+3, j0 + c]`` for the windows that start at pixel ``x0 =
     kx * stride``. Group ``k`` (base row ``r = k // w4``, position ``i``)
     starts at slab byte ``src``; the kernel stages the window from
     ``src & ~15`` (zero past the slabs' end) and reads byte offset
-    ``o = (src & 15) + c`` as two words joined by a funnel shift, or as
-    the shifted copies' word ``c``, built from the same two words."""
+    ``o = (src & 15) + c`` as two words joined by a funnel shift."""
     n_dt, _, L = slabs_q.shape
     w4 = -(-w // 4) * 4
     flat = slabs_q.reshape(-1).view(torch.uint8).to(torch.int64)
@@ -88,9 +87,6 @@ def _b_operand(slabs_q, h, w, dt, x0, j0, shifted):
     c = torch.arange(tssi.COL_TILE)[None, :]
     o = sh + c
     lo, hi = words[base + (o >> 2)], words[base + (o >> 2) + 1]
-    if shifted:  # copy word c, built once per step, read as it is
-        copies = _funnel(lo, hi, 8 * (o & 3))
-        return copies[:, c[0]]
     # per warp the byte offset o & 3 is the same for every n8 tile
     return _funnel(lo, hi, 8 * (o & 3))
 
@@ -117,7 +113,7 @@ def _a_operand(codes, h, w, stride, byte):
     return (win * keep).reshape(N * my, mx, h * w4)
 
 
-def emulated_window_acc(codes, slabs_q, h, w, stride, td, shifted):
+def emulated_window_acc(codes, slabs_q, h, w, stride, td):
     """The kernel's int32 sums ``(N, my, n_dt, mx, td)``: per D-tile,
     fragment column and column tile one GEMM of A against the B registers,
     byte passes from the highest down, ``acc = acc * 256 + pass`` wrapping
@@ -131,8 +127,7 @@ def emulated_window_acc(codes, slabs_q, h, w, stride, td, shifted):
     for dt in range(n_dt):
         for kx in range(mx):
             for j0 in range(0, td, tssi.COL_TILE):
-                B = _bytes_s8(_b_operand(slabs_q, h, w, dt, kx * stride, j0,
-                                         shifted))
+                B = _bytes_s8(_b_operand(slabs_q, h, w, dt, kx * stride, j0))
                 acc = torch.zeros((N * my, tssi.COL_TILE), dtype=torch.int64)
                 for byte in reversed(range(passes)):
                     acc = acc * 256 + A[byte][:, kx] @ B
@@ -150,11 +145,9 @@ def test_emulated_gemm_sums_bitwise(shape, precision):
     jt, tt = geometries(21, 200, H, W, h, w, stride, mode)
     codes = codes_np(22, 2, H, W, bits)
     n_dt, td = tt.geom.slabs_q.shape[0], tt.geom.block_d
-    got = {sh: emulated_window_acc(t(codes), tt.geom.slabs_q, h, w, stride,
-                                   td, sh) for sh in (False, True)}
-    assert torch.equal(got[False], got[True])
+    got = emulated_window_acc(t(codes), tt.geom.slabs_q, h, w, stride, td)
     np.testing.assert_array_equal(
-        got[True].numpy(),
+        got.numpy(),
         tssi.int_window_acc(t(codes), tt.geom, h=h, w=w,
                             stride=stride).numpy())
     my = (H - h) // stride + 1
@@ -164,7 +157,7 @@ def test_emulated_gemm_sums_bitwise(shape, precision):
                                 .astype(np.int32))
             for dt in range(n_dt):
                 np.testing.assert_array_equal(
-                    got[True][n, ky, dt].numpy(),
+                    got[n, ky, dt].numpy(),
                     np.asarray(jssi._int_window_acc(
                         block, jt.geom.slabs_q[dt], jt.geom.win_mask, h=h,
                         W=W, td=td)))
@@ -180,10 +173,10 @@ def test_horner_wraps_like_int32():
                              .astype(np.uint16))
     slabs = torch.from_numpy(rng.integers(100, 128, (1, 18, 40 + 32 - 1))
                              .astype(np.int8))
-    got = emulated_window_acc(codes, slabs, 18, 20, 6, 40, True)
+    got = emulated_window_acc(codes, slabs, 18, 20, 6, 40)
     A = (_a_operand(codes, 18, 20, 6, 0)
          + 256 * _a_operand(codes, 18, 20, 6, 1))
-    B = _bytes_s8(_b_operand(slabs, 18, 20, 0, 6, 0, False))[:, :40]
+    B = _bytes_s8(_b_operand(slabs, 18, 20, 0, 6, 0))[:, :40]
     true = A[:, 1] @ B                           # kx = 1: windows at pixel 6
     assert true.min() > 2**31                    # the case wraps
     want = ((true + 2**31) % 2**32 - 2**31).to(torch.int32)
@@ -244,7 +237,7 @@ def test_emulated_partition_scores_match_jax(D, precision):
     jt, tt = geometries(24, D, H, W, h, w, stride, mode)
     codes = codes_np(25, 7, H, W, bits)
     acc = emulated_window_acc(t(codes), tt.geom.slabs_q, h, w, stride,
-                              tt.geom.block_d, True)
+                              tt.geom.block_d)
     got = emulated_scores(acc, tt, h, w, stride, t(codes))
     want = jssi.fragment_scores_batch_int_ref(
         jnp.asarray(codes.astype(np.int32)), jt, h=h, w=w, stride=stride)
@@ -257,15 +250,13 @@ def test_emulated_partition_scores_match_jax(D, precision):
 
 
 def test_block_sizes_mirror_the_kernel():
-    """The Python mirror of the block: column tile and shared memory per
-    row tile and B read, fixed whatever the frame (both also checked
-    against the CUDA exports on the card by ``chip_smoke.py``)."""
-    assert tssi.COL_TILE == 128
-    assert tssi.smem_bytes(64, 1) == 4 * (64 * 80 + 4 * 16 * 40 + 64)
-    assert tssi.smem_bytes(128, 2) == 4 * (128 * 80 + 4 * 16 * 176 + 64)
-    assert tssi.smem_bytes() == tssi.smem_bytes(
-        128, 2 if tssi.DEFAULT_SHIFTED else 1)
+    """The Python mirror of the block: column tile, row tile and shared
+    memory, fixed whatever the frame (the column tile and shared memory
+    also checked against the CUDA exports on the card by
+    ``chip_smoke.py``)."""
+    assert (tssi.COL_TILE, tssi.ROW_TILE) == (128, 64)
+    assert tssi.smem_bytes() == 4 * (64 * 80 + 4 * 16 * 40 + 64) <= 48 * 1024
     for args in [(8, 32, 32, 8, 8), (4, 128, 128, 96, 96),
                  (1, 8, 4096, 8, 8)]:
         b = tssi.int_datapath_bounds(*args, stride=8)
-        assert b["smem_bytes"] == tssi.smem_bytes(128) < b["smem_limit_bytes"]
+        assert b["smem_bytes"] == tssi.smem_bytes() < b["smem_limit_bytes"]
