@@ -16,13 +16,16 @@ sm_90a: an H100). It
    frames (Gaussian blobs on noise) and background frames;
 4. holds each kernel against its plain PyTorch version on the same inputs
    at the main path's shape (a 32-frame chunk) — scores within 5e-5, the
-   int kernel's int32 window sums bitwise, two runs bitwise equal — and
+   int kernel's int32 window sums bitwise, two runs bitwise equal, frames
+   scored inside a 7-frame call bitwise as in the 32-frame one — and
    times kernel, plain version, a library matmul of the same projection
-   and the card's bound; the int kernel (int8 tensor cores) also at
-   10-bit uint16 codes, for frames scored inside a 7-frame call
-   (bitwise), and at ragged
-   shapes (odd stride, W not a multiple of 4, K steps that straddle base
-   rows, M and td off the tiles, two D-tiles, per-stream classes);
+   and the card's bounds; the float kernel (3xTF32 tensor cores, the
+   reuse form) also at ragged shapes for each nonlinearity (odd strides,
+   ragged depths and widths, two D-tiles, per-stream classes, and a
+   1024-wide frame); the int kernel (int8 tensor cores) also at 10-bit
+   uint16 codes and at ragged shapes (odd stride, W not a multiple of 4,
+   K steps that straddle base rows, M and td off the tiles, two D-tiles,
+   per-stream classes);
 5. drives the main path, ``StreamRunner.process``, over 256 frames six
    times (float32, int8, int4, binary, the closed capture loop, online
    adaptation): each chunk must launch its kernel exactly once, the frame
@@ -39,8 +42,9 @@ sm_90a: an H100). It
    twice and must be bitwise the same. It then holds the three training
    kernels (``hdc_encode_perm``, ``hdc_encode``, ``similarity``) against
    their plain versions at the path's shapes — hypervectors within 1e-4,
-   scores within 5e-5, two runs bitwise equal, ``hdc_encode_perm`` bitwise
-   equal to ``hdc_encode`` on the expanded base — and times them; holds
+   scores within 5e-5 (``similarity`` also at 9 and 17 classes), two runs
+   bitwise equal, ``hdc_encode_perm`` bitwise equal to ``hdc_encode`` on
+   the expanded base — and times them; holds
    both encoders the same way at ragged shapes (N, K and D off the tiles,
    K steps that straddle generator rows) for each nonlinearity, and
    reports their tiles, blocks and waves;
@@ -203,9 +207,11 @@ def kernel_phase(model, raw):
     chunk_f = stream.adc_view(raw, 4)
     tiles = stream.model_tiles(model, FRAME, BLOCK_D, "float32")
     td, n_dt = tiles.block_d, tiles.slabs.shape[0]
-    check(ss.smem_bytes(FRAME, mx) == _build.load(
-        "sliding_scores").sliding_scores_f32_smem_bytes(FRAME, mx),
-        "python and CUDA shared-memory sizes differ")
+    lib = _build.load("sliding_scores")
+    check(ss.smem_bytes() == lib.sliding_scores_f32_smem_bytes()
+          and ss.COL_TILE == lib.sliding_scores_f32_col_tile()
+          and ss.WINDOWS_PER_BLOCK == lib.sliding_scores_f32_windows(),
+          "python and CUDA float block sizes differ")
 
     # the projection as one library call: windows (N*my*mx, h*w) against
     # the expanded base (h*w, D); the port never calls it
@@ -215,17 +221,21 @@ def kernel_phase(model, raw):
         return x.unfold(1, FRAG, STRIDE).unfold(2, FRAG, STRIDE).reshape(
             N * my * mx, FRAG * FRAG).to(torch.float32)
 
-    macs = N * my * n_dt * td * FRAG * FRAME      # h*W per (n, ky, column)
+    last = (mx - 1) * STRIDE + FRAG    # frame columns the windows cover
+    macs = N * my * n_dt * td * FRAG * last   # h*last per (n, ky, column)
     records = []
 
     # --- float32 kernel
     got = ss.fragment_scores_batch(chunk_f, tiles, **kw)
     again = ss.fragment_scores_batch(chunk_f, tiles, **kw)
+    seven = ss.fragment_scores_batch(chunk_f[20:27], tiles, **kw)
     plain = ss.fragment_scores_batch_plain(chunk_f, tiles, **kw)
     torch.cuda.synchronize()
     err = float((got - plain).abs().max())
     check(err <= SCORE_ATOL, f"float kernel vs plain: {err}")
     check(torch.equal(got, again), "float kernel differs run to run")
+    check(torch.equal(seven, got[20:27]),
+          "float: a 7-frame call differs from the 32-frame one")
     check(bool(torch.isfinite(got).all()) and got.shape == (N, my, mx),
           "float kernel scores not finite or of the wrong shape")
     oracle = torch.stack([ref.fragment_scores(
@@ -235,17 +245,32 @@ def kernel_phase(model, raw):
     win = windows(chunk_f)
     f_bytes = 4 * (chunk_f.numel() + tiles.slabs.numel()
                    + 3 * tiles.bias_t.numel() + 2 * N * my * mx)
+    tc = bound(f_bytes, 3 * 2 * macs, TF32_OPS_S)
+    device_ms, device_by_kernel = kernel_device_ms(
+        lambda: ss.fragment_scores_batch(chunk_f, tiles, **kw),
+        ("window_norms", "score_f32", "fold_epilogue"))
     records.append(dict(
         name="sliding_scores_f32", route="cuda",
         source="src/repro_torch/kernels/csrc/sliding_scores.cu",
         replaces="src/repro/kernels/sliding_scores.py:244",
         max_abs_err=err, oracle_max_abs_err=oerr, run_to_run_bitwise=True,
+        batch_position_bitwise=True,
         ms=time_ms(lambda: ss.fragment_scores_batch(chunk_f, tiles,
                                                            **kw)),
+        kernel_device_ms=device_ms,
+        kernel_device_by_kernel_ms=device_by_kernel,
         plain_ms=time_ms(lambda: ss.fragment_scores_batch_plain(
             chunk_f, tiles, **kw)),
         library_ms=time_ms(lambda: torch.matmul(win, base)),
-        **bound(f_bytes, 2 * macs, F32_OPS_S)))
+        shape=[N * my, FRAG * last, n_dt * td],
+        **scorer_occupancy(lib.sliding_scores_f32_occupancy, N * my, mx,
+                           n_dt * -(-td // ss.COL_TILE),
+                           (ss.COL_TILE, ss.WINDOWS_PER_BLOCK)),
+        **bound(f_bytes, 2 * macs, F32_OPS_S),
+        bound_tc_ms=tc["bound_ms"], bound_tc_by=tc["bound_by"],
+        ragged_max_abs_err=ragged_f32_checks()))
+    records[-1]["beats_library"] = records[-1]["ms"] < records[-1][
+        "library_ms"]
 
     records.append(int_kernel_record(model, raw, windows(
         stream.adc_view_codes(raw, 8)), base))
@@ -332,27 +357,94 @@ def int_kernel_record(model, raw, win, base):
             codes, itiles, **kw)),
         library_ms=time_ms(lambda: torch.matmul(win, base)),
         shape=[M, FRAG * FRAG, n_dt * td],
-        **int_occupancy(N * my, mx, n_ct),
+        **scorer_occupancy(lib.sliding_scores_int_occupancy, N * my, mx, n_ct,
+                           (ssi.COL_TILE,)),
         **bound(i_bytes, 2 * macs, INT8_OPS_S),
         bound_tc_ms=tc["bound_ms"], bound_tc_by=tc["bound_by"],
         ragged_max_abs_err=ragged_int_checks())
 
 
-def int_occupancy(R: int, mx: int, n_ct: int) -> dict:
-    """The int kernel's launch for R = N*my rows per fragment column, mx
-    columns and n_ct column tiles: its tile, blocks, resident blocks per
-    SM, shared memory per block, waves on this card and the share of the
-    waves' block slots the blocks fill."""
+def scorer_occupancy(entry, R: int, mx: int, n_ct: int, tile) -> dict:
+    """A scorer's launch for R = N*my rows, mx window columns and n_ct
+    column tiles, from its C ``entry``: its tile (the row tile, then
+    ``tile``), blocks, resident blocks per SM, shared memory per block,
+    waves on this card and the share of the waves' block slots the blocks
+    fill."""
     vals = [ctypes.c_int() for _ in range(4)]
-    _build.check(_build.load("sliding_scores_int").sliding_scores_int_occupancy(
-        R, mx, n_ct, *map(ctypes.byref, vals)),
-        "sliding_scores_int_occupancy")
+    _build.check(entry(R, mx, n_ct, *map(ctypes.byref, vals)), entry.__name__)
     tile_m, blocks, per_sm, smem = (v.value for v in vals)
     slots = per_sm * torch.cuda.get_device_properties(0).multi_processor_count
     waves = math.ceil(blocks / slots)
-    return dict(tile=[tile_m, ssi.COL_TILE], blocks=blocks,
-                blocks_per_sm=per_sm, smem_bytes=smem, waves=waves,
+    return dict(tile=[tile_m, *tile], blocks=blocks, blocks_per_sm=per_sm,
+                smem_bytes=smem, waves=waves,
                 wave_efficiency=blocks / (waves * slots))
+
+
+# ragged float shapes (N, S, H, W, h, w, stride, D, block_d): g = gcd(stride,
+# w) = 3 with a depth of 63 (two K steps, the second padded) and W = 46, g = 1
+# with a depth of 5 and td = 131 (a column tile of 3), two D-tiles, S
+# streams of N / S frames with their own class tiles; and a 1024-wide frame
+# (w = 8, stride 8, mx = 128: 26 window groups) that the CUDA-core kernel's
+# block refused
+RAGGED_F32 = ((6, 2, 45, 46, 21, 21, 3, 600, 300),
+              (5, 1, 22, 30, 5, 7, 5, 131, 512),
+              (2, 1, 8, 1024, 8, 8, 8, 5000, 512))
+
+
+def window_projections_plain(frames, tiles, h, w, stride):
+    """``(N, my, mx, D)`` normalized window projections ``acc / max(norm,
+    1e-8)`` as the plain version computes them, to find where ``sign``
+    sits within rounding of 0."""
+    N, H, W = frames.shape
+    mx = (W - w) // stride + 1
+    lo, hi = ss._window_masks(W, w, stride, mx, frames.device, torch.float32)
+    ky = torch.arange((H - h) // stride + 1, device=frames.device) * stride
+    acc = 0
+    for r in range(h):
+        p_hi, p_lo = ss._prefix_window_acc(frames[:, ky + r, :],
+                                           tiles.slabs[:, r, :], lo, hi)
+        acc = acc + p_hi - p_lo
+    norms = ss.window_norms_batch(frames, h, w, stride)
+    return acc / torch.clamp(norms, min=1e-8)[..., None]
+
+
+def ragged_f32_checks() -> float:
+    """The float kernel at the RAGGED_F32 shapes, for each nonlinearity:
+    scores within SCORE_ATOL of the plain version with per-stream class
+    tiles, bitwise run to run. ``sign`` is held on the windows whose
+    projections all sit clear of 0 by more than 1e-5 (elsewhere float32
+    rounding may flip one). Returns the largest score error."""
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(SEED + 4)
+    worst = 0.0
+    for N, S, H, W, h, w, stride, D, block_d in RAGGED_F32:
+        kw = dict(h=h, w=w, stride=stride, frames_per_stream=N // S)
+        frames = 1.5 * torch.rand((N, H, W), generator=g, device=DEVICE)
+        B0 = torch.randn((h, D), generator=g, device=DEVICE)
+        b = 2 * math.pi * torch.rand(D, generator=g, device=DEVICE)
+        chvs = torch.randn((S, 2, D), generator=g, device=DEVICE)
+        geom = ss.precompute_geometry(B0, b, W=W, w=w, stride=stride,
+                                      block_d=block_d)
+        tiles = ss.retile_classes_fleet(geom, chvs)
+        s_n = window_projections_plain(frames, tiles, h, w, stride)
+        clear = (s_n.abs() > 1e-5).all(-1)                  # (N, my, mx)
+        for nl in ("rff", "linear", "sign"):
+            what = f"{nl} at {(N, S, H, W, h, w, stride, D)}"
+            got = ss.fragment_scores_batch(frames, tiles, nonlinearity=nl,
+                                           **kw)
+            again = ss.fragment_scores_batch(frames, tiles, nonlinearity=nl,
+                                             **kw)
+            plain = ss.fragment_scores_batch_plain(frames, tiles,
+                                                   nonlinearity=nl, **kw)
+            torch.cuda.synchronize()
+            keep = clear if nl == "sign" else torch.ones_like(clear)
+            check(keep.float().mean() > 0.9, f"{what}: projections near 0")
+            err = float((got - plain)[keep].abs().max())
+            check(err <= SCORE_ATOL, f"{what}: kernel vs plain {err}")
+            check(torch.equal(got, again), f"{what}: kernel run to run")
+            check(bool(torch.isfinite(got).all()), f"{what}: not finite")
+            worst = max(worst, err)
+    return worst
 
 
 def ragged_int_checks() -> float:
@@ -753,7 +845,8 @@ def train_kernel_checks(model, B0, x_tr, x_te, hv_te):
         library_ms=time_ms(lambda: torch.nn.functional.cosine_similarity(
             hv_te[:, None], C[None], dim=-1)),
         **bound(4 * (N * DIM + nc * DIM + N * nc),
-                2 * N * DIM * (nc + 1) + 2 * nc * DIM, F32_OPS_S)))
+                2 * N * DIM * (nc + 1) + 2 * nc * DIM, F32_OPS_S),
+        many_classes_max_abs_err=many_class_checks(hv_te)))
     # each kernel's device time alone, from the profiler: ``ms`` above is a
     # whole wrapper call, which includes the host's enqueue
     calls = {"hdc_encode_perm": (lambda: enc_perm.hdc_encode_perm(
@@ -771,6 +864,24 @@ def train_kernel_checks(model, B0, x_tr, x_te, hv_te):
             r["ragged_max_abs_err"] = ragged[r["name"]]
             r["beats_library"] = r["ms"] <= r["library_ms"]
     return records
+
+
+def many_class_checks(q) -> dict:
+    """``similarity`` past one launch's MAX_CLASSES: C = 9 and C = 17
+    classes (two and three launches) against the plain version within
+    SCORE_ATOL, bitwise run to run. Returns each C's error."""
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(SEED + 5)
+    errs = {}
+    for C in (9, 17):
+        c = torch.randn((C, q.shape[1]), generator=g, device=DEVICE)
+        got, again = sim.similarity(q, c), sim.similarity(q, c)
+        plain = sim.similarity_plain(q, c)
+        torch.cuda.synchronize()
+        errs[C] = float((got - plain).abs().max())
+        check(errs[C] <= SCORE_ATOL, f"similarity at C={C}: {errs[C]}")
+        check(torch.equal(got, again), f"similarity at C={C} run to run")
+    return errs
 
 
 def encode_bounds(n_bytes: int, N: int, K: int) -> dict:

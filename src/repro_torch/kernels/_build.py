@@ -42,7 +42,10 @@ F = ctypes.c_float
 SIGNATURES: dict[str, dict[str, tuple]] = {
     "sliding_scores": {
         "sliding_scores_f32": (I, [P] * 10 + [I] * 10 + [P]),
-        "sliding_scores_f32_smem_bytes": (ctypes.c_size_t, [I, I]),
+        "sliding_scores_f32_smem_bytes": (ctypes.c_size_t, []),
+        "sliding_scores_f32_col_tile": (I, []),
+        "sliding_scores_f32_windows": (I, []),
+        "sliding_scores_f32_occupancy": (I, [I] * 3 + [P] * 4),
     },
     "sliding_scores_int": {
         "sliding_scores_int": (I, [P] * 13 + [I] * 11 + [P]),
@@ -51,7 +54,7 @@ SIGNATURES: dict[str, dict[str, tuple]] = {
         "sliding_scores_int_occupancy": (I, [I] * 3 + [P] * 4),
     },
     "similarity": {
-        "similarity_f32": (I, [P] * 4 + [I] * 4 + [F, P]),
+        "similarity_f32": (I, [P] * 4 + [I] * 5 + [F, P]),
         "similarity_max_classes": (I, []),
     },
     "hdc_encode": {

@@ -6,7 +6,11 @@
 //   out[n, k] = dot(q[n], c[k]) / (max(sqrt(q[n].q[n]), eps) *
 //                                  max(sqrt(c[k].c[k]), eps))
 //
-// for queries (N, D) against C <= kMaxClasses class hypervectors (C, D).
+// for queries (N, D) against C class hypervectors (C, D). One launch takes
+// up to kMaxClasses classes and writes their columns of an output whose
+// rows are ldo floats apart; the wrapper launches once per block of
+// kMaxClasses classes. Each class's dot and sum of squares are summed on
+// their own, so a class's bits do not depend on the block it sits in.
 //
 // What bounds it on the H100: bytes. Each query element is read once and
 // used in C + 1 multiply-adds, far below the card's ~20 float32 operations
@@ -52,8 +56,8 @@ __global__ void __launch_bounds__(kRowsPerBlock * 32)
     sim_rows(const float* __restrict__ q,   // (N, D)
              const float* __restrict__ c,   // (C, D)
              const float* __restrict__ cc,  // (C,) class sums of squares
-             float* __restrict__ out,       // (N, C)
-             int N, int D, int C, float eps) {
+             float* __restrict__ out,       // (N, ldo), columns 0 .. C-1
+             int N, int D, int C, int ldo, float eps) {
   const int lane = threadIdx.x & 31;
   const int n = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
   if (n >= N) return;  // n is the same in every lane of a warp
@@ -97,7 +101,7 @@ __global__ void __launch_bounds__(kRowsPerBlock * 32)
     const float qn = fmaxf(sqrtf(qq), eps);
 #pragma unroll
     for (int k = 0; k < kMaxClasses; ++k)
-      if (k < C) out[(size_t)n * C + k] = dots[k] / (qn * fmaxf(sqrtf(cc[k]), eps));
+      if (k < C) out[(size_t)n * ldo + k] = dots[k] / (qn * fmaxf(sqrtf(cc[k]), eps));
   }
 }
 
@@ -107,23 +111,26 @@ extern "C" {
 
 int similarity_max_classes() { return kMaxClasses; }
 
-// out (N, C) cosine scores of q (N, D) against c (C, D); cc is scratch of
-// C floats. vec != 0 takes float4 loads: D % 4 == 0 and q, c 16-byte
-// aligned. Returns cudaGetLastError().
+// Cosine scores of q (N, D) against c (C, D), C <= kMaxClasses, into
+// columns 0 .. C-1 of out, whose rows are ldo >= C floats apart; cc is
+// scratch of C floats. vec != 0 takes float4 loads: D % 4 == 0 and q, c
+// 16-byte aligned. Returns cudaGetLastError().
 int similarity_f32(const float* q, const float* c, float* cc, float* out,
-                   int N, int D, int C, int vec, float eps,
+                   int N, int D, int C, int ldo, int vec, float eps,
                    cudaStream_t stream) {
-  if (C < 1 || C > kMaxClasses) return (int)cudaErrorInvalidValue;
+  if (C < 1 || C > kMaxClasses || ldo < C) return (int)cudaErrorInvalidValue;
   class_sumsq<<<C, kSumThreads, 0, stream>>>(c, cc, D);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int blocks = (N + kRowsPerBlock - 1) / kRowsPerBlock;
   if (vec)
     sim_rows<true><<<blocks, kRowsPerBlock * 32, 0, stream>>>(q, c, cc, out,
-                                                              N, D, C, eps);
+                                                              N, D, C, ldo,
+                                                              eps);
   else
     sim_rows<false><<<blocks, kRowsPerBlock * 32, 0, stream>>>(q, c, cc, out,
-                                                               N, D, C, eps);
+                                                               N, D, C, ldo,
+                                                               eps);
   return (int)cudaGetLastError();
 }
 

@@ -18,7 +18,8 @@ from repro_torch import pin_fp32_matmul
 from repro_torch.kernels import _build
 from repro_torch.kernels.sliding_scores import _check_device
 
-#: kernel launches made by :func:`similarity` (one per call on a CUDA tensor)
+#: calls of :func:`similarity` on a CUDA tensor (each launches the kernel
+#: once per block of :data:`MAX_CLASSES` classes)
 LAUNCHES = 0
 
 #: most classes one launch takes (``kMaxClasses`` in ``csrc/similarity.cu``)
@@ -39,6 +40,8 @@ def similarity_plain(queries: torch.Tensor, class_hvs: torch.Tensor, *,
 
 
 def _launch(q: torch.Tensor, c: torch.Tensor, eps: float) -> torch.Tensor:
+    """One kernel launch per block of up to ``MAX_CLASSES`` classes, each
+    writing its columns of ``out``."""
     lib = _build.load("similarity")
     N, D = q.shape
     C = c.shape[0]
@@ -46,12 +49,14 @@ def _launch(q: torch.Tensor, c: torch.Tensor, eps: float) -> torch.Tensor:
     if N == 0:
         return out
     cc = torch.empty((C,), device=q.device)
-    vec = int(D % 4 == 0 and q.data_ptr() % 16 == 0
-              and c.data_ptr() % 16 == 0)
-    err = lib.similarity_f32(q.data_ptr(), c.data_ptr(), cc.data_ptr(),
-                             out.data_ptr(), N, D, C, vec, eps,
-                             _build.stream_ptr())
-    _build.check(err, "similarity_f32")
+    for c0 in range(0, C, MAX_CLASSES):
+        cb = min(MAX_CLASSES, C - c0)
+        vec = int(D % 4 == 0 and q.data_ptr() % 16 == 0
+                  and c[c0].data_ptr() % 16 == 0)
+        err = lib.similarity_f32(q.data_ptr(), c[c0].data_ptr(),
+                                 cc[c0:].data_ptr(), out[:, c0:].data_ptr(),
+                                 N, D, cb, C, vec, eps, _build.stream_ptr())
+        _build.check(err, "similarity_f32")
     return out
 
 
@@ -78,9 +83,8 @@ def similarity(queries: torch.Tensor, class_hvs: torch.Tensor, *,
                          f"{class_hvs.device}")
     if queries.device.type == "cpu":
         return similarity_plain(queries, class_hvs, eps=eps)
-    if not 1 <= class_hvs.shape[0] <= MAX_CLASSES:
-        raise ValueError(f"the similarity kernel takes 1 to {MAX_CLASSES} "
-                         f"classes, got {class_hvs.shape[0]}")
+    if class_hvs.shape[0] < 1:
+        raise ValueError("the similarity kernel takes at least one class")
     out = _launch(queries.to(torch.float32).contiguous(),
                   class_hvs.to(torch.float32).contiguous(), eps)
     LAUNCHES += 1

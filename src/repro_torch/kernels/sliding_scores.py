@@ -9,7 +9,8 @@ unrolled orientation (bias and class tiles pre-rotated once per model) and
 the classifier dot products.
 
 :func:`fragment_scores_batch` is the wrapper: on a CUDA tensor it launches
-the hand-written kernel ``csrc/sliding_scores.cu``; on a CPU tensor it runs
+the hand-written kernel ``csrc/sliding_scores.cu``, the same reuse as GEMMs
+on the TF32 tensor cores in 3xTF32; on a CPU tensor it runs
 the plain version :func:`fragment_scores_batch_plain`, which the tests hold
 against the JAX package. Precompute follows the model's mutability split:
 :class:`ScoreGeometry` (class-independent: slabs, bias tiles, the rotation
@@ -26,12 +27,23 @@ from repro_torch import pin_fp32_matmul
 from repro_torch.core.encoding import SHIFT, NonLin, apply_nonlinearity
 from repro_torch.kernels import _build
 
-#: kernel launches made by :func:`fragment_scores_batch` (one per call on
-#: a CUDA tensor)
+#: calls of the C entry (three kernel launches: window norms, scoring, the
+#: fold) made by :func:`fragment_scores_batch`, one per call on a CUDA
+#: tensor
 LAUNCHES = 0
 
-#: hypervector columns per CUDA block (``kColChunk`` in ``score_common.cuh``)
-COL_CHUNK = 256
+#: the kernel's block (``csrc/sliding_scores.cu``): hypervector columns
+#: (``kBN``, the fixed partition of a D-tile into the partials that
+#: ``fold_epilogue`` folds), rows (n, ky) (``kBM``) and consecutive windows
+#: (``kKX``) per block
+COL_TILE, ROW_TILE, WINDOWS_PER_BLOCK = 128, 64, 5
+
+#: its K step (``kBK``) and cp.async ring depth (``kStages``)
+STEP_K, _STAGES = 32, 3
+
+#: floats a stage holds for the Hankel windows of a step's base rows
+#: (``kBSlots``): 32 rows of 132 floats at ``gcd(stride, w) = 1``, the most
+_B_SLOTS = STEP_K * 132
 
 #: dynamic shared memory one H100 block may use
 SMEM_LIMIT_BYTES = 232_448
@@ -280,12 +292,18 @@ def fragment_scores_batch_plain(frames: torch.Tensor, tiles: ScoreTiles, *,
                             tiles.cneg_norm, per_stream, C)
 
 
-def smem_bytes(W: int, mx: int) -> int:
-    """Dynamic shared memory of one scoring block (``score_smem_bytes`` in
-    ``csrc/score_common.cuh``): a frame row, a slab segment, per-column
-    prefix snapshots and window sums, the block sum's warp totals."""
-    return 4 * (W + (COL_CHUNK + W - 1) + 2 * mx * COL_CHUNK
-                + 3 * (COL_CHUNK // 32))
+def smem_bytes() -> int:
+    """Dynamic shared memory of one scoring block (``kSmemBytes`` in
+    ``csrc/sliding_scores.cu``): a ring of ``_STAGES`` K steps, each
+    ``ROW_TILE`` frame rows padded to ``STEP_K + 4`` floats, the Hankel
+    windows of its base rows over ``COL_TILE`` columns (``_B_SLOTS``) with
+    a zero row, and its ``STEP_K`` row offsets; the running sums kept where
+    windows open (``WINDOWS_PER_BLOCK - 1`` slots of 32 floats for each of
+    256 threads); the epilogue's warp partials. No frame, window or tile
+    width sizes it."""
+    stage = ROW_TILE * (STEP_K + 4) + _B_SLOTS + COL_TILE + STEP_K
+    return 4 * (_STAGES * stage + (WINDOWS_PER_BLOCK - 1) * 32 * 256
+                + 4 * ROW_TILE * 3)
 
 
 def _flat_norms(tiles) -> tuple[torch.Tensor, torch.Tensor]:
@@ -296,27 +314,27 @@ def _flat_norms(tiles) -> tuple[torch.Tensor, torch.Tensor]:
 
 def _launch(frames: torch.Tensor, tiles: ScoreTiles, *, h: int, w: int,
             stride: int, nonlinearity: NonLin, C: int) -> torch.Tensor:
+    """One call of the C entry: the window norms, the scoring kernel, then
+    the fold."""
     N, H, W = frames.shape
     my = (H - h) // stride + 1
     mx = (W - w) // stride + 1
     n_dt = tiles.slabs.shape[0]
     td = tiles.block_d
-    if smem_bytes(W, mx) > SMEM_LIMIT_BYTES:
-        raise ValueError(f"scoring block needs {smem_bytes(W, mx)} B of "
-                         f"shared memory (> {SMEM_LIMIT_BYTES}) at W={W}, "
-                         f"mx={mx}")
     lib = _build.load("sliding_scores")
     dev = frames.device
     frames = frames.to(torch.float32).contiguous()
-    norms = window_norms_batch(frames, h, w, stride).contiguous()
+    slabs = tiles.slabs if tiles.slabs.data_ptr() % 16 == 0 else \
+        tiles.slabs.clone()  # the kernel copies slab rows in 16-byte chunks
+    norms = torch.empty((N, my, mx), device=dev)
     cpos_norm, cneg_norm = _flat_norms(tiles)
     cpos_t = tiles.cpos_t.to(torch.float32).contiguous()
     cneg_t = tiles.cneg_t.to(torch.float32).contiguous()
-    n_chunks = n_dt * -(-td // COL_CHUNK)
-    partials = torch.empty((n_chunks, N * my * mx, 3), device=dev)
+    n_col_tiles = n_dt * -(-td // COL_TILE)
+    partials = torch.empty((n_col_tiles, N * my * mx, 3), device=dev)
     out = torch.empty((N, my, mx), device=dev)
-    args = (frames, tiles.slabs, tiles.bias_t, cpos_t, cneg_t, norms,
-            cpos_norm, cneg_norm, partials, out)
+    args = (frames, slabs, tiles.bias_t, cpos_t, cneg_t, norms, cpos_norm,
+            cneg_norm, partials, out)
     err = lib.sliding_scores_f32(
         *(a.data_ptr() for a in args), N, H, W, h, w, stride, td, n_dt, C,
         NONLINEARITIES[nonlinearity], _build.stream_ptr())
@@ -335,9 +353,12 @@ def fragment_scores_batch(frames: torch.Tensor, tiles: ScoreTiles, *,
                           nonlinearity: NonLin = "rff",
                           frames_per_stream: int | None = None
                           ) -> torch.Tensor:
-    """(N, H, W) frames -> (N, my, mx) score maps in one kernel launch.
+    """(N, H, W) frames -> (N, my, mx) score maps in one call of the C
+    entry (the window norms, the scoring kernel and the fold);
+    :data:`LAUNCHES` counts the calls.
 
-    A CUDA tensor launches ``csrc/sliding_scores.cu`` (or raises); a CPU
+    A CUDA tensor launches ``csrc/sliding_scores.cu``, a 3xTF32
+    tensor-core GEMM in the paper's reuse form (or raises); a CPU
     tensor runs :func:`fragment_scores_batch_plain`. With per-stream class
     tiles (``(S, n_dt, mx, TD)``) the batch is S streams of
     ``frames_per_stream`` frames each: frame ``n`` is scored against stream

@@ -58,6 +58,10 @@ COL_TILE = 128
 #: k per step (``kBK``)
 ROW_TILE, _STAGES, _STEP_K = 64, 4, 64
 
+#: device bytes one call of the C entry may take for its ``im2col``
+#: scratch: 1 GiB, 1.3% of the H100's 80 GB
+IM2COL_BUDGET_BYTES = 1 << 30
+
 
 @dataclasses.dataclass(frozen=True)
 class IntScoreGeometry:
@@ -102,9 +106,49 @@ def smem_bytes() -> int:
                       + 4 * groups)
 
 
+def _passes(adc_bits: int) -> int:
+    """Byte passes of the codes ``adc.codes_dtype(adc_bits)`` gives: 1 up
+    to 8 bits (uint8, or packed int4), 2 up to 16 (uint16), 4 beyond."""
+    return 1 if adc_bits <= 8 else (2 if adc_bits <= 16 else 4)
+
+
+def im2col_bytes_per_frame(H: int, W: int, h: int, w: int, stride: int,
+                           passes: int = 1) -> int:
+    """Bytes of the kernel's ``im2col`` scratch per frame: ``passes * mx *
+    my * Kp`` (``Kp``: ``h * w`` with ``w`` rounded up to 4, rounded up to
+    the ``_STEP_K``-deep K step)."""
+    my = (H - h) // stride + 1
+    mx = (W - w) // stride + 1
+    kp = -(-h * (-(-w // 4) * 4) // _STEP_K) * _STEP_K
+    return passes * mx * my * kp
+
+
+def frame_runs(N: int, per_frame_bytes: int, frames_per_stream: int,
+               budget: int = IM2COL_BUDGET_BYTES) -> list[tuple[int, int]]:
+    """``(lo, hi)`` runs of frames that cover ``0 .. N`` in order, one call
+    of the C entry each, so no call's ``im2col`` scratch exceeds
+    ``budget``: at most ``max(1, budget // per_frame_bytes)`` frames a run.
+    A run either starts on a stream boundary and holds whole streams of
+    ``frames_per_stream`` frames, or lies inside one stream, so each call
+    reads its classes from one run of streams."""
+    k = max(1, budget // max(per_frame_bytes, 1))
+    C = frames_per_stream
+    runs = []
+    if k >= C:
+        k -= k % C
+        for lo in range(0, N, k):
+            runs.append((lo, min(N, lo + k)))
+    else:
+        for s0 in range(0, N, C):
+            for lo in range(s0, min(N, s0 + C), k):
+                runs.append((lo, min(N, s0 + C, lo + k)))
+    return runs
+
+
 def int_datapath_bounds(adc_bits: int, H: int, W: int, h: int, w: int,
                         stride: int = 1) -> dict:
-    """Worst-case int32 accumulators and the kernel's shared memory.
+    """Worst-case int32 accumulators, the kernel's shared memory and its
+    ``im2col`` scratch.
 
     ``sumsq`` (the summed-area table of squared codes over a frame) and
     ``acc`` (one fragment projection, ``h*w`` products of a max code with a
@@ -113,22 +157,31 @@ def int_datapath_bounds(adc_bits: int, H: int, W: int, h: int, w: int,
     ``COL_TILE`` columns through a 4-stage ring of K steps. No
     frame, window or tile width sizes it (any W, mx and D-tile, 5000 wide
     at the paper's D, runs in the same block), so it always fits the
-    H100's 227 KB. ``stride=1`` (the most windows) is the conservative
-    default.
+    H100's 227 KB. ``im2col_bytes_per_frame`` is the device scratch the
+    kernel's A operand takes per frame, for the byte passes of the codes'
+    layout (1 for codes of up to 8 bits, 2 for uint16, 4 for int32); a
+    call cuts its chunk into runs of frames whose scratch stays within
+    ``IM2COL_BUDGET_BYTES``, so one frame must fit it. ``stride=1`` (the
+    most windows) is the conservative default.
     """
     cmax = (1 << adc_bits) - 1
     sumsq = H * W * cmax * cmax
     acc = h * w * cmax * _QMAX
     smem = smem_bytes()
+    scratch = im2col_bytes_per_frame(H, W, h, w, stride, _passes(adc_bits))
     return {"sumsq": sumsq, "acc": acc, "int32_max": INT32_MAX,
             "smem_bytes": smem, "smem_limit_bytes": _ss.SMEM_LIMIT_BYTES,
+            "im2col_bytes_per_frame": scratch,
+            "im2col_budget_bytes": IM2COL_BUDGET_BYTES,
             "fits": (max(sumsq, acc) <= INT32_MAX
-                     and smem <= _ss.SMEM_LIMIT_BYTES)}
+                     and smem <= _ss.SMEM_LIMIT_BYTES
+                     and scratch <= IM2COL_BUDGET_BYTES)}
 
 
 def assert_int_datapath_fits(adc_bits: int, H: int, W: int, h: int, w: int,
                              stride: int = 1) -> None:
-    """Raise unless the int datapath is exact (its block fits any size)."""
+    """Raise unless the int datapath is exact and one frame's ``im2col``
+    scratch fits the budget (its block fits any size)."""
     b = int_datapath_bounds(adc_bits, H, W, h, w, stride=stride)
     if max(b["sumsq"], b["acc"]) > INT32_MAX:
         raise ValueError(
@@ -136,6 +189,16 @@ def assert_int_datapath_fits(adc_bits: int, H: int, W: int, h: int, w: int,
             f"frame {H}x{W}, window {h}x{w}: worst-case accumulators "
             f"sumsq={b['sumsq']}, acc={b['acc']} exceed {INT32_MAX}; "
             f"use fewer ADC bits / smaller frames or precision='float32'")
+    _check_im2col(b["im2col_bytes_per_frame"], H, W, h, w, stride)
+
+
+def _check_im2col(per_frame: int, H, W, h, w, stride) -> None:
+    if per_frame > IM2COL_BUDGET_BYTES:
+        raise ValueError(
+            f"int scorer's im2col scratch needs {per_frame} B per frame at "
+            f"frame {H}x{W}, window {h}x{w}, stride {stride}: over the "
+            f"{IM2COL_BUDGET_BYTES} B budget of one call; use a larger "
+            f"stride or precision='float32'")
 
 
 # ---------------------------------------------------------------------------
@@ -353,8 +416,12 @@ def _check_geometry(geom, h, w, stride, W, mx):
 def _launch(codes: torch.Tensor, tiles: IntScoreTiles, *, h: int, w: int,
             stride: int, nonlinearity: NonLin, C: int, packed: bool,
             acc_out: torch.Tensor | None = None) -> torch.Tensor:
-    """One call of the C entry: four kernel launches (window norms,
-    im2col, the GEMM with its scoring epilogue, the fold)."""
+    """Calls of the C entry, four kernel launches each (window norms,
+    im2col, the GEMM with its scoring epilogue, the fold): one per run of
+    frames whose ``im2col`` scratch fits ``IM2COL_BUDGET_BYTES``
+    (:func:`frame_runs`; one run at the paper's chunk). Frames are
+    independent and the column partition depends on ``td`` alone, so the
+    runs give the bits of one call."""
     geom = tiles.geom
     N, H, Wc = codes.shape
     W = Wc * 2 if packed else Wc
@@ -362,8 +429,6 @@ def _launch(codes: torch.Tensor, tiles: IntScoreTiles, *, h: int, w: int,
     my = (H - h) // stride + 1
     n_dt = geom.slabs_q.shape[0]
     td = geom.block_d
-    lib = _build.load("sliding_scores_int")
-    dev = codes.device
     if packed:
         layout = _LAYOUT_NIBBLES
     elif codes.dtype in _LAYOUTS:
@@ -371,26 +436,36 @@ def _launch(codes: torch.Tensor, tiles: IntScoreTiles, *, h: int, w: int,
     else:  # other integer codes: widened at the kernel boundary only
         layout = _LAYOUT_I32
         codes = codes.to(torch.int32)
+    per_frame = im2col_bytes_per_frame(H, W, h, w, stride, _PASSES[layout])
+    _check_im2col(per_frame, H, W, h, w, stride)
+    lib = _build.load("sliding_scores_int")
+    dev = codes.device
     codes = codes.contiguous()
     cpos_norm, cneg_norm = _ss._flat_norms(tiles)
+    cpos_t, cneg_t = tiles.cpos_t.contiguous(), tiles.cneg_t.contiguous()
+    class_tile = n_dt * mx * td  # int8 class entries per stream
     n_col_tiles = n_dt * -(-td // COL_TILE)
-    # the kernel's scratch: window norms, A as (passes, mx, N*my, Kp) bytes
-    # (Kp: h * w rounded up to 4 per row, rounded up to _STEP_K), partials
-    kp = -(-h * -(-w // 4) * 4 // _STEP_K) * _STEP_K
-    norms = torch.empty((N, my, mx), device=dev)
-    acol = torch.empty((_PASSES[layout], mx, N * my, kp), dtype=torch.uint8,
-                       device=dev)
-    partials = torch.empty((n_col_tiles, N * my * mx, 3), device=dev)
+    runs = frame_runs(N, per_frame, C)
+    longest = max(hi - lo for lo, hi in runs)
+    # the kernel's scratch, sized for the longest run: window norms, A as
+    # (passes, mx, n*my, Kp) bytes, partials
+    norms = torch.empty((longest, my, mx), device=dev)
+    acol = torch.empty((longest * per_frame,), dtype=torch.uint8, device=dev)
+    partials = torch.empty((n_col_tiles, longest * my * mx, 3), device=dev)
     out = torch.empty((N, my, mx), device=dev)
-    args = (codes, geom.slabs_q, geom.bias_t, tiles.cpos_t.contiguous(),
-            tiles.cneg_t.contiguous(), geom.slab_scale, norms, acol,
-            cpos_norm, cneg_norm, partials, out)
-    err = lib.sliding_scores_int(
-        *(a.data_ptr() for a in args),
-        None if acc_out is None else acc_out.data_ptr(),
-        N, H, W, h, w, stride, td, n_dt, C,
-        _ss.NONLINEARITIES[nonlinearity], layout, _build.stream_ptr())
-    _build.check(err, "sliding_scores_int")
+    for lo, hi in runs:
+        s0 = lo // C  # the run's first stream
+        args = (codes[lo:hi], geom.slabs_q, geom.bias_t,
+                cpos_t.reshape(-1)[s0 * class_tile:],
+                cneg_t.reshape(-1)[s0 * class_tile:], geom.slab_scale,
+                norms, acol, cpos_norm[s0:], cneg_norm[s0:], partials,
+                out[lo:hi])
+        err = lib.sliding_scores_int(
+            *(a.data_ptr() for a in args),
+            None if acc_out is None else acc_out[lo:hi].data_ptr(),
+            hi - lo, H, W, h, w, stride, td, n_dt, min(C, hi - lo),
+            _ss.NONLINEARITIES[nonlinearity], layout, _build.stream_ptr())
+        _build.check(err, "sliding_scores_int")
     return out
 
 

@@ -78,3 +78,33 @@ def assert_margin(scores, t_score: float) -> None:
 def t(a) -> torch.Tensor:
     """numpy/JAX array -> CPU tensor (same dtype)."""
     return torch.from_numpy(np.array(a))
+
+
+def partition_sum(x: torch.Tensor) -> torch.Tensor:
+    """``(..., n_dt, td)`` -> ``(...)`` in the scoring kernels' order: per
+    128-column tile, each thread (warp ``wn``, quad lane ``q``) sums its
+    columns ``32 wn + 8 ni + 2 q + e`` in order, the quad combines in a
+    butterfly, the 4 warps left to right; the column tiles fold left to
+    right (``fold_epilogue``)."""
+    n_dt, td = x.shape[-2:]
+    parts = []
+    for dt in range(n_dt):
+        for j0 in range(0, td, 128):
+            n = min(128, td - j0)
+            cols = torch.zeros(x.shape[:-2] + (128,), dtype=x.dtype)
+            cols[..., :n] = x[..., dt, j0:j0 + n]
+            warps = []
+            for wn in range(4):
+                lanes = []
+                for q in range(4):
+                    v = torch.zeros(x.shape[:-2], dtype=x.dtype)
+                    for ni in range(4):
+                        for e in range(2):
+                            v = v + cols[..., 32 * wn + 8 * ni + 2 * q + e]
+                    lanes.append(v)
+                warps.append((lanes[0] + lanes[1]) + (lanes[2] + lanes[3]))
+            parts.append(((warps[0] + warps[1]) + warps[2]) + warps[3])
+    out = parts[0]
+    for p in parts[1:]:
+        out = out + p
+    return out

@@ -203,7 +203,8 @@ def test_single_tf32_product_misses_hv_tolerance(paper_depth_encode):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("shape", [(50, 300, 2), (3, 5000, 4),
-                                   (257, 129, 3)])
+                                   (257, 129, 3), (40, 300, 9),
+                                   (9, 130, 17)])
 def test_similarity_matches_jax_kernel(shape):
     n, d, c = shape
     rng = np.random.default_rng(6)

@@ -273,4 +273,41 @@ def test_int_datapath_bounds():
     wide = tssi.int_datapath_bounds(1, 8, 4096, 8, 8, stride=8)
     assert wide["fits"] and wide["smem_bytes"] == paper["smem_bytes"]
     tssi.assert_int_datapath_fits(1, 8, 4096, 8, 8, stride=8)
+    # the im2col scratch: 5 x 5 windows of 96 x 96 codes, one byte each, per
+    # frame at the paper's operating point; a 32-frame chunk is one call
+    assert paper["im2col_bytes_per_frame"] == 230_400
+    assert paper["im2col_budget_bytes"] == tssi.IM2COL_BUDGET_BYTES == 2**30
+    assert tssi.frame_runs(32, 230_400, 32) == [(0, 32)]
+    assert 32 * paper["im2col_bytes_per_frame"] == 7_372_800
+    assert tssi.int_datapath_bounds(10, 64, 64, 16, 16, stride=4)[
+        "im2col_bytes_per_frame"] == 2 * 13 * 13 * 256     # uint16: 2 passes
+    # 4-bit codes, 640 x 640 frames, 96 x 96 windows, stride 1: 545 x 545
+    # windows of 9216 bytes are over the budget for one frame
+    big = tssi.int_datapath_bounds(4, 640, 640, 96, 96, stride=1)
+    assert big["im2col_bytes_per_frame"] == 2_737_382_400
+    assert max(big["sumsq"], big["acc"]) <= big["int32_max"]
+    assert not big["fits"]
+    with pytest.raises(ValueError, match="2737382400 B per frame"):
+        tssi.assert_int_datapath_fits(4, 640, 640, 96, 96, stride=1)
+
+
+@pytest.mark.parametrize("N, per_frame, C, budget", [
+    (32, 230_400, 32, 2**30),       # the paper's chunk: one run
+    (32, 100, 32, 700),             # shared classes: runs of 7
+    (12, 100, 4, 900),              # 3 streams of 4: runs of 2 streams
+    (12, 100, 4, 300),              # runs of 3 inside each stream
+    (5, 2000, 5, 1000),             # a frame over the budget runs alone
+])
+def test_int_frame_runs_cover_the_chunk(N, per_frame, C, budget):
+    """The int wrapper's runs of frames (one call of the C entry each)
+    cover the chunk in order, keep each call's im2col scratch within the
+    budget (a frame alone where one does not fit), and either hold whole
+    streams from a stream boundary or lie inside one stream."""
+    runs = tssi.frame_runs(N, per_frame, C, budget)
+    assert [lo for lo, _ in runs] == [0] + [hi for _, hi in runs[:-1]]
+    assert runs[-1][1] == N
+    for lo, hi in runs:
+        assert hi > lo and (hi - lo == 1 or (hi - lo) * per_frame <= budget)
+        assert (lo % C == 0 and (hi - lo) % C in (0, N % C)) \
+            or lo // C == (hi - 1) // C
     assert tadc.codes_dtype(8) == torch.uint8

@@ -20,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import SCORE_ATOL, model_arrays, t
+from _torch_parity import SCORE_ATOL, model_arrays, partition_sum, t
 from repro.kernels import sliding_scores_int as jssi
 from repro_torch.kernels import sliding_scores_int as tssi
 
@@ -188,42 +188,16 @@ def test_horner_wraps_like_int32():
 # ---------------------------------------------------------------------------
 
 def emulated_scores(acc, tiles, h, w, stride, codes, nonlinearity="rff"):
-    """The kernel's epilogue in float32: per ``COL_TILE`` columns, each
-    thread (warp ``wn``, quad lane ``q``) sums its columns ``32 wn + 8 ni +
-    2 q + e`` in order, the quad combines in a butterfly, the 4 warps left
-    to right; the tiles fold left to right (``fold_epilogue``)."""
+    """The kernel's epilogue in float32: the nonlinearity, then the column
+    partition and the fold (``partition_sum``)."""
     from repro_torch.core.encoding import apply_nonlinearity
     geom = tiles.geom
-    N, my, n_dt, mx, td = acc.shape
     norms = tssi._scaled_norms(codes, geom, h, w, stride)       # (N, my, mx)
     s_n = acc.permute(0, 1, 3, 2, 4).to(torch.float32) / norms[..., None, None]
     phi = apply_nonlinearity(s_n, geom.bias_t.permute(1, 0, 2), nonlinearity)
     prods = [phi * tiles.cpos_t.permute(1, 0, 2).to(torch.float32),
              phi * tiles.cneg_t.permute(1, 0, 2).to(torch.float32), phi * phi]
-    folded = []
-    for x in prods:                                     # (N, my, mx, n_dt, td)
-        parts = []
-        for dt in range(n_dt):
-            for j0 in range(0, td, tssi.COL_TILE):
-                cols = torch.zeros(x.shape[:3] + (tssi.COL_TILE,))
-                n = min(tssi.COL_TILE, td - j0)
-                cols[..., :n] = x[..., dt, j0:j0 + n]
-                warps = []
-                for wn in range(4):
-                    lanes = []
-                    for q in range(4):
-                        v = torch.zeros(x.shape[:3])
-                        for ni in range(4):
-                            for e in range(2):
-                                v = v + cols[..., 32 * wn + 8 * ni + 2 * q + e]
-                        lanes.append(v)
-                    warps.append((lanes[0] + lanes[1]) + (lanes[2] + lanes[3]))
-                parts.append(((warps[0] + warps[1]) + warps[2]) + warps[3])
-        out = parts[0]
-        for p in parts[1:]:
-            out = out + p
-        folded.append(out)
-    dp, dn, qq = folded
+    dp, dn, qq = (partition_sum(x) for x in prods)     # x: (N,my,mx,n_dt,td)
     qn = torch.clamp(torch.sqrt(qq), min=1e-9)
     return (dp / (qn * torch.clamp(tiles.cpos_norm, min=1e-9))
             - dn / (qn * torch.clamp(tiles.cneg_norm, min=1e-9)))
