@@ -27,7 +27,8 @@ SHARD2_FILES = tests/test_arch_smoke.py tests/test_cells.py \
 	tests/test_train_runtime.py tests/test_ci_shards.py \
 	tests/test_analysis.py tests/test_torch_core.py \
 	tests/test_torch_hypersense.py tests/test_torch_fragment_model.py \
-	tests/test_torch_scores_int.py tests/test_torch_scores_f32.py
+	tests/test_torch_scores_int.py tests/test_torch_scores_f32.py \
+	tests/test_torch_similarity.py
 
 # PYTEST_EXTRA lets CI attach coverage flags (see .github/workflows/ci.yml);
 # plain local runs need no pytest-cov install.

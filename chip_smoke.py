@@ -8,7 +8,9 @@ sm_90a: an H100). It
 
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds all five kernels from ``src/repro_torch/kernels/csrc`` with
-   nvcc, one process per source, all at once;
+   nvcc, one process per source, all at once, and counts ``similarity``'s
+   launches per call at 2, 9, 17 and 33 classes from the profiler's
+   events (one each; first, before any other profile of the process);
 3. makes a HyperSense model at the paper's operating point (128x128
    frames, 96x96 fragments, stride 8, D=5000, RFF) from a seeded
    ``torch.Generator`` on the card: ``B0 ~ N(0, 1)``, ``b ~ U(0, 2 pi)``,
@@ -42,9 +44,11 @@ sm_90a: an H100). It
    twice and must be bitwise the same. It then holds the three training
    kernels (``hdc_encode_perm``, ``hdc_encode``, ``similarity``) against
    their plain versions at the path's shapes — hypervectors within 1e-4,
-   scores within 5e-5 (``similarity`` also at 9 and 17 classes), two runs
-   bitwise equal, ``hdc_encode_perm`` bitwise equal to ``hdc_encode`` on
-   the expanded base — and times them; holds
+   scores within 5e-5, two runs bitwise equal, ``hdc_encode_perm``
+   bitwise equal to ``hdc_encode`` on the expanded base — and times them;
+   holds ``similarity`` also at 9, 17 and 33 classes, across batch
+   positions, class subsets and a misaligned view (bitwise), and times
+   it at N = 512 and at a 16,384-row split past the L2; holds
    both encoders the same way at ragged shapes (N, K and D off the tiles,
    K steps that straddle generator rows) for each nonlinearity, and
    reports their tiles, blocks and waves;
@@ -99,6 +103,10 @@ N_TRAIN, N_HELD_OUT, EPOCHS = 256, 128, 20
 HV_ATOL = 1e-4
 SEED = 0
 DEVICE = "cuda"
+
+# D at which the Python and CUDA similarity chunk plans are compared:
+# ranks with empty chunks, D % 4 != 0, the paper's D, several D tiles
+SIM_PLAN_DS = (1, 16, 129, 130, 300, 1000, 4999, 5000, 8192, 8193, 20001)
 
 # ragged encoder shapes (N, h, w, D): N, K = h*w and D off the 128 x 160
 # (128 x 128) tiles and the 32-deep K steps, which w = 7 and w = 40 straddle
@@ -772,11 +780,13 @@ def train_kernel_checks(model, B0, x_tr, x_te, hv_te):
     bitwise, and timings, on the training path's own inputs: the training
     fragments through ``hdc_encode_perm``, the held-out ones through
     ``hdc_encode`` against the expanded base, and the held-out
-    hypervectors through ``similarity``; then both encoders at the RAGGED
-    shapes (``ragged_encode_checks``)."""
+    hypervectors through ``similarity`` (``similarity_checks`` for its
+    other shapes); then both encoders at the RAGGED shapes
+    (``ragged_encode_checks``)."""
     B, b = model.B, model.b
-    check(sim.MAX_CLASSES == _build.load("similarity").similarity_max_classes(),
-          "python and CUDA class limits differ")
+    lib = _build.load("similarity")
+    check(all(sim.chunk(D) == lib.similarity_chunk(D) for D in SIM_PLAN_DS),
+          "python and CUDA similarity chunk plans differ")
     pin_fp32_matmul()
     records = []
     K = FRAG * FRAG
@@ -796,6 +806,7 @@ def train_kernel_checks(model, B0, x_tr, x_te, hv_te):
                enc_perm.hdc_encode_perm(x_tr, B0, b, h=FRAG, w=FRAG),
                enc_perm.hdc_encode_perm_plain(x_tr, B0, b, w=FRAG),
                HV_ATOL)
+    hv_tr = got
     dense = enc.hdc_encode(x_tr, B, b)
     torch.cuda.synchronize()
     check(torch.equal(got, dense),
@@ -844,9 +855,7 @@ def train_kernel_checks(model, B0, x_tr, x_te, hv_te):
         plain_ms=time_ms(lambda: sim.similarity_plain(hv_te, C)),
         library_ms=time_ms(lambda: torch.nn.functional.cosine_similarity(
             hv_te[:, None], C[None], dim=-1)),
-        **bound(4 * (N * DIM + nc * DIM + N * nc),
-                2 * N * DIM * (nc + 1) + 2 * nc * DIM, F32_OPS_S),
-        many_classes_max_abs_err=many_class_checks(hv_te)))
+        **sim_bound(N, nc), **similarity_checks(hv_te, hv_tr, C)))
     # each kernel's device time alone, from the profiler: ``ms`` above is a
     # whole wrapper call, which includes the host's enqueue
     calls = {"hdc_encode_perm": (lambda: enc_perm.hdc_encode_perm(
@@ -854,7 +863,7 @@ def train_kernel_checks(model, B0, x_tr, x_te, hv_te):
              "hdc_encode": (lambda: enc.hdc_encode(x_te, B, b),
                             ("encode_kernel",)),
              "similarity": (lambda: sim.similarity(hv_te, C),
-                            ("class_sumsq", "sim_rows"))}
+                            ("sim_cluster",))}
     for r in records:
         r["kernel_device_ms"], r["kernel_device_by_kernel_ms"] = \
             kernel_device_ms(*calls[r["name"]])
@@ -866,22 +875,141 @@ def train_kernel_checks(model, B0, x_tr, x_te, hv_te):
     return records
 
 
-def many_class_checks(q) -> dict:
-    """``similarity`` past one launch's MAX_CLASSES: C = 9 and C = 17
-    classes (two and three launches) against the plain version within
-    SCORE_ATOL, bitwise run to run. Returns each C's error."""
+def sim_bound(N: int, C: int) -> dict:
+    """``similarity``'s bound at (N, DIM, C): each input read once, the
+    scores written once; 2 (C + 1) float32 operations per query element
+    (the dots and q.q) and 2 per class element."""
+    return bound(4 * (N * DIM + C * DIM + N * C),
+                 2 * N * DIM * (C + 1) + 2 * C * DIM, F32_OPS_S)
+
+
+def kernel_counts(fn, calls: int) -> dict:
+    """Device kernels of ``calls`` calls of ``fn`` under the profiler, by
+    name, between one-element fills on either side (not counted): the
+    profiler has lost a window's edge launches on the H100."""
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.zeros(1, device=DEVICE)
+        torch.cuda.synchronize()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        torch.zeros(1, device=DEVICE)
+        torch.cuda.synchronize()
+    counts = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CPU \
+                and e.self_device_time_total > 0 \
+                and "FillFunctor" not in e.key:
+            counts[e.key[:60]] = counts.get(e.key[:60], 0) + e.count
+    return counts
+
+
+def one_launch_per_call(fn, name: str, calls: int = 3,
+                        windows: int = 3) -> int:
+    """Check from the profiler's events that each call of ``fn`` launches
+    kernel ``name`` once and no other kernel. A window that recorded
+    fewer launches than the calls made (the profiler has lost events
+    right after a large profile) is taken again, up to ``windows`` times;
+    more launches, or another kernel, fails at once. Returns the windows
+    taken."""
+    for taken in range(1, windows + 1):
+        counts = kernel_counts(fn, calls)
+        check(len(counts) <= 1 and all(name in k for k in counts)
+              and sum(counts.values()) <= calls,
+              f"{name}: more than one launch per call: {counts}")
+        if sum(counts.values()) == calls:
+            return taken
+    raise AssertionError(f"{name}: {counts} in {calls} calls, "
+                         f"{windows} windows")
+
+
+def similarity_launches() -> dict:
+    """``similarity`` at the held-out call's shape (384 x DIM, seeded
+    random rows) for C = 2, 9, 17 and 33 classes: one ``sim_cluster``
+    launch per call at every C, counted from the profiler's events. Run
+    before any other profile of the process: after the training epoch's
+    profile the H100's profiler lost one launch in every window."""
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(SEED + 6)
+    q = torch.randn((384, DIM), generator=g, device=DEVICE)
+    windows = {}
+    for nc in (2, 9, 17, 33):
+        c = torch.randn((nc, DIM), generator=g, device=DEVICE)
+        sim.similarity(q, c)
+        windows[nc] = one_launch_per_call(lambda: sim.similarity(q, c),
+                                          "sim_cluster")
+    return dict(launches_per_call={nc: 1 for nc in windows},
+                profile_windows=windows)
+
+
+def similarity_checks(q, hv_tr, C) -> dict:
+    """``similarity`` beyond the held-out call, each result within
+    SCORE_ATOL of the plain version and bitwise the same run to run:
+    C = 9, 17 and 33 classes; a row bitwise the same in a 7-row call and
+    inside the held-out call; the two classes' columns bitwise the same
+    inside a 17-class call; a misaligned view (storage offset 1) bitwise
+    equal to its aligned copy; and, timed, the training path's N = 512
+    (``accuracy``) and a held-out split of 16,384 hypervectors (327.9 MB,
+    past the 50 MB L2)."""
     g = torch.Generator(device=DEVICE)
     g.manual_seed(SEED + 5)
-    errs = {}
-    for C in (9, 17):
-        c = torch.randn((C, q.shape[1]), generator=g, device=DEVICE)
-        got, again = sim.similarity(q, c), sim.similarity(q, c)
-        plain = sim.similarity_plain(q, c)
+    D = q.shape[1]
+    out = dict(many_classes_max_abs_err={})
+
+    def hold(what, got, again, plain):
         torch.cuda.synchronize()
-        errs[C] = float((got - plain).abs().max())
-        check(errs[C] <= SCORE_ATOL, f"similarity at C={C}: {errs[C]}")
-        check(torch.equal(got, again), f"similarity at C={C} run to run")
-    return errs
+        err = float((got - plain).abs().max())
+        check(err <= SCORE_ATOL, f"similarity {what}: {err}")
+        check(torch.equal(got, again), f"similarity {what} run to run")
+        check(bool(torch.isfinite(got).all()), f"similarity {what}: not "
+              f"finite")
+        return err
+
+    for nc in (9, 17, 33):
+        c = torch.randn((nc, D), generator=g, device=DEVICE)
+        out["many_classes_max_abs_err"][nc] = hold(
+            f"at C={nc}", sim.similarity(q, c), sim.similarity(q, c),
+            sim.similarity_plain(q, c))
+    full = sim.similarity(q, C)
+    seven = sim.similarity(q[13:20].clone(), C)
+    wide = sim.similarity(q, torch.cat([C, torch.randn(
+        (15, D), generator=g, device=DEVICE)]))
+    storage = torch.empty(q.numel() + 1, device=DEVICE)
+    view = storage[1:].view(q.shape)
+    view.copy_(q)
+    check(view.data_ptr() % 16 != 0, "the view is not misaligned")
+    torch.cuda.synchronize()
+    check(torch.equal(seven, full[13:20]),
+          "similarity: a 7-row call differs from the held-out call")
+    check(torch.equal(wide[:, :2], full),
+          "similarity: the two classes differ inside a 17-class call")
+    check(torch.equal(sim.similarity(view, C), full),
+          "similarity: a misaligned view differs from its aligned copy")
+    out.update(rows_bitwise=True, classes_bitwise=True,
+               misaligned_bitwise=True)
+
+    big = torch.randn((16384, D), generator=g, device=DEVICE)
+    out["shapes"] = {}
+    for x in (hv_tr, big):
+        N = x.shape[0]
+        err = hold(f"at N={N}", sim.similarity(x, C), sim.similarity(x, C),
+                   sim.similarity_plain(x, C))
+        dev, _ = kernel_device_ms(lambda: sim.similarity(x, C),
+                                  ("sim_cluster",))
+        rec = dict(max_abs_err=err, ms=time_ms(lambda: sim.similarity(x, C)),
+                   kernel_device_ms=dev,
+                   plain_ms=time_ms(lambda: sim.similarity_plain(x, C)),
+                   library_ms=time_ms(
+                       lambda: torch.nn.functional.cosine_similarity(
+                           x[:, None], C[None], dim=-1)),
+                   **sim_bound(N, C.shape[0]))
+        if isinstance(dev, float):
+            rec["share_of_bound"] = rec["bound_ms"] / dev
+        out["shapes"][N] = rec
+    return out
 
 
 def encode_bounds(n_bytes: int, N: int, K: int) -> dict:
@@ -953,12 +1081,15 @@ def kernel_device_ms(fn, names, calls: int = 5):
     """Device time of one call of ``fn`` spent in the kernels whose names
     contain one of ``names``: ``calls`` calls under ``torch.profiler``, each
     kernel's mean over the launches the profiler recorded (it has dropped
-    single launches on the H100), summed over the kernels. "not measured"
-    if a kernel was never recorded. Returns the sum and the means."""
+    single launches on the H100, so the window opens with a one-element
+    fill), summed over the kernels. "not measured" if a kernel was never
+    recorded. Returns the sum and the means."""
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
+        torch.zeros(1, device=DEVICE)
+        torch.cuda.synchronize()
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
@@ -991,6 +1122,9 @@ def main() -> int:
                if "registers" in ln or "spill" in ln or "entry" in ln]
         for name, log in logs.items()}})
 
+    sim_launches = similarity_launches()
+    emit({"similarity_launches": sim_launches})
+
     g = torch.Generator(device=DEVICE)
     g.manual_seed(SEED)
     t0 = time.perf_counter()
@@ -1010,6 +1144,8 @@ def main() -> int:
     train, train_launches, train_records = train_phase(g)
     emit({"train": train})
     for r in train_records:
+        if r["name"] == "similarity":
+            r.update(sim_launches)
         emit({"kernel_check": r})
     records += train_records
     # launches: the six stream runs' and the training path's, each counted

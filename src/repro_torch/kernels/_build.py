@@ -54,8 +54,8 @@ SIGNATURES: dict[str, dict[str, tuple]] = {
         "sliding_scores_int_occupancy": (I, [I] * 3 + [P] * 4),
     },
     "similarity": {
-        "similarity_f32": (I, [P] * 4 + [I] * 5 + [F, P]),
-        "similarity_max_classes": (I, []),
+        "similarity_f32": (I, [P] * 3 + [I] * 4 + [F, P]),
+        "similarity_chunk": (I, [I]),
     },
     "hdc_encode": {
         "hdc_encode_f32": (I, [P] * 4 + [I] * 4 + [P]),

@@ -18,12 +18,23 @@ from repro_torch import pin_fp32_matmul
 from repro_torch.kernels import _build
 from repro_torch.kernels.sliding_scores import _check_device
 
-#: calls of :func:`similarity` on a CUDA tensor (each launches the kernel
-#: once per block of :data:`MAX_CLASSES` classes)
+#: calls of :func:`similarity` on a CUDA tensor (each is one cluster
+#: launch, whatever the class count)
 LAUNCHES = 0
 
-#: most classes one launch takes (``kMaxClasses`` in ``csrc/similarity.cu``)
-MAX_CLASSES = 8
+#: blocks per cluster, splitting D (``kRanks`` in ``csrc/similarity.cu``)
+RANKS = 8
+#: a chunk is a multiple of this many floats: 32 lanes x float4
+CHUNK_ALIGN = 128
+
+
+def chunk(D: int) -> int:
+    """Floats of D each cluster rank owns (``similarity_chunk`` in
+    ``csrc/similarity.cu``): ``roundup(ceil(D / RANKS), CHUNK_ALIGN)``.
+    Rank ``r`` owns ``[r * chunk, min(D, (r + 1) * chunk))``; the plan is
+    set by D alone, so every sum of the kernel has one order per D."""
+    per = -(-D // RANKS)
+    return -(-per // CHUNK_ALIGN) * CHUNK_ALIGN
 
 
 def similarity_plain(queries: torch.Tensor, class_hvs: torch.Tensor, *,
@@ -40,23 +51,18 @@ def similarity_plain(queries: torch.Tensor, class_hvs: torch.Tensor, *,
 
 
 def _launch(q: torch.Tensor, c: torch.Tensor, eps: float) -> torch.Tensor:
-    """One kernel launch per block of up to ``MAX_CLASSES`` classes, each
-    writing its columns of ``out``."""
+    """One cluster launch for every query row and class."""
     lib = _build.load("similarity")
     N, D = q.shape
     C = c.shape[0]
     out = torch.empty((N, C), device=q.device)
     if N == 0:
         return out
-    cc = torch.empty((C,), device=q.device)
-    for c0 in range(0, C, MAX_CLASSES):
-        cb = min(MAX_CLASSES, C - c0)
-        vec = int(D % 4 == 0 and q.data_ptr() % 16 == 0
-                  and c[c0].data_ptr() % 16 == 0)
-        err = lib.similarity_f32(q.data_ptr(), c[c0].data_ptr(),
-                                 cc[c0:].data_ptr(), out[:, c0:].data_ptr(),
-                                 N, D, cb, C, vec, eps, _build.stream_ptr())
-        _build.check(err, "similarity_f32")
+    bulk = int(D % 4 == 0 and q.data_ptr() % 16 == 0
+               and c.data_ptr() % 16 == 0)
+    _build.check(lib.similarity_f32(q.data_ptr(), c.data_ptr(),
+                                    out.data_ptr(), N, D, C, bulk, eps,
+                                    _build.stream_ptr()), "similarity_f32")
     return out
 
 
@@ -68,7 +74,8 @@ def similarity(queries: torch.Tensor, class_hvs: torch.Tensor, *,
     A CUDA tensor launches ``csrc/similarity.cu`` (or raises); a CPU
     tensor runs :func:`similarity_plain`. ``block_n``/``block_d`` are the
     TPU kernel's tiling, taken so calls read like the JAX ones; the CUDA
-    kernel picks its own (one warp per query row).
+    kernel splits D by :func:`chunk` across a cluster of :data:`RANKS`
+    blocks, one warp per query row.
     """
     global LAUNCHES
     del block_n, block_d
