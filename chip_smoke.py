@@ -35,7 +35,20 @@ sm_90a: an H100). It
    bitwise the same when fed in 32-frame slices;
 6. profiles one float32 and one int8 run (device busy share, top
    kernels);
-7. drives the training path (paper Fig. 5a) at the same width: samples
+7. drives the fleet, ``FleetRunner.process``, over 8 streams of 256
+   frames (each stream its own frames and object schedule) six times
+   (float32, int8, the closed capture loop, int8 with per-stream and with
+   shared adaptation, float32 with ADC noise): each ``(8, 32)``
+   super-chunk must make exactly one scorer call; each stream must be
+   bitwise what an independent ``StreamRunner`` gives it (but under the
+   shared classifier); the run fed as two ``process`` calls bitwise the
+   whole run; super-chunk scores within 5e-5 of the plain version; each
+   run billed by ``fleet_report`` (finite, a saving between 0 and 1, the
+   open-loop capture bill exactly the duty bill); it prints each run's
+   fps beside that of 8 looped ``StreamRunner``s, profiles the float32
+   and int8 runs, and records how many streams' bits a class norm or a
+   re-encode taken over the whole stack would change;
+8. drives the training path (paper Fig. 5a) at the same width: samples
    balanced fragments from 256 synthetic training frames and 128 held-out
    frames (``sensing.fragments``), trains the Fragment model on the
    permutation base (``train_fragment_model``, 20 epochs), scores the
@@ -52,7 +65,7 @@ sm_90a: an H100). It
    both encoders the same way at ragged shapes (N, K and D off the tiles,
    K steps that straddle generator rows) for each nonlinearity, and
    reports their tiles, blocks and waves;
-8. prints one JSON line per phase, a ``kernels`` line, and last
+9. prints one JSON line per phase, a ``kernels`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises: the script exits non-zero and prints no result.
@@ -79,8 +92,8 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import pin_fp32_matmul  # noqa: E402
 from repro_torch.convert import model_from_arrays  # noqa: E402
-from repro_torch.core import (encoding, fragment_model,  # noqa: E402
-                              hypersense, metrics)
+from repro_torch.core import (encoding, energy,  # noqa: E402
+                              fragment_model, hypersense, metrics)
 from repro_torch.core.hypersense import frame_detection_score  # noqa: E402
 from repro_torch.core.online import AdaptConfig  # noqa: E402
 from repro_torch.core.sensor_control import (  # noqa: E402
@@ -91,11 +104,15 @@ from repro_torch.kernels import hdc_encode_perm as enc_perm  # noqa: E402
 from repro_torch.kernels import similarity as sim  # noqa: E402
 from repro_torch.kernels import sliding_scores as ss  # noqa: E402
 from repro_torch.kernels import sliding_scores_int as ssi  # noqa: E402
-from repro_torch.sensing import adc, fragments, stream  # noqa: E402
+from repro_torch.sensing import adc, fleet, fragments, stream  # noqa: E402
 
 # the paper's operating point (configs/hypersense.py)
 FRAME, FRAG, STRIDE, DIM, BLOCK_D = 128, 96, 8, 5000, 512
 CHUNK, N_STREAM = 32, 256
+# the fleet: streams, and where a run is cut into two process calls (on
+# the chunk grid, 96, when it adapts: each chunk is scored with the
+# classifier of its start)
+FLEET_S, FLEET_CUT = 8, 100
 SCORE_ATOL = 5e-5
 # the training path: frames sampled for training and held out, fragments
 # per frame of each, retraining epochs; hypervector tolerance
@@ -630,6 +647,254 @@ def profile_phase(base_model, cal, raw):
     return out
 
 
+FLEET_RUNS = {
+    # name: (precision, adc_bits, closed loop, adapt scope, adc_sigma)
+    "fleet_float32": ("float32", 4, False, None, 0.0),
+    "fleet_int8": ("int8", 8, False, None, 0.0),
+    "fleet_closed_loop_float32": ("float32", 4, True, None, 0.0),
+    "fleet_adapt_int8_per_stream": ("int8", 8, False, "per-stream", 0.0),
+    "fleet_adapt_int8_shared": ("int8", 8, False, "shared", 0.0),
+    "fleet_noisy_float32": ("float32", 4, False, None, 0.02),
+}
+
+
+def fleet_data(g):
+    """``(FLEET_S, N_STREAM, FRAME, FRAME)`` frames and their labels: each
+    stream its own draw of synthetic frames, with the stream phase's
+    object schedule (one run of 16 in every 48 frames) shifted by 6 frames
+    per stream."""
+    idx = torch.arange(N_STREAM, device=g.device)
+    labels = torch.stack([((idx + 6 * s) // 16) % 3 == 2
+                          for s in range(FLEET_S)]).long()
+    raw = torch.stack([synthetic_frames(g, lab)[0] for lab in labels])
+    return raw, labels
+
+
+def fleet_views(raw, precision, bits, sigma, start):
+    """What each stream's scorer sees of ``raw (S, c, H, W)`` from its
+    absolute frame ``start``: stream s's ADC noise keyed by
+    ``fleet.stream_seed(SEED, s)``, as ``FleetRunner`` keys it."""
+    view = (stream.adc_view_codes if precision in adc.INT_PRECISIONS
+            else stream.adc_view)
+    return torch.stack([view(raw[s], bits, sigma=sigma,
+                             seed=fleet.stream_seed(SEED, s),
+                             start_index=start)
+                        for s in range(raw.shape[0])])
+
+
+def fleet_plain_err(raw, scores, model, precision, bits, sigma, chvs, lo):
+    """Largest difference between the fleet's scores of the super-chunk
+    at frame ``lo`` and the plain version's, scored with the classifiers
+    ``chvs`` (``(2, D)`` shared or ``(S, 2, D)`` per stream) the runner
+    held at that super-chunk's start."""
+    kw = dict(h=FRAG, w=FRAG, stride=STRIDE)
+    views = fleet_views(raw[:, lo:lo + CHUNK], precision, bits, sigma, lo)
+    S, C = views.shape[:2]
+    flat = views.reshape(S * C, FRAME, FRAME)
+    geom = stream.model_geometry(model, FRAME, BLOCK_D, precision)
+    per_stream = dict(frames_per_stream=C) if chvs.ndim == 3 else {}
+    if precision in adc.INT_PRECISIONS:
+        retile = (ops.retile_classes_int_fleet if chvs.ndim == 3
+                  else ops.retile_classes_int)
+        maps = ssi.fragment_scores_batch_int_plain(
+            flat, retile(geom, chvs), **kw, **per_stream)
+    else:
+        retile = (ops.retile_classes_fleet if chvs.ndim == 3
+                  else ops.retile_classes)
+        maps = ss.fragment_scores_batch_plain(flat, retile(geom, chvs),
+                                              **kw, **per_stream)
+    want = frame_detection_score(maps, 0).reshape(S, C).cpu().numpy()
+    return float(abs(scores[:, lo:lo + C] - want).max())
+
+
+def stacked_forms(g) -> dict:
+    """Why the fleet takes some things stream by stream, measured at its
+    shapes (no check): the streams of FLEET_S whose bits change when the
+    positive class norms of an ``(S, 2, D)`` stack are taken in one call
+    over its ``[:, 1]`` view instead of each alone (``ss.class_norms``),
+    and when the online fold's top fragments are encoded as one
+    ``S*CHUNK``-row matmul instead of ``CHUNK`` rows per stream
+    (``stream._top_fragment_hvs``)."""
+    x = torch.randn((FLEET_S, 2, DIM), generator=g, device=DEVICE)[:, 1]
+    one_call = torch.linalg.vector_norm(x, dim=-1)
+    frags = torch.rand((FLEET_S, CHUNK, FRAG, FRAG), generator=g,
+                       device=DEVICE)
+    base = encoding.flat_perm_base(torch.randn((FRAG, DIM), generator=g,
+                                               device=DEVICE), FRAG)
+    b = 2 * math.pi * torch.rand(DIM, generator=g, device=DEVICE)
+    stacked = encoding.encode_fragments(
+        frags.reshape(FLEET_S * CHUNK, FRAG, FRAG), base, b).reshape(
+            FLEET_S, CHUNK, DIM)
+    per_stream = torch.stack([encoding.encode_fragments(f, base, b)
+                              for f in frags])
+    return dict(norm_streams_differ=int((ss.class_norms(x) != one_call)
+                                        .sum()),
+                encode_streams_differ=int((stacked != per_stream)
+                                          .flatten(1).any(1).sum()),
+                encode_max_abs_diff=float((stacked - per_stream).abs()
+                                          .max()))
+
+
+def fleet_phase(base_model, cal, raw, labels):
+    """The fleet: ``FleetRunner`` over FLEET_S streams of N_STREAM frames,
+    once per FLEET_RUNS entry. Each run makes one scorer wrapper call per
+    super-chunk; each stream is bitwise what an independent StreamRunner
+    gives it (but under a shared classifier, which no single stream has);
+    the run fed as two process calls is bitwise the whole run; the scores
+    of super-chunk 0 (and, adapting, of the super-chunk at the cut) are
+    within SCORE_ATOL of the plain version; each run is billed by
+    ``fleet_report``. One float32 and one int8 run are profiled. Returns
+    the runs' records and the launches they made per kernel."""
+    S, n = raw.shape[:2]
+    n_chunks = math.ceil(n / CHUNK)
+    labels_np = labels.cpu().numpy()
+    ctrl = ControllerConfig(hold_frames=3, base_rate_hz=10.0,
+                            active_rate_hz=30.0)
+    records, launches = [], {"sliding_scores_f32": 0,
+                             "sliding_scores_int": 0}
+    for name, (precision, bits, closed, scope, sigma) in FLEET_RUNS.items():
+        model = calibrated(base_model, *cal, precision, bits)
+        common = dict(chunk_size=CHUNK, block_d=BLOCK_D, adc_bits=bits,
+                      adc_sigma=sigma, precision=precision,
+                      control=CaptureConfig(hp_bits=12) if closed else None,
+                      device=DEVICE)
+        adapt = None if scope is None else AdaptConfig(
+            mode="label", lr=0.5, scope=scope)
+        feed = None if adapt is None else labels_np
+        kernel = ("sliding_scores_int" if precision in adc.INT_PRECISIONS
+                  else "sliding_scores_f32")
+
+        def runner():
+            return fleet.FleetRunner(model, ctrl, adc_seed=SEED, adapt=adapt,
+                                     **common)
+
+        def part(lo, hi):
+            return None if feed is None else feed[:, lo:hi]
+
+        runner().process(raw[:, :CHUNK], labels=part(0, CHUNK))  # warm-up
+        # (a) the main-path run: counts zeroed right before, read right after
+        rf = runner()
+        torch.cuda.synchronize()
+        ss.LAUNCHES = ssi.LAUNCHES = 0
+        t0 = time.perf_counter()
+        scores, fired, gated = rf.process(raw, labels=feed)
+        wall = time.perf_counter() - t0
+        counts = {"sliding_scores_f32": ss.LAUNCHES,
+                  "sliding_scores_int": ssi.LAUNCHES}
+        check(counts[kernel] == n_chunks,
+              f"{name}: {counts[kernel]} scorer calls for {n_chunks} "
+              f"super-chunks of {S} streams")
+        check(sum(counts.values()) == n_chunks,
+              f"{name}: the other kernel launched: {counts}")
+        for k, v in counts.items():
+            launches[k] += v
+        check(np.isfinite(scores).all() and scores.shape == (S, n),
+              f"{name}: scores not finite or of the wrong shape")
+        log, drains = rf.capture_log, rf.drain_hp()
+
+        # (b) the same frames through S looped StreamRunners, each held
+        #     bitwise against its stream of the fleet
+        rkw = dict(common, adapt=None if adapt is None else AdaptConfig(
+            mode="label", lr=0.5))
+        loop = [stream.StreamRunner(model, ctrl,
+                                    adc_seed=fleet.stream_seed(SEED, s),
+                                    **rkw) for s in range(S)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = [r.process(raw[s], labels=None if feed is None else feed[s])
+                for s, r in enumerate(loop)]
+        looped_wall = time.perf_counter() - t0
+        independent = scope != "shared"
+        if independent:
+            for s, (r, out) in enumerate(zip(loop, outs)):
+                what = f"{name}: stream {s} differs from its StreamRunner"
+                for got, want in zip((scores, fired, gated), out):
+                    check(np.array_equal(got[s], want), f"{what} (gate)")
+                rlog = r.capture_log
+                check(np.array_equal(log.sampled[s], rlog.sampled)
+                      and np.array_equal(log.gated[s], rlog.gated),
+                      f"{what} (capture log)")
+                idx, hp = r.drain_hp()
+                check(np.array_equal(drains[s][0], idx)
+                      and np.array_equal(drains[s][1], hp),
+                      f"{what} (HP drain)")
+                if adapt is not None:
+                    check(torch.equal(rf.class_hvs[s], r.class_hvs),
+                          f"{what} (classifier)")
+
+        # (c) the run fed as two process calls
+        cut = FLEET_CUT if adapt is None else FLEET_CUT // CHUNK * CHUNK
+        rs = runner()
+        first = rs.process(raw[:, :cut], labels=part(0, cut))
+        chvs_cut = rs.class_hvs.clone()
+        second = rs.process(raw[:, cut:], labels=part(cut, n))
+        slog, sdrains = rs.capture_log, rs.drain_hp()
+        for got, a, b in zip((scores, fired, gated), first, second):
+            check(np.array_equal(got, np.concatenate([a, b], axis=1)),
+                  f"{name}: slicing or a rerun changed the output")
+        check(np.array_equal(log.sampled, slog.sampled)
+              and np.array_equal(log.gated, slog.gated)
+              and all(np.array_equal(x[0], y[0]) and np.array_equal(x[1], y[1])
+                      for x, y in zip(drains, sdrains))
+              and torch.equal(rf.class_hvs, rs.class_hvs),
+              f"{name}: slicing changed the log, drains or classifier")
+
+        # (d) against the plain version
+        err = fleet_plain_err(raw, scores, model, precision, bits, sigma,
+                              model.class_hvs if scope != "per-stream" else
+                              model.class_hvs.expand(S, 2, DIM), 0)
+        if adapt is not None:
+            err = max(err, fleet_plain_err(raw, scores, model, precision,
+                                           bits, sigma, chvs_cut, cut))
+        check(err <= SCORE_ATOL, f"{name}: fleet vs plain {err}")
+
+        # (e) the energy account, at the run's LP depth
+        params = energy.EnergyParams(adc_lp_bits=bits)
+        rep = fleet.fleet_report(fired, gated, labels_np, params, precision,
+                                 capture=log)
+        by_duty = fleet.fleet_report(fired, gated, labels_np, params,
+                                     precision)
+        check(math.isfinite(rep.energy_total_j)
+              and math.isfinite(rep.baseline_total_j)
+              and 0.0 < rep.total_saving < 1.0,
+              f"{name}: energy report out of range: {rep}")
+        if closed:
+            check(not log.sampled.all()
+                  and rep.energy_total_j < by_duty.energy_total_j,
+                  f"{name}: the closed loop saved no LP conversion")
+        else:
+            check(energy.from_capture_log(log, params, precision)
+                  == energy.hypersense_measured(float(log.gated.mean()),
+                                                params, precision),
+                  f"{name}: the open-loop capture bill is not the duty "
+                  f"bill")
+        rec = dict(
+            run=name, precision=precision, adc_bits=bits, closed_loop=closed,
+            adapt=scope, adc_sigma=sigma, streams=S, frames_per_stream=n,
+            chunk=CHUNK, super_chunks=n_chunks, launches=counts,
+            fps=S * n / wall, wall_s=wall, looped_fps=S * n / looped_wall,
+            looped_wall_s=looped_wall,
+            streams_bitwise_vs_runners=(True if independent
+                                        else "shared classifier"),
+            sliced_run_bitwise=True, cut=cut, max_abs_err_vs_plain=err,
+            fired=int(fired.sum()), gated=int(gated.sum()),
+            sampled=int(log.sampled.sum()),
+            hp_frames=sum(len(i) for i, _ in drains),
+            duty_cycle=rep.duty_cycle,
+            energy_per_frame_j=rep.energy_per_frame.total,
+            energy_total_j=rep.energy_total_j,
+            baseline_total_j=rep.baseline_total_j,
+            total_saving=rep.total_saving,
+            duty_bill_total_j=by_duty.energy_total_j, t_score=model.t_score)
+        if name in ("fleet_float32", "fleet_int8"):
+            rp = runner()
+            rp.process(raw[:, :CHUNK])
+            rec["profile"] = device_profile(lambda: rp.process(raw))
+        emit(rec)
+        records.append(rec)
+    return records, launches
+
+
 def device_profile(fn, top: int = 6) -> dict:
     """``fn`` once under ``torch.profiler``: the device busy share of its
     wall time and the device time of its top kernels. The profiler's own
@@ -1141,6 +1406,16 @@ def main() -> int:
         emit({"kernel_check": r})
     runs, launches = stream_phase(model, cal, raw, labels)
     emit({"profile": profile_phase(model, cal, raw)})
+    t0 = time.perf_counter()
+    gf = torch.Generator(device=DEVICE)
+    gf.manual_seed(SEED + 7)
+    fleet_raw, fleet_labels = fleet_data(gf)
+    _, fleet_launches = fleet_phase(model, cal, fleet_raw, fleet_labels)
+    del fleet_raw
+    emit({"fleet": {"streams": FLEET_S, "frames_per_stream": N_STREAM,
+                    "runs": len(FLEET_RUNS), "launches": fleet_launches,
+                    "phase_s": time.perf_counter() - t0,
+                    "stacked_forms": stacked_forms(gf)}})
     train, train_launches, train_records = train_phase(g)
     emit({"train": train})
     for r in train_records:
@@ -1148,11 +1423,11 @@ def main() -> int:
             r.update(sim_launches)
         emit({"kernel_check": r})
     records += train_records
-    # launches: the six stream runs' and the training path's, each counted
-    # from zero right before its run
+    # launches: the six stream runs', the six fleet runs' and the training
+    # path's, each counted from zero right before its run
     for r in records:
-        r["launches"] = launches.get(r["name"], 0) + train_launches.get(
-            r["name"], 0)
+        r["launches"] = sum(n.get(r["name"], 0) for n in (
+            launches, fleet_launches, train_launches))
         check(r["launches"] > 0, f"{r['name']} never ran on a main path")
     for name, n in train_launches.items():
         check(n > 0, f"{name} never ran on the training path")

@@ -120,26 +120,39 @@ def precompute_geometry(B0: torch.Tensor, b: torch.Tensor, *, W: int, w: int,
                          idx=idx, block_d=td, w=w, stride=stride)
 
 
+def class_norms(c: torch.Tensor) -> torch.Tensor:
+    """L2 norms of ``(..., D)`` class vectors, each taken alone on a fresh
+    copy of its ``(D,)`` row: a reduction's order may depend on its
+    operand's alignment and on how many norms one call takes, so this
+    gives a classifier's norm the same bits alone or in a stack of
+    per-stream classifiers."""
+    rows = c.to(torch.float32).reshape(-1, c.shape[-1])
+    return torch.stack([torch.linalg.vector_norm(r.clone())
+                        for r in rows]).reshape(c.shape[:-1])
+
+
 def retile_classes(geom: ScoreGeometry, class_hvs: torch.Tensor
                    ) -> ScoreTiles:
     """Install a ``(2, D)`` classifier: one gather per class + two norms."""
     cpos = class_hvs[1].to(torch.float32)
     cneg = class_hvs[0].to(torch.float32)
     return ScoreTiles(geom=geom, cpos_t=cpos[geom.idx], cneg_t=cneg[geom.idx],
-                      cpos_norm=torch.linalg.vector_norm(cpos),
-                      cneg_norm=torch.linalg.vector_norm(cneg))
+                      cpos_norm=class_norms(cpos),
+                      cneg_norm=class_norms(cneg))
 
 
 def retile_classes_fleet(geom: ScoreGeometry, class_hvs: torch.Tensor
                          ) -> ScoreTiles:
     """Per-stream classifiers ``(S, 2, D)`` -> stacked ``(S, n_dt, mx, TD)``
-    tiles with ``(S,)`` norms; the geometry stays shared."""
+    tiles with ``(S,)`` norms; the geometry stays shared. Stream ``s``'s
+    tiles and norms have the bits :func:`retile_classes` gives its
+    classifier."""
     cpos = class_hvs[:, 1].to(torch.float32)
     cneg = class_hvs[:, 0].to(torch.float32)
     return ScoreTiles(geom=geom, cpos_t=cpos[:, geom.idx],
                       cneg_t=cneg[:, geom.idx],
-                      cpos_norm=torch.linalg.vector_norm(cpos, dim=-1),
-                      cneg_norm=torch.linalg.vector_norm(cneg, dim=-1))
+                      cpos_norm=class_norms(cpos),
+                      cneg_norm=class_norms(cneg))
 
 
 def precompute_tiles(B0: torch.Tensor, b: torch.Tensor,

@@ -252,7 +252,7 @@ def _quantize_class(c: torch.Tensor, mode: str = "int8"
         scale = _div_qmax(torch.clamp(
             torch.amax(torch.abs(c), dim=-1, keepdim=True), min=1e-12))
         q = _quantize_sym(c, scale)
-    return q, torch.linalg.vector_norm(q.to(torch.float32), dim=-1)
+    return q, _ss.class_norms(q)
 
 
 def retile_classes_int(geom: IntScoreGeometry, class_hvs: torch.Tensor
@@ -267,7 +267,9 @@ def retile_classes_int(geom: IntScoreGeometry, class_hvs: torch.Tensor
 
 def retile_classes_int_fleet(geom: IntScoreGeometry, class_hvs: torch.Tensor
                              ) -> IntScoreTiles:
-    """Per-stream classifiers ``(S, 2, D)`` -> stacked int8 tiles."""
+    """Per-stream classifiers ``(S, 2, D)`` -> stacked int8 tiles; stream
+    ``s``'s have the bits :func:`retile_classes_int` gives its
+    classifier."""
     qpos, npos = _quantize_class(class_hvs[:, 1].to(torch.float32),
                                  geom.mode)
     qneg, nneg = _quantize_class(class_hvs[:, 0].to(torch.float32),

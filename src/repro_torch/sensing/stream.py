@@ -87,8 +87,23 @@ def validate_runner_args(chunk_size: int, adc_bits: int | None,
                          f"so adc_bits must be <= 4 (got {adc_bits})")
 
 
+_MASK64 = (1 << 64) - 1
+
+
+def mix64(x: int) -> int:
+    """The splitmix64 finalizer: a bijection of 64-bit integers that
+    spreads every input bit over every output bit."""
+    x = (x + 0x9E3779B97F4A7C15) & _MASK64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return x ^ (x >> 31)
+
+
 def _frame_seed(seed: int, index: int) -> int:
-    return ((seed & 0xFFFFFFFF) << 32) | (index & 0xFFFFFFFF)
+    """The generator seed of frame ``index`` of a stream seeded ``seed``:
+    the two 32-bit halves mixed by :func:`mix64`. A CPU generator keeps
+    only the low 32 bits of its seed, so both must reach them."""
+    return mix64(((seed & 0xFFFFFFFF) << 32) | (index & 0xFFFFFFFF))
 
 
 def _noisy_capture(frames: torch.Tensor, sigma: float, seed: int | None,
@@ -242,20 +257,23 @@ def hp_drain_arrays(entries, frame_hw: tuple[int, int] | None
 
 def _top_fragment_hvs(frames: torch.Tensor, maps: torch.Tensor,
                       B0: torch.Tensor, b: torch.Tensor, *, h: int, w: int,
-                      stride: int, mx: int, nonlinearity) -> torch.Tensor:
-    """Re-encode each frame's top-scoring fragment -> ``(S, C, D)``: the
-    online update's sample stream."""
+                      stride: int, mx: int, nonlinearity
+                      ) -> list[torch.Tensor]:
+    """Re-encode each frame's top-scoring fragment: one ``(C, D)`` tensor
+    per stream, the online update's sample stream. Each stream is encoded
+    on its own, so its hypervectors have the bits a one-stream runner gets
+    (a matmul's or a norm's order may depend on how many rows it takes)."""
     S, C, H, W = frames.shape
     dev = frames.device
     top = torch.argmax(maps.reshape(S, C, -1), dim=-1)           # (S, C)
     rows = ((top // mx) * stride)[..., None] + torch.arange(h, device=dev)
     cols = ((top % mx) * stride)[..., None] + torch.arange(w, device=dev)
-    si = torch.arange(S, device=dev)[:, None, None, None]
-    ci = torch.arange(C, device=dev)[None, :, None, None]
-    frags = frames[si, ci, rows[..., :, None], cols[..., None, :]]  # S,C,h,w
-    hv = encode_fragments(frags.reshape(S * C, h, w), flat_perm_base(B0, w),
-                          b, nonlinearity=nonlinearity, normalize=True)
-    return hv.reshape(S, C, -1)
+    ci = torch.arange(C, device=dev)[:, None, None]
+    base = flat_perm_base(B0, w)
+    return [encode_fragments(
+                frames[s][ci, rows[s][:, :, None], cols[s][:, None, :]],
+                base, b, nonlinearity=nonlinearity, normalize=True)
+            for s in range(S)]
 
 
 def super_chunk_fn(frames: torch.Tensor, state: StreamState,
@@ -355,8 +373,8 @@ def super_chunk_fn(frames: torch.Tensor, state: StreamState,
         # normalization cancels the LSB
         obs = (frames.to(torch.float32) * adc_lsb
                if precision in adc_sim.INT_PRECISIONS else frames)
-        hv = _top_fragment_hvs(obs, maps, B0, b, h=h, w=w, stride=stride,
-                               mx=mx, nonlinearity=nonlinearity)  # (S, C, D)
+        hvs = _top_fragment_hvs(obs, maps, B0, b, h=h, w=w, stride=stride,
+                                mx=mx, nonlinearity=nonlinearity)  # S x (C, D)
         labels = labels.to(class_hvs.device, torch.int64)
         if decim is None:
             mask2d = valid[None, :].expand(S, C)
@@ -368,14 +386,17 @@ def super_chunk_fn(frames: torch.Tensor, state: StreamState,
             mask2d = sampled & valid[None, :]
         mask2d = mask2d.to(class_hvs.device)
         if per_stream:
+            # each stream folds from a copy of its row: its own allocation,
+            # as a one-stream runner's classifier is
             class_hvs = torch.stack([
-                online.apply_chunk(adapt, class_hvs[s], hv[s], labels[s],
-                                   mask2d[s])[0] for s in range(S)])
+                online.apply_chunk(adapt, class_hvs[s].clone(), hvs[s],
+                                   labels[s], mask2d[s])[0]
+                for s in range(S)])
         else:
             # one shared classifier: time order, stream index breaks ties
-            dim = hv.shape[-1]
+            dim = hvs[0].shape[-1]
             class_hvs = online.apply_chunk(
-                adapt, class_hvs, hv.transpose(0, 1).reshape(C * S, dim),
+                adapt, class_hvs, torch.stack(hvs, 1).reshape(C * S, dim),
                 labels.T.reshape(C * S), mask2d.T.reshape(C * S))[0]
 
     if park_masked and slot_mask is not None:
@@ -576,7 +597,7 @@ class StreamRunner:
                    else torch.zeros(chunk.shape[0], dtype=torch.int32))
             n_valid = chunk.shape[0]
             if n_valid < self.chunk_size:
-                chunk = _pad_frames(chunk, self.chunk_size)
+                chunk = pad_frames(chunk, self.chunk_size)
                 lab = torch.cat([lab, torch.zeros(self.chunk_size - n_valid,
                                                   dtype=lab.dtype)])
             s, f, g, smp, self._state = super_chunk_fn(
@@ -593,8 +614,8 @@ class StreamRunner:
             self._log_sampled.append(smp[0, :n_valid].numpy().copy())
             self._log_gated.append(gated[sl].copy())
             if hp_k > 0:
-                raw_chunk = _pad_frames(raw[start:start + self.chunk_size],
-                                        self.chunk_size)
+                raw_chunk = pad_frames(raw[start:start + self.chunk_size],
+                                       self.chunk_size)
                 entries, dropped = collect_hp(
                     raw_chunk[None], g, n_valid, hp_k, self.control.hp_bits,
                     base + start)
@@ -604,13 +625,15 @@ class StreamRunner:
         return scores, fired, gated
 
 
-def _pad_frames(chunk: torch.Tensor, size: int) -> torch.Tensor:
-    """Zero-pad a tail chunk to ``size`` frames (fixed chunk shapes)."""
-    if chunk.shape[0] == size:
+def pad_frames(chunk: torch.Tensor, size: int) -> torch.Tensor:
+    """Zero-pad a tail chunk ``(..., n, H, W)`` to ``size`` frames along
+    its frame axis (fixed chunk shapes)."""
+    n = chunk.shape[-3]
+    if n == size:
         return chunk
-    pad = torch.zeros((size - chunk.shape[0], *chunk.shape[1:]),
+    pad = torch.zeros((*chunk.shape[:-3], size - n, *chunk.shape[-2:]),
                       dtype=chunk.dtype, device=chunk.device)
-    return torch.cat([chunk, pad])
+    return torch.cat([chunk, pad], dim=-3)
 
 
 def simulate_stream_batched(model: HyperSenseModel, frames, labels,
