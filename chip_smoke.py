@@ -48,7 +48,21 @@ sm_90a: an H100). It
    fps beside that of 8 looped ``StreamRunner``s, profiles the float32
    and int8 runs, and records how many streams' bits a class norm or a
    re-encode taken over the whole stack would change;
-8. drives the training path (paper Fig. 5a) at the same width: samples
+8. serves the fleet's frames through ``FleetService`` (dispatch/collect
+   pipelined on the card, a slot pool under churn, checkpoints): the
+   float32, int8 and closed-loop services bitwise ``FleetRunner`` on the
+   same trace (scores, decisions, capture logs, HP drains), their tick-0
+   scores within 5e-5 of the plain version, one scorer call per tick;
+   ``max_inflight`` 1, 2, 4 and 8 bitwise the same; an int8 and a noisy
+   float32 run under a seeded churn schedule (attach, detach, ragged
+   arrival, a silent tick, a sensor reattached through another tenant of
+   its slot) with per-stream pseudo adaptation, each sensor bitwise its
+   own ``StreamRunner``, and no rebuild after the warm-up tick; a
+   checkpoint at tick 4 resumed bitwise by a fresh service; warm frozen
+   dispatches free of host syncs (``torch.cuda.set_sync_debug_mode``);
+   it prints the fps of the service and of ``FleetRunner``, their
+   device busy shares and the dispatch->collect latency;
+9. drives the training path (paper Fig. 5a) at the same width: samples
    balanced fragments from 256 synthetic training frames and 128 held-out
    frames (``sensing.fragments``), trains the Fragment model on the
    permutation base (``train_fragment_model``, 20 epochs), scores the
@@ -65,7 +79,7 @@ sm_90a: an H100). It
    both encoders the same way at ragged shapes (N, K and D off the tiles,
    K steps that straddle generator rows) for each nonlinearity, and
    reports their tiles, blocks and waves;
-9. prints one JSON line per phase, a ``kernels`` line, and last
+10. prints one JSON line per phase, a ``kernels`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises: the script exits non-zero and prints no result.
@@ -79,6 +93,7 @@ import dataclasses
 import json
 import math
 import pathlib
+import shutil
 import statistics
 import subprocess
 import sys
@@ -104,6 +119,7 @@ from repro_torch.kernels import hdc_encode_perm as enc_perm  # noqa: E402
 from repro_torch.kernels import similarity as sim  # noqa: E402
 from repro_torch.kernels import sliding_scores as ss  # noqa: E402
 from repro_torch.kernels import sliding_scores_int as ssi  # noqa: E402
+from repro_torch.launch.serve import FleetService  # noqa: E402
 from repro_torch.sensing import adc, fleet, fragments, stream  # noqa: E402
 
 # the paper's operating point (configs/hypersense.py)
@@ -895,6 +911,350 @@ def fleet_phase(base_model, cal, raw, labels):
     return records, launches
 
 
+SERVICE_RUNS = {
+    # name: (precision, adc_bits, closed loop)
+    "service_float32": ("float32", 4, False),
+    "service_int8": ("int8", 8, False),
+    "service_closed_loop_float32": ("float32", 4, True),
+}
+SERVICE_INFLIGHT = 2
+# the churn runs: 10 sensors on the fleet's 8 slots, sensor i reading
+# stream i % 8 of the fleet's frames from frame N_STREAM // 4 * (i // 8); a
+# checkpoint at tick CKPT_TICK
+CKPT_TICK = 4
+
+
+def service_ctrl():
+    return ControllerConfig(hold_frames=3, base_rate_hz=10.0,
+                            active_rate_hz=30.0)
+
+
+def serve(svc, frames, sync_free: bool = False):
+    """Every sensor 0..S-1 delivers its frames of ``frames`` (S, n, H, W),
+    one ``CHUNK`` a tick; returns the collected ticks. With ``sync_free``
+    the dispatches after the first run under
+    ``torch.cuda.set_sync_debug_mode("error")``: a host sync raises."""
+    for k, lo in enumerate(range(0, frames.shape[1], CHUNK)):
+        arrivals = {s: frames[s, lo:lo + CHUNK] for s in range(len(frames))}
+        if sync_free and k > 0:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            svc.dispatch(arrivals)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return svc.flush()
+
+
+def served_arrays(chunks, S: int):
+    """``(S, n)`` scores, fired and gated from ticks where every sensor
+    0..S-1 delivered."""
+    return tuple(np.stack([np.concatenate([ch.outputs[s][j]
+                                           for ch in chunks])
+                           for s in range(S)]) for j in range(3))
+
+
+def churn_schedule(n_ticks: int):
+    """(detach, attach, arrivals) per tick on 8 slots: sensors 0-7 attach;
+    3 leaves for 8; tick 2 is silent; 8 and 5 leave, 3 comes back to its
+    slot through tenant 8, 9 joins; 0 leaves for 8, reattached; the other
+    ticks ragged (each attached sensor delivers with probability 0.75,
+    from a seeded generator), the last full."""
+    g = torch.Generator().manual_seed(SEED + 8)
+    churn = {0: ((), tuple(range(FLEET_S))), 1: ((3,), (8,)),
+             3: ((8, 5), (3, 9)), 5: ((0,), (8,))}
+    attached, out = set(), []
+    for k in range(n_ticks):
+        det, att = churn.get(k, ((), ()))
+        attached = (attached - set(det)) | set(att)
+        if k == 2:
+            arrive = ()
+        elif k in (0, n_ticks - 1):
+            arrive = tuple(sorted(attached))
+        else:
+            arrive = tuple(sid for sid in sorted(attached)
+                           if float(torch.rand((), generator=g)) < 0.75)
+        out.append((det, att, arrive))
+    return out
+
+
+def play_churn(svc, frames_of, schedule, fed=None):
+    """Run ``schedule`` on ``svc`` (sensor ``sid`` reads ``frames_of(sid)``
+    from where it stopped); returns ``{sid: [(s, f, g), ...]}`` and the
+    frames fed per sensor."""
+    fed = {} if fed is None else fed
+    for det, att, arrive in schedule:
+        for sid in det:
+            svc.detach(sid)
+        for sid in att:
+            svc.attach(sid)
+        arrivals = {}
+        for sid in arrive:
+            n0 = fed.get(sid, 0)
+            arrivals[sid] = frames_of(sid)[n0:n0 + CHUNK]
+            fed[sid] = n0 + CHUNK
+        svc.dispatch(arrivals)
+    got = {}
+    for ch in svc.flush():
+        for sid, out in ch.outputs.items():
+            got.setdefault(sid, []).append(out)
+    return got, fed
+
+
+def service_phase(base_model, cal, raw):
+    """``FleetService`` over the fleet's FLEET_S streams of N_STREAM frames:
+    (1) the float32, int8 and closed-loop services bitwise the
+    ``FleetRunner`` of the same trace, one scorer call per tick, tick 0
+    within SCORE_ATOL of the plain version, and (frozen, open loop) every
+    dispatch after the first free of host syncs; (2) an int8 and a noisy
+    float32 run under ``churn_schedule`` with per-stream pseudo adaptation,
+    each sensor bitwise its own ``StreamRunner``, (4) no rebuild after the
+    warm-up tick; (3) ``max_inflight`` 1, 4 and 8 (closed loop; 8 ticks
+    in flight with no back-pressure, so every dispatch after the first is
+    checked free of syncs) bitwise as 2; (5) a checkpoint at CKPT_TICK
+    resumed bitwise by a fresh service. It times the services (host and
+    card arrivals) and ``FleetRunner`` in turns, profiles float32 and
+    int8, and takes the median dispatch->collect latency. Returns the
+    records and the launches of (1)."""
+    S, n = raw.shape[:2]
+    n_ticks = n // CHUNK
+    raw_np = raw.cpu().numpy()
+    ctrl = service_ctrl()
+    records, launches = [], {"sliding_scores_f32": 0,
+                             "sliding_scores_int": 0}
+    for name, (precision, bits, closed) in SERVICE_RUNS.items():
+        model = calibrated(base_model, *cal, precision, bits)
+        common = dict(chunk_size=CHUNK, block_d=BLOCK_D, adc_bits=bits,
+                      precision=precision, adc_seed=SEED, device=DEVICE,
+                      control=CaptureConfig(hp_bits=12) if closed else None)
+        kernel = ("sliding_scores_int" if precision in adc.INT_PRECISIONS
+                  else "sliding_scores_f32")
+
+        def service(inflight=SERVICE_INFLIGHT):
+            svc = FleetService(model, ctrl, n_slots=S, max_inflight=inflight,
+                               **common)
+            for s in range(S):
+                svc.attach(s)
+            return svc
+
+        rf = fleet.FleetRunner(model, ctrl, **common)
+        want = rf.process(raw)
+        want_log, want_hp = rf.capture_log, rf.drain_hp()
+
+        def same_as_runner(svc, chunks, what):
+            check([ch.seq for ch in chunks] == list(range(n_ticks)),
+                  f"{what}: ticks not collected in order")
+            for got, ref_out in zip(served_arrays(chunks, S), want):
+                check(np.array_equal(got, ref_out),
+                      f"{what}: differs from FleetRunner (gate)")
+            for s in range(S):
+                log = svc.capture_log(s)
+                check(np.array_equal(log.sampled, want_log.sampled[s])
+                      and np.array_equal(log.gated, want_log.gated[s]),
+                      f"{what}: sensor {s} capture log")
+                idx, hp = svc.drain_hp(s)
+                check(np.array_equal(idx, want_hp[s][0])
+                      and np.array_equal(hp, want_hp[s][1]),
+                      f"{what}: sensor {s} HP drain")
+            check(svc.hp_dropped == rf.hp_dropped, f"{what}: hp_dropped")
+
+        # (1) the main-path run: host arrivals, counts zeroed right before
+        svc = service()
+        torch.cuda.synchronize()
+        ss.LAUNCHES = ssi.LAUNCHES = 0
+        chunks = serve(svc, raw_np, sync_free=not closed)
+        counts = {"sliding_scores_f32": ss.LAUNCHES,
+                  "sliding_scores_int": ssi.LAUNCHES}
+        check(counts[kernel] == n_ticks and sum(counts.values()) == n_ticks,
+              f"{name}: {counts} scorer calls for {n_ticks} ticks")
+        for k, v in counts.items():
+            launches[k] += v
+        same_as_runner(svc, chunks, name)
+        scores = served_arrays(chunks, S)[0]
+        check(np.isfinite(scores).all() and scores.shape == (S, n),
+              f"{name}: scores not finite or of the wrong shape")
+        err = fleet_plain_err(raw, scores, model, precision, bits, 0.0,
+                              model.class_hvs, 0)
+        check(err <= SCORE_ATOL, f"{name}: tick 0 vs plain {err}")
+        rec = dict(run=name, precision=precision, adc_bits=bits,
+                   closed_loop=closed, slots=S, ticks=n_ticks, chunk=CHUNK,
+                   max_inflight=SERVICE_INFLIGHT, launches=counts,
+                   bitwise_vs_fleet_runner=True,
+                   warm_dispatch_sync_free=not closed,
+                   max_abs_err_vs_plain=err, fired=int(want[1].sum()),
+                   hp_frames=sum(len(i) for i, _ in want_hp),
+                   hp_dropped=rf.hp_dropped)
+
+        # (3) pipelining depth (the closed loop: HP capture in collect)
+        if closed:
+            rec["max_inflight_bitwise"] = []
+            for depth in (1, 4, n_ticks):
+                ss.LAUNCHES = ssi.LAUNCHES = 0
+                sv = service(depth)
+                got = serve(sv, raw_np, sync_free=depth >= n_ticks)
+                check(ss.LAUNCHES + ssi.LAUNCHES == n_ticks,
+                      f"{name}: max_inflight={depth}: not one scorer call "
+                      f"a tick")
+                same_as_runner(sv, got, f"{name}, max_inflight={depth}")
+                rec["max_inflight_bitwise"].append(depth)
+            rec["warm_dispatch_sync_free_at_max_inflight"] = n_ticks
+
+        # timing: FleetRunner and the service, each fed host (numpy) and
+        # card frames, each warm, in turns; the latency of the host-arrival
+        # ticks
+        warm = service()
+        serve(warm, raw_np)
+        rf.process(raw)
+        walls = {}
+        for what, fn in (("runner_card", lambda: rf.process(raw)),
+                         ("service_host", lambda: serve(warm, raw_np)),
+                         ("service_card", lambda: serve(warm, raw)),
+                         ("runner_host", lambda: rf.process(raw_np)),
+                         ("runner_card_again", lambda: rf.process(raw))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            walls[what] = time.perf_counter() - t0
+            if what == "service_host":
+                rec["latency_median_s"] = statistics.median(
+                    ch.latency_s for ch in out)
+        rec.update({f"{k}_fps": S * n / v for k, v in walls.items()})
+        if not closed:
+            rec["profile_service_card"] = device_profile(
+                lambda: serve(warm, raw))
+            rec["profile_service_host"] = device_profile(
+                lambda: serve(warm, raw_np))
+            rec["profile_runner_card"] = device_profile(
+                lambda: rf.process(raw))
+        emit(rec)
+        records.append(rec)
+
+    records += service_churn_checks(base_model, cal, raw)
+    return records, launches
+
+
+def service_churn_checks(base_model, cal, raw):
+    """(2) and (4): the churn runs against independent StreamRunners and
+    the rebuild count; (5): checkpoint at CKPT_TICK and resume."""
+    n_ticks = raw.shape[1] // CHUNK
+    schedule = churn_schedule(n_ticks)
+    check(schedule[2][2] == () and any(a for _, a, _ in schedule[1:])
+          and any(d for d, _, _ in schedule[1:]),
+          "the churn schedule lost its silent tick, attach or detach")
+
+    def frames_of(sid):
+        return raw[sid % FLEET_S, N_STREAM // 4 * (sid // FLEET_S):]
+
+    ctrl = service_ctrl()
+    adapt = AdaptConfig(mode="pseudo", scope="per-stream", lr=0.3,
+                        confidence=0.0)
+    records = []
+    for name, precision, bits, sigma in (("churn_int8", "int8", 8, 0.0),
+                                         ("churn_noisy_float32", "float32",
+                                          4, 0.02)):
+        model = calibrated(base_model, *cal, precision, bits)
+        common = dict(chunk_size=CHUNK, block_d=BLOCK_D, adc_bits=bits,
+                      adc_sigma=sigma, precision=precision, device=DEVICE)
+        svc = FleetService(model, ctrl, n_slots=FLEET_S, adapt=adapt,
+                           adc_seed=SEED, **common)
+        first, rest = schedule[:1], schedule[1:]
+        got, fed = play_churn(svc, frames_of, first)
+        rebuilds = svc.rebuild_count()
+        more, fed = play_churn(svc, frames_of, rest, fed)
+        check(svc.rebuild_count() == rebuilds,
+              f"{name}: {svc.rebuild_count() - rebuilds} rebuilds under "
+              f"churn")
+        for sid, outs in more.items():
+            got.setdefault(sid, []).extend(outs)
+        moved = 0.0
+        for sid, n_fed in fed.items():
+            r = stream.StreamRunner(
+                model, ctrl, adapt=dataclasses.replace(adapt, scope="shared"),
+                adc_seed=fleet.stream_seed(SEED, svc.uid(sid)), **common)
+            want = r.process(frames_of(sid)[:n_fed])
+            what = f"{name}: sensor {sid} differs from its StreamRunner"
+            for j, w in enumerate(want):
+                check(np.array_equal(np.concatenate(
+                    [o[j] for o in got[sid]]), w), f"{what} (gate)")
+            log, rlog = svc.capture_log(sid), r.capture_log
+            check(np.array_equal(log.sampled, rlog.sampled)
+                  and np.array_equal(log.gated, rlog.gated),
+                  f"{what} (capture log)")
+            chvs = svc.class_hvs_of(sid)
+            check(torch.equal(chvs, r.class_hvs), f"{what} (classifier)")
+            moved = max(moved, float((chvs - model.class_hvs).abs().max()))
+        check(moved > 0, f"{name}: adaptation never moved a classifier")
+        rec = dict(run=name, precision=precision, adc_sigma=sigma,
+                   slots=FLEET_S, sensors=len(fed), ticks=n_ticks,
+                   schedule=[[list(d), list(a), list(r)]
+                             for d, a, r in schedule],
+                   sensors_bitwise_vs_runners=True,
+                   rebuild_count=svc.rebuild_count(),
+                   rebuilds_after_warmup=0, class_hvs_moved=moved)
+        emit(rec)
+        records.append(rec)
+    records.append(service_resume_check(base_model, cal, raw, schedule,
+                                        frames_of))
+    return records
+
+
+def service_resume_check(base_model, cal, raw, schedule, frames_of):
+    """(5) The closed loop with per-stream pseudo adaptation under the
+    churn schedule, checkpointed at CKPT_TICK (two sensors parked, HP
+    frames undrained); a fresh service restores it, and both continue:
+    outputs, capture logs, classifiers (parked ones too) and HP drains
+    bitwise."""
+    ckpt_dir = ROOT / "build" / "service_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    model = calibrated(base_model, *cal, "float32", 4)
+
+    def build():
+        return FleetService(
+            model, service_ctrl(), n_slots=FLEET_S, chunk_size=CHUNK,
+            block_d=BLOCK_D, adc_bits=4, adc_seed=SEED,
+            control=CaptureConfig(hp_bits=12),
+            adapt=AdaptConfig(mode="pseudo", scope="per-stream", lr=0.3,
+                              confidence=0.0),
+            ckpt_dir=str(ckpt_dir), device=DEVICE)
+
+    try:
+        svc = build()
+        _, fed = play_churn(svc, frames_of, schedule[:CKPT_TICK])
+        svc.checkpoint()
+        svc.wait_ckpt()
+        parked = len(svc._parked)
+        undrained = sum(len(v) for v in svc._hp.values())
+        check(parked > 0 and undrained > 0,
+              f"resume: {parked} parked sensors, {undrained} HP frames")
+        ref, _ = play_churn(svc, frames_of, schedule[CKPT_TICK:], dict(fed))
+        svc2 = build()
+        check(svc2.restore() == CKPT_TICK, "resume: restored tick count")
+        got, _ = play_churn(svc2, frames_of, schedule[CKPT_TICK:], dict(fed))
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    check(set(got) == set(ref), "resume: sensors served differ")
+    for sid in ref:
+        for j in range(3):
+            check(np.array_equal(np.concatenate([o[j] for o in got[sid]]),
+                                 np.concatenate([o[j] for o in ref[sid]])),
+                  f"resume: sensor {sid} outputs")
+    for sid in fed:
+        a, b = svc.capture_log(sid), svc2.capture_log(sid)
+        check(np.array_equal(a.sampled, b.sampled)
+              and np.array_equal(a.gated, b.gated),
+              f"resume: sensor {sid} capture log")
+        check(torch.equal(svc.class_hvs_of(sid), svc2.class_hvs_of(sid)),
+              f"resume: sensor {sid} classifier")
+        (ia, fa), (ib, fb) = svc.drain_hp(sid), svc2.drain_hp(sid)
+        check(np.array_equal(ia, ib) and np.array_equal(fa, fb),
+              f"resume: sensor {sid} HP drain")
+    rec = dict(run="checkpoint_resume", checkpoint_tick=CKPT_TICK,
+               parked_at_checkpoint=parked,
+               undrained_hp_frames_at_checkpoint=undrained,
+               resumed_bitwise=True)
+    emit(rec)
+    return rec
+
+
 def device_profile(fn, top: int = 6) -> dict:
     """``fn`` once under ``torch.profiler``: the device busy share of its
     wall time and the device time of its top kernels. The profiler's own
@@ -1411,11 +1771,16 @@ def main() -> int:
     gf.manual_seed(SEED + 7)
     fleet_raw, fleet_labels = fleet_data(gf)
     _, fleet_launches = fleet_phase(model, cal, fleet_raw, fleet_labels)
-    del fleet_raw
     emit({"fleet": {"streams": FLEET_S, "frames_per_stream": N_STREAM,
                     "runs": len(FLEET_RUNS), "launches": fleet_launches,
                     "phase_s": time.perf_counter() - t0,
                     "stacked_forms": stacked_forms(gf)}})
+    t0 = time.perf_counter()
+    _, service_launches = service_phase(model, cal, fleet_raw)
+    del fleet_raw
+    emit({"service": {"slots": FLEET_S, "ticks": N_STREAM // CHUNK,
+                      "launches": service_launches,
+                      "phase_s": time.perf_counter() - t0}})
     train, train_launches, train_records = train_phase(g)
     emit({"train": train})
     for r in train_records:
@@ -1423,11 +1788,12 @@ def main() -> int:
             r.update(sim_launches)
         emit({"kernel_check": r})
     records += train_records
-    # launches: the six stream runs', the six fleet runs' and the training
-    # path's, each counted from zero right before its run
+    # launches: the six stream runs', the six fleet runs', the three
+    # service runs' and the training path's, each counted from zero right
+    # before its run
     for r in records:
         r["launches"] = sum(n.get(r["name"], 0) for n in (
-            launches, fleet_launches, train_launches))
+            launches, fleet_launches, service_launches, train_launches))
         check(r["launches"] > 0, f"{r['name']} never ran on a main path")
     for name, n in train_launches.items():
         check(n > 0, f"{name} never ran on the training path")

@@ -10,7 +10,9 @@ the raw integer codes the integer precisions consume untouched. The
 Every constant is a float32 tensor on the operand's device, so that the
 card and the CPU compute the same float32 arithmetic as the reference's
 compiled code (PyTorch would otherwise pick its own form for a Python
-scalar operand); a code on a rounding edge depends on it.
+scalar operand); a code on a rounding edge depends on it. The constants
+are made by a fill on the device, not copied from the host, so a
+conversion never waits for the card.
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ def codes_dtype(bits: int) -> torch.dtype:
 
 
 def _scalar(x: torch.Tensor, value: float) -> torch.Tensor:
-    return torch.tensor(value, dtype=torch.float32, device=x.device)
+    return torch.full((), value, dtype=torch.float32, device=x.device)
 
 
 def _recip(x: torch.Tensor, value: float) -> torch.Tensor:
@@ -110,6 +112,13 @@ def check_codes_range(codes: torch.Tensor, bits: int) -> None:
     if codes.numel() == 0:
         return
     lo, hi = torch.stack(torch.aminmax(codes.to(torch.int64))).tolist()
+    check_codes_bounds(lo, hi, bits)
+
+
+def check_codes_bounds(lo: int, hi: int, bits: int) -> None:
+    """Reject a code range ``[lo, hi]`` outside ``[0, 2^bits - 1]`` (the
+    host half of :func:`check_codes_range`, for codes already on the
+    host)."""
     if lo < 0 or hi > (1 << bits) - 1:
         raise ValueError(
             f"integer input holds codes in [{lo}, {hi}], outside the "

@@ -10,10 +10,15 @@ Frames are consumed in fixed-size chunks and each chunk runs
   -> (optionally) the online perceptron fold over each frame's
      top-scoring fragment
 
-in :func:`super_chunk_fn`. The scoring and the classifier update run on
-the model's device; the gate scans, whose state is a pair of small
-integers per stream, run as Python loops on the host, where the runner
-needs the decisions anyway (one device->host copy of the chunk's scores).
+in :func:`super_chunk_fn`, the composition of two halves. The device half
+(:func:`chunk_device_half`) scores the chunk and, where the fold does not
+read the tick's scan, runs the online fold; it returns device tensors and
+never waits for the card. The host half (:func:`chunk_host_half`) runs the
+gate scans, whose state is a pair of small integers per stream, as Python
+loops on the host, where the runner needs the decisions anyway. Between
+them is the one device->host copy of the chunk's scores: the runners make
+it at once, the serving layer (``repro_torch.launch.serve``) later, so the
+host prepares the next tick while the card scores this one.
 
 The :class:`StreamState` — class hypervectors, per-stream gate holds and
 ADC phases, the absolute frame index — carries across chunks and
@@ -223,21 +228,35 @@ def resolve_hp_buffer(control: CaptureConfig | None, chunk_size: int,
     return k
 
 
-def collect_hp(raw_chunk: torch.Tensor, gated: torch.Tensor, n_valid: int,
-               k: int, bits: int, base) -> tuple[list[list], int]:
+def collect_hp(raw_chunk: torch.Tensor, gated, n_valid: int, k: int,
+               bits: int, base) -> tuple[list[list], int]:
     """Drain one chunk's bounded HP buffers to the host: one ``[(absolute
     frame index, hp frame), ...]`` list per stream of the ``(S, C, H, W)``
-    chunk, and the number of burst frames dropped to full buffers."""
-    S = raw_chunk.shape[0]
+    chunk, and the number of burst frames dropped to full buffers.
+
+    :func:`hp_capture` per stream, with the buffer filled on the host's
+    side: ``gated`` (``(S, C)``, on the host where the scans ran) picks the
+    first ``k`` valid gated frames of each stream, those frames alone are
+    gathered and converted at ``bits`` on the chunk's device, and one copy
+    brings them back. The conversion is per frame, so a frame's HP capture
+    does not depend on which other frames were gathered with it."""
+    S, C = raw_chunk.shape[:2]
     base = np.broadcast_to(np.asarray(base, np.int64), (S,))
-    out, dropped = [], 0
-    for si in range(S):
-        buf, idx, cnt = hp_capture(raw_chunk[si], gated[si], n_valid, k,
-                                   bits)
-        idx, buf = idx.cpu().numpy(), buf.cpu().numpy()
-        kept = idx >= 0
-        out.append(list(zip((base[si] + idx[kept]).tolist(), buf[kept])))
-        dropped += max(int(cnt) - int(kept.sum()), 0)
+    take = np.array(gated, bool).reshape(S, C)
+    take[:, n_valid:] = False
+    rank = np.cumsum(take, axis=1) - 1
+    si, fi = np.nonzero(take & (rank < k))
+    dropped = int(np.maximum(take.sum(axis=1) - k, 0).sum())
+    out = [[] for _ in range(S)]
+    if si.size:
+        dev = raw_chunk.device
+        picked = raw_chunk[to_device(torch.from_numpy(si), dev),
+                           to_device(torch.from_numpy(fi), dev)]
+        hp = adc_sim.quantize_per_frame(
+            picked, torch.full((si.size,), bits, dtype=torch.int32,
+                               device=dev)).cpu().numpy()
+        for s_, f_, frame in zip(si.tolist(), fi.tolist(), hp):
+            out[s_].append((int(base[s_]) + f_, frame))
     return out, dropped
 
 
@@ -253,6 +272,16 @@ def hp_drain_arrays(entries, frame_hw: tuple[int, int] | None
         hw = (0, 0) if frame_hw is None else tuple(frame_hw)
         frames = np.zeros((0, *hw), np.float32)
     return idx, frames
+
+
+def to_device(x: torch.Tensor, device) -> torch.Tensor:
+    """``x`` on ``device``. A host tensor bound for the card goes through
+    pinned memory with ``non_blocking=True``: a copy from pageable memory
+    would wait for the stream."""
+    device = torch.device(device)
+    if device.type != "cuda" or x.device.type == "cuda":
+        return x.to(device)
+    return x.pin_memory().to(device, non_blocking=True)
 
 
 def _top_fragment_hvs(frames: torch.Tensor, maps: torch.Tensor,
@@ -276,39 +305,71 @@ def _top_fragment_hvs(frames: torch.Tensor, maps: torch.Tensor,
             for s in range(S)]
 
 
-def super_chunk_fn(frames: torch.Tensor, state: StreamState,
-                   B0: torch.Tensor, b: torch.Tensor, tiles, t_score: float,
-                   n_valid: int, labels: torch.Tensor,
-                   slot_mask: torch.Tensor | None = None, *, h: int, w: int,
-                   stride: int, nonlinearity, t_detection: int,
-                   hold_frames: int, adapt: AdaptConfig | None = None,
-                   precision: str = "float32", adc_lsb: float = 1.0,
-                   decim: int | None = None, park_masked: bool = False):
-    """One streaming step over an ``(S, C, H, W)`` super-chunk.
+def fold_chunk(frames: torch.Tensor, maps: torch.Tensor,
+               class_hvs: torch.Tensor, B0: torch.Tensor, b: torch.Tensor,
+               labels: torch.Tensor, mask2d: torch.Tensor, *, h: int,
+               w: int, stride: int, nonlinearity, adapt: AdaptConfig,
+               precision: str = "float32", adc_lsb: float = 1.0
+               ) -> torch.Tensor:
+    """The online perceptron fold of one ``(S, C)`` chunk: each frame's
+    top fragment re-encoded and folded where ``mask2d`` is set. Per-stream
+    classifiers ``(S, 2, D)`` fold stream by stream; one shared ``(2, D)``
+    classifier folds the streams' samples in time order, the stream index
+    breaking ties. ``labels`` and ``mask2d`` may lie on the host."""
+    S, C = frames.shape[:2]
+    mx = maps.shape[-1]
+    dev = class_hvs.device
+    # the int path re-encodes from the dequantized crop; the fragment
+    # normalization cancels the LSB
+    obs = (frames.to(torch.float32) * adc_lsb
+           if precision in adc_sim.INT_PRECISIONS else frames)
+    hvs = _top_fragment_hvs(obs, maps, B0, b, h=h, w=w, stride=stride,
+                            mx=mx, nonlinearity=nonlinearity)  # S x (C, D)
+    labels = to_device(labels, dev).to(torch.int64)
+    mask2d = to_device(mask2d, dev)
+    if adapt.scope == "per-stream":
+        # each stream folds from a copy of its row: its own allocation, as
+        # a one-stream runner's classifier is
+        return torch.stack([
+            online.apply_chunk(adapt, class_hvs[s].clone(), hvs[s],
+                               labels[s], mask2d[s])[0]
+            for s in range(S)])
+    dim = hvs[0].shape[-1]
+    return online.apply_chunk(
+        adapt, class_hvs, torch.stack(hvs, 1).reshape(C * S, dim),
+        labels.T.reshape(C * S), mask2d.T.reshape(C * S))[0]
 
-    ``StreamRunner`` calls it with ``S = 1``; the ``S*C`` axis is scored in
-    ONE kernel launch. ``tiles`` is the full tile precompute when frozen
-    (``adapt=None``), or the class-independent geometry when adapting (the
-    current classifier is re-tiled here by one gather). With an integer
-    precision ``frames`` are the integer ADC codes (``"int4"`` is
-    nibble-packed here at the kernel boundary) and ``adc_lsb`` dequantizes
-    the top fragment crop for the online re-encode.
 
-    ``n_valid`` masks a padded tail chunk (pad frames never fire, never
-    update, and the carried state is read at the last valid frame).
-    ``labels`` is ``(S, C)``, read only in ``adapt.mode == "label"``.
-    ``decim`` switches on the closed capture loop (:func:`control_scan`);
-    ``decim == 1`` reproduces the open loop. ``slot_mask`` (``(S,)`` bool)
-    marks real sensor slots; ``park_masked`` freezes the masked slots'
-    carried state in place.
+def park_classes(class_hvs: torch.Tensor, before: torch.Tensor,
+                 slot_mask: torch.Tensor) -> torch.Tensor:
+    """Per-stream classifiers of the masked slots kept as ``before``."""
+    if class_hvs.ndim != 3:
+        return class_hvs
+    keep = to_device(slot_mask, class_hvs.device)[:, None, None]
+    return torch.where(keep, class_hvs, before)
 
-    Returns ``(scores (S, C), fired, gated, sampled, new_state)``; scores
-    on the host as float32, the decisions as host bool tensors.
+
+def chunk_device_half(frames: torch.Tensor, class_hvs: torch.Tensor,
+                      B0: torch.Tensor, b: torch.Tensor, tiles,
+                      n_valid: int, labels: torch.Tensor,
+                      slot_mask: torch.Tensor | None = None, *, h: int,
+                      w: int, stride: int, nonlinearity, t_detection: int,
+                      adapt: AdaptConfig | None = None,
+                      precision: str = "float32", adc_lsb: float = 1.0,
+                      decim: int | None = None, park_masked: bool = False):
+    """The device half of :func:`super_chunk_fn`: the scorer call and the
+    frame scores, and, in the open loop, the online fold (its mask is the
+    valid frames of the unmasked slots, which the card can build).
+
+    Returns ``(maps (S, C, my, mx), scores (S, C), class_hvs)``, all on the
+    model's device; ``class_hvs`` is the folded (and, with
+    ``park_masked``, parked) classifier, or None without ``adapt`` or in
+    the closed loop, whose fold reads the host half's ``sampled``
+    (:func:`fold_chunk` after :func:`chunk_host_half`). Nothing here
+    waits for the card: ``labels`` and ``slot_mask`` may lie on the host
+    and go through pinned memory (:func:`to_device`).
     """
     S, C, H, W = frames.shape
-    my = (H - h) // stride + 1
-    mx = (W - w) // stride + 1
-    class_hvs = state.class_hvs
     per_stream = adapt is not None and adapt.scope == "per-stream"
 
     if precision in adc_sim.INT_PRECISIONS:
@@ -333,18 +394,46 @@ def super_chunk_fn(frames: torch.Tensor, state: StreamState,
         maps = ops.fragment_score_map_fleet(
             frames, class_hvs, B0, b, h=h, w=w, stride=stride,
             nonlinearity=nonlinearity, tiles=ktiles)         # (S, C, my, mx)
+    scores = frame_detection_score(maps, t_detection)            # (S, C)
 
-    scores = frame_detection_score(maps, t_detection).cpu()      # (S, C)
+    folded = None
+    if adapt is not None and decim is None:
+        dev = class_hvs.device
+        mask2d = (torch.arange(C, device=dev) < n_valid)[None, :].expand(S, C)
+        if slot_mask is not None:
+            mask2d = mask2d & to_device(slot_mask, dev)[:, None]
+        folded = fold_chunk(frames, maps, class_hvs, B0, b, labels, mask2d,
+                            h=h, w=w, stride=stride,
+                            nonlinearity=nonlinearity, adapt=adapt,
+                            precision=precision, adc_lsb=adc_lsb)
+        if park_masked and slot_mask is not None:
+            folded = park_classes(folded, class_hvs, slot_mask)
+    return maps, scores, folded
 
+
+def chunk_host_half(scores: torch.Tensor, holds: torch.Tensor,
+                    phases: torch.Tensor, n_valid: int,
+                    slot_mask: torch.Tensor | None = None, *, t_score: float,
+                    can_fire: bool, hold_frames: int,
+                    decim: int | None = None, park_masked: bool = False):
+    """The host half of :func:`super_chunk_fn`: the threshold, the gate
+    (:func:`gate_scan`) or capture-loop (:func:`control_scan`) scan of each
+    stream, and the carried holds and phases (a masked slot's parked in
+    place with ``park_masked``). ``scores`` ``(S, C)``, ``holds``,
+    ``phases`` and ``slot_mask`` lie on the host; ``can_fire`` is False
+    when ``t_detection`` reaches the windows per frame.
+
+    Returns ``(fired, gated, sampled, holds, phases)`` host tensors.
+    """
+    S, C = scores.shape
     # count(s_i > t) > T  <=>  (T+1)-th largest > t, provided T < my*mx;
     # with T >= my*mx the count can never exceed T -> never fires.
     valid = torch.arange(C) < n_valid
-    if t_detection >= my * mx:
-        fired = torch.zeros((S, C), dtype=torch.bool)
-    else:
+    if can_fire:
         fired = (scores > t_score) & valid[None, :]
+    else:
+        fired = torch.zeros((S, C), dtype=torch.bool)
     if slot_mask is not None:
-        slot_mask = slot_mask.cpu()
         fired = fired & slot_mask[:, None]
 
     last = max(n_valid - 1, 0)
@@ -352,64 +441,84 @@ def super_chunk_fn(frames: torch.Tensor, state: StreamState,
         sampled = valid[None, :].expand(S, C)
         if slot_mask is not None:
             sampled = sampled & slot_mask[:, None]
-        scans = [gate_scan(fired[s], hold_frames, state.holds[s])
+        scans = [gate_scan(fired[s], hold_frames, holds[s])
                  for s in range(S)]
         gated = torch.stack([g for g, _ in scans])
         holds_seq = torch.stack([hs for _, hs in scans])
-        phase_out = state.phases
+        phase_out = phases
     else:
-        scans = [control_scan(fired[s], hold_frames, decim, state.holds[s],
-                              state.phases[s]) for s in range(S)]
+        scans = [control_scan(fired[s], hold_frames, decim, holds[s],
+                              phases[s]) for s in range(S)]
         sampled, gated, holds_seq, phases_seq = (
             torch.stack(x) for x in zip(*scans))
         fired = fired & sampled
         if slot_mask is not None:
             sampled = sampled & slot_mask[:, None]
-        phase_out = phases_seq[:, last] if n_valid > 0 else state.phases
-    hold_out = holds_seq[:, last] if n_valid > 0 else state.holds
-
-    if adapt is not None:
-        # the int path re-encodes from the dequantized crop; the fragment
-        # normalization cancels the LSB
-        obs = (frames.to(torch.float32) * adc_lsb
-               if precision in adc_sim.INT_PRECISIONS else frames)
-        hvs = _top_fragment_hvs(obs, maps, B0, b, h=h, w=w, stride=stride,
-                                mx=mx, nonlinearity=nonlinearity)  # S x (C, D)
-        labels = labels.to(class_hvs.device, torch.int64)
-        if decim is None:
-            mask2d = valid[None, :].expand(S, C)
-            if slot_mask is not None:
-                mask2d = mask2d & slot_mask[:, None]
-        else:
-            # a frame the LP ADC skipped was never scored: it must not feed
-            # the online update either (sampled carries the slot mask)
-            mask2d = sampled & valid[None, :]
-        mask2d = mask2d.to(class_hvs.device)
-        if per_stream:
-            # each stream folds from a copy of its row: its own allocation,
-            # as a one-stream runner's classifier is
-            class_hvs = torch.stack([
-                online.apply_chunk(adapt, class_hvs[s].clone(), hvs[s],
-                                   labels[s], mask2d[s])[0]
-                for s in range(S)])
-        else:
-            # one shared classifier: time order, stream index breaks ties
-            dim = hvs[0].shape[-1]
-            class_hvs = online.apply_chunk(
-                adapt, class_hvs, torch.stack(hvs, 1).reshape(C * S, dim),
-                labels.T.reshape(C * S), mask2d.T.reshape(C * S))[0]
-
+        phase_out = phases_seq[:, last] if n_valid > 0 else phases
+    hold_out = holds_seq[:, last] if n_valid > 0 else holds
     if park_masked and slot_mask is not None:
         # a masked slot's carried state is parked in place
-        hold_out = torch.where(slot_mask, hold_out, state.holds)
-        phase_out = torch.where(slot_mask, phase_out, state.phases)
-        if class_hvs.ndim == 3:
-            class_hvs = torch.where(
-                slot_mask.to(class_hvs.device)[:, None, None], class_hvs,
-                state.class_hvs)
+        hold_out = torch.where(slot_mask, hold_out, holds)
+        phase_out = torch.where(slot_mask, phase_out, phases)
+    return fired, gated, sampled, hold_out, phase_out
 
-    new_state = StreamState(class_hvs=class_hvs, holds=hold_out,
-                            phases=phase_out,
+
+def super_chunk_fn(frames: torch.Tensor, state: StreamState,
+                   B0: torch.Tensor, b: torch.Tensor, tiles, t_score: float,
+                   n_valid: int, labels: torch.Tensor,
+                   slot_mask: torch.Tensor | None = None, *, h: int, w: int,
+                   stride: int, nonlinearity, t_detection: int,
+                   hold_frames: int, adapt: AdaptConfig | None = None,
+                   precision: str = "float32", adc_lsb: float = 1.0,
+                   decim: int | None = None, park_masked: bool = False):
+    """One streaming step over an ``(S, C, H, W)`` super-chunk: the device
+    half, the copy of the scores to the host, the host half, and the
+    closed loop's fold (which reads the scan).
+
+    ``StreamRunner`` calls it with ``S = 1``; the ``S*C`` axis is scored in
+    ONE kernel launch. ``tiles`` is the full tile precompute when frozen
+    (``adapt=None``), or the class-independent geometry when adapting (the
+    current classifier is re-tiled here by one gather). With an integer
+    precision ``frames`` are the integer ADC codes (``"int4"`` is
+    nibble-packed here at the kernel boundary) and ``adc_lsb`` dequantizes
+    the top fragment crop for the online re-encode.
+
+    ``n_valid`` masks a padded tail chunk (pad frames never fire, never
+    update, and the carried state is read at the last valid frame).
+    ``labels`` is ``(S, C)``, read only in ``adapt.mode == "label"``.
+    ``decim`` switches on the closed capture loop (:func:`control_scan`);
+    ``decim == 1`` reproduces the open loop. ``slot_mask`` (``(S,)`` bool)
+    marks real sensor slots; ``park_masked`` freezes the masked slots'
+    carried state in place.
+
+    Returns ``(scores (S, C), fired, gated, sampled, new_state)``; scores
+    on the host as float32, the decisions as host bool tensors.
+    """
+    C = frames.shape[1]
+    kw = dict(h=h, w=w, stride=stride, nonlinearity=nonlinearity)
+    maps, scores, class_hvs = chunk_device_half(
+        frames, state.class_hvs, B0, b, tiles, n_valid, labels, slot_mask,
+        t_detection=t_detection, adapt=adapt, precision=precision,
+        adc_lsb=adc_lsb, decim=decim, park_masked=park_masked, **kw)
+    scores = scores.cpu()
+    host_mask = None if slot_mask is None else slot_mask.cpu()
+    fired, gated, sampled, holds, phases = chunk_host_half(
+        scores, state.holds, state.phases, n_valid, host_mask,
+        t_score=t_score, can_fire=t_detection < maps.shape[-2] *
+        maps.shape[-1], hold_frames=hold_frames, decim=decim,
+        park_masked=park_masked)
+    if adapt is None:
+        class_hvs = state.class_hvs
+    elif class_hvs is None:
+        # a frame the LP ADC skipped was never scored: it must not feed the
+        # online update either (sampled carries the slot mask)
+        class_hvs = fold_chunk(
+            frames, maps, state.class_hvs, B0, b, labels,
+            sampled & (torch.arange(C) < n_valid)[None, :], adapt=adapt,
+            precision=precision, adc_lsb=adc_lsb, **kw)
+        if park_masked and host_mask is not None:
+            class_hvs = park_classes(class_hvs, state.class_hvs, host_mask)
+    new_state = StreamState(class_hvs=class_hvs, holds=holds, phases=phases,
                             frame_idx=state.frame_idx + n_valid)
     return scores, fired, gated, sampled, new_state
 
