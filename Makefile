@@ -21,7 +21,8 @@ SHARD1_FILES = tests/test_kernels.py tests/test_kernels_batch.py \
 	tests/test_sharding.py tests/test_control_loop.py tests/test_serve.py \
 	tests/test_cascade.py tests/test_torch_kernels.py \
 	tests/test_torch_stream.py tests/test_torch_encode.py \
-	tests/test_torch_fleet.py tests/test_torch_serve.py
+	tests/test_torch_fleet.py tests/test_torch_serve.py \
+	tests/test_torch_cascade.py
 SHARD2_FILES = tests/test_arch_smoke.py tests/test_cells.py \
 	tests/test_data_pipeline.py tests/test_gate.py tests/test_hdc_core.py \
 	tests/test_hypersense.py tests/test_online.py tests/test_system.py \
@@ -30,7 +31,7 @@ SHARD2_FILES = tests/test_arch_smoke.py tests/test_cells.py \
 	tests/test_torch_hypersense.py tests/test_torch_fragment_model.py \
 	tests/test_torch_scores_int.py tests/test_torch_scores_f32.py \
 	tests/test_torch_similarity.py tests/test_torch_energy.py \
-	tests/test_torch_checkpoint.py
+	tests/test_torch_checkpoint.py tests/test_torch_models.py
 
 # PYTEST_EXTRA lets CI attach coverage flags (see .github/workflows/ci.yml);
 # plain local runs need no pytest-cov install.

@@ -62,7 +62,21 @@ sm_90a: an H100). It
    dispatches free of host syncs (``torch.cuda.set_sync_debug_mode``);
    it prints the fps of the service and of ``FleetRunner``, their
    device busy shares and the dispatch->collect latency;
-9. drives the training path (paper Fig. 5a) at the same width: samples
+9. serves the gated cascade (paper §V-E): the closed-loop float32
+   ``FleetService`` (8 slots, 8 ticks, HP at 12 bits) feeds its HP drains
+   to a ``CascadeService`` over the full-width ``hubert-xlarge`` detector
+   (48 layers, bf16, random weights from a seeded generator; 128x128
+   frames at patch 8, batches of 8, 2 in flight, one CUDA graph), pumped
+   after every collect, then flushed: every HP frame returns once with
+   its (sensor, index), the logits are finite, batched logits equal
+   ``eager`` bitwise at every batch position and in a padded tail, the
+   graph is built once, warm submits are free of host syncs, and the card
+   agrees with the CPU at full width on 2 layers (bf16) and at the smoke
+   config (float32); ``backbone_cost`` must equal the hand count of the
+   products. It prints the backbone's frames/s and ms per batch against
+   the batch's bounds, its device busy share, the site's frames/s against
+   the gate's alone, and the energy bill against an always-on backbone;
+10. drives the training path (paper Fig. 5a) at the same width: samples
    balanced fragments from 256 synthetic training frames and 128 held-out
    frames (``sensing.fragments``), trains the Fragment model on the
    permutation base (``train_fragment_model``, 20 epochs), scores the
@@ -79,7 +93,7 @@ sm_90a: an H100). It
    both encoders the same way at ragged shapes (N, K and D off the tiles,
    K steps that straddle generator rows) for each nonlinearity, and
    reports their tiles, blocks and waves;
-10. prints one JSON line per phase, a ``kernels`` line, and last
+11. prints one JSON line per phase, a ``kernels`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises: the script exits non-zero and prints no result.
@@ -119,7 +133,11 @@ from repro_torch.kernels import hdc_encode_perm as enc_perm  # noqa: E402
 from repro_torch.kernels import similarity as sim  # noqa: E402
 from repro_torch.kernels import sliding_scores as ss  # noqa: E402
 from repro_torch.kernels import sliding_scores_int as ssi  # noqa: E402
+from repro_torch import configs  # noqa: E402
+from repro_torch.launch import steps  # noqa: E402
+from repro_torch.launch.cascade import CascadeService  # noqa: E402
 from repro_torch.launch.serve import FleetService  # noqa: E402
+from repro_torch.models import common as model_common  # noqa: E402
 from repro_torch.sensing import adc, fleet, fragments, stream  # noqa: E402
 
 # the paper's operating point (configs/hypersense.py)
@@ -146,10 +164,11 @@ SIM_PLAN_DS = (1, 16, 129, 130, 300, 1000, 4999, 5000, 8192, 8193, 20001)
 RAGGED = ((7, 5, 7, 131), (200, 6, 40, 1000))
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s, float32 (CUDA cores),
-# TF32 and int8 (tensor cores) operations/s
+# TF32, bf16 and int8 (tensor cores) operations/s
 HBM_BYTES_S = 3.35e12
 F32_OPS_S = 67e12
 TF32_OPS_S = 495e12
+BF16_OPS_S = 989e12
 INT8_OPS_S = 1979e12
 
 
@@ -1255,6 +1274,250 @@ def service_resume_check(base_model, cal, raw, schedule, frames_of):
     return rec
 
 
+# the gated cascade: the closed-loop service's HP frames through the
+# full-width detector, `batch` frames a step, `inflight` steps in flight;
+# the CPU references at full width but CASCADE_REF_LAYERS layers (bf16)
+# and at the smoke config (float32), on CASCADE_REF_FRAMES frames, each
+# within its tolerance of the largest |logit| of the CPU run
+CASCADE_ARCH, CASCADE_PATCH = "hubert-xlarge", 8
+CASCADE_BATCH, CASCADE_INFLIGHT = 8, 2
+CASCADE_REF_LAYERS, CASCADE_REF_FRAMES = 2, 4
+CASCADE_BF16_RTOL, CASCADE_F32_RTOL = 5e-2, 1e-4
+# batches timed warm, and batches under the profiler
+CASCADE_TIMED, CASCADE_PROFILED = 16, 2
+
+
+def detector_matmul_flops(cfg, seq: int, patch: int) -> int:
+    """Hand count of one frame's products: per layer q, k, v, o, the
+    scores and ``P·V``, and the MLP; the patch embedder and the unembedding
+    of every position."""
+    d, h, hd, f = cfg.d_model, cfg.n_heads, cfg.resolved_head_dim, cfg.d_ff
+    kv = cfg.kv_heads
+    layer = (2 * seq * d * (h + 2 * kv) * hd + 2 * seq * h * hd * d
+             + 2 * 2 * seq * seq * h * hd + 2 * 2 * seq * d * f)
+    return (cfg.n_layers * layer + 2 * seq * patch * patch * d
+            + 2 * seq * d * cfg.vocab)
+
+
+def cascade_reference(cfg, frames) -> dict:
+    """``frames`` through a card cascade and through the same step on the
+    CPU (weights copied from the card); returns the largest difference
+    and the largest |logit| of the CPU run."""
+    hw = frames.shape[1:]
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 10)
+    params = steps.init_detector_params(g, cfg, frame_hw=hw,
+                                        patch=CASCADE_PATCH)
+    card = CascadeService(params, cfg, batch_size=CASCADE_BATCH,
+                          frame_hw=hw, patch=CASCADE_PATCH, device=DEVICE)
+    got = card.eager(frames)
+    cell = steps.build_detector_cell(cfg, batch=CASCADE_BATCH, frame_hw=hw,
+                                     patch=CASCADE_PATCH)
+    cpu = cell.prepare(model_common.tree_map(lambda a: a.cpu(), params))
+    want = cell.step_fn(cpu, torch.from_numpy(frames)).numpy()
+    return dict(layers=cfg.n_layers, d_model=cfg.d_model,
+                compute_dtype=cfg.compute_dtype, frames=len(frames),
+                max_abs_diff=float(np.abs(got - want).max()),
+                max_abs_logit=float(np.abs(want).max()))
+
+
+def cascade_phase(base_model, cal, raw):
+    """The closed-loop float32 ``FleetService`` (FLEET_S slots, N_STREAM //
+    CHUNK ticks, HP at 12 bits) feeding a ``CascadeService`` over the
+    full-width detector, pumped after every collect, then flushed: every
+    drained HP frame (the same trace's ``FleetRunner`` drains are the
+    truth) returns once with its (sid, index), the logits are finite, one
+    scorer call a tick. Then 2 ragged drains of ``inflight × batch`` frames
+    and a 3-frame one, each submit free of host syncs, flushed; batched
+    logits equal ``eager`` bitwise at every batch position and in the
+    padded tail; ``rebuild_count()`` stays 1; the CPU references agree.
+    It times the backbone warm, the site (gate plus cascade) against the
+    gate alone, profiles two batches, and bills the energy. Returns the
+    record and the scorers' launches of the main run."""
+    S, n = raw.shape[:2]
+    n_ticks = n // CHUNK
+    B, hw = CASCADE_BATCH, (FRAME, FRAME)
+    cfg = configs.get_config(CASCADE_ARCH)
+    seq = steps.detector_seq_len(hw, CASCADE_PATCH)
+    t0 = time.perf_counter()
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 9)
+    params = steps.init_detector_params(g, cfg, frame_hw=hw,
+                                        patch=CASCADE_PATCH)
+    n_params = model_common.count_params(params["backbone"])
+    casc = CascadeService(params, cfg, batch_size=B, frame_hw=hw,
+                          patch=CASCADE_PATCH, max_inflight=CASCADE_INFLIGHT,
+                          device=DEVICE)
+    del params
+    setup_s = time.perf_counter() - t0
+
+    model = calibrated(base_model, *cal, "float32", 4)
+    common = dict(chunk_size=CHUNK, block_d=BLOCK_D, adc_bits=4,
+                  precision="float32", adc_seed=SEED,
+                  control=CaptureConfig(hp_bits=12), device=DEVICE)
+    raw_np = raw.cpu().numpy()
+    rf = fleet.FleetRunner(model, service_ctrl(), **common)
+    rf.process(raw)
+    want = {(s, int(i)): f for s, (idx, frs) in enumerate(rf.drain_hp())
+            for i, f in zip(idx, frs)}
+    check(len(want) > 2 * B, f"cascade: {len(want)} HP frames")
+
+    def service():
+        svc = FleetService(model, service_ctrl(), n_slots=S,
+                           max_inflight=SERVICE_INFLIGHT, **common)
+        for s in range(S):
+            svc.attach(s)
+        return svc
+
+    def site(svc, with_cascade: bool = True):
+        """One pass of the trace through ``svc``, the cascade pumped after
+        every collect; the cascade's batches."""
+        for k, lo in enumerate(range(0, n, CHUNK)):
+            svc.dispatch({s: raw_np[s, lo:lo + CHUNK] for s in range(S)})
+            if k and svc.collect() is not None and with_cascade:
+                casc.pump(svc)
+        svc.flush()
+        if not with_cascade:
+            return []
+        casc.pump(svc)
+        return casc.flush()
+
+    # the main path, counts zeroed right before
+    svc = service()
+    torch.cuda.synchronize()
+    ss.LAUNCHES = ssi.LAUNCHES = 0
+    t0 = time.perf_counter()
+    batches = site(svc)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {"sliding_scores_f32": ss.LAUNCHES,
+                "sliding_scores_int": ssi.LAUNCHES}
+    check(launches["sliding_scores_f32"] == n_ticks
+          and launches["sliding_scores_int"] == 0,
+          f"cascade: {launches} scorer calls for {n_ticks} ticks")
+    rows = [(sid, int(i)) for b in batches
+            for sid, i in zip(b.sids, b.frame_idx)]
+    check(len(rows) == len(set(rows)) and set(rows) == set(want),
+          f"cascade: {len(rows)} rows back ({len(set(rows))} distinct) "
+          f"for {len(want)} HP frames")
+    logits = np.concatenate([b.logits for b in batches])
+    check(logits.shape == (len(want), casc.n_out)
+          and np.isfinite(logits).all(),
+          "cascade: logits not finite or of the wrong shape")
+    check(casc.rebuild_count() == 1, "cascade: rebuilt during the run")
+    duty = float(np.mean([svc.capture_log(s).gated.mean()
+                          for s in range(S)]))
+    bill = casc.system_energy(svc.capture_log(0))
+
+    # ragged drains after the warm-up: two full batches and a tail, every
+    # submit free of host syncs (no more than max_inflight in flight)
+    order = sorted(want)
+    extra = order[:CASCADE_INFLIGHT * B + 3]
+    cuts = (0, 5, 5, CASCADE_INFLIGHT * B, len(extra))
+    for lo, hi in zip(cuts, cuts[1:]):
+        part = extra[lo:hi]
+        frs = (np.stack([want[r] for r in part]) if part
+               else np.zeros((0, *hw), np.float32))
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            casc.submit("ragged", [i for _, i in part], frs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    ragged = casc.flush()
+    check([b.n_padded for b in ragged] == [0] * CASCADE_INFLIGHT + [B - 3]
+          and np.array_equal(np.concatenate([b.frame_idx for b in ragged]),
+                             [i for _, i in extra]),
+          f"cascade: ragged batches {[b.n_padded for b in ragged]} padded")
+    # batched == eager at every batch position: the main run's first batch,
+    # the ragged full batches and the padded tail
+    first = batches[0]
+    frames = np.stack([want[(sid, int(i))] for sid, i
+                       in zip(first.sids, first.frame_idx)]
+                      + [want[r] for r in extra])
+    batched = np.concatenate([first.logits] + [b.logits for b in ragged])
+    check(np.array_equal(casc.eager(frames), batched),
+          "cascade: batched logits differ from eager")
+    check(casc.rebuild_count() == 1, "cascade: rebuilt by ragged drains")
+
+    # timing, warm: the backbone alone (CASCADE_TIMED full batches), the
+    # site with and without the cascade, in turns
+    timed = np.stack([want[r] for r in order[:CASCADE_TIMED * B]])
+
+    def backbone(n_batches):
+        casc.submit("timed", np.arange(n_batches * B), timed[:n_batches * B])
+        return casc.flush()
+
+    gate = service()
+    site(gate, False)
+    walls = {}
+    for what, fn in (("backbone", lambda: backbone(CASCADE_TIMED)),
+                     ("gate", lambda: site(gate, False)),
+                     ("site", lambda: site(svc)),
+                     ("gate_again", lambda: site(gate, False))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls[what] = time.perf_counter() - t0
+    # one batch alone, not pipelined: CUDA events around eager calls of one
+    # frame (the copy in, the graph's launch and replay, the copy out)
+    event_ms = time_ms(lambda: casc.eager(timed[:1]), runs=5, warmup=1)
+    prof = device_profile(lambda: backbone(CASCADE_PROFILED))
+    check(casc.rebuild_count() == 1, "cascade: rebuilt while timed")
+
+    cost = casc.backbone_cost()
+    hand = detector_matmul_flops(cfg, seq, CASCADE_PATCH)
+    check(cost.flops == hand,
+          f"cascade: backbone_cost {cost.flops} FLOPs/frame, hand count "
+          f"{hand}")
+    bounds = dict(bytes_ms=B * cost.bytes / HBM_BYTES_S * 1e3,
+                  flops_ms=B * cost.flops / BF16_OPS_S * 1e3)
+    refs = [cascade_reference(cfg.replace(n_layers=CASCADE_REF_LAYERS),
+                              timed[:CASCADE_REF_FRAMES]),
+            cascade_reference(configs.get_smoke(CASCADE_ARCH),
+                              timed[:CASCADE_REF_FRAMES])]
+    for r, rtol in zip(refs, (CASCADE_BF16_RTOL, CASCADE_F32_RTOL)):
+        r["rtol"] = rtol
+        check(r["max_abs_diff"] <= rtol * r["max_abs_logit"],
+              f"cascade: card vs CPU at {r}")
+
+    backbone_fps = CASCADE_TIMED * B / walls["backbone"]
+    device_ms = (prof["device_ms"] / CASCADE_PROFILED
+                 if prof["device_ms"] > 0 else "not measured")
+    gate_fps = S * n / min(walls["gate"], walls["gate_again"])
+    rec = dict(
+        arch=CASCADE_ARCH, layers=cfg.n_layers, d_model=cfg.d_model,
+        compute_dtype=cfg.compute_dtype, backbone_params=n_params,
+        frame=FRAME, patch=CASCADE_PATCH, seq=seq, batch=B,
+        max_inflight=CASCADE_INFLIGHT, setup_s=setup_s,
+        first_pass_s=first_s, hp_frames=len(want), batches=len(batches),
+        launches=launches, rows_once=True, bitwise_vs_eager=True,
+        eager_frames=len(frames), ragged_padded=B - 3,
+        warm_submits_sync_free=True, rebuild_count=casc.rebuild_count(),
+        backbone_fps=backbone_fps,
+        ms_per_batch=walls["backbone"] / CASCADE_TIMED * 1e3,
+        bound_ms_per_batch=bounds, alone_event_ms_per_batch=event_ms,
+        device_ms_per_batch=device_ms,
+        # the profiler's kernel time a batch over the unprofiled wall
+        # time a batch of the pipelined pass
+        device_share_of_wall=(device_ms / (walls["backbone"] * 1e3
+                                           / CASCADE_TIMED)
+                              if device_ms != "not measured"
+                              else device_ms),
+        device_busy_share=prof["device_busy_share"],
+        top_kernels_ms=prof["top_kernels_ms"],
+        site_fps=S * n / walls["site"], gate_fps=gate_fps,
+        gate_duty=duty, hp_share=len(want) / (S * n),
+        hp_fps_passed_by_gate=gate_fps * len(want) / (S * n),
+        hp_fps_backbone_sustains=backbone_fps,
+        backbone_cost=dataclasses.asdict(cost), flops_hand_count=hand,
+        energy_slot0={k: dict(dataclasses.asdict(v), total=v.total)
+                      for k, v in bill.items()},
+        energy_saving=energy.savings(bill["cascade"],
+                                     bill["always_on"])["total_saving"],
+        references=refs, walls_s=walls)
+    emit({"cascade": rec})
+    return rec, launches
+
+
 def device_profile(fn, top: int = 6) -> dict:
     """``fn`` once under ``torch.profiler``: the device busy share of its
     wall time and the device time of its top kernels. The profiler's own
@@ -1777,10 +2040,13 @@ def main() -> int:
                     "stacked_forms": stacked_forms(gf)}})
     t0 = time.perf_counter()
     _, service_launches = service_phase(model, cal, fleet_raw)
-    del fleet_raw
     emit({"service": {"slots": FLEET_S, "ticks": N_STREAM // CHUNK,
                       "launches": service_launches,
                       "phase_s": time.perf_counter() - t0}})
+    t0 = time.perf_counter()
+    _, cascade_launches = cascade_phase(model, cal, fleet_raw)
+    del fleet_raw
+    emit({"cascade_phase_s": time.perf_counter() - t0})
     train, train_launches, train_records = train_phase(g)
     emit({"train": train})
     for r in train_records:
@@ -1789,11 +2055,12 @@ def main() -> int:
         emit({"kernel_check": r})
     records += train_records
     # launches: the six stream runs', the six fleet runs', the three
-    # service runs' and the training path's, each counted from zero right
-    # before its run
+    # service runs', the cascade's gate and the training path's, each
+    # counted from zero right before its run
     for r in records:
         r["launches"] = sum(n.get(r["name"], 0) for n in (
-            launches, fleet_launches, service_launches, train_launches))
+            launches, fleet_launches, service_launches, cascade_launches,
+            train_launches))
         check(r["launches"] > 0, f"{r['name']} never ran on a main path")
     for name, n in train_launches.items():
         check(n > 0, f"{name} never ran on the training path")

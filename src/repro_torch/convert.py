@@ -1,4 +1,5 @@
-"""Carry a HyperSense or Fragment model's weights across into the port.
+"""Carry a HyperSense model's, a Fragment model's or a detector's weights
+across into the port.
 
 The tests build a model in the JAX package and hand its arrays over as
 numpy (``np.asarray(jax_model.class_hvs)`` etc.), so that both packages
@@ -14,6 +15,7 @@ from repro_torch import resolve_device
 from repro_torch.core.encoding import NonLin
 from repro_torch.core.fragment_model import FragmentModel
 from repro_torch.core.hypersense import HyperSenseModel
+from repro_torch.models import common
 
 
 def _float32_on(device):
@@ -55,3 +57,18 @@ def fragment_model_from_arrays(class_hvs, B, b, *,
                          f"{tuple(B.shape)} and b {tuple(b.shape)} do not "
                          f"share one D")
     return FragmentModel(class_hvs=class_hvs, B=B, b=b)
+
+
+def detector_params_from_arrays(tree, *,
+                                device: str | torch.device | None = None
+                                ) -> dict:
+    """The port's detector parameters from the reference's
+    ``init_detector_params`` tree as numpy arrays: the same nested dicts and
+    leaf names (``{"backbone": {..., "layers": {"attn": {"wq": (L, d, h,
+    hd), ...}}}, "embedder": {"proj", "pos"}}``, layers stacked on a leading
+    axis), each leaf float32 on ``device`` (``None`` -> CUDA, raising
+    without it)."""
+    if set(tree) != {"backbone", "embedder"}:
+        raise ValueError(f"a detector tree has 'backbone' and 'embedder', "
+                         f"got {sorted(tree)}")
+    return common.tree_map(_float32_on(device), tree)

@@ -4,8 +4,10 @@ NumPy copy of ``repro.core.energy`` kept inside the port (SciPy's
 ``least_squares`` in :func:`calibrate`), so that ``repro_torch`` imports
 nothing of the JAX package. It bills the port's
 :class:`~repro_torch.core.sensor_control.CaptureLog`, which has the same
-fields. ``backbone_cost`` reads a compiled XLA step and is not copied
-(its PyTorch form comes with the gated cascade).
+fields. :func:`backbone_cost` counts the detector step's products with
+``torch.utils.flop_counter`` where the reference reads XLA's
+``cost_analysis()``, which charges the body of a ``lax.map`` and of a layer
+``lax.scan`` once instead of once per trip (``ROADMAP.md`` §3).
 
 Per-frame energy accounting for three system variants:
 
@@ -37,6 +39,10 @@ from __future__ import annotations
 from dataclasses import dataclass, replace
 
 import numpy as np
+import torch
+from torch.utils.flop_counter import FlopCounterMode
+
+from repro_torch.models import common as model_common
 
 
 @dataclass(frozen=True)
@@ -272,6 +278,34 @@ class BackboneCost:
     flops: float
     bytes: float
     joules: float
+
+
+def backbone_cost(step_fn, weights, frames: torch.Tensor, *,
+                  j_per_flop: float = EDGE_J_PER_FLOP) -> BackboneCost:
+    """Per-frame :class:`BackboneCost` of one ``step_fn(weights, frames)``.
+
+    ``flops``: every product's ``2·M·N·K`` as
+    ``torch.utils.flop_counter.FlopCounterMode`` counts them over one run of
+    the step, not captured in a graph (meta tensors do), divided by the
+    ``frames.shape[0]`` frames of the block. Each layer and each frame
+    counts, since the run executes them all.
+
+    ``bytes``: what the per-frame program must move for one frame: every
+    tensor of ``weights`` once at its dtype (the program reads all the
+    weights again for each frame), the frame in and its logits out.
+    """
+    batch = frames.shape[0]
+    if batch < 1:
+        raise ValueError(f"batch must be >= 1, got {batch}")
+    with FlopCounterMode(display=False) as counter:
+        out = step_fn(weights, frames)
+    flops = counter.get_total_flops() / batch
+    nbytes = (sum(t.numel() * t.element_size()
+                  for t in model_common.leaves(weights))
+              + (frames.numel() * frames.element_size()
+                 + out.numel() * out.element_size()) / batch)
+    return BackboneCost(flops=float(flops), bytes=float(nbytes),
+                        joules=flops * j_per_flop)
 
 
 def cascade_system(log, backbone: BackboneCost,

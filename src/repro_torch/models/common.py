@@ -1,0 +1,185 @@
+"""Shared model substrate on PyTorch: parameter specs, norms, RoPE and the
+unembedding. The forward half of ``repro.models.common``.
+
+Every parameter is declared once as :class:`P` (shape, logical axes,
+init); :func:`init_params` materialises a spec tree (nested dicts and
+lists) in the reference's leaf order. The logical axes are kept for
+readability: the port runs on one device and shards nothing.
+
+The norms keep the reference's dtype discipline: float32 statistics, the
+normalisation applied in the compute dtype.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Callable, NamedTuple
+
+import torch
+
+
+class P(NamedTuple):
+    """Declaration of one parameter tensor."""
+    shape: tuple[int, ...]
+    axes: tuple[str | None, ...]
+    init: str = "normal"            # normal | zeros | ones
+    scale: float | None = None      # stddev; default fan-in
+
+    def with_layers(self, n_layers: int) -> "P":
+        """Prefix a stacked ``layers`` dim."""
+        return P((n_layers, *self.shape), ("layers", *self.axes),
+                 self.init, self.scale)
+
+
+SpecTree = Any  # nested dict[str, P]
+
+
+def tree_map(fn: Callable, tree, is_leaf: Callable = None):
+    """``fn`` over the leaves of nested dicts and lists, keys visited in
+    sorted order (the reference's ``jax.tree`` order); the structure kept.
+    """
+    if is_leaf is not None and is_leaf(tree):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], is_leaf) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)) and not isinstance(tree, P):
+        return [tree_map(fn, v, is_leaf) for v in tree]
+    return fn(tree)
+
+
+def _is_p(x) -> bool:
+    return isinstance(x, P)
+
+
+def map_layers(spec: SpecTree, n_layers: int) -> SpecTree:
+    return tree_map(lambda p: p.with_layers(n_layers), spec, _is_p)
+
+
+def init_params(generator: torch.Generator, spec: SpecTree,
+                dtype: torch.dtype = torch.float32) -> dict:
+    """Draw a spec tree on the generator's device, leaf by leaf in the
+    reference's order. ``normal`` leaves are ``scale * N(0, 1)`` with the
+    reference's default scale ``fan_in ** -0.5``, where ``fan_in`` is
+    ``shape[-2]`` (for the 3-D attention weights ``(d, heads, head_dim)``
+    that is the head count, as in the reference)."""
+    dev = generator.device
+
+    def one(p: P) -> torch.Tensor:
+        if p.init == "zeros":
+            return torch.zeros(p.shape, dtype=dtype, device=dev)
+        if p.init == "ones":
+            return torch.ones(p.shape, dtype=dtype, device=dev)
+        fan_in = p.shape[-2] if len(p.shape) >= 2 else p.shape[-1]
+        scale = p.scale if p.scale is not None else fan_in ** -0.5
+        return (scale * torch.randn(p.shape, generator=generator, device=dev,
+                                    dtype=torch.float32)).to(dtype)
+
+    return tree_map(one, spec, _is_p)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor | None,
+             eps: float = 1e-6) -> torch.Tensor:
+    """float32 statistics; the scaling in ``x``'s dtype."""
+    var = x.to(torch.float32).square().mean(dim=-1, keepdim=True)
+    out = x * torch.rsqrt(var + eps).to(x.dtype)
+    if weight is not None:
+        out = out * weight.to(x.dtype)
+    return out
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor | None = None,
+               bias: torch.Tensor | None = None,
+               eps: float = 1e-5) -> torch.Tensor:
+    """Non-parametric when weight and bias are None. float32 mean and
+    population variance; ``(x - mu) * rsqrt(var + eps)`` in ``x``'s dtype
+    (not ``F.layer_norm``, which rounds once at the end)."""
+    var, mu = torch.var_mean(x.to(torch.float32), dim=-1, correction=0,
+                             keepdim=True)
+    out = (x - mu.to(x.dtype)) * torch.rsqrt(var + eps).to(x.dtype)
+    if weight is not None:
+        out = out * weight.to(x.dtype)
+    if bias is not None:
+        out = out + bias.to(x.dtype)
+    return out
+
+
+def apply_norm(x: torch.Tensor, params: dict | None, kind: str
+               ) -> torch.Tensor:
+    if kind == "rmsnorm":
+        return rms_norm(x, params["scale"] if params else None)
+    if kind == "layernorm":
+        return layer_norm(x, params["scale"] if params else None,
+                          params.get("bias") if params else None)
+    if kind == "nonparametric_ln":
+        return layer_norm(x, None, None)
+    raise ValueError(kind)
+
+
+def norm_spec(d: int, kind: str) -> dict:
+    if kind == "rmsnorm":
+        return {"scale": P((d,), ("norm",), "ones")}
+    if kind == "layernorm":
+        return {"scale": P((d,), ("norm",), "ones"),
+                "bias": P((d,), ("norm",), "zeros")}
+    if kind == "nonparametric_ln":
+        return {}
+    raise ValueError(kind)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float = 10000.0,
+               device: torch.device | None = None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0) -> torch.Tensor:
+    """x: (..., S, H, head_dim); positions: (..., S). Rotates the split
+    halves (not interleaved pairs) with float32 angles, then casts back."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)            # (hd/2,)
+    angles = positions[..., None].to(torch.float32) * freqs     # (..., S, hd/2)
+    cos = torch.cos(angles)[..., :, None, :]                    # (..., S, 1, hd/2)
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Unembedding
+# ---------------------------------------------------------------------------
+
+def unembed_spec(vocab: int, d: int) -> dict:
+    return {"kernel": P((d, vocab), ("embed", "vocab"))}
+
+
+def unembed(params: dict, x: torch.Tensor, compute_dtype: torch.dtype
+            ) -> torch.Tensor:
+    return x.to(compute_dtype) @ params["kernel"].to(compute_dtype)
+
+
+def true_divide(x: torch.Tensor, value: float) -> torch.Tensor:
+    """``x / value`` as a true division in ``x``'s dtype. A Python scalar
+    divisor becomes a multiplication by its reciprocal on the card (one
+    bit less exact); a 0-d tensor divisor divides on every device."""
+    return x / torch.full((), value, dtype=x.dtype, device=x.device)
+
+
+def count_params(tree) -> int:
+    """Elements in a tree of tensors or of :class:`P` declarations."""
+    return sum(math.prod(leaf.shape) for leaf in leaves(tree))
+
+
+def leaves(tree) -> list:
+    """The leaves of nested dicts and lists, in the reference's order."""
+    out: list = []
+    tree_map(out.append, tree, _is_p)
+    return out
