@@ -7,7 +7,7 @@ from the root of a checkout, on a machine with one CUDA card (built for
 sm_90a: an H100). It
 
 1. prints the card's name and power limit (``nvidia-smi``);
-2. builds all five kernels from ``src/repro_torch/kernels/csrc`` with
+2. builds all six kernels from ``src/repro_torch/kernels/csrc`` with
    nvcc, one process per source, all at once, and counts ``similarity``'s
    launches per call at 2, 9, 17 and 33 classes from the profiler's
    events (one each; first, before any other profile of the process);
@@ -93,7 +93,28 @@ sm_90a: an H100). It
    both encoders the same way at ragged shapes (N, K and D off the tiles,
    K steps that straddle generator rows) for each nonlinearity, and
    reports their tiles, blocks and waves;
-11. prints one JSON line per phase, a ``kernels`` line, and last
+11. drives the int-datapath path (``benchmarks/int_datapath.py``'s
+   claims): the float32 kernel, the live int8 kernel and the expanded-slab
+   kernel (the int scorer's retired layout, ``csrc/int_expanded.cu``) race
+   on one ADC capture at the reference's shape (32x32 frames, 8x8
+   fragments, stride 4, D 256, chunk 16) and at the paper's operating
+   point (``configs/hypersense.py``, chunk 32): one launch a call, the
+   expanded window sums bitwise the live kernel's, its scores within 1e-6
+   of the live kernel's and within 5e-5 of its plain version, both int
+   paths bitwise run to run and across a fresh precompute, ms per chunk,
+   fps and speedups; the live int kernel at 4x the reference's frame
+   width against its plain version, and the expanded operand's bytes at
+   the deployment geometry beside the live block's; frame-score AUC of a
+   gate trained on ``sensing/synthetic`` frames, float vs int8 and float at
+   4 bits vs packed int4, on a synthetic and a drifted stream (gaps within
+   0.01), also at the paper's operating point (reported); the binary
+   gate's D-vs-AUC curve (each map within 5e-5 of the plain version; the
+   reference's 0.85 claim on its best point reported); and the stream gate
+   (``core/gate.py``) over 256 frames at the paper's point, its decisions
+   equal to the same gate's on the CPU wherever the deciding score sits
+   more than 2.5e-4 from ``t_score``, its frames/s, duty cycle and the
+   detector FLOPs it saves;
+12. prints one JSON line per phase, a ``kernels`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises: the script exits non-zero and prints no result.
@@ -134,11 +155,15 @@ from repro_torch.kernels import similarity as sim  # noqa: E402
 from repro_torch.kernels import sliding_scores as ss  # noqa: E402
 from repro_torch.kernels import sliding_scores_int as ssi  # noqa: E402
 from repro_torch import configs  # noqa: E402
+from repro_torch.configs import hypersense as paper_config  # noqa: E402
+from repro_torch.core import gate as hs_gate  # noqa: E402
+from repro_torch.kernels import int_expanded as ie  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
 from repro_torch.launch.cascade import CascadeService  # noqa: E402
 from repro_torch.launch.serve import FleetService  # noqa: E402
 from repro_torch.models import common as model_common  # noqa: E402
-from repro_torch.sensing import adc, fleet, fragments, stream  # noqa: E402
+from repro_torch.sensing import (adc, fleet, fragments, stream,  # noqa: E402
+                                 synthetic)
 
 # the paper's operating point (configs/hypersense.py)
 FRAME, FRAG, STRIDE, DIM, BLOCK_D = 128, 96, 8, 5000, 512
@@ -1670,12 +1695,17 @@ def train_kernel_checks(model, B0, x_tr, x_te, hv_te):
     ``hdc_encode`` against the expanded base, and the held-out
     hypervectors through ``similarity`` (``similarity_checks`` for its
     other shapes); then both encoders at the RAGGED shapes
-    (``ragged_encode_checks``)."""
+    (``ragged_encode_checks``). The library yardsticks (``torch.matmul``
+    in float32) run without TF32."""
+    with pin_fp32_matmul():
+        return _train_kernel_checks(model, B0, x_tr, x_te, hv_te)
+
+
+def _train_kernel_checks(model, B0, x_tr, x_te, hv_te):
     B, b = model.B, model.b
     lib = _build.load("similarity")
     check(all(sim.chunk(D) == lib.similarity_chunk(D) for D in SIM_PLAN_DS),
           "python and CUDA similarity chunk plans differ")
-    pin_fp32_matmul()
     records = []
     K = FRAG * FRAG
 
@@ -1965,6 +1995,402 @@ def ragged_encode_checks() -> dict:
     return worst
 
 
+# the int-datapath phase: the claims of benchmarks/int_datapath.py (its
+# constants, :57-74) and its --check gates (:441-486) on the port, the
+# race also at the paper's operating point (configs/hypersense.py)
+PAPER = paper_config.config()
+INT_BITS = 8
+# race shapes: (frame, fragment, stride, D, block_d, chunk)
+RACE_SHAPES = {"reference": (32, 8, 4, 256, 128, 16),
+               "paper": (PAPER.frame_h, PAPER.fragment, PAPER.stride,
+                         PAPER.dim, BLOCK_D, CHUNK)}
+# the expanded kernel against the live int kernel (the reference's
+# assert_allclose, int_datapath.py:215)
+RACE_RTOL = RACE_ATOL = 1e-6
+# the AUC scenario (a gate trained on make_dataset(60) at 32x32, 2
+# fragments a frame, 8 epochs; streams of 160 frames, bursts of 10 at 0.08)
+AUC_FRAG, AUC_STRIDE, AUC_DIM, AUC_FRAMES, AUC_TOL = 8, 4, 512, 160, 0.01
+AUC_DRIFT = dict(background_gain=(0.0, 0.5), noise_sigma=(0.12, 0.25),
+                 object_intensity=(0.8, 0.45))
+# The binary curve's D and the reference's claim on its best point. The
+# claim is reported, not enforced: with sign-quantized slabs AND class
+# hypervectors, a gate trained on 60 frames lands on either side of 0.85 at
+# random, in the JAX package as in the port (CPU, D = 128, 256, 512: the
+# reference's protocol best at 0.831 on its own keys, 0.537-0.946 on 8
+# others, 4 of them >= 0.85; the port 0.513-0.987 on 12 seeds, 6 >= 0.85);
+# each binary score map of the curve is held to its plain version instead.
+BINARY_DIMS, BINARY_MIN_BEST_AUC = (128, 256, 512), 0.85
+# the large-W check: 4x the reference's frame width, its dims; the
+# reference's tolerance for it, printed beside the port's SCORE_ATOL
+LARGE_W, LARGE_W_DIM, LARGE_W_BLOCK_D, LARGE_W_TOL = 128, 256, 128, 1e-6
+# the deployment geometry of the reference's byte model
+# (int_datapath.py:236): 4-bit codes, 128x4096 frames, 16x16 windows,
+# stride 16
+DEPLOY = dict(adc_bits=4, H=128, W=4096, h=16, w=16, stride=16)
+GATE_FRAMES = 256
+# every score a gate decision rests on sits this far from t_score
+# (tests/test_golden.py:59)
+DECISION_MARGIN = 5 * SCORE_ATOL
+# every kernel wrapper the phase's main path may reach
+ID_KERNELS = {"sliding_scores_f32": ss, "sliding_scores_int": ssi,
+              "int_expanded": ie, "hdc_encode_perm": enc_perm,
+              "hdc_encode": enc, "similarity": sim}
+
+
+def race_inputs(g, frame, frag, stride, dim, block_d, chunk):
+    """One model and one ADC capture for the race: uniform frames in
+    [0, 1.5], their 8-bit codes for the int kernels and the float
+    reconstruction of the same codes for the float kernel; the float and
+    int tiles and the expanded operand."""
+    B0, b = encoding.make_perm_base_rows(g, frag, dim)
+    chvs = torch.randn((2, dim), generator=g, device=DEVICE)
+    frames = 1.5 * torch.rand((chunk, frame, frame), generator=g,
+                              device=DEVICE)
+    codes = adc.pack_codes(adc.quantize_codes(frames, INT_BITS), INT_BITS)
+    tkw = dict(W=frame, w=frag, stride=stride, block_d=block_d)
+    itiles = ops.precompute_tiles_int(B0, b, chvs, **tkw)
+    return dict(B0=B0, b=b, chvs=chvs, codes=codes,
+                recon=adc.quantize(frames, INT_BITS),
+                ftiles=ops.precompute_tiles(B0, b, chvs, **tkw),
+                itiles=itiles, E=ie.expand_slabs(itiles.geom, frame),
+                tkw=tkw, kw=dict(h=frag, w=frag, stride=stride))
+
+
+def race_calls(inp):
+    """The three scorers on the capture, through their entry points."""
+    kw, model = inp["kw"], (inp["chvs"], inp["B0"], inp["b"])
+    return {
+        "float32": (ss, lambda: ops.fragment_score_map_batch(
+            inp["recon"], *model, tiles=inp["ftiles"], **kw)),
+        "int8": (ssi, lambda: ops.fragment_score_map_batch_int(
+            inp["codes"], *model, tiles=inp["itiles"], **kw)),
+        "expanded": (ie, lambda: ie.expanded_scores(
+            inp["codes"], inp["E"], inp["itiles"], **kw))}
+
+
+def race_scores(inp):
+    """Each scorer once; each call must be one call of its C entry."""
+    out = {}
+    for name, (mod, fn) in race_calls(inp).items():
+        before = mod.LAUNCHES
+        out[name] = fn()
+        check(mod.LAUNCHES == before + 1,
+              f"race {name}: {mod.LAUNCHES - before} launches in one call")
+    return out
+
+
+def race_checks(name, inp, scores):
+    """The race's gates and times at one shape: the expanded window sums
+    bitwise the live kernel's, its scores within 1e-6 of the live kernel's
+    and within SCORE_ATOL of its plain version; both int paths bitwise run
+    to run and across a fresh precompute; ms per chunk (CUDA events), fps
+    and speedups."""
+    kw, codes, itiles, E = inp["kw"], inp["codes"], inp["itiles"], inp["E"]
+    s_f, s_i, s_e = scores["float32"], scores["int8"], scores["expanded"]
+    acc_e = ie.expanded_window_acc(codes, E, itiles.geom, **kw)
+    acc_i = ssi.int_window_acc(codes, itiles.geom, **kw)
+    plain = ie.expanded_scores_plain(codes, E, itiles, **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(acc_e, acc_i),
+          f"race {name}: expanded window sums differ from the live ones")
+    live_err = float((s_e - s_i).abs().max())
+    check(bool(torch.allclose(s_e, s_i, rtol=RACE_RTOL, atol=RACE_ATOL)),
+          f"race {name}: expanded vs live int8 kernel {live_err}")
+    plain_err = float((s_e - plain).abs().max())
+    check(plain_err <= SCORE_ATOL,
+          f"race {name}: expanded kernel vs plain {plain_err}")
+    check(bool(torch.isfinite(s_e).all() & torch.isfinite(s_f).all())
+          and s_e.shape == s_i.shape == s_f.shape,
+          f"race {name}: scores not finite or of the wrong shape")
+    # determinism: run to run, and across a fresh precompute
+    fresh = ops.precompute_tiles_int(inp["B0"], inp["b"], inp["chvs"],
+                                     **inp["tkw"])
+    E2 = ie.expand_slabs(fresh.geom, inp["tkw"]["W"])
+    again = {n: fn() for n, (_, fn) in race_calls(inp).items()}
+    s_i2 = ssi.fragment_scores_batch_int(codes, fresh, **kw)
+    s_e2 = ie.expanded_scores(codes, E2, fresh, **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(E2, E), f"race {name}: a fresh operand differs")
+    for n, (a, others) in dict(
+            int8=(s_i, (again["int8"], s_i2)),
+            expanded=(s_e, (again["expanded"], s_e2))).items():
+        check(all(torch.equal(a, x) for x in others),
+              f"race {name}: {n} not bitwise deterministic")
+    ms = {n: time_ms(fn) for n, (_, fn) in race_calls(inp).items()}
+    N = codes.shape[0]
+    return dict(
+        frames=N, frame=inp["tkw"]["W"], fragment=kw["h"],
+        stride=kw["stride"], D=inp["chvs"].shape[1],
+        td=itiles.geom.block_d, n_dt=itiles.geom.slabs_q.shape[0],
+        operand_bytes=E.numel(), ms=ms,
+        fps={n: N / (t / 1e3) for n, t in ms.items()},
+        speedup_int8_vs_float32=ms["float32"] / ms["int8"],
+        speedup_int8_vs_expanded=ms["expanded"] / ms["int8"],
+        acc_bitwise=True, expanded_vs_live_max_abs=live_err,
+        expanded_bitwise_live=bool(torch.equal(s_e, s_i)),
+        expanded_vs_plain_max_abs=plain_err, deterministic=True)
+
+
+def expanded_record(inp, race):
+    """The expanded kernel's line at the paper's shape: its time, the
+    device time of its three kernels, the plain version's, the library
+    yardstick's (the int row's: the windows against the expanded base in
+    one ``torch.matmul``) and the bound, each input read once."""
+    kw, codes, itiles, E = inp["kw"], inp["codes"], inp["itiles"], inp["E"]
+    h, w, stride = kw["h"], kw["w"], kw["stride"]
+    N, H, W = codes.shape
+    my, mx = (H - h) // stride + 1, (W - w) // stride + 1
+    n_dt, td = itiles.geom.slabs_q.shape[0], itiles.geom.block_d
+    lib = _build.load("int_expanded")
+    check(ie.COL_TILE == lib.int_expanded_col_tile(),
+          "python and CUDA expanded column tiles differ")
+    win = codes.unfold(1, h, stride).unfold(2, w, stride).reshape(
+        N * my * mx, h * w).to(torch.float32)
+    base = encoding.flat_perm_base(inp["B0"], h)
+    device_ms, by_kernel = kernel_device_ms(
+        lambda: ie.expanded_scores(codes, E, itiles, **kw),
+        ("window_norms", "score_expanded", "fold_epilogue"))
+    n_bytes = (codes.numel() * codes.element_size() + E.numel()
+               + 4 * itiles.geom.bias_t.numel() + 2 * itiles.cpos_t.numel()
+               + 4 * N * my * mx)
+    return dict(
+        name="int_expanded", route="cuda",
+        source="src/repro_torch/kernels/csrc/int_expanded.cu",
+        replaces="benchmarks/int_datapath.py:96",
+        max_abs_err=race["expanded_vs_plain_max_abs"],
+        expanded_vs_live_max_abs=race["expanded_vs_live_max_abs"],
+        bitwise_live=race["expanded_bitwise_live"],
+        ms=race["ms"]["expanded"], kernel_device_ms=device_ms,
+        kernel_device_by_kernel_ms=by_kernel,
+        plain_ms=time_ms(lambda: ie.expanded_scores_plain(codes, E, itiles,
+                                                          **kw)),
+        library_ms=time_ms(lambda: torch.matmul(win, base)),
+        shape=[N, H, W, h, w, stride, n_dt * td],
+        smem_bytes=lib.int_expanded_smem_bytes(w, stride),
+        blocks=n_dt * -(-td // ie.COL_TILE) * my * N,
+        **bound(n_bytes, 2 * N * my * W * n_dt * td * (h + mx), INT8_OPS_S),
+        # what this design reads: the operand again for every (frame, band)
+        operand_reads_bytes=N * my * E.numel())
+
+
+def large_w_checks(g):
+    """The reference's large-W check (int_datapath.py:225-260): at W = 4x
+    its frame the live int kernel matches its plain version (SCORE_ATOL;
+    the reference's 1e-6 printed beside it) and the expanded kernel the
+    live one; then the expanded operand's bytes at the deployment
+    geometry beside the live kernel's fixed block and its im2col bytes
+    per frame."""
+    frame, frag, stride = RACE_SHAPES["reference"][:3]
+    H, W = frame, LARGE_W
+    kw = dict(h=frag, w=frag, stride=stride)
+    ops.assert_int_datapath_fits(INT_BITS, H, W, frag, frag, stride=stride)
+    B0, b = encoding.make_perm_base_rows(g, frag, LARGE_W_DIM)
+    chvs = torch.randn((2, LARGE_W_DIM), generator=g, device=DEVICE)
+    frames = 1.5 * torch.rand((4, H, W), generator=g, device=DEVICE)
+    codes = adc.pack_codes(adc.quantize_codes(frames, INT_BITS), INT_BITS)
+    tiles = ssi.precompute_tiles_int(B0, b, chvs, W=W, w=frag, stride=stride,
+                                     block_d=LARGE_W_BLOCK_D)
+    got = ssi.fragment_scores_batch_int(codes, tiles, **kw)
+    want = ssi.fragment_scores_batch_int_plain(codes, tiles, **kw)
+    E = ie.expand_slabs(tiles.geom, W)
+    s_e = ie.expanded_scores(codes, E, tiles, **kw)
+    acc_e = ie.expanded_window_acc(codes, E, tiles.geom, **kw)
+    acc_i = ssi.int_window_acc(codes, tiles.geom, **kw)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    check(err <= SCORE_ATOL, f"large W={W}: live int kernel vs plain {err}")
+    check(torch.equal(acc_e, acc_i) and bool(torch.allclose(
+        s_e, got, rtol=RACE_RTOL, atol=RACE_ATOL)),
+        f"large W={W}: expanded vs live kernel")
+    d = DEPLOY
+    bounds = ssi.int_datapath_bounds(d["adc_bits"], d["H"], d["W"], d["h"],
+                                     d["w"], stride=d["stride"])
+    check(bounds["fits"], "the live layout must admit deployment scale")
+    expanded = ie.expanded_bytes(d["h"], d["W"], PAPER.dim, BLOCK_D)
+    return dict(
+        W=W, D=LARGE_W_DIM, td=LARGE_W_BLOCK_D, live_vs_plain_max_abs=err,
+        reference_tol=LARGE_W_TOL, within_reference_tol=err <= LARGE_W_TOL,
+        expanded_vs_live_max_abs=float((s_e - got).abs().max()),
+        expanded_operand_bytes=E.numel(),
+        deploy=dict(d, D=PAPER.dim, block_d=BLOCK_D,
+                    expanded_operand_bytes=expanded,
+                    expanded_over_l2=expanded > 50e6,
+                    live_smem_bytes=bounds["smem_bytes"],
+                    live_im2col_bytes_per_frame=bounds[
+                        "im2col_bytes_per_frame"]))
+
+
+def train_gate(g, cfg, dim, frag, stride):
+    """A gate trained as the reference's benchmark trains it (its
+    ``_train_gate``): ``make_dataset(60)``, 2 fragments a frame, 8 epochs,
+    the generator rows read back from the model's base, ``t_detection``
+    1."""
+    frames, masks, _ = synthetic.make_dataset(g, 60, cfg, device=DEVICE)
+    frs, labs = fragments.sample_fragments(
+        frames.cpu().numpy(), masks.cpu().numpy(), h=frag, w=frag,
+        per_frame=2, seed=0)
+    model, _ = fragment_model.train_fragment_model(g, frs, labs, dim=dim,
+                                                   epochs=8, device=DEVICE)
+    B0 = model.B.reshape(frag, frag, -1)[:, 0, :]
+    return hypersense.from_fragment_model(model, B0, h=frag, w=frag,
+                                          stride=stride, t_detection=1)
+
+
+def frame_auc(scores, labels) -> float:
+    fpr, tpr, _ = metrics.roc_curve(scores.cpu().numpy(),
+                                    labels.cpu().numpy())
+    return float(metrics.auc(fpr, tpr))
+
+
+def auc_streams(g, cfg):
+    """The scenario's synthetic stream and its drifted one."""
+    drift = synthetic.DriftConfig(**AUC_DRIFT)
+    kw = dict(event_prob=0.08, event_len=10, device=DEVICE)
+    return {"synthetic": synthetic.make_stream(g, AUC_FRAMES, cfg, **kw),
+            "drift": synthetic.make_drift_stream(g, AUC_FRAMES, cfg, drift,
+                                                 **kw)}
+
+
+def auc_parity(hs, streams) -> dict:
+    """Frame-score AUC on each stream: float at 8 bits vs int8, and float
+    at 4 bits vs packed int4, each pair on the same ADC capture."""
+    out = {}
+    for name, (frames, labels) in streams.items():
+        def auc(view, **kw):
+            return frame_auc(hypersense.frame_scores_batch(hs, view, **kw),
+                             labels)
+        f8 = auc(adc.quantize(frames, 8))
+        i8 = auc(frames, precision="int8", adc_bits=8)
+        f4 = auc(adc.quantize(frames, 4))
+        i4 = auc(frames, precision="int4", adc_bits=4)
+        out[name] = dict(float_auc=f8, int8_auc=i8, gap=abs(f8 - i8),
+                         float4_auc=f4, int4_auc=i4, int4_gap=abs(f4 - i4),
+                         positives=int(labels.sum()))
+    return out
+
+
+def binary_curve(g, cfg, frames, labels) -> dict:
+    """The binary gate's D-vs-AUC curve on the synthetic stream (a gate
+    trained per D) beside the float gate's at 8 bits, each binary score
+    map held to the plain version's within SCORE_ATOL."""
+    out = {}
+    codes = adc.pack_codes(adc.quantize_codes(frames, 8), 8)
+    for dim in BINARY_DIMS:
+        hs = train_gate(g, cfg, dim, AUC_FRAG, AUC_STRIDE)
+        tiles = ops.precompute_tiles_int(hs.B0, hs.b, hs.class_hvs,
+                                         W=codes.shape[-1], w=hs.w,
+                                         stride=hs.stride, mode="binary")
+        kw = dict(h=hs.h, w=hs.w, stride=hs.stride)
+        maps = ssi.fragment_scores_batch_int(codes, tiles, **kw)
+        err = float((maps - ssi.fragment_scores_batch_int_plain(
+            codes, tiles, **kw)).abs().max())
+        check(err <= SCORE_ATOL and bool(torch.isfinite(maps).all()),
+              f"binary scores at D={dim}: kernel vs plain {err}")
+        out[f"d{dim}"] = dict(
+            float_auc=frame_auc(hypersense.frame_scores_batch(
+                hs, adc.quantize(frames, 8)), labels),
+            binary_auc=frame_auc(frame_detection_score(
+                maps, hs.t_detection), labels),
+            binary_vs_plain_max_abs=err)
+    out["best_binary_auc"] = max(v["binary_auc"] for v in out.values())
+    return out
+
+
+def gate_model(g, hs, cfg):
+    """``hs`` at a ``t_score`` on the 80th percentile of the frame scores
+    of the object-free frames of 64 calibration frames at the gate's ADC
+    depth (the reference's gate test calibrates so)."""
+    frames, _, labels = synthetic.make_dataset(g, 64, cfg, device=DEVICE)
+    neg = adc.quantize(frames[labels == 0], PAPER.adc_low_bits)
+    s = hypersense.frame_scores_batch(hs, neg)
+    return dataclasses.replace(hs, t_score=float(torch.quantile(s, 0.8)))
+
+
+def gate_checks(hs, lp, gate, kept, flops_per_frame):
+    """The card's gate against the same gate on the CPU (plain versions):
+    equal decisions on every frame whose deciding score sits more than
+    DECISION_MARGIN from ``t_score``, equal kept indices where all do;
+    then frames/s of ``select`` on the card, the duty cycle and the
+    backend account."""
+    cpu = hs_gate.HyperSenseGate(hs.to("cpu"), ControllerConfig())
+    fired_card = gate.decide(lp)
+    fired_cpu = cpu.decide(lp.cpu())
+    kept_cpu = cpu.select_fired(fired_cpu)
+    # the deciding scores (the card's are within SCORE_ATOL of the CPU's)
+    scores = hypersense.frame_scores_batch(hs, lp).cpu().numpy()
+    clear = np.abs(scores - hs.t_score) > DECISION_MARGIN
+    check(np.array_equal(fired_card[clear], fired_cpu[clear]),
+          "gate: card and CPU decisions differ on a frame clear of t_score")
+    if clear.all():
+        check(np.array_equal(kept_cpu, kept),
+              "gate: card and CPU kept indices differ")
+    timed = hs_gate.HyperSenseGate(hs, ControllerConfig())
+    timed.select(lp)   # makes the float tiles, once per frame width
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed.select(lp)
+    select_s = time.perf_counter() - t0
+    return dict(
+        frames=len(lp), t_score=hs.t_score, fired=int(fired_card.sum()),
+        kept=len(kept), kept_cpu=len(kept_cpu),
+        frames_within_margin=int((~clear).sum()), decisions_equal_cpu=True,
+        kept_equal_cpu=bool(np.array_equal(kept_cpu, kept)),
+        select_fps=len(lp) / select_s, flops_per_frame=flops_per_frame,
+        **hs_gate.backend_flops_saved(gate.stats, flops_per_frame))
+
+
+def int_datapath_phase(g, flops_per_frame):
+    """The int-datapath path: its main run (each race scorer once at the
+    reference's shape and at the paper's, the AUC parity at the
+    reference's scenario and at the paper's operating point, the binary
+    curve, the stream gate over GATE_FRAMES frames at the paper's point),
+    counted from zero; then its checks and times. Returns the phase's
+    record, its launches per kernel and the expanded kernel's record."""
+    t0 = time.perf_counter()
+    inputs = {k: race_inputs(g, *v) for k, v in RACE_SHAPES.items()}
+    side = RACE_SHAPES["reference"][0]
+    small = synthetic.RadarConfig(height=side, width=side)
+    paper = synthetic.RadarConfig(height=PAPER.frame_h, width=PAPER.frame_w)
+    torch.cuda.synchronize()
+    for mod in ID_KERNELS.values():
+        mod.LAUNCHES = 0
+    # --- the main path
+    scores = {k: race_scores(v) for k, v in inputs.items()}
+    streams = auc_streams(g, small)
+    auc = auc_parity(train_gate(g, small, AUC_DIM, AUC_FRAG, AUC_STRIDE),
+                     streams)
+    paper_hs = train_gate(g, paper, PAPER.dim, PAPER.fragment, PAPER.stride)
+    auc_paper = auc_parity(paper_hs, auc_streams(g, paper))
+    binary = binary_curve(g, small, *streams["synthetic"])
+    gate_hs = gate_model(g, paper_hs, paper)
+    frames, labels = synthetic.make_stream(g, GATE_FRAMES, paper,
+                                           device=DEVICE)
+    lp = adc.quantize(frames, PAPER.adc_low_bits)
+    gate = hs_gate.HyperSenseGate(gate_hs, ControllerConfig())
+    kept = gate.select(lp)
+    torch.cuda.synchronize()
+    launches = {k: mod.LAUNCHES for k, mod in ID_KERNELS.items()}
+    main_s = time.perf_counter() - t0
+    # --- the reference's --check gates, then the race's
+    for name, a in auc.items():
+        check(a["gap"] <= AUC_TOL and a["int4_gap"] <= AUC_TOL,
+              f"AUC parity on the {name} stream: {a}")
+    binary["claim_min_best_auc"] = BINARY_MIN_BEST_AUC
+    binary["claim_met"] = binary["best_binary_auc"] >= BINARY_MIN_BEST_AUC
+    for k in ("sliding_scores_f32", "sliding_scores_int", "int_expanded"):
+        check(launches[k] > 0, f"{k} never ran on the int-datapath path")
+    race = {k: race_checks(k, inputs[k], scores[k]) for k in inputs}
+    record = expanded_record(inputs["paper"], race["paper"])
+    rec = dict(
+        race=race, large_w=large_w_checks(g), auc=auc,
+        auc_paper_point=auc_paper, binary_curve=binary,
+        gate=gate_checks(gate_hs, lp, gate, kept, flops_per_frame),
+        gate_stream_positives=int(labels.sum()), launches=launches,
+        main_path_s=main_s, phase_s=time.perf_counter() - t0)
+    emit({"int_datapath": rec})
+    return rec, launches, record
+
+
 def kernel_device_ms(fn, names, calls: int = 5):
     """Device time of one call of ``fn`` spent in the kernels whose names
     contain one of ``names``: ``calls`` calls under ``torch.profiler``, each
@@ -2044,7 +2470,7 @@ def main() -> int:
                       "launches": service_launches,
                       "phase_s": time.perf_counter() - t0}})
     t0 = time.perf_counter()
-    _, cascade_launches = cascade_phase(model, cal, fleet_raw)
+    cascade, cascade_launches = cascade_phase(model, cal, fleet_raw)
     del fleet_raw
     emit({"cascade_phase_s": time.perf_counter() - t0})
     train, train_launches, train_records = train_phase(g)
@@ -2054,13 +2480,19 @@ def main() -> int:
             r.update(sim_launches)
         emit({"kernel_check": r})
     records += train_records
+    gi = torch.Generator(device=DEVICE)
+    gi.manual_seed(SEED + 11)
+    _, int_launches, expanded = int_datapath_phase(
+        gi, cascade["backbone_cost"]["flops"])
+    emit({"kernel_check": expanded})
+    records.append(expanded)
     # launches: the six stream runs', the six fleet runs', the three
-    # service runs', the cascade's gate and the training path's, each
-    # counted from zero right before its run
+    # service runs', the cascade's gate, the training path's and the
+    # int-datapath path's, each counted from zero right before its run
     for r in records:
         r["launches"] = sum(n.get(r["name"], 0) for n in (
             launches, fleet_launches, service_launches, cascade_launches,
-            train_launches))
+            train_launches, int_launches))
         check(r["launches"] > 0, f"{r['name']} never ran on a main path")
     for name, n in train_launches.items():
         check(n > 0, f"{name} never ran on the training path")

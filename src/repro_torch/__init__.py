@@ -15,6 +15,9 @@ tensor it launches the hand-written kernel or raises.
 
 from __future__ import annotations
 
+import contextlib
+from typing import Iterator
+
 import torch
 
 
@@ -29,14 +32,41 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     return torch.device(device)
 
 
-def pin_fp32_matmul() -> None:
-    """Keep float32 matmuls in full float32 on the card (no TF32).
+@contextlib.contextmanager
+def pin_fp32_matmul() -> Iterator[None]:
+    """Inside the scope, float32 matmuls run in full float32 on the card
+    (no TF32); on exit, exceptions included, the caller's
+    ``torch.backends.cuda.matmul.allow_tf32`` is back as it was.
 
     TF32 keeps about three decimal digits, far outside the 5e-5 score
-    tolerance the port is held to; every module that calls a matmul sets
-    this right before it. The encoder kernels' tensor-core path is not
-    this TF32: they split each float32 operand into two TF32 parts and sum
-    three products (3xTF32, ``kernels/csrc/encode_common.cuh``), which
-    keeps float32 accuracy.
+    tolerance the port is held to; every module of the port that calls a
+    matmul runs it in this scope, and changes no process-wide flag. The
+    encoder kernels' tensor-core path is not this TF32: they split each
+    float32 operand into two TF32 parts and sum three products (3xTF32,
+    ``kernels/csrc/encode_common.cuh``), which keeps float32 accuracy.
+    cuBLAS reads the flag when a call is made or recorded into a CUDA
+    graph, so a graph is captured inside the scope.
     """
-    torch.backends.cuda.matmul.allow_tf32 = False
+    matmul = torch.backends.cuda.matmul
+    before = matmul.allow_tf32
+    matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        matmul.allow_tf32 = before
+
+
+@contextlib.contextmanager
+def pin_detector_matmul() -> Iterator[None]:
+    """:func:`pin_fp32_matmul`'s scope (the attention scores are float32 in
+    every config) with bf16 products reduced in float32 as well, as the
+    reference's bf16 dot accumulates; on exit both flags are the
+    caller's again."""
+    matmul = torch.backends.cuda.matmul
+    before = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        with pin_fp32_matmul():
+            yield
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = before

@@ -14,6 +14,10 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig  # noqa: F401
 
 ARCH_IDS = ["hubert-xlarge"]
 
+#: the paper's own workload (``configs/hypersense.py``: a
+#: ``HyperSenseConfig``, not a ``ModelConfig``)
+PAPER_CONFIG_ID = "hypersense"
+
 
 def _module(arch_id: str):
     if arch_id not in ARCH_IDS:

@@ -100,8 +100,8 @@ def encode_fragments(frags: torch.Tensor, B: torch.Tensor, b: torch.Tensor,
     if frags.ndim > 2:
         frags = frags.reshape(frags.shape[0], -1)
     x = normalize_flat(frags) if normalize else frags
-    pin_fp32_matmul()
-    proj = x.to(torch.float32) @ B
+    with pin_fp32_matmul():
+        proj = x.to(torch.float32) @ B
     return apply_nonlinearity(proj, b, nonlinearity)
 
 

@@ -48,10 +48,10 @@ def encode(model: FragmentModel, frags: torch.Tensor,
 def bundle_init(hvs: torch.Tensor, labels: torch.Tensor,
                 num_classes: int = 2) -> torch.Tensor:
     """Initial training (paper step 3): ``C_i = sum_{y_j = i} phi(x_j)``."""
-    pin_fp32_matmul()
     one_hot = torch.nn.functional.one_hot(labels.to(torch.int64),
                                           num_classes).to(hvs.dtype)
-    return one_hot.T @ hvs                                       # (C, D)
+    with pin_fp32_matmul():
+        return one_hot.T @ hvs                                   # (C, D)
 
 
 def init_fragment_model(generator: torch.Generator | None,

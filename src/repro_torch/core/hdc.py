@@ -43,12 +43,12 @@ def class_scores(queries: torch.Tensor, class_hvs: torch.Tensor,
                  eps: float = 1e-9) -> torch.Tensor:
     """Cosine similarity of ``(N, D)`` queries against ``(C, D)`` classes
     -> ``(N, C)``."""
-    pin_fp32_matmul()
     qn = queries / torch.clamp(
         torch.linalg.vector_norm(queries, dim=-1, keepdim=True), min=eps)
     cn = class_hvs / torch.clamp(
         torch.linalg.vector_norm(class_hvs, dim=-1, keepdim=True), min=eps)
-    return qn @ cn.T
+    with pin_fp32_matmul():
+        return qn @ cn.T
 
 
 def hamming_similarity(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

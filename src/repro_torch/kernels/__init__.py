@@ -10,6 +10,9 @@
   against the permutation base (``csrc/hdc_encode_perm.cu``)
 * :mod:`repro_torch.kernels.similarity`         — cosine classifier
   (``csrc/similarity.cu``)
+* :mod:`repro_torch.kernels.int_expanded`       — the int scorer's retired
+  expanded-slab layout, the live int kernel's yardstick
+  (``csrc/int_expanded.cu``)
 * :mod:`repro_torch.kernels.ops`                — kernel dispatch
 * :mod:`repro_torch.kernels.ref`                — plain oracles
 * :mod:`repro_torch.kernels._build`             — nvcc build + ctypes loader

@@ -30,7 +30,7 @@ CSRC = pathlib.Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 HEADERS = ("score_common.cuh", "encode_common.cuh")
 SOURCES = ("sliding_scores", "sliding_scores_int", "similarity", "hdc_encode",
-           "hdc_encode_perm")
+           "hdc_encode_perm", "int_expanded")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -64,6 +64,11 @@ SIGNATURES: dict[str, dict[str, tuple]] = {
     "hdc_encode_perm": {
         "hdc_encode_perm_f32": (I, [P] * 4 + [I] * 5 + [P]),
         "hdc_encode_perm_occupancy": (I, [I] * 2 + [P] * 4),
+    },
+    "int_expanded": {
+        "int_expanded": (I, [P] * 12 + [I] * 9 + [P]),
+        "int_expanded_col_tile": (I, []),
+        "int_expanded_smem_bytes": (ctypes.c_size_t, [I, I]),
     },
 }
 

@@ -16,8 +16,8 @@ from repro_torch.core.encoding import NonLin
 def hdc_encode(x: torch.Tensor, B: torch.Tensor, b: torch.Tensor,
                nonlinearity: NonLin = "rff") -> torch.Tensor:
     """(N, n) @ (n, D) + fused nonlinearity -> (N, D). No normalization."""
-    pin_fp32_matmul()
-    proj = x.to(torch.float32) @ B.to(torch.float32)
+    with pin_fp32_matmul():
+        proj = x.to(torch.float32) @ B.to(torch.float32)
     return encoding.apply_nonlinearity(proj, b.to(torch.float32),
                                        nonlinearity)
 
@@ -31,8 +31,8 @@ def similarity(queries: torch.Tensor, class_hvs: torch.Tensor,
                          min=eps)
     cn = c / torch.clamp(torch.linalg.vector_norm(c, dim=-1, keepdim=True),
                          min=eps)
-    pin_fp32_matmul()
-    return qn @ cn.T
+    with pin_fp32_matmul():
+        return qn @ cn.T
 
 
 def fragment_scores(frame: torch.Tensor, class_hvs: torch.Tensor,

@@ -41,13 +41,13 @@ def similarity_plain(queries: torch.Tensor, class_hvs: torch.Tensor, *,
                      eps: float = 1e-9) -> torch.Tensor:
     """Plain PyTorch version of the kernel: the dots and both sums of
     squares, then the reference's epilogue."""
-    pin_fp32_matmul()
     q = queries.to(torch.float32)
     c = class_hvs.to(torch.float32)
     qn = torch.clamp(torch.sqrt(torch.sum(q * q, dim=-1, keepdim=True)),
                      min=eps)                                     # (N, 1)
     cn = torch.clamp(torch.sqrt(torch.sum(c * c, dim=-1)), min=eps)  # (C,)
-    return (q @ c.T) / (qn * cn)
+    with pin_fp32_matmul():
+        return (q @ c.T) / (qn * cn)
 
 
 def _launch(q: torch.Tensor, c: torch.Tensor, eps: float) -> torch.Tensor:

@@ -279,17 +279,18 @@ def fragment_scores_batch_plain(frames: torch.Tensor, tiles: ScoreTiles, *,
     td = tiles.block_d
     _check_tiles(tiles, frames, h, w, stride)
     per_stream, C = _class_layout(tiles, N, frames_per_stream)
-    pin_fp32_matmul()
     frames = frames.to(torch.float32)
     norms = window_norms_batch(frames, h, w, stride)           # (N, my, mx)
     lo_mask, hi_mask = _window_masks(W, w, stride, mx, frames.device,
                                      torch.float32)
     ky = torch.arange(my, device=frames.device) * stride
     acc = torch.zeros((N, my, mx, n_dt * td), device=frames.device)
-    for r in range(h):
-        hi, lo = _prefix_window_acc(frames[:, ky + r, :],
-                                    tiles.slabs[:, r, :], lo_mask, hi_mask)
-        acc = acc + hi - lo
+    with pin_fp32_matmul():
+        for r in range(h):
+            hi, lo = _prefix_window_acc(frames[:, ky + r, :],
+                                        tiles.slabs[:, r, :], lo_mask,
+                                        hi_mask)
+            acc = acc + hi - lo
     s_n = acc / torch.clamp(norms, min=1e-8)[..., None]
     bias = tiles.bias_t.permute(1, 0, 2).reshape(mx, n_dt * td)
     phi = apply_nonlinearity(s_n, bias, nonlinearity)          # (N,my,mx,D)

@@ -366,8 +366,25 @@ def fragment_scores_batch_int_plain(codes: torch.Tensor,
     td = geom.block_d
     _check_geometry(geom, h, w, stride, W, mx)
     per_stream, C = _ss._class_layout(tiles, N, frames_per_stream)
-    pin_fp32_matmul()
-    acc = _int_window_acc_plain(codes, geom, h=h, stride=stride)
+    with pin_fp32_matmul():
+        acc = _int_window_acc_plain(codes, geom, h=h, stride=stride)
+    return scores_from_window_acc(acc, codes, tiles, h=h, w=w,
+                                  stride=stride, nonlinearity=nonlinearity,
+                                  per_stream=per_stream, C=C)
+
+
+def scores_from_window_acc(acc: torch.Tensor, codes: torch.Tensor,
+                           tiles: IntScoreTiles, *, h: int, w: int,
+                           stride: int, nonlinearity: NonLin,
+                           per_stream: bool, C: int) -> torch.Tensor:
+    """The plain float epilogue of the int scorers: exact ``(N, my, mx,
+    n_dt*TD)`` int32 window sums of ``codes`` -> ``(N, my, mx)`` scores
+    (normalization with the slab scale folded in, the nonlinearity, the
+    per-tile classifier partials, their fixed-order fold and the cosine)."""
+    geom = tiles.geom
+    N, my, mx = acc.shape[:3]
+    n_dt = geom.slabs_q.shape[0]
+    td = geom.block_d
     norms = _scaled_norms(codes, geom, h, w, stride)
     s_n = acc.to(torch.float32) / norms[..., None]
     bias = geom.bias_t.permute(1, 0, 2).reshape(mx, n_dt * td)

@@ -12,7 +12,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from repro_torch import pin_fp32_matmul
+from repro_torch import pin_detector_matmul
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common, lm
 
@@ -32,14 +32,6 @@ def detector_seq_len(frame_hw: tuple[int, int], patch: int) -> int:
     if patch < 1 or H % patch or W % patch:
         raise ValueError(f"patch {patch} must divide frame {frame_hw}")
     return (H // patch) * (W // patch)
-
-
-def pin_detector_matmul() -> None:
-    """float32 products in full float32 (the attention scores are float32
-    in every config) and bf16 products reduced in float32, as the
-    reference's bf16 dot accumulates."""
-    pin_fp32_matmul()
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def build_detector_cell(cfg: ModelConfig, *, batch: int,
@@ -92,8 +84,10 @@ def build_detector_cell(cfg: ModelConfig, *, batch: int,
         return logits[0, -1, :n_out].to(torch.float32)
 
     def detector_step(weights: dict, frames: torch.Tensor) -> torch.Tensor:
-        pin_detector_matmul()
-        return torch.stack([one_frame(weights, f) for f in frames.unbind(0)])
+        # the scope covers a CUDA graph's capture of the step too
+        with pin_detector_matmul():
+            return torch.stack([one_frame(weights, f)
+                                for f in frames.unbind(0)])
 
     return DetectorCell(step_fn=detector_step, prepare=prepare)
 

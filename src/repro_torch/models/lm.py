@@ -18,6 +18,7 @@ from typing import Any
 
 import torch
 
+from repro_torch import pin_detector_matmul
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, common, mlp
 
@@ -107,6 +108,10 @@ class Model:
     def forward(self, params: dict, embeds: torch.Tensor) -> torch.Tensor:
         """``(b, s, d_model)`` embeddings -> ``(b, s, vocab)`` logits in the
         compute dtype (the reference's ``forward`` with ``Batch(embeds=...)``;
-        its MoE auxiliary loss is always 0 here and is not returned)."""
-        h = self._trunk(params, embeds)
-        return common.unembed(params["unembed"], h, self.compute_dtype)
+        its MoE auxiliary loss is always 0 here and is not returned). Its
+        products run in :func:`~repro_torch.pin_detector_matmul`'s scope:
+        float32 ones in full float32, bf16 ones reduced in float32, as the
+        reference's dots accumulate, whatever the caller's flags."""
+        with pin_detector_matmul():
+            h = self._trunk(params, embeds)
+            return common.unembed(params["unembed"], h, self.compute_dtype)

@@ -264,6 +264,12 @@ def test_port_imports_no_jax_and_no_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
+    # the modules of every slice are among them, the newest included
+    names = {f.relative_to(ROOT).as_posix() for f in files}
+    for module in ("kernels/int_expanded.py", "sensing/synthetic.py",
+                   "core/gate.py", "configs/hypersense.py",
+                   "launch/cascade.py", "sensing/stream.py"):
+        assert f"src/repro_torch/{module}" in names, module
     for f in files:
         for mod in _imported_modules(f):
             top = mod.split(".")[0]
