@@ -23,7 +23,7 @@ SHARD1_FILES = tests/test_kernels.py tests/test_kernels_batch.py \
 	tests/test_torch_stream.py tests/test_torch_encode.py \
 	tests/test_torch_fleet.py tests/test_torch_serve.py \
 	tests/test_torch_cascade.py tests/test_torch_int_expanded.py \
-	tests/test_torch_synthetic.py
+	tests/test_torch_synthetic.py tests/test_torch_baselines.py
 SHARD2_FILES = tests/test_arch_smoke.py tests/test_cells.py \
 	tests/test_data_pipeline.py tests/test_gate.py tests/test_hdc_core.py \
 	tests/test_hypersense.py tests/test_online.py tests/test_system.py \
@@ -33,7 +33,8 @@ SHARD2_FILES = tests/test_arch_smoke.py tests/test_cells.py \
 	tests/test_torch_scores_int.py tests/test_torch_scores_f32.py \
 	tests/test_torch_similarity.py tests/test_torch_energy.py \
 	tests/test_torch_checkpoint.py tests/test_torch_models.py \
-	tests/test_torch_gate.py tests/test_torch_flags.py
+	tests/test_torch_gate.py tests/test_torch_flags.py \
+	tests/test_torch_optim.py
 
 # PYTEST_EXTRA lets CI attach coverage flags (see .github/workflows/ci.yml);
 # plain local runs need no pytest-cov install.

@@ -114,7 +114,24 @@ sm_90a: an H100). It
    equal to the same gate's on the CPU wherever the deciding score sits
    more than 2.5e-4 from ``t_score``, its frames/s, duty cycle and the
    detector FLOPs it saves;
-12. prints one JSON line per phase, a ``kernels`` line, and last
+12. runs Table I and Fig. 16's model comparison (``baselines`` phase):
+   ``benchmarks/common.py``'s noisy 4-bit data made with
+   ``sensing.synthetic`` (training noise 0.20; held-out noise 0.30 with
+   3% impulse spikes), balanced fragments, at the paper's operating point
+   (256 and 128 frames) and at the reference's scale (64x64 frames,
+   16x16 fragments, D 8192, 60 and 100 frames); trains the HDC Fragment
+   model (its kernels counted) and the MLP2, MLP4 and TinyConv baselines
+   (``sensing/baselines.py``, AdamW from ``train/optim.py``) and prints
+   each row's AUC, partial AUC above TPR 0.8, train seconds and the
+   paper's value, on the held-out fragments and on the same windows of a
+   ``low_precision_view`` (4 bits, sigma 0.01); checks that training
+   lowered each baseline's cross-entropy, that the card's logits, the
+   gradients of one step and its AdamW update equal the CPU's within
+   1e-5, and that the MLPs train bitwise run to run (TinyConv reported);
+   then times, per frame of a 32-frame chunk, the float32 HDC scorer
+   against MLP2 on all 25 windows (beside the paper's 2.4x) and
+   ``encode_frames`` with and without reuse;
+13. prints one JSON line per phase, a ``kernels`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises: the script exits non-zero and prints no result.
@@ -123,6 +140,7 @@ It exits non-zero as well without a CUDA device, or outside a checkout.
 
 from __future__ import annotations
 
+import copy
 import ctypes
 import dataclasses
 import json
@@ -162,8 +180,9 @@ from repro_torch.launch import steps  # noqa: E402
 from repro_torch.launch.cascade import CascadeService  # noqa: E402
 from repro_torch.launch.serve import FleetService  # noqa: E402
 from repro_torch.models import common as model_common  # noqa: E402
-from repro_torch.sensing import (adc, fleet, fragments, stream,  # noqa: E402
-                                 synthetic)
+from repro_torch.sensing import (adc, baselines, fleet,  # noqa: E402
+                                 fragments, stream, synthetic)
+from repro_torch.train import optim  # noqa: E402
 
 # the paper's operating point (configs/hypersense.py)
 FRAME, FRAG, STRIDE, DIM, BLOCK_D = 128, 96, 8, 5000, 512
@@ -2391,6 +2410,287 @@ def int_datapath_phase(g, flops_per_frame):
     return rec, launches, record
 
 
+# Table I (benchmarks/table1_auc.py on benchmarks/common.py's data): noisy
+# 4-bit training frames, noisier held-out frames with 3% impulse spikes;
+# per block (frame, fragment, D, training frames, held-out frames)
+TABLE1_BLOCKS = {"paper": (128, 96, 5000, N_TRAIN, N_HELD_OUT),
+                 "reference": (64, 16, 8192, 60, 100)}
+TABLE1_NOISE = (0.20, 0.30)
+IMPULSE_P, IMPULSE, LOW_BITS, LP_SIGMA = 0.03, 1.2, 4, 0.01
+BASELINE_EPOCHS = {"mlp2": 25, "mlp4": 25, "tiny_conv": 15}
+# partial AUC above TPR 0.8 in the paper's Table I (YOLO-tiny for tiny_conv)
+PAPER_PAUC = {"hdc": 0.1739, "mlp2": 0.1685, "mlp4": 0.1681,
+              "tiny_conv": 0.0803}
+PAPER_SPEEDUP_VS_MLP = 2.4      # Fig. 16 (benchmarks/fig16_speedup.py:100)
+BASELINE_RTOL = 1e-5
+ENCODE_FRAMES_N = 2
+
+
+def table1_data(g, frame: int, frag: int, n_train: int, n_test: int):
+    """``benchmarks/common.py``'s dataset on the port: training and held-out
+    frames from ``sensing.synthetic`` (noise 0.20 and 0.30), impulse
+    spikes on the held-out ones, both at 4 bits; balanced fragments (2 and
+    3 per frame, seeds 0 and 1), and the same held-out windows cut from a
+    ``low_precision_view`` of the spiked frames."""
+    def cfg(noise):
+        return synthetic.RadarConfig(
+            height=frame, width=frame, noise_sigma=noise, intensity_lo=0.25,
+            intensity_hi=0.6, blob_sigma_lo=1.5, blob_sigma_hi=4.0)
+
+    ftr, mtr, _ = synthetic.make_dataset(g, n_train, cfg(TABLE1_NOISE[0]),
+                                         device=DEVICE)
+    fte, mte, _ = synthetic.make_dataset(g, n_test, cfg(TABLE1_NOISE[1]),
+                                         device=DEVICE)
+    spikes = (torch.rand(fte.shape, generator=g, device=DEVICE)
+              < IMPULSE_P).to(torch.float32)
+    fte = torch.clamp(fte + spikes * IMPULSE, 0, 1.5)
+    lp = adc.low_precision_view(fte, LOW_BITS, LP_SIGMA, generator=g)
+    test = adc.quantize(fte, LOW_BITS)
+    sets = {}
+    for name, frames, masks, per_frame, seed in (
+            ("train", adc.quantize(ftr, LOW_BITS), mtr, 2, 0),
+            ("test", test, mte, 3, 1),
+            ("low_precision", lp, mte, 3, 1)):
+        frags, labels = fragments.sample_fragments(
+            frames.cpu().numpy(), masks.cpu().numpy(), h=frag, w=frag,
+            per_frame=per_frame, seed=seed)
+        sets[name] = (torch.as_tensor(frags, device=DEVICE), labels)
+    check(np.array_equal(sets["test"][1], sets["low_precision"][1]),
+          "the low-precision view cut other windows")
+    return sets, test
+
+
+def roc_row(scores, labels, paper) -> dict:
+    fpr, tpr, _ = metrics.roc_curve(scores, labels)
+    return dict(auc=metrics.auc(fpr, tpr),
+                partial_auc_tpr08=metrics.partial_auc_above_tpr(fpr, tpr,
+                                                                0.8),
+                paper_partial_auc=paper)
+
+
+def timed_s(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def baseline_inits(n_in: int) -> dict:
+    """The three baselines' initial weights, each from its own seeded
+    generator on the card (the reference's keys 1, 2, 3)."""
+    def gen(k):
+        return torch.Generator(device=DEVICE).manual_seed(SEED + k)
+
+    return {"mlp2": (baselines.init_mlp(gen(1), n_in, n_layers=2),
+                     baselines.mlp_apply),
+            "mlp4": (baselines.init_mlp(gen(2), n_in, n_layers=4),
+                     baselines.mlp_apply),
+            "tiny_conv": (baselines.init_tiny_conv(gen(3)),
+                          baselines.tiny_conv_apply)}
+
+
+def train_baseline(name, init, apply_fn, sets):
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 7)
+    return baselines.train_classifier(
+        gen, init, apply_fn, *sets["train"], epochs=BASELINE_EPOCHS[name],
+        batch_size=64, lr=1e-3)
+
+
+def table1_block(g, frame, frag, dim, n_train, n_test):
+    """Table I once: the HDC Fragment model and the three baselines trained
+    on one block's fragments, each scored on the held-out fragments and on
+    their low-precision view. Returns the rows, the trained models and
+    the held-out frames."""
+    sets, test_frames = table1_data(g, frame, frag, n_train, n_test)
+    rows, models = {}, {}
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 42)
+    (hdc, _), train_s = timed_s(lambda: fragment_model.train_fragment_model(
+        gen, *sets["train"], dim=dim, epochs=EPOCHS, base_kind="perm",
+        device=DEVICE))
+    models["hdc"] = hdc
+    rows["hdc"] = {"train_s": train_s}
+    for name, (init, apply_fn) in baseline_inits(frag * frag).items():
+        trained, s = timed_s(lambda: train_baseline(name, init, apply_fn,
+                                                    sets))
+        models[name] = (init, trained, apply_fn)
+        rows[name] = {"train_s": s}
+    for view in ("test", "low_precision"):
+        frags, labels = sets[view]
+        for name in rows:
+            if name == "hdc":
+                scores = fragment_model.positive_score(
+                    hdc.class_hvs, fragment_model.encode(hdc, frags))
+            else:
+                _, trained, apply_fn = models[name]
+                scores = baselines.positive_score(apply_fn, trained, frags)
+            check(bool(torch.isfinite(scores).all())
+                  and scores.shape == (len(labels),),
+                  f"{name} scores on {view}: not finite or mis-shaped")
+            rows[name][view] = roc_row(scores.cpu().numpy(), labels,
+                                       PAPER_PAUC[name])
+    info = dict(frame=frame, fragment=frag, D=dim, train_frames=n_train,
+                held_out_frames=n_test, train_fragments=len(sets["train"][1]),
+                train_positives=int(sets["train"][1].sum()),
+                held_out_fragments=len(sets["test"][1]))
+    return rows, models, sets, test_frames, info
+
+
+def leaf_rel_err(card, cpu) -> float:
+    """The largest over the leaves of ``max |card - cpu| / max |cpu|``."""
+    return max(float((p.detach().cpu() - q.detach()).abs().max())
+               / max(float(q.detach().abs().max()), 1e-30)
+               for p, q in zip(model_common.leaves(card),
+                               model_common.leaves(cpu)))
+
+
+def baseline_checks(models, sets) -> dict:
+    """The paper block's baselines: training lowered the training-set
+    cross-entropy; the card's logits equal the CPU's on the same weights
+    within BASELINE_RTOL of the largest |logit|; one training step on the
+    card equals the CPU's within BASELINE_RTOL of each leaf's largest
+    entry, its gradients and its AdamW update each; a second training run
+    gives the same bits (required of the MLPs, reported for TinyConv)."""
+    x, y = sets["train"]
+    y_t = torch.as_tensor(y, device=DEVICE).long()
+    held = sets["test"][0][:64]
+    out = {}
+    for name in BASELINE_EPOCHS:
+        init, trained, apply_fn = models[name]
+        with torch.no_grad():
+            xent0 = float(baselines._xent(apply_fn(init, x), y_t))
+            xent1 = float(baselines._xent(apply_fn(trained, x), y_t))
+        check(xent1 < xent0, f"{name}: training did not lower the "
+                             f"cross-entropy ({xent0} -> {xent1})")
+        # the card against the CPU on the same weights
+        cpu = copy.deepcopy(trained).to("cpu")
+        card = apply_fn(trained, held).detach().cpu()
+        host = apply_fn(cpu, held.cpu()).detach()
+        scale = float(host.abs().max())
+        logit_err = float((card - host).abs().max())
+        check(logit_err <= BASELINE_RTOL * scale,
+              f"{name}: card logits vs CPU {logit_err} of {scale}")
+        # one training step on each: the gradients, then AdamW.update and
+        # apply_updates from the same (the CPU's) gradients; a tiny
+        # gradient whose sign rounds differently would turn the first
+        # step's mhat / sqrt(vhat) around, so the two halves are held
+        # apart
+        xb, yb = x[:64], y_t[:64]
+        cpu_init = copy.deepcopy(init).to("cpu")
+        _, g_card = baselines.loss_and_grads(init, apply_fn, xb, yb)
+        _, g_cpu = baselines.loss_and_grads(cpu_init, apply_fn, xb.cpu(),
+                                            yb.cpu())
+        grad_err = leaf_rel_err(g_card, g_cpu)
+        check(grad_err <= BASELINE_RTOL,
+              f"{name}: gradients on the card vs CPU: {grad_err}")
+        opt = optim.AdamW(lr=1e-3, weight_decay=1e-4)
+        stepped = {}
+        with torch.no_grad():
+            for dev, model in ((DEVICE, init), ("cpu", cpu_init)):
+                tree = model.tree()
+                grads = model_common.tree_map(lambda t: t.to(dev), g_cpu)
+                updates, _ = opt.update(grads, opt.init(tree), tree)
+                stepped[dev] = optim.apply_updates(tree, updates)
+        step_err = leaf_rel_err(stepped[DEVICE], stepped["cpu"])
+        check(step_err <= BASELINE_RTOL,
+              f"{name}: an AdamW step on the card vs CPU: {step_err}")
+        again = train_baseline(name, init, apply_fn, sets)
+        bitwise = all(torch.equal(p, q) for p, q in zip(
+            model_common.leaves(trained.tree()),
+            model_common.leaves(again.tree())))
+        check(bitwise or name == "tiny_conv",
+              f"{name}: training differs run to run")
+        out[name] = dict(train_xent_init=xent0, train_xent_trained=xent1,
+                         card_vs_cpu_logit_err=logit_err, logit_scale=scale,
+                         card_vs_cpu_grad_rel_err=grad_err,
+                         card_vs_cpu_step_rel_err=step_err,
+                         run_to_run_bitwise=bitwise)
+    return out
+
+
+def fig16_compare(models, frames) -> dict:
+    """Fig. 16's model comparison at the paper's point, per 32-frame chunk:
+    the float32 HDC scorer (``frame_scores_batch`` through
+    ``sliding_scores_f32``, its tiles made once per model as the stream
+    makes them, as the MLP's weights are) against MLP2 on every window of
+    each frame;
+    ``encode_frames`` with and without reuse on ENCODE_FRAMES_N frames.
+    CUDA events, the median of 20 after 3 warm-ups; ms per frame."""
+    hdc = models["hdc"]
+    hs = hypersense.from_fragment_model(hdc, generators(hdc.B), h=FRAG,
+                                        w=FRAG, stride=STRIDE)
+    tiles = stream.model_tiles(hs, FRAME, BLOCK_D, "float32")
+    chunk = frames[:CHUNK]
+    _, mlp, _ = models["mlp2"]
+    my = (FRAME - FRAG) // STRIDE + 1
+
+    def mlp_chunk():
+        windows = chunk.unfold(1, FRAG, STRIDE).unfold(2, FRAG, STRIDE)
+        return baselines.mlp_apply(mlp, windows.reshape(-1, FRAG, FRAG))
+
+    def hdc_chunk():
+        return hypersense.frame_scores_batch(hs, chunk, tiles=tiles)
+
+    check(mlp_chunk().shape == (CHUNK * my * my, 2)
+          and hdc_chunk().shape == (CHUNK,),
+          "Fig. 16 outputs of the wrong shape")
+    hdc_ms = time_ms(hdc_chunk)
+    mlp_ms = time_ms(mlp_chunk)
+    few = frames[:ENCODE_FRAMES_N]
+    kw = dict(h=FRAG, w=FRAG, stride=STRIDE)
+    reuse = encoding.encode_frames(few, hs.B0, hs.b, reuse=True, **kw)
+    naive = encoding.encode_frames(few, hs.B0, hs.b, reuse=False, **kw)
+    gap = float((reuse - naive).abs().max())
+    check(bool(torch.isfinite(reuse).all())
+          and reuse.shape == (ENCODE_FRAMES_N, my, my, DIM) and gap <= 1e-4,
+          f"encode_frames: reuse vs naive {gap}")
+    del reuse, naive
+    reuse_ms = time_ms(lambda: encoding.encode_frames(
+        few, hs.B0, hs.b, reuse=True, **kw))
+    naive_ms = time_ms(lambda: encoding.encode_frames(
+        few, hs.B0, hs.b, reuse=False, **kw))
+    return dict(
+        chunk=CHUNK, windows_per_frame=my * my,
+        hdc_scorer_ms_per_frame=hdc_ms / CHUNK,
+        mlp2_ms_per_frame=mlp_ms / CHUNK,
+        hdc_speedup_vs_mlp2=mlp_ms / hdc_ms,
+        paper_speedup_vs_mlp=PAPER_SPEEDUP_VS_MLP,
+        encode_frames_reuse_ms_per_frame=reuse_ms / ENCODE_FRAMES_N,
+        encode_frames_naive_ms_per_frame=naive_ms / ENCODE_FRAMES_N,
+        encode_frames_reuse_vs_naive_max_abs=gap)
+
+
+def baselines_phase(g):
+    """Table I and Fig. 16's model comparison: the paper block's rows (the
+    HDC row's kernels counted from zero), the reference-scale block's,
+    the baselines' checks and the Fig. 16 times. Returns the phase's
+    record and its launches per kernel."""
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    for mod in TRAIN_KERNELS.values():
+        mod.LAUNCHES = 0
+    rows, models, sets, test_frames, info = table1_block(
+        g, *TABLE1_BLOCKS["paper"])
+    torch.cuda.synchronize()
+    launches = {k: mod.LAUNCHES for k, mod in TRAIN_KERNELS.items()}
+    for k in ("hdc_encode_perm", "hdc_encode", "similarity"):
+        check(launches[k] > 0, f"{k} never ran on the Table I path")
+    blocks = {"paper": dict(info, rows=rows)}
+    ref_rows, *_, ref_info = table1_block(g, *TABLE1_BLOCKS["reference"])
+    blocks["reference"] = dict(ref_info, rows=ref_rows)
+    for block in blocks.values():
+        for view in ("test", "low_precision"):
+            first = max(block["rows"],
+                        key=lambda k: block["rows"][k][view][
+                            "partial_auc_tpr08"])
+            block[f"hdc_first_in_partial_auc_{view}"] = first == "hdc"
+    rec = dict(table1=blocks, checks=baseline_checks(models, sets),
+               fig16=fig16_compare(models, test_frames), launches=launches,
+               phase_s=time.perf_counter() - t0)
+    emit({"baselines": rec})
+    return rec, launches
+
+
 def kernel_device_ms(fn, names, calls: int = 5):
     """Device time of one call of ``fn`` spent in the kernels whose names
     contain one of ``names``: ``calls`` calls under ``torch.profiler``, each
@@ -2486,13 +2786,17 @@ def main() -> int:
         gi, cascade["backbone_cost"]["flops"])
     emit({"kernel_check": expanded})
     records.append(expanded)
+    gb = torch.Generator(device=DEVICE)
+    gb.manual_seed(SEED + 13)
+    _, baseline_launches = baselines_phase(gb)
     # launches: the six stream runs', the six fleet runs', the three
-    # service runs', the cascade's gate, the training path's and the
-    # int-datapath path's, each counted from zero right before its run
+    # service runs', the cascade's gate, the training path's, the
+    # int-datapath path's and Table I's, each counted from zero right
+    # before its run
     for r in records:
         r["launches"] = sum(n.get(r["name"], 0) for n in (
             launches, fleet_launches, service_launches, cascade_launches,
-            train_launches, int_launches))
+            train_launches, int_launches, baseline_launches))
         check(r["launches"] > 0, f"{r['name']} never ran on a main path")
     for name, n in train_launches.items():
         check(n > 0, f"{name} never ran on the training path")

@@ -34,26 +34,29 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
 
 @contextlib.contextmanager
 def pin_fp32_matmul() -> Iterator[None]:
-    """Inside the scope, float32 matmuls run in full float32 on the card
-    (no TF32); on exit, exceptions included, the caller's
-    ``torch.backends.cuda.matmul.allow_tf32`` is back as it was.
+    """Inside the scope, float32 matmuls and cuDNN convolutions run in full
+    float32 on the card (no TF32); on exit, exceptions included, the
+    caller's ``torch.backends.cuda.matmul.allow_tf32`` and
+    ``torch.backends.cudnn.allow_tf32`` are back as they were (cuDNN's
+    defaults to True, so a convolution would run in TF32 unasked).
 
     TF32 keeps about three decimal digits, far outside the 5e-5 score
     tolerance the port is held to; every module of the port that calls a
-    matmul runs it in this scope, and changes no process-wide flag. The
-    encoder kernels' tensor-core path is not this TF32: they split each
-    float32 operand into two TF32 parts and sum three products (3xTF32,
-    ``kernels/csrc/encode_common.cuh``), which keeps float32 accuracy.
+    matmul or a convolution runs it in this scope, and changes no
+    process-wide flag. The encoder kernels' tensor-core path is not this
+    TF32: they split each float32 operand into two TF32 parts and sum
+    three products (3xTF32, ``kernels/csrc/encode_common.cuh``), which
+    keeps float32 accuracy.
     cuBLAS reads the flag when a call is made or recorded into a CUDA
     graph, so a graph is captured inside the scope.
     """
-    matmul = torch.backends.cuda.matmul
-    before = matmul.allow_tf32
-    matmul.allow_tf32 = False
+    matmul, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    before = matmul.allow_tf32, cudnn.allow_tf32
+    matmul.allow_tf32 = cudnn.allow_tf32 = False
     try:
         yield
     finally:
-        matmul.allow_tf32 = before
+        matmul.allow_tf32, cudnn.allow_tf32 = before
 
 
 @contextlib.contextmanager
@@ -70,3 +73,19 @@ def pin_detector_matmul() -> Iterator[None]:
             yield
     finally:
         matmul.allow_bf16_reduced_precision_reduction = before
+
+
+@contextlib.contextmanager
+def pin_conv() -> Iterator[None]:
+    """:func:`pin_fp32_matmul`'s scope with cuDNN held to deterministic
+    algorithms and no autotuning, so that a convolution's backward pass
+    gives the same bits run to run; on exit, exceptions included, the
+    caller's ``deterministic`` and ``benchmark`` are back as well."""
+    cudnn = torch.backends.cudnn
+    before = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        with pin_fp32_matmul():
+            yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = before

@@ -1,5 +1,5 @@
-"""Carry a HyperSense model's, a Fragment model's or a detector's weights
-across into the port.
+"""Carry a HyperSense model's, a Fragment model's, a detector's or a
+baseline's weights across into the port.
 
 The tests build a model in the JAX package and hand its arrays over as
 numpy (``np.asarray(jax_model.class_hvs)`` etc.), so that both packages
@@ -16,6 +16,7 @@ from repro_torch.core.encoding import NonLin
 from repro_torch.core.fragment_model import FragmentModel
 from repro_torch.core.hypersense import HyperSenseModel
 from repro_torch.models import common
+from repro_torch.sensing.baselines import MLP, TinyConv
 
 
 def _float32_on(device):
@@ -72,3 +73,41 @@ def detector_params_from_arrays(tree, *,
         raise ValueError(f"a detector tree has 'backbone' and 'embedder', "
                          f"got {sorted(tree)}")
     return common.tree_map(_float32_on(device), tree)
+
+
+def baseline_from_arrays(tree, *, kind: str,
+                         device: str | torch.device | None = None
+                         ) -> MLP | TinyConv:
+    """A Table I baseline from the reference's parameter tree as numpy
+    arrays, float32 on ``device`` (``None`` -> CUDA, raising without it).
+
+    ``kind="mlp"``: ``init_mlp``'s list of ``{"w": (n_in, n_out), "b"}``;
+    ``kind="tiny_conv"``: ``init_tiny_conv``'s ``{"convs": [{"w": (kh, kw,
+    cin, cout), "b"}, ...], "head": {"w", "b"}}``. Dense weights become
+    ``(n_out, n_in)`` and convolution kernels ``(cout, cin, kh, kw)``.
+    """
+    def dense(layer):
+        return {"w": np.asarray(layer["w"]).T, "b": np.asarray(layer["b"])}
+
+    if kind == "mlp":
+        arrays = [dense(layer) for layer in tree]
+        module = MLP([arrays[0]["w"].shape[1]]
+                     + [a["w"].shape[0] for a in arrays], device=device)
+    elif kind == "tiny_conv":
+        arrays = {"convs": [{"w": np.transpose(np.asarray(c["w"]),
+                                               (3, 2, 0, 1)),
+                             "b": np.asarray(c["b"])}
+                            for c in tree["convs"]],
+                  "head": dense(tree["head"])}
+        module = TinyConv([c["w"].shape[0] for c in arrays["convs"]],
+                          device=device)
+    else:
+        raise ValueError(f"unknown baseline kind {kind!r}")
+    t = _float32_on(device)
+    with torch.no_grad():
+        for p, a in zip(common.leaves(module.tree()), common.leaves(arrays)):
+            if tuple(p.shape) != a.shape:
+                raise ValueError(f"a {kind} leaf of shape {a.shape} does not "
+                                 f"fit {tuple(p.shape)}")
+            p.copy_(t(a))
+    return module

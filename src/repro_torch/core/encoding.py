@@ -8,9 +8,9 @@ sin(xB)`` of the L2-normalized flattened fragment.
 
 :func:`encode_frame_naive` and :func:`encode_frame_reuse` are the two
 oracle frame encoders (every fragment encoded on its own, and the paper's
-computation reuse as a prefix sum over rolled products); the streaming hot
-path never calls them — it runs the fused kernels of
-:mod:`repro_torch.kernels`.
+computation reuse as a prefix sum over rolled products), batched by
+:func:`encode_frames`; the streaming hot path never calls them — it runs
+the fused kernels of :mod:`repro_torch.kernels`.
 """
 
 from __future__ import annotations
@@ -181,3 +181,23 @@ def encode_frame_reuse(frame: torch.Tensor, B0: torch.Tensor,
         proj = proj / torch.clamp(norm, min=1e-8)[:, :, None]
 
     return apply_nonlinearity(proj, b, nonlinearity)
+
+
+def encode_frames(frames: torch.Tensor, B0: torch.Tensor, b: torch.Tensor,
+                  *, h: int, w: int, stride: int,
+                  nonlinearity: NonLin = "rff", normalize: bool = True,
+                  reuse: bool = True) -> torch.Tensor:
+    """Batched frame encoding ``(N, H, W) -> (N, my, mx, D)`` through
+    :func:`encode_frame_reuse` (``reuse=True``) or
+    :func:`encode_frame_naive`, one frame at a time, so that no more than
+    one frame's ``(H, W, D)`` products (328 MB at 128x128, D=5000) are
+    alive at once."""
+    fn = encode_frame_reuse if reuse else encode_frame_naive
+    H, W = frames.shape[1:]
+    out = torch.empty((frames.shape[0], num_windows(H, h, stride),
+                       num_windows(W, w, stride), B0.shape[-1]),
+                      dtype=torch.float32, device=frames.device)
+    for i, frame in enumerate(frames):
+        out[i] = fn(frame, B0, b, h=h, w=w, stride=stride,
+                    nonlinearity=nonlinearity, normalize=normalize)
+    return out

@@ -158,7 +158,20 @@ def quantize_per_frame(frames: torch.Tensor, bits: torch.Tensor,
 def adc_noise(frame: torch.Tensor, thermal_sigma: float,
               generator: torch.Generator) -> torch.Tensor:
     """Additive thermal/reference noise ahead of the converter, drawn from
-    ``generator`` (which must live on the frame's device)."""
+    ``generator``, which must live on the frame's device (else
+    ``ValueError``)."""
+    if generator.device.type != frame.device.type:
+        raise ValueError(f"the noise generator is on {generator.device}, "
+                         f"the frame on {frame.device}")
     return frame + thermal_sigma * torch.randn(
         frame.shape, generator=generator, device=frame.device,
         dtype=frame.dtype)
+
+
+def low_precision_view(frame: torch.Tensor, bits: int = 4,
+                       thermal_sigma: float = 0.01, *,
+                       generator: torch.Generator) -> torch.Tensor:
+    """The always-on sensing path: noisy low-precision capture,
+    :func:`quantize` of :func:`adc_noise` (the generator on the frame's
+    device)."""
+    return quantize(adc_noise(frame, thermal_sigma, generator), bits)

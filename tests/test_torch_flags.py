@@ -1,14 +1,20 @@
-"""PyTorch port: the process-wide matmul flags stay the caller's.
+"""PyTorch port: the process-wide matmul and cuDNN flags stay the caller's.
 
-``pin_fp32_matmul`` and ``pin_detector_matmul`` are scopes: inside them
-float32 products run without TF32 (and, for the detector, bf16 products
-reduce in float32); on exit, exceptions included, ``allow_tf32`` and
-``allow_bf16_reduced_precision_reduction`` are what the caller had. The
-flags can be set on a CPU build of torch, so each pinned entry of the port
-is called here with both flags preset to ``True``: every product it runs
-sees them pinned (a ``TorchFunctionMode`` records the flags at each matmul),
-and after the call, returned or raised, both are ``True`` again.
+``pin_fp32_matmul``, ``pin_detector_matmul`` and ``pin_conv`` are scopes:
+inside them float32 matmuls and cuDNN convolutions run without TF32 (for
+the detector, bf16 products reduce in float32; for the baselines' convs,
+cuDNN is deterministic and does not autotune); on exit, exceptions
+included, ``matmul.allow_tf32``, ``allow_bf16_reduced_precision_reduction``,
+``cudnn.allow_tf32``, ``cudnn.deterministic`` and ``cudnn.benchmark`` are
+what the caller had. The flags can be set on a CPU build of torch, so each
+pinned entry of the port is called here with the flags preset away from
+what the port pins (:data:`CALLER`): every product it runs sees them
+pinned (a ``TorchFunctionMode`` records the flags at each matmul, linear
+and convolution), and after the call, returned or raised, they are the
+caller's again.
 """
+
+import copy
 
 import numpy as np
 import pytest
@@ -16,7 +22,8 @@ import torch
 from torch.overrides import TorchFunctionMode
 
 from _torch_parity import FRAG, STRIDE, frames, model_arrays, t
-from repro_torch import configs, pin_detector_matmul, pin_fp32_matmul
+from repro_torch import (configs, pin_conv, pin_detector_matmul,
+                         pin_fp32_matmul)
 from repro_torch.core import encoding, fragment_model, hdc
 from repro_torch.kernels import hdc_encode as enc
 from repro_torch.kernels import ref
@@ -25,16 +32,31 @@ from repro_torch.kernels import sliding_scores as ss
 from repro_torch.kernels import sliding_scores_int as ssi
 from repro_torch.launch import steps
 from repro_torch.models import lm
+from repro_torch.sensing import baselines
+from repro_torch.train import optim
 
 torch.set_num_threads(2)
 
 MATMUL = torch.backends.cuda.matmul
+CUDNN = torch.backends.cudnn
 PRODUCTS = {torch.matmul, torch.Tensor.matmul, torch.Tensor.__matmul__,
-            torch.Tensor.__rmatmul__, torch.mm, torch.bmm, torch.einsum}
+            torch.Tensor.__rmatmul__, torch.mm, torch.bmm, torch.einsum,
+            torch.nn.functional.linear, torch.conv2d}
+#: the caller's flags: TF32 everywhere, reduced bf16 reductions, cuDNN
+#: free to autotune non-deterministic algorithms
+CALLER = (True, True, True, False, True)
 
 
 def flags():
-    return (MATMUL.allow_tf32, MATMUL.allow_bf16_reduced_precision_reduction)
+    """(matmul TF32, bf16 reduced reductions, cuDNN TF32, cuDNN
+    deterministic, cuDNN benchmark)."""
+    return (MATMUL.allow_tf32, MATMUL.allow_bf16_reduced_precision_reduction,
+            CUDNN.allow_tf32, CUDNN.deterministic, CUDNN.benchmark)
+
+
+def set_flags(values):
+    (MATMUL.allow_tf32, MATMUL.allow_bf16_reduced_precision_reduction,
+     CUDNN.allow_tf32, CUDNN.deterministic, CUDNN.benchmark) = values
 
 
 class FlagsAtProducts(TorchFunctionMode):
@@ -52,49 +74,55 @@ class FlagsAtProducts(TorchFunctionMode):
 
 @pytest.fixture
 def caller_flags():
-    """Both flags preset to True (not their defaults), as a caller that
-    asked for TF32 and reduced bf16 reductions; restored afterwards."""
+    """The flags preset to :data:`CALLER` (the TF32 flags not at their
+    defaults), as a caller that asked for TF32, reduced bf16 reductions
+    and cuDNN autotuning; restored afterwards."""
     before = flags()
-    MATMUL.allow_tf32 = True
-    MATMUL.allow_bf16_reduced_precision_reduction = True
+    set_flags(CALLER)
     yield
-    MATMUL.allow_tf32, MATMUL.allow_bf16_reduced_precision_reduction = before
+    set_flags(before)
 
 
-def call_pinned(fn, *, detector: bool = False):
+def call_pinned(fn, *, detector: bool = False, conv: bool = False):
     """Run ``fn`` under the spy; every product must see the pinned flags,
     and the caller's come back."""
     with FlagsAtProducts() as spy:
         out = fn()
     assert spy.seen, "no product ran"
-    for tf32, bf16 in spy.seen:
-        assert tf32 is False
+    for tf32, bf16, cudnn_tf32, deterministic, benchmark in spy.seen:
+        assert tf32 is False and cudnn_tf32 is False
         if detector:
             assert bf16 is False
-    assert flags() == (True, True)
+        if conv:
+            assert deterministic is True and benchmark is False
+    assert flags() == CALLER
     return out
 
 
 def test_scopes_restore_on_exit_and_on_error(caller_flags):
     with pin_fp32_matmul():
-        assert flags() == (False, True)
-    assert flags() == (True, True)
+        assert flags() == (False, True, False, False, True)
+    assert flags() == CALLER
     with pin_detector_matmul():
-        assert flags() == (False, False)
+        assert flags() == (False, False, False, False, True)
         with pin_fp32_matmul():          # nested scopes unwind in order
-            assert flags() == (False, False)
-        assert flags() == (False, False)
-    assert flags() == (True, True)
-    for scope in (pin_fp32_matmul, pin_detector_matmul):
+            assert flags() == (False, False, False, False, True)
+        assert flags() == (False, False, False, False, True)
+    assert flags() == CALLER
+    with pin_conv():
+        assert flags() == (False, True, False, True, False)
+    assert flags() == CALLER
+    for scope in (pin_fp32_matmul, pin_detector_matmul, pin_conv):
         with pytest.raises(ZeroDivisionError):
             with scope():
                 1 / 0
-        assert flags() == (True, True)
+        assert flags() == CALLER
     # the defaults are kept too
     MATMUL.allow_tf32 = False
+    CUDNN.allow_tf32 = True
     with pin_detector_matmul():
         pass
-    assert flags() == (False, True)
+    assert flags() == (False, True, True, False, True)
 
 
 # ---------------------------------------------------------------------------
@@ -165,7 +193,70 @@ RAISING = {
 def test_pinned_entry_restores_flags_when_it_raises(caller_flags, name):
     with pytest.raises(RuntimeError):
         RAISING[name]()
-    assert flags() == (True, True)
+    assert flags() == CALLER
+
+
+# ---------------------------------------------------------------------------
+# the baselines of Table I: linear and cuDNN products in pin_conv's scope
+# ---------------------------------------------------------------------------
+
+MLP = baselines.init_mlp(torch.Generator().manual_seed(6), FRAG * FRAG,
+                         hidden=16)
+CONV = baselines.init_tiny_conv(torch.Generator().manual_seed(7), (4, 8))
+XB = X.reshape(6, FRAG, FRAG)
+YB = torch.tensor([0, 1, 1, 0, 1, 0])
+
+
+def _train(model, apply_fn, labels=YB):
+    return baselines.train_classifier(torch.Generator().manual_seed(8),
+                                      model, apply_fn, XB, labels, epochs=2,
+                                      batch_size=3)
+
+
+def _step(model, apply_fn):
+    opt = optim.AdamW()
+    return baselines.train_step(copy.deepcopy(model), apply_fn,
+                                opt, opt.init(model.tree()), XB, YB)
+
+
+BASELINE_ENTRIES = {
+    "mlp_apply": lambda: baselines.mlp_apply(MLP, XB),
+    "tiny_conv_apply": lambda: baselines.tiny_conv_apply(CONV, XB),
+    "positive_score": lambda: baselines.positive_score(
+        baselines.tiny_conv_apply, CONV, XB),
+    "train_step[mlp]": lambda: _step(MLP, baselines.mlp_apply),
+    "train_step[tiny_conv]": lambda: _step(CONV, baselines.tiny_conv_apply),
+    "train_classifier[mlp]": lambda: _train(MLP, baselines.mlp_apply),
+    "train_classifier[tiny_conv]": lambda: _train(
+        CONV, baselines.tiny_conv_apply),
+}
+
+
+@pytest.mark.parametrize("name", list(BASELINE_ENTRIES))
+def test_baseline_keeps_caller_flags(caller_flags, name):
+    call_pinned(BASELINE_ENTRIES[name], conv=True)
+
+
+BASELINE_RAISING = {
+    "mlp_apply": lambda: baselines.mlp_apply(MLP, X[:, :-1]),   # width
+    "tiny_conv_apply": lambda: baselines.tiny_conv_apply(CONV, X),  # 2-D
+    "train_classifier": lambda: _train(                 # label out of range
+        MLP, baselines.mlp_apply, torch.tensor([0, 1, 5, 0, 1, 0])),
+}
+
+
+@pytest.mark.parametrize("name", list(BASELINE_RAISING))
+def test_baseline_restores_flags_when_it_raises(caller_flags, name):
+    with pytest.raises(RuntimeError):
+        BASELINE_RAISING[name]()
+    assert flags() == CALLER
+
+
+def test_encode_frames_keeps_caller_flags(caller_flags):
+    """The naive frame encoder's product is pinned (the reuse encoder runs
+    none)."""
+    call_pinned(lambda: encoding.encode_frames(
+        FRAMES[:2], B0, b, reuse=False, **KW))
 
 
 # ---------------------------------------------------------------------------
@@ -192,7 +283,7 @@ def test_detector_step_keeps_caller_flags(caller_flags, dtype):
     assert out.shape == (2, 2)
     with pytest.raises(RuntimeError):
         cell.step_fn(weights, torch.rand((2, 15, 16)))   # not patchable
-    assert flags() == (True, True)
+    assert flags() == CALLER
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -209,4 +300,4 @@ def test_model_forward_pins_its_products(caller_flags, dtype):
     assert out.shape == (1, 4, cfg.vocab)
     with pytest.raises(RuntimeError):
         model.forward(weights["backbone"], x[..., :-1])   # wrong width
-    assert flags() == (True, True)
+    assert flags() == CALLER
