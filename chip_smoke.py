@@ -95,14 +95,18 @@ sm_90a: an H100). It
    reports their tiles, blocks and waves;
 11. drives the int-datapath path (``benchmarks/int_datapath.py``'s
    claims): the float32 kernel, the live int8 kernel and the expanded-slab
-   kernel (the int scorer's retired layout, ``csrc/int_expanded.cu``) race
-   on one ADC capture at the reference's shape (32x32 frames, 8x8
-   fragments, stride 4, D 256, chunk 16) and at the paper's operating
-   point (``configs/hypersense.py``, chunk 32): one launch a call, the
-   expanded window sums bitwise the live kernel's, its scores within 1e-6
-   of the live kernel's and within 5e-5 of its plain version, both int
-   paths bitwise run to run and across a fresh precompute, ms per chunk,
-   fps and speedups; the live int kernel at 4x the reference's frame
+   kernel (the int scorer's retired layout, ``csrc/int_expanded.cu``, on
+   the int8 tensor cores) race on one ADC capture at the reference's shape
+   (32x32 frames, 8x8 fragments, stride 4, D 256, chunk 16) and at the
+   paper's operating point (``configs/hypersense.py``, chunk 32): one
+   launch a call, the expanded window sums bitwise the live kernel's, its
+   scores within 1e-6 of the live kernel's and within 5e-5 of its plain
+   version, both int paths bitwise run to run and across a fresh
+   precompute, a 7-frame expanded call bitwise inside the whole, ms per
+   chunk, fps and speedups; the expanded kernel's tile, blocks, waves,
+   shared memory, the operand bytes it reads and its tensor-core bound,
+   and the same gates at the ragged int shapes with uint8 and 10-bit
+   uint16 codes; the live int kernel at 4x the reference's frame
    width against its plain version, and the expanded operand's bytes at
    the deployment geometry beside the live block's; frame-score AUC of a
    gate trained on ``sensing/synthetic`` frames, float vs int8 and float at
@@ -2098,63 +2102,118 @@ def race_scores(inp):
     return out
 
 
+def expanded_gates(what, codes, E, tiles, fresh, kw, got=None, live=None):
+    """The expanded kernel's gates on one capture: its int32 window sums
+    bitwise the live kernel's, its scores finite, within 1e-6 of the live
+    kernel's and within SCORE_ATOL of its plain version; bitwise run to
+    run, across a fresh precompute (``fresh``, its operand expanded anew)
+    and for 7 frames called alone as inside the whole call. ``got`` and
+    ``live``: the two kernels' scores where the caller has them. Returns
+    the largest errors against plain and against the live kernel."""
+    if got is None:
+        got = ie.expanded_scores(codes, E, tiles, **kw)
+    if live is None:
+        live = ssi.fragment_scores_batch_int(codes, tiles, **kw)
+    acc = ie.expanded_window_acc(codes, E, tiles.geom, **kw)
+    acc_live = ssi.int_window_acc(codes, tiles.geom, **kw)
+    plain = ie.expanded_scores_plain(codes, E, tiles, **kw)
+    E2 = ie.expand_slabs(fresh.geom, codes.shape[-1])
+    again = ie.expanded_scores(codes, E, tiles, **kw)
+    from_fresh = ie.expanded_scores(codes, E2, fresh, **kw)
+    lo = min(20, codes.shape[0] - 7)
+    seven = ie.expanded_scores(codes[lo:lo + 7], E, tiles, **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(acc, acc_live),
+          f"{what}: expanded window sums differ from the live ones")
+    live_err = float((got - live).abs().max())
+    check(bool(torch.allclose(got, live, rtol=RACE_RTOL, atol=RACE_ATOL)),
+          f"{what}: expanded vs live int8 kernel {live_err}")
+    plain_err = float((got - plain).abs().max())
+    check(plain_err <= SCORE_ATOL,
+          f"{what}: expanded kernel vs plain {plain_err}")
+    check(bool(torch.isfinite(got).all()) and got.shape == live.shape,
+          f"{what}: expanded scores not finite or of the wrong shape")
+    check(torch.equal(E2, E), f"{what}: a fresh operand differs")
+    check(torch.equal(again, got) and torch.equal(from_fresh, got),
+          f"{what}: expanded scores not bitwise run to run or across a "
+          f"fresh precompute")
+    check(torch.equal(seven, got[lo:lo + 7]),
+          f"{what}: an expanded 7-frame call differs from the "
+          f"{codes.shape[0]}-frame one")
+    return plain_err, live_err
+
+
 def race_checks(name, inp, scores):
-    """The race's gates and times at one shape: the expanded window sums
-    bitwise the live kernel's, its scores within 1e-6 of the live kernel's
-    and within SCORE_ATOL of its plain version; both int paths bitwise run
-    to run and across a fresh precompute; ms per chunk (CUDA events), fps
-    and speedups."""
+    """The race's gates and times at one shape: the expanded kernel's gates
+    (``expanded_gates``); the live int path bitwise run to run and across
+    a fresh precompute; ms per chunk (CUDA events), fps and speedups; the
+    expanded kernels' device ms."""
     kw, codes, itiles, E = inp["kw"], inp["codes"], inp["itiles"], inp["E"]
     s_f, s_i, s_e = scores["float32"], scores["int8"], scores["expanded"]
-    acc_e = ie.expanded_window_acc(codes, E, itiles.geom, **kw)
-    acc_i = ssi.int_window_acc(codes, itiles.geom, **kw)
-    plain = ie.expanded_scores_plain(codes, E, itiles, **kw)
-    torch.cuda.synchronize()
-    check(torch.equal(acc_e, acc_i),
-          f"race {name}: expanded window sums differ from the live ones")
-    live_err = float((s_e - s_i).abs().max())
-    check(bool(torch.allclose(s_e, s_i, rtol=RACE_RTOL, atol=RACE_ATOL)),
-          f"race {name}: expanded vs live int8 kernel {live_err}")
-    plain_err = float((s_e - plain).abs().max())
-    check(plain_err <= SCORE_ATOL,
-          f"race {name}: expanded kernel vs plain {plain_err}")
-    check(bool(torch.isfinite(s_e).all() & torch.isfinite(s_f).all())
-          and s_e.shape == s_i.shape == s_f.shape,
-          f"race {name}: scores not finite or of the wrong shape")
-    # determinism: run to run, and across a fresh precompute
+    check(bool(torch.isfinite(s_f).all()) and s_f.shape == s_i.shape,
+          f"race {name}: float32 scores not finite or of the wrong shape")
     fresh = ops.precompute_tiles_int(inp["B0"], inp["b"], inp["chvs"],
                                      **inp["tkw"])
-    E2 = ie.expand_slabs(fresh.geom, inp["tkw"]["W"])
-    again = {n: fn() for n, (_, fn) in race_calls(inp).items()}
+    plain_err, live_err = expanded_gates(f"race {name}", codes, E, itiles,
+                                         fresh, kw, got=s_e, live=s_i)
+    # the live int path: run to run, and across a fresh precompute
+    again = race_calls(inp)["int8"][1]()
     s_i2 = ssi.fragment_scores_batch_int(codes, fresh, **kw)
-    s_e2 = ie.expanded_scores(codes, E2, fresh, **kw)
     torch.cuda.synchronize()
-    check(torch.equal(E2, E), f"race {name}: a fresh operand differs")
-    for n, (a, others) in dict(
-            int8=(s_i, (again["int8"], s_i2)),
-            expanded=(s_e, (again["expanded"], s_e2))).items():
-        check(all(torch.equal(a, x) for x in others),
-              f"race {name}: {n} not bitwise deterministic")
+    check(torch.equal(s_i, again) and torch.equal(s_i, s_i2),
+          f"race {name}: int8 not bitwise deterministic")
     ms = {n: time_ms(fn) for n, (_, fn) in race_calls(inp).items()}
+    expanded_device = kernel_device_ms(
+        race_calls(inp)["expanded"][1],
+        ("window_norms", "score_expanded", "expanded_epilogue",
+         "fold_epilogue"))
     N = codes.shape[0]
     return dict(
         frames=N, frame=inp["tkw"]["W"], fragment=kw["h"],
         stride=kw["stride"], D=inp["chvs"].shape[1],
         td=itiles.geom.block_d, n_dt=itiles.geom.slabs_q.shape[0],
-        operand_bytes=E.numel(), ms=ms,
+        operand_bytes=E.numel(), batch_position_bitwise=True, ms=ms,
         fps={n: N / (t / 1e3) for n, t in ms.items()},
         speedup_int8_vs_float32=ms["float32"] / ms["int8"],
         speedup_int8_vs_expanded=ms["expanded"] / ms["int8"],
+        expanded_device_ms=expanded_device[0],
+        expanded_device_by_kernel_ms=expanded_device[1],
         acc_bitwise=True, expanded_vs_live_max_abs=live_err,
         expanded_bitwise_live=bool(torch.equal(s_e, s_i)),
         expanded_vs_plain_max_abs=plain_err, deterministic=True)
 
 
+def expanded_occupancy(lib, codes, itiles, h, w, stride) -> dict:
+    """The expanded kernel's launch from its C entry: the row tile, ring
+    slots, blocks, resident blocks per SM, shared memory, waves on this
+    card and K steps."""
+    N, H, W = codes.shape
+    n_dt, td = itiles.geom.slabs_q.shape[0], itiles.geom.block_d
+    layout = ie._LAYOUTS.get(codes.dtype, ie._LAYOUTS[torch.int32])
+    vals = [ctypes.c_int() for _ in range(6)]
+    _build.check(lib.int_expanded_occupancy(
+        N, H, W, h, w, stride, td, n_dt, layout, *map(ctypes.byref, vals)),
+        "int_expanded_occupancy")
+    tile_m, ring, blocks, per_sm, smem, steps = (v.value for v in vals)
+    slots = per_sm * torch.cuda.get_device_properties(0).multi_processor_count
+    waves = math.ceil(blocks / slots)
+    return dict(tile=[tile_m, ie.COL_TILE], blocks=blocks,
+                blocks_per_sm=per_sm, smem_bytes=smem, ring_slots=ring,
+                k_steps=steps, waves=waves,
+                wave_efficiency=blocks / (waves * slots))
+
+
 def expanded_record(inp, race):
     """The expanded kernel's line at the paper's shape: its time, the
-    device time of its three kernels, the plain version's, the library
+    device time of its four kernels, the plain version's, the library
     yardstick's (the int row's: the windows against the expanded base in
-    one ``torch.matmul``) and the bound, each input read once."""
+    one ``torch.matmul``), the bound (each input read once) and the
+    tensor-core bound of its ``2*N*my*W*h*D`` int8 operations; its tile,
+    blocks, waves and shared memory; what it reads of the operand (once
+    per M tile, the M tiles of a column tile side by side). Beside them,
+    the same call on a copy of the codes at an odd address, where every
+    code group takes the kernel's byte route instead of its 4-byte copies:
+    its scores bitwise the same, its ms and device ms."""
     kw, codes, itiles, E = inp["kw"], inp["codes"], inp["itiles"], inp["E"]
     h, w, stride = kw["h"], kw["w"], kw["stride"]
     N, H, W = codes.shape
@@ -2163,15 +2222,29 @@ def expanded_record(inp, race):
     lib = _build.load("int_expanded")
     check(ie.COL_TILE == lib.int_expanded_col_tile(),
           "python and CUDA expanded column tiles differ")
+    occ = expanded_occupancy(lib, codes, itiles, h, w, stride)
     win = codes.unfold(1, h, stride).unfold(2, w, stride).reshape(
         N * my * mx, h * w).to(torch.float32)
     base = encoding.flat_perm_base(inp["B0"], h)
     device_ms, by_kernel = kernel_device_ms(
         lambda: ie.expanded_scores(codes, E, itiles, **kw),
-        ("window_norms", "score_expanded", "fold_epilogue"))
+        ("window_norms", "score_expanded", "expanded_epilogue",
+         "fold_epilogue"))
+    odd = torch.empty(codes.numel() + 1, dtype=codes.dtype,
+                      device=DEVICE)[1:].view(codes.shape)
+    odd.copy_(codes)
+    check(torch.equal(ie.expanded_scores(odd, E, itiles, **kw),
+                      ie.expanded_scores(codes, E, itiles, **kw)),
+          "expanded scores differ when the codes are loaded byte by byte")
+    odd_device_ms, odd_by_kernel = kernel_device_ms(
+        lambda: ie.expanded_scores(odd, E, itiles, **kw),
+        ("window_norms", "score_expanded", "expanded_epilogue",
+         "fold_epilogue"))
     n_bytes = (codes.numel() * codes.element_size() + E.numel()
                + 4 * itiles.geom.bias_t.numel() + 2 * itiles.cpos_t.numel()
                + 4 * N * my * mx)
+    tc_ops = 2 * N * my * W * h * n_dt * td
+    m_tiles = -(-N * my // occ["tile"][0])
     return dict(
         name="int_expanded", route="cuda",
         source="src/repro_torch/kernels/csrc/int_expanded.cu",
@@ -2184,21 +2257,64 @@ def expanded_record(inp, race):
         plain_ms=time_ms(lambda: ie.expanded_scores_plain(codes, E, itiles,
                                                           **kw)),
         library_ms=time_ms(lambda: torch.matmul(win, base)),
-        shape=[N, H, W, h, w, stride, n_dt * td],
-        smem_bytes=lib.int_expanded_smem_bytes(w, stride),
-        blocks=n_dt * -(-td // ie.COL_TILE) * my * N,
+        shape=[N, H, W, h, w, stride, n_dt * td], **occ,
         **bound(n_bytes, 2 * N * my * W * n_dt * td * (h + mx), INT8_OPS_S),
-        # what this design reads: the operand again for every (frame, band)
-        operand_reads_bytes=N * my * E.numel())
+        bound_tc_ms=tc_ops / INT8_OPS_S * 1e3, bound_tc_ops=tc_ops,
+        # what this design reads: the operand once per M tile (from L2 but
+        # for about one pass from device memory)
+        operand_reads_bytes=m_tiles * E.numel(),
+        codes_by_bytes=dict(
+            ms=time_ms(lambda: ie.expanded_scores(odd, E, itiles, **kw)),
+            kernel_device_ms=odd_device_ms,
+            kernel_device_by_kernel_ms=odd_by_kernel),
+        ragged=ragged_expanded_checks())
+
+
+#: frames of the expanded kernel's captures at the ragged int shapes and at
+#: large W: a chunk, so that its 7-frame call is held against a 32-frame one
+EXPANDED_CHECK_FRAMES = 32
+
+
+def ragged_expanded_checks() -> dict:
+    """The expanded kernel at the RAGGED_INT shapes (EXPANDED_CHECK_FRAMES
+    frames each) with single-model class tiles, for uint8 and 10-bit
+    uint16 codes (INT_CASES' int8 and u10): ``expanded_gates``; its tile.
+    Returns the largest errors and the tiles."""
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(SEED + 5)
+    lib = _build.load("int_expanded")
+    worst, live_worst, tiles_m = 0.0, 0.0, {}
+    for _, _, H, W, h, w, stride, D, block_d in RAGGED_INT:
+        N = EXPANDED_CHECK_FRAMES
+        kw = dict(h=h, w=w, stride=stride)
+        tkw = dict(W=W, w=w, stride=stride, block_d=block_d)
+        frames = 1.5 * torch.rand((N, H, W), generator=g, device=DEVICE)
+        B0 = torch.randn((h, D), generator=g, device=DEVICE)
+        b = 2 * math.pi * torch.rand(D, generator=g, device=DEVICE)
+        chvs = torch.randn((2, D), generator=g, device=DEVICE)
+        tiles = ssi.precompute_tiles_int(B0, b, chvs, **tkw)
+        fresh = ssi.precompute_tiles_int(B0, b, chvs, **tkw)
+        E = ie.expand_slabs(tiles.geom, W)
+        for precision in ("int8", "u10"):
+            codes = stream.adc_view_codes(frames, INT_CASES[precision][1])
+            err, live_err = expanded_gates(
+                f"expanded {precision} at {(N, H, W, h, w, stride, D)}",
+                codes, E, tiles, fresh, kw)
+            worst, live_worst = max(worst, err), max(live_worst, live_err)
+            tiles_m[f"{precision}@{(H, W, h, w, stride, D)}"] = \
+                expanded_occupancy(lib, codes, tiles, h, w, stride)["tile"]
+    return dict(max_abs_err=worst, vs_live_max_abs=live_worst,
+                tiles=tiles_m)
 
 
 def large_w_checks(g):
     """The reference's large-W check (int_datapath.py:225-260): at W = 4x
     its frame the live int kernel matches its plain version (SCORE_ATOL;
     the reference's 1e-6 printed beside it) and the expanded kernel the
-    live one; then the expanded operand's bytes at the deployment
-    geometry beside the live kernel's fixed block and its im2col bytes
-    per frame."""
+    live one; the expanded kernel's gates (``expanded_gates``) on a
+    capture of EXPANDED_CHECK_FRAMES frames at that width; then the
+    expanded operand's bytes at the deployment geometry beside the live
+    kernel's fixed block and its im2col bytes per frame."""
     frame, frag, stride = RACE_SHAPES["reference"][:3]
     H, W = frame, LARGE_W
     kw = dict(h=frag, w=frag, stride=stride)
@@ -2221,6 +2337,17 @@ def large_w_checks(g):
     check(torch.equal(acc_e, acc_i) and bool(torch.allclose(
         s_e, got, rtol=RACE_RTOL, atol=RACE_ATOL)),
         f"large W={W}: expanded vs live kernel")
+    # a chunk at this width from its own generator (g's draws unchanged)
+    gc = torch.Generator(device=DEVICE)
+    gc.manual_seed(SEED + 14)
+    chunk = 1.5 * torch.rand((EXPANDED_CHECK_FRAMES, H, W), generator=gc,
+                             device=DEVICE)
+    chunk = adc.pack_codes(adc.quantize_codes(chunk, INT_BITS), INT_BITS)
+    fresh = ssi.precompute_tiles_int(B0, b, chvs, W=W, w=frag, stride=stride,
+                                     block_d=LARGE_W_BLOCK_D)
+    chunk_err, chunk_live_err = expanded_gates(
+        f"large W={W}, {EXPANDED_CHECK_FRAMES} frames", chunk, E, tiles,
+        fresh, kw)
     d = DEPLOY
     bounds = ssi.int_datapath_bounds(d["adc_bits"], d["H"], d["W"], d["h"],
                                      d["w"], stride=d["stride"])
@@ -2230,6 +2357,8 @@ def large_w_checks(g):
         W=W, D=LARGE_W_DIM, td=LARGE_W_BLOCK_D, live_vs_plain_max_abs=err,
         reference_tol=LARGE_W_TOL, within_reference_tol=err <= LARGE_W_TOL,
         expanded_vs_live_max_abs=float((s_e - got).abs().max()),
+        expanded_chunk_vs_plain_max_abs=chunk_err,
+        expanded_chunk_vs_live_max_abs=chunk_live_err,
         expanded_operand_bytes=E.numel(),
         deploy=dict(d, D=PAPER.dim, block_d=BLOCK_D,
                     expanded_operand_bytes=expanded,

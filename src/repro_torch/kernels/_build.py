@@ -68,7 +68,7 @@ SIGNATURES: dict[str, dict[str, tuple]] = {
     "int_expanded": {
         "int_expanded": (I, [P] * 12 + [I] * 9 + [P]),
         "int_expanded_col_tile": (I, []),
-        "int_expanded_smem_bytes": (ctypes.c_size_t, [I, I]),
+        "int_expanded_occupancy": (I, [I] * 9 + [P] * 6),
     },
 }
 

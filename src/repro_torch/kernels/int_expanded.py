@@ -6,17 +6,38 @@ Twin of ``benchmarks/int_datapath.py``'s ``_expand_slabs`` and
 was before the live kernel's layout, reading a pre-shifted ``(n_dt, h*W,
 TD)`` int8 operand whose row ``(r, i)`` is ``slabs_q[dt, r, i : i + TD]``.
 The operand sits in device memory and grows linearly in the frame width
-``W``; the live kernel's block does not. The race of
-``chip_smoke.py``'s int-datapath phase measures that difference, so the
-kernel keeps the layout.
+``W``; the live kernel reads the compact slabs through a Hankel view and its
+block does not grow with ``W``. The race of ``chip_smoke.py``'s
+int-datapath phase measures that difference, so the kernel keeps the layout
+and reads nothing else: no Hankel view, no im2col scratch, no library
+product.
 
-:func:`expanded_scores` is the wrapper: a CUDA tensor launches
-``csrc/int_expanded.cu`` (or raises); a CPU tensor runs
-:func:`expanded_scores_plain`. :func:`expanded_window_acc` exposes the exact
-int32 window sums, for bitwise checks against
-``sliding_scores_int.int_window_acc``. Like the reference's twin it takes
-single-model class tiles and the RFF nonlinearity only, and no packed int4
-codes.
+The kernel, ``csrc/int_expanded.cu``, is an int8 tensor-core GEMM per
+D-tile (``mma.sync m16n8k32``, u8 code bytes read straight from the codes ×
+s8 operand rows staged by ``cp.async`` and byte-transposed in registers):
+rows ``(n, ky)``, columns ``j < TD``, depth ``(r, i)`` walked in column
+blocks between consecutive window points ``{kx*s} ∪ {kx*s + w}``, on a
+block of 64 × 128 (32 rows where the ring does not fit beside 64). At a
+window's opening point each thread stores its int32 prefix in a
+shared-memory ring of ``min(mx, ceil(w / s))`` slots; at its closing point
+it subtracts the slot, exact modulo 2^32, and stores the window sums; a
+second launch scores them with the live kernel's epilogue in the live
+kernel's order. Codes wider than a byte run Horner over their bytes. The
+C entry ``int_expanded_occupancy`` reports the launch's tile, ring and K
+steps.
+
+Its bound at the paper's chunk is bytes: the 61.4 MB operand once, 0.018
+ms at 3.35 TB/s, against 0.010 ms for its ``2*N*my*W*h*D`` int8
+operations at 1,979 TOPS. It takes 0.354 ms a chunk, 0.245 of them on
+the device (NVIDIA H100 80GB HBM3, 700 W; ``chip_smoke.py``, ``PERF.md``
+section 6).
+
+:func:`expanded_scores` is the wrapper: a CUDA tensor launches the kernel
+(or raises); a CPU tensor runs :func:`expanded_scores_plain`.
+:func:`expanded_window_acc` exposes the exact int32 window sums, for
+bitwise checks against ``sliding_scores_int.int_window_acc``. Like the
+reference's twin it takes single-model class tiles and the RFF
+nonlinearity only, and no packed int4 codes.
 """
 
 from __future__ import annotations
@@ -27,8 +48,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import sliding_scores as _ss
 from repro_torch.kernels import sliding_scores_int as _ssi
 
-#: calls of the C entry (three kernel launches each: window norms, the
-#: scorer, the fold) made by :func:`expanded_scores`
+#: calls of the C entry (four kernel launches each: window norms, the
+#: window sums, the scoring epilogue, the fold) made by
+#: :func:`expanded_scores`
 LAUNCHES = 0
 
 #: hypervector columns per CUDA block (``kBN``): the live int kernel's
@@ -38,7 +60,6 @@ COL_TILE = 128
 #: codes the kernel reads as they are (``CodesLayout`` in the CUDA source);
 #: other integer codes are widened to int32 at the kernel boundary
 _LAYOUTS = {torch.uint8: 0, torch.int32: 2, torch.uint16: 3}
-
 
 def expand_slabs(geom: _ssi.IntScoreGeometry, W: int) -> torch.Tensor:
     """The ``(n_dt, h*W, TD)`` int8 operand from the compact slabs, on the
@@ -149,7 +170,8 @@ def expanded_scores_plain(codes: torch.Tensor, slab_mat: torch.Tensor,
 def _launch(codes: torch.Tensor, slab_mat: torch.Tensor,
             tiles: _ssi.IntScoreTiles, *, h: int, w: int, stride: int,
             acc_out: torch.Tensor | None = None) -> torch.Tensor:
-    """One call of the C entry: window norms, the scorer, the fold."""
+    """One call of the C entry: window norms, the window sums (into
+    ``acc_out``, or scratch), the scoring epilogue, the fold."""
     geom = tiles.geom
     N, H, W, my, mx, n_dt, td = _geometry(codes, slab_mat, geom, h, w,
                                           stride)
@@ -157,11 +179,6 @@ def _launch(codes: torch.Tensor, slab_mat: torch.Tensor,
         codes = codes.to(torch.int32)
     layout = _LAYOUTS[codes.dtype]
     lib = _build.load("int_expanded")
-    smem = lib.int_expanded_smem_bytes(w, stride)
-    if smem > _ss.SMEM_LIMIT_BYTES:
-        raise ValueError(f"the expanded-slab block needs {smem} B of shared "
-                         f"memory for {w}-wide windows at stride {stride}, "
-                         f"over the card's {_ss.SMEM_LIMIT_BYTES}")
     dev = codes.device
     codes = codes.contiguous()
     cpos_norm, cneg_norm = _ss._flat_norms(tiles)
@@ -169,12 +186,14 @@ def _launch(codes: torch.Tensor, slab_mat: torch.Tensor,
     norms = torch.empty((N, my, mx), device=dev)
     partials = torch.empty((n_ct, N * my * mx, 3), device=dev)
     out = torch.empty((N, my, mx), device=dev)
+    if acc_out is None:
+        acc_out = torch.empty((N, my, n_dt, mx, td), dtype=torch.int32,
+                              device=dev)
     args = (codes, slab_mat.contiguous(), geom.bias_t,
             tiles.cpos_t.contiguous(), tiles.cneg_t.contiguous(),
             geom.slab_scale, norms, cpos_norm, cneg_norm, partials, out)
     err = lib.int_expanded(
-        *(a.data_ptr() for a in args),
-        None if acc_out is None else acc_out.data_ptr(),
+        *(a.data_ptr() for a in args), acc_out.data_ptr(),
         N, H, W, h, w, stride, td, n_dt, layout, _build.stream_ptr())
     _build.check(err, "int_expanded")
     return out
@@ -185,7 +204,7 @@ def expanded_scores(codes: torch.Tensor, slab_mat: torch.Tensor,
                     stride: int, nonlinearity: str = "rff") -> torch.Tensor:
     """``(N, H, W)`` integer ADC codes and the expanded operand
     (:func:`expand_slabs`) -> ``(N, my, mx)`` score maps in one call of the
-    C entry, which launches its three kernels; :data:`LAUNCHES` counts the
+    C entry, which launches its four kernels; :data:`LAUNCHES` counts the
     calls.
 
     A CUDA tensor launches ``csrc/int_expanded.cu`` (or raises); a CPU
@@ -210,9 +229,9 @@ def expanded_window_acc(codes: torch.Tensor, slab_mat: torch.Tensor,
     """The exact int32 window sums ``(N, my, n_dt, mx, TD)``, the layout of
     ``sliding_scores_int.int_window_acc``.
 
-    A CPU tensor runs the plain version; a CUDA tensor runs the kernel with
-    its accumulator output switched on (class tiles of zeros). A check, not
-    part of scoring: it does not count in :data:`LAUNCHES`.
+    A CPU tensor runs the plain version; a CUDA tensor runs the kernel,
+    which stores the sums into the returned tensor (class tiles of zeros).
+    A check, not part of scoring: it does not count in :data:`LAUNCHES`.
     """
     N, H, W, my, mx, n_dt, td = _geometry(codes, slab_mat, geom, h, w,
                                           stride)
