@@ -2,9 +2,11 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only mesh    # the build and the mesh phase
 
 from the root of a checkout, on a machine with one CUDA card (built for
-sm_90a: an H100). It
+sm_90a: an H100; with ``--only mesh``, every card of the host joins the
+mesh phase's NCCL world). It
 
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds all six kernels from ``src/repro_torch/kernels/csrc`` with
@@ -62,7 +64,23 @@ sm_90a: an H100). It
    dispatches free of host syncs (``torch.cuda.set_sync_debug_mode``);
    it prints the fps of the service and of ``FleetRunner``, their
    device busy shares and the dispatch->collect latency;
-9. serves the gated cascade (paper §V-E): the closed-loop float32
+9. shards the fleet (``mesh`` phase): each scorer's split entries (the
+   partials entry over a slice of the D-tiles, the fold entry over the
+   partials of all of them) at the paper's point with D cut into 8 tiles
+   of 625, at 1, 2, 4 and 8 virtual shards concatenated in tile order,
+   bitwise the wrapper's unsplit call for float32, int8, int4 and binary
+   with shared and per-stream class tiles (the unsplit call within 5e-5
+   of the plain version, the int shards' window sums bitwise the plain
+   version's; each shard count's ms beside the unsplit call's); then an NCCL world of every card of the host (one spawned
+   process a card; one card: a (1, 1) mesh) runs ``FleetRunner(mesh=)``
+   (float32, int8, the closed loop, int8 with shared and with per-stream
+   adaptation) and ``FleetService(mesh=)`` (the frozen float32 service,
+   its warm dispatches free of host syncs; the int8 churn service, its
+   checkpoint at tick 4 resumed sharded and unsharded, and the unsharded
+   one resumed sharded), each bitwise the unsharded run this process
+   makes on the same inputs and hands over through a file, with fps
+   sharded and unsharded;
+10. serves the gated cascade (paper §V-E): the closed-loop float32
    ``FleetService`` (8 slots, 8 ticks, HP at 12 bits) feeds its HP drains
    to a ``CascadeService`` over the full-width ``hubert-xlarge`` detector
    (48 layers, bf16, random weights from a seeded generator; 128x128
@@ -76,7 +94,7 @@ sm_90a: an H100). It
    products. It prints the backbone's frames/s and ms per batch against
    the batch's bounds, its device busy share, the site's frames/s against
    the gate's alone, and the energy bill against an always-on backbone;
-10. drives the training path (paper Fig. 5a) at the same width: samples
+11. drives the training path (paper Fig. 5a) at the same width: samples
    balanced fragments from 256 synthetic training frames and 128 held-out
    frames (``sensing.fragments``), trains the Fragment model on the
    permutation base (``train_fragment_model``, 20 epochs), scores the
@@ -93,7 +111,7 @@ sm_90a: an H100). It
    both encoders the same way at ragged shapes (N, K and D off the tiles,
    K steps that straddle generator rows) for each nonlinearity, and
    reports their tiles, blocks and waves;
-11. drives the int-datapath path (``benchmarks/int_datapath.py``'s
+12. drives the int-datapath path (``benchmarks/int_datapath.py``'s
    claims): the float32 kernel, the live int8 kernel and the expanded-slab
    kernel (the int scorer's retired layout, ``csrc/int_expanded.cu``, on
    the int8 tensor cores) race on one ADC capture at the reference's shape
@@ -118,7 +136,7 @@ sm_90a: an H100). It
    equal to the same gate's on the CPU wherever the deciding score sits
    more than 2.5e-4 from ``t_score``, its frames/s, duty cycle and the
    detector FLOPs it saves;
-12. runs Table I and Fig. 16's model comparison (``baselines`` phase):
+13. runs Table I and Fig. 16's model comparison (``baselines`` phase):
    ``benchmarks/common.py``'s noisy 4-bit data made with
    ``sensing.synthetic`` (training noise 0.20; held-out noise 0.30 with
    3% impulse spikes), balanced fragments, at the paper's operating point
@@ -135,7 +153,7 @@ sm_90a: an H100). It
    then times, per frame of a 32-frame chunk, the float32 HDC scorer
    against MLP2 on all 25 windows (beside the paper's 2.4x) and
    ``encode_frames`` with and without reuse;
-13. prints one JSON line per phase, a ``kernels`` line, and last
+14. prints one JSON line per phase, a ``kernels`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises: the script exits non-zero and prints no result.
@@ -144,6 +162,7 @@ It exits non-zero as well without a CUDA device, or outside a checkout.
 
 from __future__ import annotations
 
+import argparse
 import copy
 import ctypes
 import dataclasses
@@ -501,17 +520,10 @@ RAGGED_F32 = ((6, 2, 45, 46, 21, 21, 3, 600, 300),
 
 def window_projections_plain(frames, tiles, h, w, stride):
     """``(N, my, mx, D)`` normalized window projections ``acc / max(norm,
-    1e-8)`` as the plain version computes them, to find where ``sign``
-    sits within rounding of 0."""
-    N, H, W = frames.shape
-    mx = (W - w) // stride + 1
-    lo, hi = ss._window_masks(W, w, stride, mx, frames.device, torch.float32)
-    ky = torch.arange((H - h) // stride + 1, device=frames.device) * stride
-    acc = 0
-    for r in range(h):
-        p_hi, p_lo = ss._prefix_window_acc(frames[:, ky + r, :],
-                                           tiles.slabs[:, r, :], lo, hi)
-        acc = acc + p_hi - p_lo
+    1e-8)`` as the plain version computes them (each D-tile's
+    ``tile_window_acc``), to find where ``sign`` sits within rounding of
+    0."""
+    acc = torch.cat(ss.tile_window_acc(frames, tiles, h, w, stride), -1)
     norms = ss.window_norms_batch(frames, h, w, stride)
     return acc / torch.clamp(norms, min=1e-8)[..., None]
 
@@ -1320,6 +1332,438 @@ def service_resume_check(base_model, cal, raw, schedule, frames_of):
                resumed_bitwise=True)
     emit(rec)
     return rec
+
+
+# the mesh phase: the scorers' split entries at the paper's point, then the
+# sharded fleet and service in an NCCL world of every card of the host. At
+# D = 5000 the default block (512) leaves one D-wide tile; MESH_BLOCK_D =
+# 625 gives n_dt = 8 tiles, which 2-, 4- and 8-way splits divide. Sharded
+# and unsharded runs use the same block (the fold's grouping sets the bits)
+MESH_BLOCK_D = 625
+MESH_SHARDS = (1, 2, 4, 8)
+# (precision, ADC bits): the split checks' datapaths
+MESH_SPLIT = (("float32", 4), ("int8", 8), ("int4", 4), ("binary", 8))
+MESH_RUNS = {
+    # name: (precision, adc_bits, closed loop, adapt scope)
+    "mesh_float32": ("float32", 4, False, None),
+    "mesh_int8": ("int8", 8, False, None),
+    "mesh_closed_loop_float32": ("float32", 4, True, None),
+    "mesh_adapt_int8_shared": ("int8", 8, False, "shared"),
+    "mesh_adapt_int8_per_stream": ("int8", 8, False, "per-stream"),
+}
+# seconds the world's ranks may take, their builds excluded (the parent
+# builds every kernel before it spawns them)
+MESH_TIMEOUT_S = 600
+
+
+def split_views(raw, precision, bits):
+    """The (S*C, H, W) super-chunk a scorer sees at ``precision`` (int4:
+    nibble-packed codes) and its scorer module."""
+    flat = raw.reshape(-1, FRAME, FRAME)
+    if precision == "float32":
+        return stream.adc_view(flat, bits), ss
+    codes = stream.adc_view_codes(flat, bits)
+    return (adc.pack_nibbles(codes) if precision == "int4" else codes), ssi
+
+
+def split_checks(model, raw, g) -> dict:
+    """(a) Each scorer's split entries, in this process: the paper's point,
+    an (FLEET_S, CHUNK) super-chunk, MESH_BLOCK_D tiles cut into 1, 2, 4
+    and 8 contiguous virtual shards; each shard through the partials entry
+    (its own D-tiles, cut by ``fleet.local_geometry``), the partials
+    concatenated in tile order, then the fold entry: bitwise the wrapper's
+    unsplit call, for each precision with shared and per-stream class
+    tiles. The unsplit call's scores are held within SCORE_ATOL of the
+    plain version on the same frames and tiles; for the int precisions the
+    shards' int32 window sums, concatenated in tile order, bitwise the
+    plain version's. Times each shard count's partials and fold beside the
+    unsplit call."""
+    kw = dict(h=FRAG, w=FRAG, stride=STRIDE)
+    my = mx = (FRAME - FRAG) // STRIDE + 1
+    per_stream = model.class_hvs + 0.05 * torch.randn(
+        (FLEET_S, 2, DIM), generator=g, device=DEVICE)
+    out = {}
+    for precision, bits in MESH_SPLIT:
+        frames, mod = split_views(raw[:, :CHUNK], precision, bits)
+        packed = dict(packed=True) if precision == "int4" else {}
+        N = frames.shape[0]
+        geom = stream.model_geometry(model, FRAME, MESH_BLOCK_D, precision)
+        n_dt = geom.idx.shape[0]
+        check(n_dt == max(MESH_SHARDS), f"mesh: {n_dt} D-tiles")
+        if mod is ssi:
+            codes = adc.unpack_nibbles(frames) if packed else frames
+            plain_acc = ssi._int_window_acc_plain(
+                codes, geom, h=FRAG, stride=STRIDE).reshape(
+                    N, my, mx, n_dt, MESH_BLOCK_D).permute(0, 1, 3, 2, 4)
+        for layout, chvs in (("shared", model.class_hvs),
+                             ("per_stream", per_stream)):
+            if precision == "float32":
+                retile = (ops.retile_classes_fleet if chvs.ndim == 3
+                          else ops.retile_classes)
+            else:
+                retile = (ops.retile_classes_int_fleet if chvs.ndim == 3
+                          else ops.retile_classes_int)
+            fps = dict(frames_per_stream=CHUNK) if chvs.ndim == 3 else {}
+            tiles = retile(geom, chvs)
+            what = f"mesh: {precision} {layout}"
+            if mod is ss:
+                def unsplit():
+                    return ss.fragment_scores_batch(frames, tiles, **kw,
+                                                    **fps)
+                plain = ss.fragment_scores_batch_plain(frames, tiles, **kw,
+                                                       **fps)
+            else:
+                def unsplit():
+                    return ssi.fragment_scores_batch_int(
+                        frames, tiles, **kw, **fps, **packed)
+                plain = ssi.fragment_scores_batch_int_plain(
+                    frames, tiles, **kw, **fps, **packed)
+            want = unsplit()
+            err = float((want - plain).abs().max())
+            check(err <= SCORE_ATOL, f"{what}: unsplit call vs plain {err}")
+            check(bool(torch.isfinite(want).all())
+                  and want.shape == (N, my, mx), f"{what}: not finite")
+            rec = dict(unsplit_ms=time_ms(unsplit), max_abs_err=err,
+                       split_ms={})
+            for k in MESH_SHARDS:
+                step = n_dt // k
+                shards = [retile(fleet.local_geometry(geom, lo, lo + step),
+                                 chvs) for lo in range(0, n_dt, step)]
+                accs = [torch.empty((N, my, step, mx, MESH_BLOCK_D),
+                                    dtype=torch.int32, device=DEVICE)
+                        for _ in shards] if mod is ssi else None
+
+                def split(accs=None):
+                    parts = []
+                    for j, t in enumerate(shards):
+                        sums = {} if accs is None else dict(acc_out=accs[j])
+                        parts.append(mod.split_partials(
+                            frames, t, **kw, **fps, **packed, **sums))
+                    return mod.split_fold(torch.cat(parts), tiles, N=N,
+                                          my=my, mx=mx, **fps)
+                got = split(accs)
+                check(torch.equal(got, want),
+                      f"{what} at {k} shards differs from the unsplit "
+                      f"call by {float((got - want).abs().max())}")
+                if accs is not None:
+                    check(torch.equal(torch.cat(accs, 2), plain_acc),
+                          f"{what} at {k} shards: window sums differ "
+                          f"from the plain version's")
+                rec["split_ms"][k] = time_ms(split)
+            out[f"{precision}_{layout}"] = rec
+    return out
+
+
+def mesh_reference(base_model, cal, raw, labels, root) -> dict:
+    """The unsharded runs the world is held against, on the card: the
+    MESH_RUNS ``FleetRunner`` runs (the float32 one timed warm), the frozen
+    float32 service, and the int8 churn service with per-stream pseudo
+    adaptation, checkpointed at CKPT_TICK into ``root/unsharded_ckpt``."""
+    ctrl = service_ctrl()
+    labels_np = labels.cpu().numpy()
+    ref = {"runs": {}, "models": {}}
+    for name, (precision, bits, closed, scope) in MESH_RUNS.items():
+        model = calibrated(base_model, *cal, precision, bits)
+        ref["models"][precision] = model
+        r = fleet.FleetRunner(model, ctrl, **mesh_runner_kwargs(
+            precision, bits, closed, scope))
+        feed = None if scope is None else labels_np
+        out = r.process(raw, labels=feed)
+        ref["runs"][name] = dict(
+            out=out, class_hvs=r.class_hvs.cpu(), log=r.capture_log,
+            hp=r.drain_hp(), hp_dropped=r.hp_dropped)
+        if name == "mesh_float32":
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r.process(raw)
+            torch.cuda.synchronize()
+            ref["runner_fps"] = raw.shape[0] * raw.shape[1] / (
+                time.perf_counter() - t0)
+    ref["models"]["churn"] = calibrated(base_model, *cal, "int8", 8)
+    svc = mesh_service("float32", ref["models"]["float32"])
+    ref["service"] = served_arrays(serve(svc, raw.cpu().numpy()),
+                                   raw.shape[0])
+    ckpt = str(root / "unsharded_ckpt")
+    svc = mesh_churn_service(ref["models"]["churn"], ckpt)
+    ref["churn"] = mesh_churn(svc, raw, ckpt=True)
+    return ref
+
+
+def mesh_runner_kwargs(precision, bits, closed, scope) -> dict:
+    return dict(chunk_size=CHUNK, block_d=MESH_BLOCK_D, adc_bits=bits,
+                precision=precision, adc_seed=SEED, device=DEVICE,
+                control=CaptureConfig(hp_bits=12) if closed else None,
+                adapt=None if scope is None else AdaptConfig(
+                    mode="label", lr=0.5, scope=scope))
+
+
+def mesh_service(precision, model, mesh=None):
+    svc = FleetService(model, service_ctrl(), n_slots=FLEET_S,
+                       chunk_size=CHUNK, block_d=MESH_BLOCK_D, adc_bits=4,
+                       precision=precision, adc_seed=SEED, device=DEVICE,
+                       mesh=mesh)
+    for s in range(FLEET_S):
+        svc.attach(s)
+    return svc
+
+
+def mesh_churn_service(model, ckpt_dir, mesh=None):
+    return FleetService(
+        model, service_ctrl(), n_slots=FLEET_S, chunk_size=CHUNK,
+        block_d=MESH_BLOCK_D, adc_bits=8, precision="int8", adc_seed=SEED,
+        adapt=AdaptConfig(mode="pseudo", scope="per-stream", lr=0.3,
+                          confidence=0.0),
+        ckpt_dir=ckpt_dir, device=DEVICE, mesh=mesh)
+
+
+def mesh_churn(svc, raw, *, ckpt: bool = False, start: int = 0) -> dict:
+    """The service phase's churn schedule from tick ``start`` on ``svc``
+    (a checkpoint at CKPT_TICK with ``ckpt``): per-sensor outputs,
+    classifiers and capture logs."""
+    schedule = churn_schedule(raw.shape[1] // CHUNK)
+
+    def frames_of(sid):
+        return raw[sid % FLEET_S, N_STREAM // 4 * (sid // FLEET_S):]
+
+    fed: dict = {}
+    for _, _, arrive in schedule[:start]:
+        for sid in arrive:
+            fed[sid] = fed.get(sid, 0) + CHUNK
+    got = {}
+    cut = CKPT_TICK if ckpt else start
+    for lo, hi in ((start, cut), (cut, len(schedule))):
+        more, fed = play_churn(svc, frames_of, schedule[lo:hi], fed)
+        for sid, outs in more.items():
+            got.setdefault(sid, []).extend(outs)
+        if ckpt and hi == CKPT_TICK:
+            svc.checkpoint()
+            svc.wait_ckpt()
+    return dict(outputs={sid: [np.concatenate([o[j] for o in outs])
+                               for j in range(3)]
+                         for sid, outs in got.items()},
+                class_hvs={sid: svc.class_hvs_of(sid).cpu()
+                           for sid in fed},
+                logs={sid: (svc.capture_log(sid).sampled,
+                            svc.capture_log(sid).gated) for sid in fed})
+
+
+def same_churn(got, want, what, tail: bool = False) -> None:
+    """``got`` bitwise ``want``; with ``tail``, ``got`` holds only the
+    ticks from CKPT_TICK on (each sensor's outputs the end of ``want``'s);
+    classifiers and capture logs cover the whole trace either way."""
+    for sid, outs in got["outputs"].items():
+        for a, b in zip(outs, want["outputs"][sid]):
+            check(np.array_equal(a, b[len(b) - len(a):] if tail else b),
+                  f"{what}: sensor {sid} outputs")
+    if not tail:
+        check(set(got["outputs"]) == set(want["outputs"]),
+              f"{what}: sensors served")
+    for sid, chvs in want["class_hvs"].items():
+        check(torch.equal(got["class_hvs"][sid].cpu(), chvs.cpu()),
+              f"{what}: sensor {sid} classifier")
+        for a, b in zip(got["logs"][sid], want["logs"][sid]):
+            check(np.array_equal(a, b), f"{what}: sensor {sid} capture log")
+
+
+def mesh_shapes(world: int) -> list[tuple[int, int]]:
+    """``make_host_mesh``'s (1, world), then every other (data, model)
+    factorization of the world."""
+    return [(1, world)] + [(d, world // d) for d in range(2, world + 1)
+                           if world % d == 0]
+
+
+def mesh_rank(rank: int, world: int, root: str) -> None:
+    """One rank of the NCCL world: its own card, the payload the parent
+    wrote, every mesh shape of ``mesh_shapes``; each run checked bitwise
+    against the parent's unsharded run. Writes its records to
+    ``root/rank<r>.json``; any failed check raises (a non-zero exit)."""
+    import datetime
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.launch.mesh import make_host_mesh
+    root = pathlib.Path(root)
+    try:
+        # NCCL on the cards (DEVICE "cpu", for a rehearsal: gloo)
+        cuda = DEVICE == "cuda"
+        dev = torch.device("cuda", rank) if cuda else torch.device("cpu")
+        if cuda:
+            torch.cuda.set_device(rank)
+        dist.init_process_group(
+            "nccl" if cuda else "gloo",
+            store=dist.FileStore(str(root / "store"), world), rank=rank,
+            world_size=world, device_id=dev if cuda else None,
+            timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+        ref = torch.load(root / "payload.pt", map_location=dev,
+                         weights_only=False)
+        raw, labels_np = ref["raw"], ref["labels"]
+        records = []
+        for shape in mesh_shapes(world):
+            mesh = (make_host_mesh(DEVICE) if shape == (1, world) else
+                    init_device_mesh(DEVICE, shape,
+                                     mesh_dim_names=("data", "model")))
+            records.append(mesh_runs(mesh, shape, ref, raw, labels_np, root))
+        (root / f"rank{rank}.json").write_text(json.dumps(records))
+        dist.destroy_process_group()
+    except BaseException:
+        import traceback
+        (root / f"rank{rank}.err").write_text(traceback.format_exc())
+        raise
+
+
+def mesh_runs(mesh, shape, ref, raw, labels_np, root) -> dict:
+    """The runs of one mesh shape in one rank (every rank runs them all):
+    the MESH_RUNS runners, the frozen float32 service with its warm
+    dispatches free of host syncs, the churn service bitwise, its
+    checkpoint at CKPT_TICK resumed by a fresh sharded service, and the
+    parent's unsharded checkpoint resumed sharded."""
+    S, n = raw.shape[:2]
+    n_chunks = math.ceil(n / CHUNK)
+    ctrl = service_ctrl()
+    launches = {"sliding_scores_f32": 0, "sliding_scores_int": 0}
+    rec = dict(mesh=list(shape), runs={})
+    for name, (precision, bits, closed, scope) in MESH_RUNS.items():
+        want = ref["runs"][name]
+        kw = mesh_runner_kwargs(precision, bits, closed, scope)
+        r = fleet.FleetRunner(ref["models"][precision], ctrl, mesh=mesh,
+                              **kw)
+        feed = None if scope is None else labels_np
+        torch.cuda.synchronize()
+        ss.LAUNCHES = ssi.LAUNCHES = 0
+        t0 = time.perf_counter()
+        out = r.process(raw, labels=feed)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {"sliding_scores_f32": ss.LAUNCHES,
+                  "sliding_scores_int": ssi.LAUNCHES}
+        check(sum(counts.values()) == n_chunks,
+              f"{name} {shape}: {counts} scorer calls for {n_chunks} "
+              f"super-chunks")
+        for k, v in counts.items():
+            launches[k] += v
+        what = f"{name} on a {shape} mesh"
+        for a, b in zip(out, want["out"]):
+            check(np.array_equal(a, b), f"{what}: scores or gate differ")
+        check(torch.equal(r.class_hvs.cpu(), want["class_hvs"].cpu()),
+              f"{what}: classifier")
+        log = r.capture_log
+        check(np.array_equal(log.sampled, want["log"].sampled)
+              and np.array_equal(log.gated, want["log"].gated),
+              f"{what}: capture log")
+        for (ia, fa), (ib, fb) in zip(r.drain_hp(), want["hp"]):
+            check(np.array_equal(ia, ib) and np.array_equal(fa, fb),
+                  f"{what}: HP drain")
+        check(r.hp_dropped == want["hp_dropped"], f"{what}: hp_dropped")
+        rec["runs"][name] = dict(bitwise=True, launches=counts,
+                                 fps=S * n / wall)
+        if name == "mesh_float32":
+            # warm fps on this rank's card in turns: an unsharded runner,
+            # the sharded one twice, the unsharded again; each profiled
+            plain = fleet.FleetRunner(ref["models"][precision], ctrl, **kw)
+            plain.process(raw)
+            walls = {}
+            for what, runner in (("unsharded", plain), ("sharded", r),
+                                 ("sharded_again", r),
+                                 ("unsharded_again", plain)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                runner.process(raw)
+                torch.cuda.synchronize()
+                walls[what] = time.perf_counter() - t0
+            rec["runner_fps_warm"] = {k: S * n / v for k, v in walls.items()}
+            rec["profile_sharded"] = device_profile(lambda: r.process(raw))
+            rec["profile_unsharded"] = device_profile(
+                lambda: plain.process(raw))
+    # the frozen service: bitwise the unsharded one; warm dispatches free
+    # of host syncs (the scores gathered by NCCL on the card's stream)
+    svc = mesh_service("float32", ref["models"]["float32"], mesh)
+    ss.LAUNCHES = ssi.LAUNCHES = 0
+    got = served_arrays(serve(svc, raw.cpu().numpy(), sync_free=True), S)
+    check(ss.LAUNCHES == n // CHUNK and ssi.LAUNCHES == 0,
+          f"service {shape}: not one scorer call a tick")
+    launches["sliding_scores_f32"] += ss.LAUNCHES
+    for a, b in zip(got, ref["service"]):
+        check(np.array_equal(a, b), f"service on a {shape} mesh differs")
+    rec["service"] = dict(bitwise=True, warm_dispatch_sync_free=True,
+                          n_slots=svc.n_slots)
+    # the churn service, its checkpoint resumed sharded, and the
+    # unsharded checkpoint resumed sharded
+    tag = "x".join(map(str, shape))
+    ckpt = str(root / f"ckpt_{tag}")
+    model = ref["models"]["churn"]
+    churn = mesh_churn(mesh_churn_service(model, ckpt, mesh), raw, ckpt=True)
+    same_churn(churn, ref["churn"], f"churn on a {shape} mesh")
+    for src in (ckpt, str(root / "unsharded_ckpt")):
+        svc = mesh_churn_service(model, src, mesh)
+        check(svc.restore() == CKPT_TICK, f"{src}: restored tick")
+        same_churn(mesh_churn(svc, raw, start=CKPT_TICK), ref["churn"],
+                   f"{src} resumed on a {shape} mesh", tail=True)
+    rec["churn"] = dict(bitwise=True, resumed_own_checkpoint=True,
+                        resumed_unsharded_checkpoint=True, checkpoint=ckpt)
+    rec["launches"] = launches
+    return rec
+
+
+def mesh_phase(base_model, cal, raw, labels):
+    """(a) :func:`split_checks`; (b) an NCCL world of every card of the
+    host (one rank a card, ``torch.multiprocessing`` with ``spawn``, after
+    this process built the kernels), each rank on every mesh shape of
+    :func:`mesh_shapes` (on one card: a (1, 1) mesh, the sharded code path
+    with its collectives on one-rank groups), held bitwise against this
+    process's unsharded runs (:func:`mesh_reference`), handed over through
+    a file; then an unsharded service resumes the first mesh's checkpoint
+    bitwise. A rank that fails or outlives MESH_TIMEOUT_S fails the phase.
+    Returns the phase's record and the launches of the first rank's
+    runs."""
+    import torch.multiprocessing as mp
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(SEED + 17)
+    splits = split_checks(calibrated(base_model, *cal, "float32", 4), raw, g)
+    root = ROOT / "build" / "mesh"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    ref = mesh_reference(base_model, cal, raw, labels, root)
+    torch.save(dict(ref, raw=raw.cpu(), labels=labels.cpu().numpy()),
+               root / "payload.pt")
+    world = torch.cuda.device_count()
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=mesh_rank, args=(r, world, str(root)))
+             for r in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(max(MESH_TIMEOUT_S - (time.perf_counter() - t0), 0.0))
+    finally:
+        alive = [p for p in procs if p.is_alive()]
+        for p in alive:
+            p.terminate()
+            p.join(10)
+    world_s = time.perf_counter() - t0
+    for r, p in enumerate(procs):
+        err = root / f"rank{r}.err"
+        check(not alive and p.exitcode == 0 and not err.exists(),
+              f"mesh rank {r}: exit {p.exitcode}"
+              f"{' (timed out)' if alive else ''}\n"
+              f"{err.read_text() if err.exists() else ''}")
+    ranks = [json.loads((root / f"rank{r}.json").read_text())
+             for r in range(world)]
+    first = ranks[0][0]
+    # the first mesh's checkpoint (written by its rank 0), resumed unsharded
+    svc = mesh_churn_service(ref["models"]["churn"], first["churn"][
+        "checkpoint"])
+    check(svc.restore() == CKPT_TICK, "sharded checkpoint: restored tick")
+    same_churn(mesh_churn(svc, raw, start=CKPT_TICK), ref["churn"],
+               "the sharded checkpoint resumed unsharded", tail=True)
+    shutil.rmtree(root, ignore_errors=True)
+    launches = {k: sum(rec["launches"][k] for rec in ranks[0])
+                for k in ("sliding_scores_f32", "sliding_scores_int")}
+    out = dict(world=world, meshes=[rec["mesh"] for rec in ranks[0]],
+               block_d=MESH_BLOCK_D, n_dt=DIM // MESH_BLOCK_D,
+               split=splits, unsharded_runner_fps=ref["runner_fps"],
+               ranks=ranks, world_s=world_s,
+               sharded_checkpoint_resumed_unsharded=True)
+    return out, launches
 
 
 # the gated cascade: the closed-loop service's HP frames through the
@@ -2846,7 +3290,32 @@ def kernel_device_ms(fn, names, calls: int = 5):
     return total, means
 
 
-def main() -> int:
+def ok_line() -> None:
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+
+
+def mesh_only(model, cal) -> int:
+    """``--only mesh``: the fleet's frames and the mesh phase alone."""
+    gf = torch.Generator(device=DEVICE)
+    gf.manual_seed(SEED + 7)
+    fleet_raw, fleet_labels = fleet_data(gf)
+    t0 = time.perf_counter()
+    mesh, mesh_launches = mesh_phase(model, cal, fleet_raw, fleet_labels)
+    emit({"mesh": dict(mesh, launches=mesh_launches,
+                       phase_s=time.perf_counter() - t0)})
+    ok_line()
+    return 0
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument(
+        "--only", choices=("mesh",),
+        help="build the kernels and run the mesh phase alone (on a host "
+             "with several cards: the NCCL world takes every card)")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -2872,6 +3341,8 @@ def main() -> int:
     g.manual_seed(SEED)
     t0 = time.perf_counter()
     model, *cal = make_model(g)
+    if args.only == "mesh":
+        return mesh_only(model, cal)
     labels = ((torch.arange(N_STREAM, device=DEVICE) // 16) % 3 == 2).long()
     raw, _ = synthetic_frames(g, labels)
     emit({"model": {"frame": FRAME, "fragment": FRAG, "stride": STRIDE,
@@ -2899,6 +3370,10 @@ def main() -> int:
                       "launches": service_launches,
                       "phase_s": time.perf_counter() - t0}})
     t0 = time.perf_counter()
+    mesh, mesh_launches = mesh_phase(model, cal, fleet_raw, fleet_labels)
+    emit({"mesh": dict(mesh, launches=mesh_launches,
+                       phase_s=time.perf_counter() - t0)})
+    t0 = time.perf_counter()
     cascade, cascade_launches = cascade_phase(model, cal, fleet_raw)
     del fleet_raw
     emit({"cascade_phase_s": time.perf_counter() - t0})
@@ -2919,13 +3394,14 @@ def main() -> int:
     gb.manual_seed(SEED + 13)
     _, baseline_launches = baselines_phase(gb)
     # launches: the six stream runs', the six fleet runs', the three
-    # service runs', the cascade's gate, the training path's, the
-    # int-datapath path's and Table I's, each counted from zero right
-    # before its run
+    # service runs', the mesh phase's first rank's (the split entries'
+    # calls), the cascade's gate, the training path's, the int-datapath
+    # path's and Table I's, each counted from zero right before its run
     for r in records:
         r["launches"] = sum(n.get(r["name"], 0) for n in (
-            launches, fleet_launches, service_launches, cascade_launches,
-            train_launches, int_launches, baseline_launches))
+            launches, fleet_launches, service_launches, mesh_launches,
+            cascade_launches, train_launches, int_launches,
+            baseline_launches))
         check(r["launches"] > 0, f"{r['name']} never ran on a main path")
     for name, n in train_launches.items():
         check(n > 0, f"{name} never ran on the training path")
@@ -2933,9 +3409,7 @@ def main() -> int:
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
         "bound_tc_ms") if k in r} for r in records]})
-    emit({"ok": True, "device": {"platform": "gpu",
-                                 "kind": torch.cuda.get_device_name(0),
-                                 "count": torch.cuda.device_count()}})
+    ok_line()
     return 0
 
 

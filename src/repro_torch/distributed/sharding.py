@@ -1,0 +1,251 @@
+"""Logical-axis sharding rules on ``torch.distributed``. Twin of
+``repro.distributed.sharding``.
+
+Every tensor dimension carries a *logical* name; a rules table maps
+logical names to mesh dimensions. The sensor fleet
+(:mod:`repro_torch.sensing.fleet`, :mod:`repro_torch.launch.serve`) rides
+the table as a 2-D logical mesh: ``"sensors"`` partitions the stream axis
+over the data dimensions (:func:`mesh_extent` reports the raw extent, so
+the fleet can PAD a non-divisible S with masked slots) and ``"hyperdim"``
+partitions the scorers' D-tile axis over ``"model"`` (:func:`spec_for`
+drops it when the tile count does not divide: the tiles are then
+replicated, never padded).
+
+The rule functions read only a mesh's dimension names and sizes, so they
+take a ``torch.distributed.device_mesh.DeviceMesh`` with named dimensions
+or a plain ``{name: size}`` mapping. A spec is a tuple with one entry per
+tensor dimension: a mesh dimension's name, a tuple of names, or None
+(replicated). The runtime helpers (:func:`axis_group`, :func:`local_range`,
+:func:`all_gather_cat`) work on the process groups of a ``DeviceMesh``.
+
+Not ported yet: ``shard`` and ``logical_sharding``, the LM models'
+activation constraints, which wait for the LM zoo's slice.
+"""
+
+from __future__ import annotations
+
+import threading
+from contextlib import contextmanager
+from typing import Iterator, Mapping, Sequence
+
+import torch
+import torch.distributed as dist
+
+_CTX = threading.local()
+
+
+# Default rules for the production meshes (("pod",) "data", "model").
+# Weights: TP dims over "model", FSDP dim over "data".
+# Activations: batch over ("pod","data"); TP'd feature dims over "model".
+DEFAULT_RULES: dict[str, tuple[str, ...] | None] = {
+    # --- weight dims ---
+    "embed": ("pod", "data"),    # FSDP/ZeRO-3: gathered per-layer under
+                                 # scan; spans pods on the multi-pod mesh
+    "mlp": ("model",),
+    "heads": ("model",),
+    "kv_heads": ("model",),
+    "qkv_dim": None,
+    "head_dim": None,
+    "vocab": ("model",),
+    "expert": ("model",),        # expert parallelism
+    "expert_mlp": ("model",),    # fallback when n_experts can't take it
+                                 # (e.g. grok's 8 experts on a 16-wide axis)
+    "ssm_inner": ("model",),
+    "ssm_state": None,
+    "ssm_heads": ("model",),
+    "conv_dim": ("model",),
+    "conv_k": None,
+    "layers": None,              # scan axis — never sharded
+    "norm": None,
+    # --- activation dims ---
+    "act_batch": ("pod", "data"),
+    # Sensor-fleet axis (repro_torch.sensing.fleet): independent streams,
+    # so it shards like a batch — data-parallel over pods/hosts, never
+    # "model".
+    "sensors": ("pod", "data"),
+    # Hypervector-dimension axis (repro_torch.kernels.sliding_scores*): the
+    # HDC dot products and norms are sums over D, so the D-tile axis (n_dt)
+    # partitions like a TP feature dim over "model". Each rank holds a
+    # contiguous shard of class tiles + slabs; the cosine epilogue's fold
+    # runs after an all_gather that restores global tile order, so sharded
+    # scores are bitwise-identical to unsharded.
+    "hyperdim": ("model",),
+    "act_seq": None,
+    # Megatron-style sequence parallelism for the residual stream: layer
+    # boundaries are sharded along sequence over "model", shrinking saved
+    # residuals by the TP degree.
+    "act_resid_seq": ("model",),
+    "cache_seq": ("model",),     # used only when kv_heads can't take "model"
+    "act_expert_cap": ("model",),  # MoE buffer cap dim when experts can't
+    "act_embed": None,
+    "act_heads": ("model",),
+    "act_kv_heads": ("model",),
+    "act_mlp": ("model",),
+    "act_vocab": ("model",),
+    "act_expert": ("model",),
+    "act_ssm_heads": ("model",),
+    "act_state": None,
+}
+
+#: logical names that claim mesh dims BEFORE fallback dims (e.g. the KV-head
+#: dim outranks "cache_seq"; the expert dim outranks "act_expert_cap") —
+#: fallbacks only shard when the preferred dim couldn't (non-divisible).
+PRIORITY_NAMES = ("act_kv_heads", "act_heads", "act_expert", "expert",
+                  "kv_heads", "heads", "act_ssm_heads")
+
+
+@contextmanager
+def use_mesh(mesh, rules: dict | None = None) -> Iterator:
+    """Make ``mesh`` (and ``rules`` over :data:`DEFAULT_RULES`) the current
+    mesh inside the scope; on exit, exceptions included, the previous one
+    is current again."""
+    prev = getattr(_CTX, "state", None)
+    _CTX.state = (mesh, dict(DEFAULT_RULES, **(rules or {})))
+    try:
+        yield mesh
+    finally:
+        _CTX.state = prev
+
+
+def current_mesh():
+    """The mesh of the innermost :func:`use_mesh` scope, or None."""
+    state = getattr(_CTX, "state", None)
+    return state[0] if state else None
+
+
+def current_rules() -> dict:
+    state = getattr(_CTX, "state", None)
+    return state[1] if state else dict(DEFAULT_RULES)
+
+
+def mesh_shape(mesh) -> dict[str, int]:
+    """``{dim name: size}`` of a named ``DeviceMesh``, or of a mapping."""
+    if isinstance(mesh, Mapping):
+        return {str(k): int(v) for k, v in mesh.items()}
+    names = mesh.mesh_dim_names
+    if names is None:
+        raise ValueError("the mesh's dimensions need names "
+                         "(init_device_mesh(..., mesh_dim_names=...))")
+    return dict(zip(names, (int(n) for n in mesh.mesh.shape)))
+
+
+def _mapped(logical: str | None, rules: dict) -> tuple[str, ...]:
+    mapped = None if logical is None else rules.get(logical)
+    if mapped is None:
+        return ()
+    return (mapped,) if isinstance(mapped, str) else tuple(mapped)
+
+
+def mesh_extent(logical: str, mesh=None, rules: dict | None = None
+                ) -> tuple[tuple[str, ...], int]:
+    """Mesh dims a logical name maps to, ignoring divisibility.
+
+    Returns ``(axes, k)``: the dims of ``mesh`` the rules map ``logical``
+    to, and the product of their sizes (1 when unmapped or without a
+    mesh). Unlike :func:`spec_for`, this keeps dims whose size does not
+    divide a tensor dim: callers *pad* that dim to a multiple of ``k``
+    (the fleet pads its sensor axis with masked slots).
+    """
+    mesh = mesh if mesh is not None else current_mesh()
+    rules = rules or current_rules()
+    if mesh is None:
+        return (), 1
+    shape = mesh_shape(mesh)
+    out = tuple(ax for ax in _mapped(logical, rules) if ax in shape)
+    k = 1
+    for ax in out:
+        k *= shape[ax]
+    return out, k
+
+
+def padded_extent(n: int, logical: str, mesh=None,
+                  rules: dict | None = None) -> int:
+    """Smallest multiple of ``logical``'s mesh extent that is >= ``n``
+    (at least one): the slot pool's size rule. Without a mesh this is the
+    identity."""
+    _, k = mesh_extent(logical, mesh, rules)
+    return -(-max(n, 1) // k) * k
+
+
+def _axis_for(logical: str | None, rules: dict, shape: Mapping[str, int],
+              dim_size: int, taken: set) -> tuple[str, ...] | None:
+    """One logical dim -> mesh dims, dropping dims that are missing, taken
+    already, or whose size (times the ones kept) does not divide
+    ``dim_size``: such a dim stays replicated rather than erroring."""
+    out = []
+    prod = 1
+    for ax in _mapped(logical, rules):
+        if ax not in shape or ax in taken:
+            continue
+        n = shape[ax]
+        if dim_size % (prod * n) != 0:
+            continue
+        out.append(ax)
+        prod *= n
+    return tuple(out) or None
+
+
+def spec_for(shape: Sequence[int], axes: Sequence[str | None], mesh=None,
+             rules: dict | None = None) -> tuple:
+    """The spec of a tensor of ``shape`` with logical ``axes``: one entry
+    per dim (a mesh dim's name, a tuple of names, or None).
+
+    Two passes: the priority names first (so e.g. "act_kv_heads" claims
+    "model" when divisible), then the other dims in order. Without a mesh
+    every entry is None.
+    """
+    mesh = mesh if mesh is not None else current_mesh()
+    rules = rules or current_rules()
+    if len(shape) != len(axes):
+        raise ValueError(f"shape {tuple(shape)} and axes {tuple(axes)} "
+                         f"differ in length")
+    parts: list = [None] * len(shape)
+    if mesh is None:
+        return tuple(parts)
+    mshape = mesh_shape(mesh)
+    taken: set = set()
+    order = ([i for i, n in enumerate(axes) if n in PRIORITY_NAMES]
+             + [i for i, n in enumerate(axes) if n not in PRIORITY_NAMES])
+    for i in order:
+        resolved = _axis_for(axes[i], rules, mshape, shape[i], taken)
+        if resolved:
+            taken.update(resolved)
+            parts[i] = resolved if len(resolved) > 1 else resolved[0]
+    return tuple(parts)
+
+
+# ---------------------------------------------------------------------------
+# Runtime: process groups, this rank's slice, the gather
+# ---------------------------------------------------------------------------
+
+def axis_group(mesh, axes: Sequence[str]):
+    """The process group of ``mesh``'s dims ``axes`` that holds this rank
+    (the ranks that differ from it along those dims alone). One dim only:
+    a (pod, data) group waits for the production mesh's slice."""
+    axes = tuple(axes)
+    if len(axes) != 1:
+        raise NotImplementedError(
+            f"a group over several mesh dims {axes} is not ported")
+    return mesh.get_group(axes[0])
+
+
+def local_range(n: int, group) -> tuple[int, int]:
+    """``(lo, hi)``: this rank's contiguous block of a dim of size ``n``
+    split evenly over ``group``, in group-rank order (the order in which
+    :func:`all_gather_cat` puts the blocks back together)."""
+    k = dist.get_world_size(group)
+    if n % k:
+        raise ValueError(f"a dim of {n} does not split over {k} ranks")
+    r = dist.get_rank(group)
+    return r * (n // k), (r + 1) * (n // k)
+
+
+def all_gather_cat(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """Every rank's ``x`` of ``group`` concatenated along ``dim`` in
+    group-rank order (``dist.all_gather``, which every torch version and
+    backend has; NCCL enqueues it on the card's stream, with no host
+    wait)."""
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x, group=group)
+    return torch.cat(parts, dim)

@@ -41,14 +41,16 @@ F = ctypes.c_float
 #: the C entry points and their ctypes signatures, per library
 SIGNATURES: dict[str, dict[str, tuple]] = {
     "sliding_scores": {
-        "sliding_scores_f32": (I, [P] * 10 + [I] * 10 + [P]),
+        "sliding_scores_f32_partials": (I, [P] * 7 + [I] * 10 + [P]),
+        "sliding_scores_f32_fold": (I, [P] * 4 + [I] * 4 + [P]),
         "sliding_scores_f32_smem_bytes": (ctypes.c_size_t, []),
         "sliding_scores_f32_col_tile": (I, []),
         "sliding_scores_f32_windows": (I, []),
         "sliding_scores_f32_occupancy": (I, [I] * 3 + [P] * 4),
     },
     "sliding_scores_int": {
-        "sliding_scores_int": (I, [P] * 13 + [I] * 11 + [P]),
+        "sliding_scores_int_partials": (I, [P] * 10 + [I] * 11 + [P]),
+        "sliding_scores_int_fold": (I, [P] * 4 + [I] * 4 + [P]),
         "sliding_scores_int_smem_bytes": (ctypes.c_size_t, []),
         "sliding_scores_int_col_tile": (I, []),
         "sliding_scores_int_occupancy": (I, [I] * 3 + [P] * 4),

@@ -61,6 +61,14 @@
 // the window norms (one block per window, a fixed-order sum of squares); a
 // last one folds the column tiles' partials.
 //
+// Two entries, split at the tile fold: sliding_scores_f32_partials runs
+// the first two launches over the D-tiles it is given and
+// sliding_scores_f32_fold the last over a (n_ct, M, 3) buffer. A call
+// runs both back to back; a D split over ranks runs each rank's
+// contiguous D-tiles through the first, gathers the partials in tile
+// order and folds all of them with the second: the same partials, folded
+// in the same order.
+//
 // Determinism: no atomics, no split-K; every output's sum order is a
 // function of (W, w, s, td, kKX) alone, never of N, the batch position or
 // the SM count, so a frame scores the same bits alone, in any chunk, or as
@@ -560,17 +568,18 @@ int sliding_scores_f32_occupancy(int R, int mx, int n_ct, int* tile_m,
   return (int)err;
 }
 
-// Scores (N, my, mx) for N frames in one call: the window norms, the
-// scoring kernel, then the fold. Scratch from the caller: norms, N*my*mx
-// floats; partials, n_dt * ceil(td / 128) * N*my*mx * 3 floats. Returns the
-// first launch error.
-int sliding_scores_f32(const float* frames, const float* slabs,
-                       const float* bias, const float* cpos, const float* cneg,
-                       float* norms, const float* cpos_norm,
-                       const float* cneg_norm, float* partials, float* out,
-                       int N, int H, int W, int h, int w, int stride, int td,
-                       int n_dt, int frames_per_stream, int nonlinearity,
-                       cudaStream_t stream) {
+// The partials of N frames: the window norms, then the scoring kernel,
+// which writes the n_dt * ceil(td / 128) column tiles' partials
+// (n_ct, N*my*mx, 3) of the n_dt D-tiles it is given (the tiles of one
+// rank of a split D: slabs, bias and class tiles cut to them). Scratch
+// from the caller: norms, N*my*mx floats. Returns the first launch error.
+int sliding_scores_f32_partials(const float* frames, const float* slabs,
+                                const float* bias, const float* cpos,
+                                const float* cneg, float* norms,
+                                float* partials, int N, int H, int W, int h,
+                                int w, int stride, int td, int n_dt,
+                                int frames_per_stream, int nonlinearity,
+                                cudaStream_t stream) {
   Args a;
   Geometry& gm = a.gm;
   gm.N = N;
@@ -603,20 +612,27 @@ int sliding_scores_f32(const float* frames, const float* slabs,
     return (int)cudaErrorInvalidValue;
   const bool vec = gm.g % 4 == 0 && W % 4 == 0 &&
                    encode_common::aligned16(frames);
-  const int n_ct = n_dt * a.tiles_per_dt;
-  const dim3 grid = grid_of(N * gm.my, gm.mx, n_ct);
-  const int M = N * gm.my * gm.mx;
+  const dim3 grid = grid_of(N * gm.my, gm.mx, n_dt * a.tiles_per_dt);
   cudaError_t err = vec ? allow_smem<true>() : allow_smem<false>();
   if (err != cudaSuccess) return (int)err;
-  window_norms<<<M, 256, 0, stream>>>(frames, gm, norms);
+  window_norms<<<N * gm.my * gm.mx, 256, 0, stream>>>(frames, gm, norms);
   if (vec)
     score_f32<true><<<grid, kThreads, kSmemBytes, stream>>>(a);
   else
     score_f32<false><<<grid, kThreads, kSmemBytes, stream>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// Scores (M = N*my*mx outputs) from the partials of all n_ct column tiles
+// (n_ct, M, 3) in global tile order: fold_epilogue, one launch, with the
+// class norms of stream (m / per_frame) / frames_per_stream. Returns its
+// launch error.
+int sliding_scores_f32_fold(const float* partials, const float* cpos_norm,
+                            const float* cneg_norm, float* out, int n_ct,
+                            int M, int per_frame, int frames_per_stream,
+                            cudaStream_t stream) {
   fold_epilogue<<<(M + 255) / 256, 256, 0, stream>>>(
-      partials, cpos_norm, cneg_norm, out, n_ct, M, gm.my * gm.mx,
+      partials, cpos_norm, cneg_norm, out, n_ct, M, per_frame,
       frames_per_stream);
   return (int)cudaGetLastError();
 }

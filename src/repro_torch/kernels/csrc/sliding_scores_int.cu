@@ -38,7 +38,7 @@
 // accumulator shifted left by 8 (wrapping) and the next byte's products
 // added into the same registers, down to byte 0. Exact modulo 2^32.
 //
-// Four launches per call:
+// Four launches per call (two entries, below):
 // 1. window_norms: each window's exact int32 sum of squared codes, then
 //    max(sqrt, 1e-8) / slab_scale, the plain version's float steps.
 // 2. im2col: A as a dense u8 matrix per byte pass and kx, (passes, mx, R,
@@ -48,6 +48,12 @@
 //    sees one aligned operand: 7.4 MB at the paper's chunk, L2-resident.
 // 3. score_int, the GEMM with the fused scoring epilogue;
 // 4. fold_epilogue.
+// sliding_scores_int_partials makes the first three over the D-tiles it is
+// given and sliding_scores_int_fold the fourth over a (n_ct, M, 3) buffer.
+// A call runs both back to back; a D split over ranks runs each rank's
+// contiguous D-tiles through the first, gathers the partials in tile
+// order and folds all of them with the second: the same partials, folded
+// in the same order.
 //
 // Operands of score_int. A step covers kBK = 32*kSub of k (kSub m16n8k32
 // products per warp tile): kBK/4 groups of 4 consecutive k, each inside
@@ -517,24 +523,25 @@ int sliding_scores_int_occupancy(int R, int mx, int n_ct, int* tile_m,
   return (int)err;
 }
 
-// Scores (N, my, mx) from integer codes in one call: the window norms,
-// im2col, the scoring kernel and the fold. layout: 0 = uint8 codes
-// (N, H, W), 1 = packed nibbles (N, H, W/2), 2 = int32 (N, H, W),
-// 3 = uint16 (N, H, W). slab_scale: the geometry's scalar scale, on the
-// device. Scratch from the caller: norms, N*my*mx floats; acol, passes *
-// mx * N*my * Kp bytes (passes: 1, 1, 4, 2 by layout; Kp = h * w4 rounded
-// up to kBK, w4 = w rounded up to 4), 16-byte aligned; partials,
-// n_dt * ceil(td / 128) * N*my*mx * 3 floats. The slabs must be 16-byte
-// aligned. Four launches: window_norms, im2col, score_int, fold_epilogue.
-// Returns the first launch error.
-int sliding_scores_int(const void* codes, const int8_t* slabs,
-                       const float* bias, const int8_t* cpos,
-                       const int8_t* cneg, const float* slab_scale,
-                       float* norms, uint8_t* acol, const float* cpos_norm,
-                       const float* cneg_norm, float* partials, float* out,
-                       int32_t* acc_out, int N, int H, int W, int h, int w,
-                       int stride, int td, int n_dt, int frames_per_stream,
-                       int nonlinearity, int layout, cudaStream_t stream) {
+// The partials of N frames from integer codes: the window norms, im2col
+// and the scoring kernel, which writes the n_dt * ceil(td / 128) column
+// tiles' partials (n_ct, N*my*mx, 3) of the n_dt D-tiles it is given (the
+// tiles of one rank of a split D). layout: 0 = uint8 codes (N, H, W),
+// 1 = packed nibbles (N, H, W/2), 2 = int32 (N, H, W), 3 = uint16
+// (N, H, W). slab_scale: the geometry's scalar scale, on the device.
+// Scratch from the caller: norms, N*my*mx floats; acol, passes * mx *
+// N*my * Kp bytes (passes: 1, 1, 4, 2 by layout; Kp = h * w4 rounded up
+// to kBK, w4 = w rounded up to 4), 16-byte aligned. The slabs must be
+// 16-byte aligned. acc_out, if not null, takes the int32 window sums
+// (N, my, n_dt, mx, td). Returns the first launch error.
+int sliding_scores_int_partials(const void* codes, const int8_t* slabs,
+                                const float* bias, const int8_t* cpos,
+                                const int8_t* cneg, const float* slab_scale,
+                                float* norms, uint8_t* acol, float* partials,
+                                int32_t* acc_out, int N, int H, int W, int h,
+                                int w, int stride, int td, int n_dt,
+                                int frames_per_stream, int nonlinearity,
+                                int layout, cudaStream_t stream) {
   if ((uintptr_t)slabs % 16 != 0 || (uintptr_t)acol % 16 != 0 ||
       layout < kU8 || layout > kU16)
     return (int)cudaErrorInvalidValue;
@@ -571,13 +578,21 @@ int sliding_scores_int(const void* codes, const int8_t* slabs,
   a.tiles_per_dt = (td + kBN - 1) / kBN;
   a.frames_per_stream = frames_per_stream;
   a.nonlinearity = nonlinearity;
-  const int n_ct = n_dt * a.tiles_per_dt;
-  score_int<<<grid_of(N * gm.my, gm.mx, n_ct), kThreads, kSmemBytes,
-              stream>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  score_int<<<grid_of(N * gm.my, gm.mx, n_dt * a.tiles_per_dt), kThreads,
+              kSmemBytes, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// Scores (M = N*my*mx outputs) from the partials of all n_ct column tiles
+// (n_ct, M, 3) in global tile order: fold_epilogue, one launch, with the
+// class norms of stream (m / per_frame) / frames_per_stream. Returns its
+// launch error.
+int sliding_scores_int_fold(const float* partials, const float* cpos_norm,
+                            const float* cneg_norm, float* out, int n_ct,
+                            int M, int per_frame, int frames_per_stream,
+                            cudaStream_t stream) {
   fold_epilogue<<<(M + 255) / 256, 256, 0, stream>>>(
-      partials, cpos_norm, cneg_norm, out, n_ct, M, gm.my * gm.mx,
+      partials, cpos_norm, cneg_norm, out, n_ct, M, per_frame,
       frames_per_stream);
   return (int)cudaGetLastError();
 }

@@ -114,22 +114,22 @@ def fragment_score_map_fleet(frames: torch.Tensor, class_hvs: torch.Tensor,
                              w: int, stride: int,
                              nonlinearity: NonLin = "rff",
                              tiles: _ss.ScoreTiles | None = None,
-                             block_d: int = 512) -> torch.Tensor:
+                             block_d: int = 512,
+                             hyperdim_group=None) -> torch.Tensor:
     """(S, C, H, W) super-chunk -> (S, C, my, mx) score maps, ONE launch;
     per-stream class tiles (``cpos_t.ndim == 4``) score stream ``s``'s
-    frames against its own classifier."""
+    frames against its own classifier. ``hyperdim_group`` splits D at the
+    tile fold (``tiles`` hold this rank's D-tiles;
+    :func:`~repro_torch.kernels.sliding_scores.fragment_scores_batch`)."""
     S, C, H, W = frames.shape
     flat = frames.reshape(S * C, H, W)
-    if tiles is not None and tiles.cpos_t.ndim == 4:
-        maps = _ss.fragment_scores_batch(flat, tiles, h=h, w=w,
-                                         stride=stride,
-                                         nonlinearity=nonlinearity,
-                                         frames_per_stream=C)
-    else:
-        maps = fragment_score_map_batch(flat, class_hvs, B0, b, h=h, w=w,
-                                        stride=stride,
-                                        nonlinearity=nonlinearity,
-                                        tiles=tiles, block_d=block_d)
+    if tiles is None:
+        tiles = _ss.precompute_tiles(B0, b, class_hvs, W=W, w=w,
+                                     stride=stride, block_d=block_d)
+    maps = _ss.fragment_scores_batch(
+        flat, tiles, h=h, w=w, stride=stride, nonlinearity=nonlinearity,
+        frames_per_stream=C if tiles.cpos_t.ndim == 4 else None,
+        hyperdim_group=hyperdim_group)
     return maps.reshape(S, C, *maps.shape[1:])
 
 
@@ -139,20 +139,18 @@ def fragment_score_map_fleet_int(codes: torch.Tensor,
                                  stride: int, nonlinearity: NonLin = "rff",
                                  tiles: _ssi.IntScoreTiles | None = None,
                                  block_d: int = 512, packed: bool = False,
-                                 mode: str = "int8") -> torch.Tensor:
-    """(S, C, H, W[/2]) code super-chunk -> (S, C, my, mx), ONE launch."""
+                                 mode: str = "int8",
+                                 hyperdim_group=None) -> torch.Tensor:
+    """(S, C, H, W[/2]) code super-chunk -> (S, C, my, mx), ONE launch;
+    ``hyperdim_group`` as in :func:`fragment_score_map_fleet`."""
     S, C, H, Wc = codes.shape
     flat = codes.reshape(S * C, H, Wc)
-    if tiles is not None and tiles.cpos_t.ndim == 4:
-        maps = _ssi.fragment_scores_batch_int(flat, tiles, h=h, w=w,
-                                              stride=stride,
-                                              nonlinearity=nonlinearity,
-                                              frames_per_stream=C,
-                                              packed=packed)
-    else:
-        maps = fragment_score_map_batch_int(flat, class_hvs, B0, b, h=h,
-                                            w=w, stride=stride,
-                                            nonlinearity=nonlinearity,
-                                            tiles=tiles, block_d=block_d,
-                                            packed=packed, mode=mode)
+    if tiles is None:
+        tiles = _ssi.precompute_tiles_int(
+            B0, b, class_hvs, W=Wc * (2 if packed else 1), w=w,
+            stride=stride, block_d=block_d, mode=mode)
+    maps = _ssi.fragment_scores_batch_int(
+        flat, tiles, h=h, w=w, stride=stride, nonlinearity=nonlinearity,
+        frames_per_stream=C if tiles.cpos_t.ndim == 4 else None,
+        packed=packed, hyperdim_group=hyperdim_group)
     return maps.reshape(S, C, *maps.shape[1:])

@@ -25,11 +25,12 @@ import torch
 
 from repro_torch import pin_fp32_matmul
 from repro_torch.core.encoding import SHIFT, NonLin, apply_nonlinearity
+from repro_torch.distributed.sharding import all_gather_cat
 from repro_torch.kernels import _build
 
-#: calls of the C entry (three kernel launches: window norms, scoring, the
-#: fold) made by :func:`fragment_scores_batch`, one per call on a CUDA
-#: tensor
+#: calls of :func:`fragment_scores_batch` on a CUDA tensor (three kernel
+#: launches each: window norms and scoring from the partials entry, the
+#: fold from the fold entry)
 LAUNCHES = 0
 
 #: the kernel's block (``csrc/sliding_scores.cu``): hypervector columns
@@ -231,32 +232,94 @@ def _class_layout(tiles, N: int, frames_per_stream: int | None
     return True, frames_per_stream
 
 
-def _per_frame_classes(t: torch.Tensor, per_stream: bool, C: int
-                       ) -> torch.Tensor:
-    """Class tiles as ``(N | 1, mx, n_dt*TD)`` rows for the plain version."""
-    t = t if per_stream else t[None]
-    S, n_dt, mx, td = t.shape
-    t = t.permute(0, 2, 1, 3).reshape(S, mx, n_dt * td)
-    return torch.repeat_interleave(t, C, dim=0) if per_stream else t
-
-
-def _prefix_window_acc(x_rows, slab_rows, lo_mask, hi_mask):
-    """``(N, my, mx, n_dt*TD)`` window projections of one base row as the
-    difference of prefix sums ``P[kx*s + w] - P[kx*s]``; each prefix sum is
-    a masked matmul over the row's ``W`` pixels."""
-    n_dt, L = slab_rows.shape
-    W = x_rows.shape[-1]
-    S = slab_rows.unfold(-1, L - W + 1, 1)                 # (n_dt, W, TD)
-    S = S.permute(1, 0, 2).reshape(W, -1)                  # (W, n_dt*TD)
-    lo = (x_rows[:, :, None, :] * lo_mask) @ S
-    hi = (x_rows[:, :, None, :] * hi_mask) @ S
-    return hi, lo
-
-
 def _window_masks(W: int, w: int, stride: int, mx: int, device, dtype):
     i = torch.arange(W, device=device)[None, :]
     k = torch.arange(mx, device=device)[:, None] * stride
     return (i < k).to(dtype), (i < k + w).to(dtype)
+
+
+def tile_window_acc(frames: torch.Tensor, tiles, h: int, w: int,
+                    stride: int) -> list[torch.Tensor]:
+    """Each D-tile's ``(N, my, mx, TD)`` window projections of float32
+    frames: the difference of prefix sums ``P[kx*s + w] - P[kx*s]``, each a
+    masked product over a base row's ``W`` pixels against the tile's slab
+    row. One product of a tile's shape per (row, tile), so a tile's
+    projections have the same bits whatever the tile count of the call."""
+    N, H, W = frames.shape
+    my = (H - h) // stride + 1
+    mx = (W - w) // stride + 1
+    td = tiles.block_d
+    lo_mask, hi_mask = _window_masks(W, w, stride, mx, frames.device,
+                                     torch.float32)
+    ky = torch.arange(my, device=frames.device) * stride
+    acc = [torch.zeros((N, my, mx, td), device=frames.device)
+           for _ in range(tiles.slabs.shape[0])]
+    with pin_fp32_matmul():
+        for r in range(h):
+            x = frames[:, ky + r, None, :]                  # (N, my, 1, W)
+            lo_x, hi_x = x * lo_mask, x * hi_mask
+            for k in range(len(acc)):
+                S = tiles.slabs[k, r].unfold(-1, td, 1).contiguous()
+                acc[k] = acc[k] + hi_x @ S - lo_x @ S       # (N, my, mx, TD)
+    return acc
+
+
+def _classes_of_tile(t: torch.Tensor, k: int, per_stream: bool, C: int
+                     ) -> torch.Tensor:
+    """Tile ``k``'s class rows for the plain version: ``(N | 1, 1, mx,
+    TD)``, broadcast over the row bands."""
+    if per_stream:
+        return torch.repeat_interleave(t[:, k], C, dim=0)[:, None]
+    return t[k][None, None]
+
+
+def _tile_partials(phi: torch.Tensor, cpos: torch.Tensor,
+                   cneg: torch.Tensor) -> torch.Tensor:
+    """One D-tile's ``(N, my, mx, 3)`` partials: the sums over its ``TD``
+    columns of phi*cpos, phi*cneg and phi^2."""
+    return torch.stack([(phi * cpos).sum(-1), (phi * cneg).sum(-1),
+                        (phi * phi).sum(-1)], -1)
+
+
+def fold_partials_plain(partials: torch.Tensor, tiles, per_stream: bool,
+                        C: int) -> torch.Tensor:
+    """``(n_dt, N, my, mx, 3)`` partials of every D-tile, in tile order ->
+    ``(N, my, mx)`` scores: the fixed left-to-right tile fold, then the
+    cosine epilogue (``fold_epilogue``'s steps)."""
+    acc = _ordered_tile_fold(partials)
+    return _cosine_epilogue(acc[..., 0], acc[..., 1], acc[..., 2],
+                            tiles.cpos_norm, tiles.cneg_norm, per_stream, C)
+
+
+def score_partials_plain(frames: torch.Tensor, tiles: ScoreTiles, *,
+                         h: int, w: int, stride: int,
+                         nonlinearity: NonLin = "rff",
+                         frames_per_stream: int | None = None
+                         ) -> torch.Tensor:
+    """The plain version's partials: ``(N, H, W)`` -> ``(n_dt, N, my, mx,
+    3)`` for the ``n_dt`` D-tiles of ``tiles`` (all of them, or one rank's
+    slice of a split D).
+
+    The kernel's arithmetic form (difference of prefix sums, ``max(norm,
+    1e-8)``), one D-tile at a time: each tile's window projections are a
+    product of the same shape whatever the tile count
+    (:func:`tile_window_acc`), so a tile's partials have the same bits in
+    a call of one tile, of a slice or of all of them. Loops over the ``h``
+    base rows, so its memory stays
+    ``O(N * my * mx * D)`` at the paper's shape.
+    """
+    _check_tiles(tiles, frames, h, w, stride)
+    per_stream, C = _class_layout(tiles, frames.shape[0], frames_per_stream)
+    frames = frames.to(torch.float32)
+    norms = torch.clamp(window_norms_batch(frames, h, w, stride),
+                        min=1e-8)[..., None]                # (N, my, mx, 1)
+    acc = tile_window_acc(frames, tiles, h, w, stride)
+    return torch.stack([
+        _tile_partials(
+            apply_nonlinearity(a / norms, tiles.bias_t[k], nonlinearity),
+            _classes_of_tile(tiles.cpos_t, k, per_stream, C),
+            _classes_of_tile(tiles.cneg_t, k, per_stream, C))
+        for k, a in enumerate(acc)])
 
 
 def fragment_scores_batch_plain(frames: torch.Tensor, tiles: ScoreTiles, *,
@@ -265,45 +328,15 @@ def fragment_scores_batch_plain(frames: torch.Tensor, tiles: ScoreTiles, *,
                                 frames_per_stream: int | None = None
                                 ) -> torch.Tensor:
     """Plain PyTorch version of the float kernel: ``(N, H, W)`` ->
-    ``(N, my, mx)``.
-
-    The same arithmetic form (difference of prefix sums, ``max(norm,
-    1e-8)``, per-tile partials folded left to right, the ``1e-9`` cosine
-    clamps), looping over the ``h`` base rows so its memory stays
-    ``O(N * my * mx * D)`` at the paper's shape.
-    """
-    N, H, W = frames.shape
-    my = (H - h) // stride + 1
-    mx = (W - w) // stride + 1
-    n_dt = tiles.slabs.shape[0]
-    td = tiles.block_d
-    _check_tiles(tiles, frames, h, w, stride)
-    per_stream, C = _class_layout(tiles, N, frames_per_stream)
-    frames = frames.to(torch.float32)
-    norms = window_norms_batch(frames, h, w, stride)           # (N, my, mx)
-    lo_mask, hi_mask = _window_masks(W, w, stride, mx, frames.device,
-                                     torch.float32)
-    ky = torch.arange(my, device=frames.device) * stride
-    acc = torch.zeros((N, my, mx, n_dt * td), device=frames.device)
-    with pin_fp32_matmul():
-        for r in range(h):
-            hi, lo = _prefix_window_acc(frames[:, ky + r, :],
-                                        tiles.slabs[:, r, :], lo_mask,
-                                        hi_mask)
-            acc = acc + hi - lo
-    s_n = acc / torch.clamp(norms, min=1e-8)[..., None]
-    bias = tiles.bias_t.permute(1, 0, 2).reshape(mx, n_dt * td)
-    phi = apply_nonlinearity(s_n, bias, nonlinearity)          # (N,my,mx,D)
-    cpos = _per_frame_classes(tiles.cpos_t, per_stream, C)[:, None]
-    cneg = _per_frame_classes(tiles.cneg_t, per_stream, C)[:, None]
-
-    def fold(x):  # per-tile partials, then the fixed-order tile fold
-        return _ordered_tile_fold(
-            x.reshape(N, my, mx, n_dt, td).sum(-1).permute(3, 0, 1, 2))
-
-    return _cosine_epilogue(fold(phi * cpos), fold(phi * cneg),
-                            fold(phi * phi), tiles.cpos_norm,
-                            tiles.cneg_norm, per_stream, C)
+    ``(N, my, mx)``: :func:`score_partials_plain` over every D-tile, then
+    :func:`fold_partials_plain` (per-tile partials folded left to right,
+    the ``1e-9`` cosine clamps)."""
+    per_stream, C = _class_layout(tiles, frames.shape[0], frames_per_stream)
+    return fold_partials_plain(
+        score_partials_plain(frames, tiles, h=h, w=w, stride=stride,
+                             nonlinearity=nonlinearity,
+                             frames_per_stream=frames_per_stream),
+        tiles, per_stream, C)
 
 
 def smem_bytes() -> int:
@@ -326,33 +359,62 @@ def _flat_norms(tiles) -> tuple[torch.Tensor, torch.Tensor]:
     return flat(tiles.cpos_norm), flat(tiles.cneg_norm)
 
 
-def _launch(frames: torch.Tensor, tiles: ScoreTiles, *, h: int, w: int,
-            stride: int, nonlinearity: NonLin, C: int) -> torch.Tensor:
-    """One call of the C entry: the window norms, the scoring kernel, then
-    the fold."""
+def gathered(partials: torch.Tensor, group) -> torch.Tensor:
+    """The partials of every rank of ``group`` in group-rank order, which
+    is the global tile order; without a group, ``partials`` as they are."""
+    return partials if group is None else all_gather_cat(partials, group)
+
+
+def split_partials(frames: torch.Tensor, tiles: ScoreTiles, *, h: int,
+                   w: int, stride: int, nonlinearity: NonLin = "rff",
+                   frames_per_stream: int | None = None) -> torch.Tensor:
+    """The partials entry on the card: the window norms and the scoring
+    kernel over the D-tiles of ``tiles`` (all, or one rank's slice of a
+    split D) -> ``(n_col_tiles, N*my*mx, 3)`` partials, ``COL_TILE``
+    columns a tile. Not counted in :data:`LAUNCHES` (the wrapper counts
+    its calls)."""
+    _check_tiles(tiles, frames, h, w, stride)
+    _, C = _class_layout(tiles, frames.shape[0], frames_per_stream)
     N, H, W = frames.shape
-    my = (H - h) // stride + 1
-    mx = (W - w) // stride + 1
-    n_dt = tiles.slabs.shape[0]
-    td = tiles.block_d
+    M = N * ((H - h) // stride + 1) * ((W - w) // stride + 1)
+    n_dt, td = tiles.slabs.shape[0], tiles.block_d
     lib = _build.load("sliding_scores")
-    dev = frames.device
-    frames = frames.to(torch.float32).contiguous()
+    partials = torch.empty((n_dt * -(-td // COL_TILE), M, 3),
+                           device=frames.device)
+    norms = torch.empty((M,), device=frames.device)
     slabs = tiles.slabs if tiles.slabs.data_ptr() % 16 == 0 else \
         tiles.slabs.clone()  # the kernel copies slab rows in 16-byte chunks
-    norms = torch.empty((N, my, mx), device=dev)
-    cpos_norm, cneg_norm = _flat_norms(tiles)
-    cpos_t = tiles.cpos_t.to(torch.float32).contiguous()
-    cneg_t = tiles.cneg_t.to(torch.float32).contiguous()
-    n_col_tiles = n_dt * -(-td // COL_TILE)
-    partials = torch.empty((n_col_tiles, N * my * mx, 3), device=dev)
-    out = torch.empty((N, my, mx), device=dev)
-    args = (frames, slabs, tiles.bias_t, cpos_t, cneg_t, norms, cpos_norm,
-            cneg_norm, partials, out)
-    err = lib.sliding_scores_f32(
+    args = (frames.to(torch.float32).contiguous(), slabs, tiles.bias_t,
+            tiles.cpos_t.to(torch.float32).contiguous(),
+            tiles.cneg_t.to(torch.float32).contiguous(), norms, partials)
+    err = lib.sliding_scores_f32_partials(
         *(a.data_ptr() for a in args), N, H, W, h, w, stride, td, n_dt, C,
         NONLINEARITIES[nonlinearity], _build.stream_ptr())
-    _build.check(err, "sliding_scores_f32")
+    _build.check(err, "sliding_scores_f32_partials")
+    return partials
+
+
+def split_fold(partials: torch.Tensor, tiles: ScoreTiles, *, N: int,
+               my: int, mx: int, frames_per_stream: int | None = None,
+               lib_name: str = "sliding_scores",
+               out: torch.Tensor | None = None) -> torch.Tensor:
+    """The fold entry on the card: ``(n_col_tiles, N*my*mx, 3)`` partials
+    of every D-tile in global tile order -> ``(N, my, mx)`` scores (into
+    ``out`` if given), with the class norms of ``tiles`` (whole-D, so any
+    rank's). Both scorers' libraries export the entry: ``lib_name`` picks
+    one. Not counted in :data:`LAUNCHES`."""
+    _, C = _class_layout(tiles, N, frames_per_stream)
+    entry = {"sliding_scores": "sliding_scores_f32_fold",
+             "sliding_scores_int": "sliding_scores_int_fold"}[lib_name]
+    partials = partials.contiguous()
+    cpos_norm, cneg_norm = _flat_norms(tiles)
+    if out is None:
+        out = torch.empty((N, my, mx), device=partials.device)
+    err = getattr(_build.load(lib_name), entry)(
+        partials.data_ptr(), cpos_norm.data_ptr(), cneg_norm.data_ptr(),
+        out.data_ptr(), partials.shape[0], N * my * mx, my * mx, C,
+        _build.stream_ptr())
+    _build.check(err, entry)
     return out
 
 
@@ -365,29 +427,42 @@ def _check_device(x: torch.Tensor) -> None:
 def fragment_scores_batch(frames: torch.Tensor, tiles: ScoreTiles, *,
                           h: int, w: int, stride: int,
                           nonlinearity: NonLin = "rff",
-                          frames_per_stream: int | None = None
-                          ) -> torch.Tensor:
-    """(N, H, W) frames -> (N, my, mx) score maps in one call of the C
-    entry (the window norms, the scoring kernel and the fold);
-    :data:`LAUNCHES` counts the calls.
+                          frames_per_stream: int | None = None,
+                          hyperdim_group=None) -> torch.Tensor:
+    """(N, H, W) frames -> (N, my, mx) score maps: the partials entry (the
+    window norms and the scoring kernel) then the fold entry, three kernel
+    launches; :data:`LAUNCHES` counts the calls.
 
     A CUDA tensor launches ``csrc/sliding_scores.cu``, a 3xTF32
     tensor-core GEMM in the paper's reuse form (or raises); a CPU
-    tensor runs :func:`fragment_scores_batch_plain`. With per-stream class
-    tiles (``(S, n_dt, mx, TD)``) the batch is S streams of
-    ``frames_per_stream`` frames each: frame ``n`` is scored against stream
-    ``n // C``'s classifier, still in one launch.
+    tensor runs the plain version (:func:`score_partials_plain`, then
+    :func:`fold_partials_plain`). With per-stream class tiles
+    (``(S, n_dt, mx, TD)``) the batch is S streams of ``frames_per_stream``
+    frames each: frame ``n`` is scored against stream ``n // C``'s
+    classifier, still in one call.
+
+    ``hyperdim_group`` splits D at the tile fold: ``tiles`` then hold this
+    rank's contiguous D-tiles (slabs, bias and class tiles cut, the class
+    norms whole), every rank of the group calls with the same frames, and
+    each computes its tiles' partials, gathers all of them over the group
+    in group-rank order, which is the global tile order, and folds them:
+    the unsplit call's bits.
     """
     global LAUNCHES
     _check_device(frames)
+    kw = dict(h=h, w=w, stride=stride, nonlinearity=nonlinearity,
+              frames_per_stream=frames_per_stream)
     if frames.device.type == "cpu":
-        return fragment_scores_batch_plain(
-            frames, tiles, h=h, w=w, stride=stride,
-            nonlinearity=nonlinearity, frames_per_stream=frames_per_stream)
-    _check_tiles(tiles, frames, h, w, stride)
-    _, C = _class_layout(tiles, frames.shape[0], frames_per_stream)
-    out = _launch(frames, tiles, h=h, w=w, stride=stride,
-                  nonlinearity=nonlinearity, C=C)
+        per_stream, C = _class_layout(tiles, frames.shape[0],
+                                      frames_per_stream)
+        part = score_partials_plain(frames, tiles, **kw)
+        return fold_partials_plain(gathered(part, hyperdim_group), tiles,
+                                   per_stream, C)
+    N, H, W = frames.shape
+    out = split_fold(gathered(split_partials(frames, tiles, **kw),
+                              hyperdim_group), tiles, N=N,
+                     my=(H - h) // stride + 1, mx=(W - w) // stride + 1,
+                     frames_per_stream=frames_per_stream)
     LAUNCHES += 1
     return out
 

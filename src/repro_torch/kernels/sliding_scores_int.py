@@ -29,8 +29,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import sliding_scores as _ss
 from repro_torch.sensing.adc import unpack_nibbles
 
-#: calls of the C entry (four kernel launches each) made by
-#: :func:`fragment_scores_batch_int`
+#: calls of :func:`fragment_scores_batch_int` on a CUDA tensor (four
+#: kernel launches a run of frames: window norms, im2col and the GEMM from
+#: the partials entry, the fold from the fold entry)
 LAUNCHES = 0
 
 INT32_MAX = 2**31 - 1
@@ -58,7 +59,7 @@ COL_TILE = 128
 #: k per step (``kBK``)
 ROW_TILE, _STAGES, _STEP_K = 64, 4, 64
 
-#: device bytes one call of the C entry may take for its ``im2col``
+#: device bytes one call of the partials entry may take for its ``im2col``
 #: scratch: 1 GiB, 1.3% of the H100's 80 GB
 IM2COL_BUDGET_BYTES = 1 << 30
 
@@ -346,6 +347,29 @@ def _int_window_acc_plain(codes: torch.Tensor, geom: IntScoreGeometry, *,
     return acc.to(torch.int32)
 
 
+def score_partials_int_plain(codes: torch.Tensor, tiles: IntScoreTiles, *,
+                             h: int, w: int, stride: int,
+                             nonlinearity: NonLin = "rff",
+                             frames_per_stream: int | None = None,
+                             packed: bool = False) -> torch.Tensor:
+    """The plain version's partials: integer codes ``(N, H, W)`` (or
+    ``(N, H, W/2)`` packed) -> ``(n_dt, N, my, mx, 3)`` for the D-tiles of
+    ``tiles`` (all of them, or one rank's slice of a split D)."""
+    _check_codes_integer(codes)
+    if packed:
+        codes = unpack_nibbles(codes)
+    geom = tiles.geom
+    N, H, W = codes.shape
+    mx = (W - w) // stride + 1
+    _check_geometry(geom, h, w, stride, W, mx)
+    per_stream, C = _ss._class_layout(tiles, N, frames_per_stream)
+    with pin_fp32_matmul():
+        acc = _int_window_acc_plain(codes, geom, h=h, stride=stride)
+    return partials_from_window_acc(acc, codes, tiles, h=h, w=w,
+                                    stride=stride, nonlinearity=nonlinearity,
+                                    per_stream=per_stream, C=C)
+
+
 def fragment_scores_batch_int_plain(codes: torch.Tensor,
                                     tiles: IntScoreTiles, *, h: int, w: int,
                                     stride: int, nonlinearity: NonLin = "rff",
@@ -355,22 +379,14 @@ def fragment_scores_batch_int_plain(codes: torch.Tensor,
     (or ``(N, H, W/2)`` packed) -> ``(N, my, mx)``. The same quantized
     operands and exact int32 accumulation as the kernel and the JAX twin;
     only the float epilogue may round differently."""
-    _check_codes_integer(codes)
-    if packed:
-        codes = unpack_nibbles(codes)
-    geom = tiles.geom
-    N, H, W = codes.shape
-    my = (H - h) // stride + 1
-    mx = (W - w) // stride + 1
-    n_dt = geom.slabs_q.shape[0]
-    td = geom.block_d
-    _check_geometry(geom, h, w, stride, W, mx)
-    per_stream, C = _ss._class_layout(tiles, N, frames_per_stream)
-    with pin_fp32_matmul():
-        acc = _int_window_acc_plain(codes, geom, h=h, stride=stride)
-    return scores_from_window_acc(acc, codes, tiles, h=h, w=w,
-                                  stride=stride, nonlinearity=nonlinearity,
-                                  per_stream=per_stream, C=C)
+    per_stream, C = _ss._class_layout(tiles, codes.shape[0],
+                                      frames_per_stream)
+    return _ss.fold_partials_plain(
+        score_partials_int_plain(codes, tiles, h=h, w=w, stride=stride,
+                                 nonlinearity=nonlinearity,
+                                 frames_per_stream=frames_per_stream,
+                                 packed=packed),
+        tiles, per_stream, C)
 
 
 def scores_from_window_acc(acc: torch.Tensor, codes: torch.Tensor,
@@ -379,28 +395,40 @@ def scores_from_window_acc(acc: torch.Tensor, codes: torch.Tensor,
                            per_stream: bool, C: int) -> torch.Tensor:
     """The plain float epilogue of the int scorers: exact ``(N, my, mx,
     n_dt*TD)`` int32 window sums of ``codes`` -> ``(N, my, mx)`` scores
-    (normalization with the slab scale folded in, the nonlinearity, the
-    per-tile classifier partials, their fixed-order fold and the cosine)."""
+    (:func:`partials_from_window_acc`, then the fixed-order fold and the
+    cosine)."""
+    return _ss.fold_partials_plain(
+        partials_from_window_acc(acc, codes, tiles, h=h, w=w, stride=stride,
+                                 nonlinearity=nonlinearity,
+                                 per_stream=per_stream, C=C),
+        tiles, per_stream, C)
+
+
+def partials_from_window_acc(acc: torch.Tensor, codes: torch.Tensor,
+                             tiles: IntScoreTiles, *, h: int, w: int,
+                             stride: int, nonlinearity: NonLin,
+                             per_stream: bool, C: int) -> torch.Tensor:
+    """Exact ``(N, my, mx, n_dt*TD)`` int32 window sums -> ``(n_dt, N, my,
+    mx, 3)`` partials, one D-tile at a time (normalization with the slab
+    scale folded in, the nonlinearity, the sums of phi*cpos, phi*cneg and
+    phi^2 over the tile's columns): a tile's partials have the same bits
+    whatever the other tiles of the call."""
     geom = tiles.geom
-    N, my, mx = acc.shape[:3]
     n_dt = geom.slabs_q.shape[0]
     td = geom.block_d
-    norms = _scaled_norms(codes, geom, h, w, stride)
-    s_n = acc.to(torch.float32) / norms[..., None]
-    bias = geom.bias_t.permute(1, 0, 2).reshape(mx, n_dt * td)
-    phi = apply_nonlinearity(s_n, bias, nonlinearity)
-    cpos = _ss._per_frame_classes(tiles.cpos_t.to(torch.float32), per_stream,
-                                  C)[:, None]
-    cneg = _ss._per_frame_classes(tiles.cneg_t.to(torch.float32), per_stream,
-                                  C)[:, None]
-
-    def fold(x):
-        return _ss._ordered_tile_fold(
-            x.reshape(N, my, mx, n_dt, td).sum(-1).permute(3, 0, 1, 2))
-
-    return _ss._cosine_epilogue(fold(phi * cpos), fold(phi * cneg),
-                                fold(phi * phi), tiles.cpos_norm,
-                                tiles.cneg_norm, per_stream, C)
+    norms = _scaled_norms(codes, geom, h, w, stride)[..., None]
+    parts = []
+    for k in range(n_dt):
+        s_n = acc[..., k * td:(k + 1) * td].contiguous().to(
+            torch.float32) / norms
+        phi = apply_nonlinearity(s_n, geom.bias_t[k], nonlinearity)
+        parts.append(_ss._tile_partials(
+            phi,
+            _ss._classes_of_tile(tiles.cpos_t, k, per_stream, C).to(
+                torch.float32),
+            _ss._classes_of_tile(tiles.cneg_t, k, per_stream, C).to(
+                torch.float32)))
+    return torch.stack(parts)
 
 
 def _scaled_norms(codes, geom, h, w, stride):
@@ -432,59 +460,109 @@ def _check_geometry(geom, h, w, stride, W, mx):
 # The kernel wrapper
 # ---------------------------------------------------------------------------
 
-def _launch(codes: torch.Tensor, tiles: IntScoreTiles, *, h: int, w: int,
-            stride: int, nonlinearity: NonLin, C: int, packed: bool,
-            acc_out: torch.Tensor | None = None) -> torch.Tensor:
-    """Calls of the C entry, four kernel launches each (window norms,
-    im2col, the GEMM with its scoring epilogue, the fold): one per run of
-    frames whose ``im2col`` scratch fits ``IM2COL_BUDGET_BYTES``
-    (:func:`frame_runs`; one run at the paper's chunk). Frames are
-    independent and the column partition depends on ``td`` alone, so the
-    runs give the bits of one call."""
+def _layout(codes: torch.Tensor, packed: bool
+            ) -> tuple[torch.Tensor, int]:
+    """The codes as the kernel reads them and their ``CodesLayout``."""
+    if packed:
+        return codes.contiguous(), _LAYOUT_NIBBLES
+    if codes.dtype in _LAYOUTS:
+        return codes.contiguous(), _LAYOUTS[codes.dtype]
+    # other integer codes: widened at the kernel boundary only
+    return codes.to(torch.int32).contiguous(), _LAYOUT_I32
+
+
+def _run_tiles(tiles: IntScoreTiles, s0: int, n: int) -> IntScoreTiles:
+    """The class tiles and norms of streams ``s0 .. s0 + n - 1``
+    (per-stream tiles; shared ones as they are)."""
+    if tiles.cpos_t.ndim != 4:
+        return tiles
+    cut = slice(s0, s0 + n)
+    return dataclasses.replace(
+        tiles, cpos_t=tiles.cpos_t[cut], cneg_t=tiles.cneg_t[cut],
+        cpos_norm=tiles.cpos_norm.reshape(-1)[cut],
+        cneg_norm=tiles.cneg_norm.reshape(-1)[cut])
+
+
+def split_partials(codes: torch.Tensor, tiles: IntScoreTiles, *, h: int,
+                   w: int, stride: int, nonlinearity: NonLin = "rff",
+                   frames_per_stream: int | None = None,
+                   packed: bool = False,
+                   acc_out: torch.Tensor | None = None) -> torch.Tensor:
+    """The partials entry on the card (window norms, im2col, the scoring
+    GEMM) over the D-tiles of ``tiles`` (all, or one rank's slice of a
+    split D) -> ``(n_col_tiles, N*my*mx, 3)`` partials; ``acc_out``, if
+    given, takes the int32 window sums ``(N, my, n_dt, mx, TD)``. The
+    frames must fit one run of :func:`frame_runs` (their ``im2col``
+    scratch within ``IM2COL_BUDGET_BYTES``). Not counted in
+    :data:`LAUNCHES`."""
     geom = tiles.geom
     N, H, Wc = codes.shape
     W = Wc * 2 if packed else Wc
-    mx = (W - w) // stride + 1
-    my = (H - h) // stride + 1
-    n_dt = geom.slabs_q.shape[0]
-    td = geom.block_d
-    if packed:
-        layout = _LAYOUT_NIBBLES
-    elif codes.dtype in _LAYOUTS:
-        layout = _LAYOUTS[codes.dtype]
-    else:  # other integer codes: widened at the kernel boundary only
-        layout = _LAYOUT_I32
-        codes = codes.to(torch.int32)
+    my, mx = (H - h) // stride + 1, (W - w) // stride + 1
+    n_dt, td = geom.slabs_q.shape[0], geom.block_d
+    _, C = _ss._class_layout(tiles, N, frames_per_stream)
+    codes, layout = _layout(codes, packed)
     per_frame = im2col_bytes_per_frame(H, W, h, w, stride, _PASSES[layout])
     _check_im2col(per_frame, H, W, h, w, stride)
+    if len(frame_runs(N, per_frame, C)) != 1:
+        raise ValueError(f"{N} frames need more than one call's im2col "
+                         f"scratch; split them first")
     lib = _build.load("sliding_scores_int")
     dev = codes.device
-    codes = codes.contiguous()
-    cpos_norm, cneg_norm = _ss._flat_norms(tiles)
-    cpos_t, cneg_t = tiles.cpos_t.contiguous(), tiles.cneg_t.contiguous()
-    class_tile = n_dt * mx * td  # int8 class entries per stream
-    n_col_tiles = n_dt * -(-td // COL_TILE)
-    runs = frame_runs(N, per_frame, C)
-    longest = max(hi - lo for lo, hi in runs)
-    # the kernel's scratch, sized for the longest run: window norms, A as
-    # (passes, mx, n*my, Kp) bytes, partials
-    norms = torch.empty((longest, my, mx), device=dev)
-    acol = torch.empty((longest * per_frame,), dtype=torch.uint8, device=dev)
-    partials = torch.empty((n_col_tiles, longest * my * mx, 3), device=dev)
-    out = torch.empty((N, my, mx), device=dev)
-    for lo, hi in runs:
-        s0 = lo // C  # the run's first stream
-        args = (codes[lo:hi], geom.slabs_q, geom.bias_t,
-                cpos_t.reshape(-1)[s0 * class_tile:],
-                cneg_t.reshape(-1)[s0 * class_tile:], geom.slab_scale,
-                norms, acol, cpos_norm[s0:], cneg_norm[s0:], partials,
-                out[lo:hi])
-        err = lib.sliding_scores_int(
-            *(a.data_ptr() for a in args),
-            None if acc_out is None else acc_out[lo:hi].data_ptr(),
-            hi - lo, H, W, h, w, stride, td, n_dt, min(C, hi - lo),
-            _ss.NONLINEARITIES[nonlinearity], layout, _build.stream_ptr())
-        _build.check(err, "sliding_scores_int")
+    norms = torch.empty((N, my, mx), device=dev)
+    acol = torch.empty((N * per_frame,), dtype=torch.uint8, device=dev)
+    partials = torch.empty((n_dt * -(-td // COL_TILE), N * my * mx, 3),
+                           device=dev)
+    args = (codes, geom.slabs_q, geom.bias_t, tiles.cpos_t.contiguous(),
+            tiles.cneg_t.contiguous(), geom.slab_scale, norms, acol,
+            partials)
+    err = lib.sliding_scores_int_partials(
+        *(a.data_ptr() for a in args),
+        None if acc_out is None else acc_out.data_ptr(), N, H, W, h, w,
+        stride, td, n_dt, C, _ss.NONLINEARITIES[nonlinearity], layout,
+        _build.stream_ptr())
+    _build.check(err, "sliding_scores_int_partials")
+    return partials
+
+
+def split_fold(partials: torch.Tensor, tiles: IntScoreTiles, **kw
+               ) -> torch.Tensor:
+    """The fold entry of ``csrc/sliding_scores_int.cu``, as
+    :func:`~repro_torch.kernels.sliding_scores.split_fold`. Not counted in
+    :data:`LAUNCHES`."""
+    return _ss.split_fold(partials, tiles, lib_name="sliding_scores_int",
+                          **kw)
+
+
+def _launch(codes: torch.Tensor, tiles: IntScoreTiles, *, h: int, w: int,
+            stride: int, nonlinearity: NonLin, C: int, packed: bool,
+            acc_out: torch.Tensor | None = None,
+            hyperdim_group=None) -> torch.Tensor:
+    """Per run of frames whose ``im2col`` scratch fits
+    ``IM2COL_BUDGET_BYTES`` (:func:`frame_runs`; one run at the paper's
+    chunk), :func:`split_partials` (window norms, im2col, the GEMM with
+    its scoring epilogue), the partials gathered over ``hyperdim_group``
+    in tile order when there is one (``tiles`` then hold this rank's
+    D-tiles), then :func:`split_fold`: four kernel launches a run. Frames
+    are independent and the column partition depends on ``td`` alone, so
+    the runs give the bits of one call."""
+    N, H, Wc = codes.shape
+    W = Wc * 2 if packed else Wc
+    my, mx = (H - h) // stride + 1, (W - w) // stride + 1
+    codes, layout = _layout(codes, packed)
+    per_frame = im2col_bytes_per_frame(H, W, h, w, stride, _PASSES[layout])
+    _check_im2col(per_frame, H, W, h, w, stride)
+    out = torch.empty((N, my, mx), device=codes.device)
+    for lo, hi in frame_runs(N, per_frame, C):
+        n = min(C, hi - lo)  # frames a stream in this run
+        fps = n if tiles.cpos_t.ndim == 4 else None
+        rt = _run_tiles(tiles, lo // C, (hi - lo) // n)
+        part = split_partials(
+            codes[lo:hi], rt, h=h, w=w, stride=stride,
+            nonlinearity=nonlinearity, frames_per_stream=fps, packed=packed,
+            acc_out=None if acc_out is None else acc_out[lo:hi])
+        split_fold(_ss.gathered(part, hyperdim_group), rt, N=hi - lo, my=my,
+                   mx=mx, frames_per_stream=fps, out=out[lo:hi])
     return out
 
 
@@ -492,29 +570,39 @@ def fragment_scores_batch_int(codes: torch.Tensor, tiles: IntScoreTiles, *,
                               h: int, w: int, stride: int,
                               nonlinearity: NonLin = "rff",
                               frames_per_stream: int | None = None,
-                              packed: bool = False) -> torch.Tensor:
-    """(N, H, W) integer ADC codes -> (N, my, mx) score maps in one call
-    of the C entry, which launches its four kernels; :data:`LAUNCHES` counts
-    the calls.
+                              packed: bool = False,
+                              hyperdim_group=None) -> torch.Tensor:
+    """(N, H, W) integer ADC codes -> (N, my, mx) score maps: the partials
+    entry then the fold entry, four kernel launches; :data:`LAUNCHES`
+    counts the calls.
 
     A CUDA tensor launches ``csrc/sliding_scores_int.cu`` (or raises); a
-    CPU tensor runs :func:`fragment_scores_batch_int_plain`. ``packed``
-    marks int4 wire codes ``(N, H, W/2)``; per-stream class tiles work as
-    in the float wrapper (``frames_per_stream``).
+    CPU tensor runs the plain version (:func:`score_partials_int_plain`,
+    then the fold). ``packed`` marks int4 wire codes ``(N, H, W/2)``;
+    per-stream class tiles work as in the float wrapper
+    (``frames_per_stream``). ``hyperdim_group`` splits D at the tile fold
+    as in :func:`~repro_torch.kernels.sliding_scores.fragment_scores_batch`
+    (``tiles`` hold this rank's D-tiles; the partials are gathered over
+    the group in tile order, then folded).
     """
     global LAUNCHES
     _ss._check_device(codes)
     if codes.device.type == "cpu":
-        return fragment_scores_batch_int_plain(
+        per_stream, C = _ss._class_layout(tiles, codes.shape[0],
+                                          frames_per_stream)
+        part = score_partials_int_plain(
             codes, tiles, h=h, w=w, stride=stride, nonlinearity=nonlinearity,
             frames_per_stream=frames_per_stream, packed=packed)
+        return _ss.fold_partials_plain(_ss.gathered(part, hyperdim_group),
+                                       tiles, per_stream, C)
     _check_codes_integer(codes)
     N, H, Wc = codes.shape
     W = Wc * 2 if packed else Wc
     _check_geometry(tiles.geom, h, w, stride, W, (W - w) // stride + 1)
     _, C = _ss._class_layout(tiles, N, frames_per_stream)
     out = _launch(codes, tiles, h=h, w=w, stride=stride,
-                  nonlinearity=nonlinearity, C=C, packed=packed)
+                  nonlinearity=nonlinearity, C=C, packed=packed,
+                  hyperdim_group=hyperdim_group)
     LAUNCHES += 1
     return out
 

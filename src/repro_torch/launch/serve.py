@@ -1,6 +1,6 @@
 """Always-on fleet serving on PyTorch: pipelined dispatch and collect, a
-slot pool under churn, checkpointed online state. Twin of
-``repro.launch.serve`` on one device.
+slot pool under churn, checkpointed online state, sharded over a device
+mesh. Twin of ``repro.launch.serve``.
 
 The paper's Intelligent Sensor Control runs *continuously*: sensors attach
 and detach at any time, and the host must prepare the next tick while the
@@ -52,10 +52,21 @@ bitwise, and a churn-free service with uids 0..S-1 equals ``FleetRunner``.
 reference's leaves and manifest, so a checkpoint of either package's
 service restores into the other.
 
-Not ported: ``backend=`` (the port has one route per device) and
-``mesh=`` with the padding of ``n_slots`` to the mesh's "sensors" extent
-(the port runs on one device). ``compile_count()`` becomes
-:meth:`~FleetService.rebuild_count` (PyTorch compiles nothing per shape).
+**Sharded** (``mesh=``, default: the current
+:func:`~repro_torch.distributed.sharding.use_mesh` mesh). ``n_slots`` is
+padded once to the mesh's "sensors" extent (churn never re-pads), slot
+assignment is global and the same on every rank, and each rank scores its
+contiguous slots against its D-tiles (:class:`~repro_torch.sensing.fleet.
+FleetRunner`'s split): ``dispatch`` runs this rank's slots and gathers the
+tick's scores over the sensor ranks on the card, ``collect`` and ``flush``
+return whole ticks on every rank. Every rank makes the same calls with the
+same arguments. A checkpoint keeps the unsharded format: gathered, written
+by rank 0, read by every rank, so it resumes across meshes; the mesh must
+therefore span every rank of the default group.
+
+Not ported: ``backend=`` (the port has one route per device).
+``compile_count()`` becomes :meth:`~FleetService.rebuild_count` (PyTorch
+compiles nothing per shape).
 """
 
 from __future__ import annotations
@@ -68,6 +79,7 @@ from typing import Hashable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.ckpt import checkpoint as ckpt_mod
@@ -77,8 +89,10 @@ from repro_torch.core.sensor_control import (CaptureConfig, CaptureLog,
                                              ControllerConfig,
                                              assemble_capture_log,
                                              decimation)
+from repro_torch.distributed import sharding as shlib
 from repro_torch.kernels import ops
 from repro_torch.sensing import adc as adc_sim
+from repro_torch.sensing import fleet as fleet_mod
 from repro_torch.sensing import stream as stream_mod
 from repro_torch.sensing.fleet import stream_seed
 from repro_torch.sensing.stream import StreamState, init_stream_state
@@ -155,7 +169,7 @@ def _on_card(fr) -> bool:
 
 
 class FleetService:
-    """Slot-pooled, pipelined, checkpointed fleet serving on one device.
+    """Slot-pooled, pipelined, checkpointed fleet serving.
 
     Sensors :meth:`attach` / :meth:`detach` at any time into a fixed pool
     of ``n_slots``; each service *tick* is one :meth:`dispatch` of
@@ -171,7 +185,11 @@ class FleetService:
     ``device``: ``None`` -> ``"cuda"``, raising without CUDA; pass
     ``"cpu"`` for the plain versions), plus:
 
-    * ``n_slots`` — pool capacity (the runner's frozen S);
+    * ``n_slots`` — pool capacity (the runner's frozen S), padded to the
+      mesh's "sensors" extent;
+    * ``mesh`` — shards every tick over the mesh's ranks (module
+      docstring), which must be every rank of the default group; every
+      rank calls every method with the same arguments;
     * ``max_inflight`` — dispatched but uncollected ticks before
       ``dispatch`` itself finishes the oldest (back-pressure);
     * ``ckpt_dir`` / ``ckpt_every`` / ``ckpt_keep`` — automatic async
@@ -191,7 +209,7 @@ class FleetService:
                  control: CaptureConfig | None = None,
                  max_inflight: int = 2, ckpt_dir: str | None = None,
                  ckpt_every: int = 0, ckpt_keep: int = 3,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None, mesh=None):
         stream_mod.validate_runner_args(chunk_size, adc_bits, adc_sigma,
                                         precision)
         if n_slots < 1:
@@ -201,10 +219,29 @@ class FleetService:
                              f"got {max_inflight}")
         if ckpt_every and ckpt_dir is None:
             raise ValueError("ckpt_every > 0 needs ckpt_dir")
+        self._mesh = mesh if mesh is not None else shlib.current_mesh()
+        if (self._mesh is not None
+                and self._mesh.size() != dist.get_world_size()):
+            # rank 0 writes the checkpoint and the ranks meet at a barrier
+            # of the default group, so the mesh holds every rank
+            raise ValueError(f"a FleetService mesh must span every rank: "
+                             f"{self._mesh.size()} of "
+                             f"{dist.get_world_size()}")
         self.device = resolve_device(device)
+        if self._mesh is not None:
+            self.device = fleet_mod.rank_device(self.device)
         self.model = model.to(self.device)
         self.config = config or ControllerConfig()
-        self.n_slots = n_slots
+        # capacity is padded ONCE: churn never re-pads, shapes never move
+        self.n_slots = shlib.padded_extent(n_slots, "sensors", self._mesh)
+        axes, _ = fleet_mod._sensor_axes(self._mesh)
+        self._sensor_group = (shlib.axis_group(self._mesh, axes) if axes
+                              else None)
+        # this rank's slots: the device half runs over them alone
+        self._lo, self._hi = (
+            (0, self.n_slots) if self._sensor_group is None
+            else shlib.local_range(self.n_slots, self._sensor_group))
+        self._hyperdim_group = None
         self.chunk_size = chunk_size
         self.block_d = block_d
         self.t_detection = (model.t_detection if t_detection is None
@@ -225,7 +262,7 @@ class FleetService:
                       if ckpt_dir is not None else None)
         self._cuda = self.device.type == "cuda"
 
-        self._slots: list = [None] * n_slots    # slot -> sid
+        self._slots: list = [None] * self.n_slots   # slot -> sid
         self._by_sid: dict = {}                 # sid -> slot
         self._uids: dict = {}                   # sid -> persistent uid
         self._n_seen: dict = {}                 # sid -> abs frame count
@@ -243,8 +280,13 @@ class FleetService:
         self._no_labels = None     # (S, C) zeros on the device (pseudo mode)
         self._side = None          # the HP capture's stream
         self._rebuilds = 0
-        self._state = init_stream_state(self.model.class_hvs, n_slots,
-                                        per_stream=self._per_stream())
+        self._state = init_stream_state(self.model.class_hvs,
+                                        self.n_slots)
+        if self._per_stream():
+            self._state = dataclasses.replace(
+                self._state, class_hvs=self.model.class_hvs.expand(
+                    self._hi - self._lo, *self.model.class_hvs.shape
+                ).clone())
         self._pending: collections.deque[_InFlight] = collections.deque()
         self._ready: collections.deque[ServedChunk] = collections.deque()
 
@@ -254,6 +296,14 @@ class FleetService:
 
     def _per_stream(self) -> bool:
         return self.adapt is not None and self.adapt.scope == "per-stream"
+
+    def _class_stack(self) -> torch.Tensor:
+        """The per-stream ``(n_slots, 2, D)`` stack, gathered from every
+        sensor rank on a mesh (a collective: every rank calls it)."""
+        chvs = self._state.class_hvs
+        if self._sensor_group is None:
+            return chvs
+        return shlib.all_gather_cat(chvs, self._sensor_group)
 
     @property
     def attached(self) -> tuple:
@@ -307,9 +357,9 @@ class FleetService:
             self._logs[sid] = ([], [])
             self._hp[sid] = []
         class_hvs = st.class_hvs
-        if chvs is not None:
+        if chvs is not None and self._lo <= slot < self._hi:
             class_hvs = class_hvs.clone()
-            class_hvs[slot] = chvs
+            class_hvs[slot - self._lo] = chvs
         self._state = dataclasses.replace(st, class_hvs=class_hvs,
                                           holds=holds, phases=phases)
         self._slots[slot] = sid
@@ -327,7 +377,7 @@ class FleetService:
         self._parked[sid] = _Parked(
             uid=self._uids[sid], n_seen=self._n_seen[sid],
             hold=int(st.holds[slot]), phase=int(st.phases[slot]),
-            class_hvs=(st.class_hvs[slot].clone()
+            class_hvs=(self._class_stack()[slot].clone()
                        if st.class_hvs.ndim == 3 else None))
         self._slots[slot] = None
 
@@ -340,12 +390,18 @@ class FleetService:
         adapting (re-tiled per tick in the device half): built once."""
         if self._tiles is None:
             self._rebuilds += 1
-            self._tiles = (
-                stream_mod.model_geometry(self.model, W, self.block_d,
-                                          self.precision)
-                if self.adapt is not None else
-                stream_mod.model_tiles(self.model, W, self.block_d,
-                                       self.precision))
+            geom = stream_mod.model_geometry(self.model, W, self.block_d,
+                                             self.precision)
+            hd = fleet_mod._hyperdim_axes(self._mesh, geom.idx.shape[0])
+            if hd is not None:
+                self._hyperdim_group = shlib.axis_group(self._mesh, hd)
+                geom = fleet_mod.local_geometry(geom, *shlib.local_range(
+                    geom.idx.shape[0], self._hyperdim_group))
+            retile = (ops.retile_classes_int
+                      if self.precision in adc_sim.INT_PRECISIONS
+                      else ops.retile_classes)
+            self._tiles = (geom if self.adapt is not None
+                           else retile(geom, self.model.class_hvs))
         return self._tiles
 
     def _ring(self, name: str, shape: tuple, dtype: torch.dtype
@@ -463,45 +519,54 @@ class FleetService:
             self._n_seen[sid] += C
         raw = self._assemble(arrivals, codes, k)
         dev = self.device
+        local = slice(self._lo, self._hi)   # this rank's slots
 
         if codes:
-            frames = adc_sim.pack_codes(raw, self.adc_bits)
+            frames = adc_sim.pack_codes(raw[local], self.adc_bits)
         elif self.adc_bits is not None:
             frames = _adc_convert_fn(
-                raw, active, uids, starts, bits=self.adc_bits,
-                sigma=self.adc_sigma, adc_seed=self.adc_seed,
+                raw[local], active[local], uids[local], starts[local],
+                bits=self.adc_bits, sigma=self.adc_sigma,
+                adc_seed=self.adc_seed,
                 codes=self.precision in adc_sim.INT_PRECISIONS)
         else:
-            frames = raw
+            frames = raw[local]
         lab = mask = None
         if self.adapt is not None:
             mask = self._ring("mask", (S,), torch.bool)[k]
             mask.copy_(torch.from_numpy(active))
-            mask = mask.to(dev, non_blocking=True, copy=True)
+            mask = mask[local].to(dev, non_blocking=True, copy=True)
             if label_mode:
                 lab = self._ring("labels", (S, C), torch.int32)[k]
                 lab.zero_()
                 for sid in arrivals:
                     lab[self._by_sid[sid]].copy_(torch.as_tensor(labels[sid]))
-                lab = lab.to(dev, non_blocking=True, copy=True)
+                lab = lab[local].to(dev, non_blocking=True, copy=True)
             else:
                 if self._no_labels is None:
                     self._rebuilds += 1
-                    self._no_labels = torch.zeros((S, C), dtype=torch.int32,
-                                                  device=dev)
+                    self._no_labels = torch.zeros(
+                        (self._hi - self._lo, C), dtype=torch.int32,
+                        device=dev)
                 lab = self._no_labels
 
         m = self.model
+        tiles = self._ensure_tiles(W)
         maps, scores, folded = stream_mod.chunk_device_half(
-            frames, self._state.class_hvs, m.B0, m.b, self._ensure_tiles(W),
-            C, lab, mask, h=m.h, w=m.w, stride=m.stride,
-            nonlinearity=m.nonlinearity, t_detection=self.t_detection,
-            adapt=self.adapt, precision=self.precision,
-            adc_lsb=self._adc_lsb, decim=self._decim, park_masked=True)
+            frames, self._state.class_hvs, m.B0, m.b, tiles, C, lab, mask,
+            h=m.h, w=m.w, stride=m.stride, nonlinearity=m.nonlinearity,
+            t_detection=self.t_detection, adapt=self.adapt,
+            precision=self.precision, adc_lsb=self._adc_lsb,
+            decim=self._decim, park_masked=True,
+            sensor_group=self._sensor_group,
+            hyperdim_group=self._hyperdim_group)
         self._state = dataclasses.replace(
             self._state, frame_idx=self._state.frame_idx + C,
             class_hvs=(self._state.class_hvs if folded is None
                        else folded))
+        if self._sensor_group is not None:
+            # the whole tick's scores on every rank, gathered on the card
+            scores = shlib.all_gather_cat(scores, self._sensor_group)
         out = self._ring("scores", (S, C), torch.float32)[k]
         out.copy_(scores, non_blocking=True)
         done = None
@@ -588,14 +653,15 @@ class FleetService:
         if rec.fold is not None:
             m = self.model
             frames, maps, lab = rec.fold
+            local = slice(self._lo, self._hi)
             chvs = stream_mod.fold_chunk(
-                frames, maps, st.class_hvs, m.B0, m.b, lab, sampled,
+                frames, maps, st.class_hvs, m.B0, m.b, lab, sampled[local],
                 h=m.h, w=m.w, stride=m.stride, nonlinearity=m.nonlinearity,
                 adapt=self.adapt, precision=self.precision,
-                adc_lsb=self._adc_lsb)
+                adc_lsb=self._adc_lsb, sensor_group=self._sensor_group)
             st = dataclasses.replace(
                 st, class_hvs=stream_mod.park_classes(chvs, st.class_hvs,
-                                                      active))
+                                                      active[local]))
         self._state = dataclasses.replace(st, holds=holds, phases=phases)
         s, f, g, smp = (x.numpy() for x in (scores, fired, gated, sampled))
         outputs, sampled_out = {}, {}
@@ -657,7 +723,7 @@ class FleetService:
             return chvs.clone()
         if sid in self._parked:
             return self._parked[sid].class_hvs.clone()
-        return chvs[self._by_sid[sid]].clone()
+        return self._class_stack()[self._by_sid[sid]].clone()
 
     def capture_log(self, sid) -> CaptureLog:
         """What ``sid``'s ADC actually converted in the finished ticks
@@ -687,7 +753,8 @@ class FleetService:
         """(single-level array tree, JSON extra) of the mutable state, with
         the reference's leaves and keys."""
         st = self._state
-        tree = {"class_hvs": st.class_hvs, "holds": st.holds,
+        tree = {"class_hvs": (self._class_stack() if st.class_hvs.ndim == 3
+                              else st.class_hvs), "holds": st.holds,
                 "phases": st.phases,
                 "frame_idx": np.int32(st.frame_idx)}
         for i, p in enumerate(self._parked.values()):
@@ -732,18 +799,23 @@ class FleetService:
         outputs stay collectable) so the saved state, frame counters and
         capture logs describe one tick boundary; the state is copied to
         the host before this returns and written on the checkpointer's
-        thread while serving continues.
+        thread while serving continues. On a mesh the state is gathered
+        on every rank and rank 0 alone writes it, in the unsharded format.
         """
         if self._ckpt is None:
             raise RuntimeError("service was built without ckpt_dir")
         self._finish_pending()
         tree, extra = self._snapshot()
-        self._ckpt.save(self._seq, tree, extra=extra)
+        if self._mesh is None or dist.get_rank() == 0:
+            self._ckpt.save(self._seq, tree, extra=extra)
 
     def wait_ckpt(self) -> None:
-        """Block until the last async checkpoint write is on disk."""
+        """Block until the last async checkpoint write is on disk (on a
+        mesh: rank 0's write, then a barrier of every rank)."""
         if self._ckpt is not None:
             self._ckpt.wait()
+            if self._mesh is not None:
+                dist.barrier()
 
     def restore(self, step: int | None = None) -> int:
         """Load fleet state from ``ckpt_dir`` into this (fresh) service.
@@ -768,15 +840,20 @@ class FleetService:
             raise ValueError(f"checkpoint precision {extra['precision']} "
                              f"!= service {self.precision}")
         chvs = leaves["class_hvs"]
-        if chvs.shape != tuple(self._state.class_hvs.shape):
+        want = ((self.n_slots, *self._state.class_hvs.shape[1:])
+                if self._state.class_hvs.ndim == 3
+                else tuple(self._state.class_hvs.shape))
+        if chvs.shape != want:
             raise ValueError(f"checkpoint class_hvs {chvs.shape} != "
-                             f"service {tuple(self._state.class_hvs.shape)}")
+                             f"service {want}")
 
         def dev(a):
             return torch.from_numpy(np.array(a, np.float32)).to(self.device)
 
+        chvs = dev(chvs)
         self._state = StreamState(
-            class_hvs=dev(chvs),
+            class_hvs=(chvs[self._lo:self._hi].clone() if chvs.ndim == 3
+                       else chvs),
             holds=torch.from_numpy(np.array(leaves["holds"], np.int32)),
             phases=torch.from_numpy(np.array(leaves["phases"], np.int32)),
             frame_idx=int(leaves["frame_idx"]))

@@ -16,9 +16,17 @@ multiplied along a sensor axis without multiplying kernel launches:
   ``s`` draws its noise from :func:`stream_seed` ``(adc_seed, s)``, so it
   equals a ``StreamRunner(adc_seed=stream_seed(adc_seed, s))`` bitwise.
 
-The reference also shards the step over a device mesh ("sensors" x
-"hyperdim"); that half is not ported. Without a mesh the reference's
-sensor extent is 1, so no slot is ever padded, and neither is one here.
+* the fleet step is **sharded over a 2-D device mesh** through the
+  logical-axis rules of :mod:`repro_torch.distributed.sharding`, one
+  process per rank: "sensors" partitions S over the data ranks (padded
+  with masked slots when S does not divide, never an unsharded fallback)
+  and "hyperdim" partitions the D-tile axis of slabs and class tiles over
+  "model" (the scorer gathers its tile partials in tile order before the
+  fold; a shared-scope update gathers every rank's samples and replays
+  the whole fold on each rank). Every rank makes the same calls with the
+  same global arguments, computes its slice and returns the unsharded
+  runner's global results, bitwise; without a mesh the same code runs
+  unsharded.
 
 :func:`fleet_report` turns the per-stream gate decisions into per-stream
 :class:`~repro_torch.core.sensor_control.StreamStats` plus a fleet-aggregate
@@ -40,6 +48,7 @@ from repro_torch.core.sensor_control import (CaptureConfig, CaptureLog,
                                              ControllerConfig, StreamStats,
                                              assemble_capture_log,
                                              decimation, stats_from_batch)
+from repro_torch.distributed import sharding as shlib
 from repro_torch.kernels import ops
 from repro_torch.sensing import adc as adc_sim
 from repro_torch.sensing import stream as stream_mod
@@ -47,6 +56,58 @@ from repro_torch.sensing.stream import (adc_view, adc_view_codes,
                                         init_stream_state, mix64,
                                         model_geometry, pad_frames,
                                         super_chunk_fn)
+
+
+def _sensor_axes(mesh) -> tuple[tuple[str, ...] | None, int]:
+    """("sensors" mesh dims or None, their total extent k).
+
+    Padding-aware: resolved with :func:`repro_torch.distributed.sharding.
+    mesh_extent`, which keeps non-divisible dims — the fleet pads S up to
+    a multiple of ``k`` with masked slots instead of ever falling back to
+    an unsharded step.
+    """
+    if mesh is None:
+        return None, 1
+    axes, k = shlib.mesh_extent("sensors", mesh)
+    return (axes or None), k
+
+
+def _hyperdim_axes(mesh, n_dt: int) -> tuple[str, ...] | None:
+    """Mesh dims the "hyperdim" (D-tile) axis of ``n_dt`` tiles shards
+    over, or None. A tile count the extent does not divide falls back to
+    replicated tiles (the :func:`~repro_torch.distributed.sharding.
+    spec_for` divisibility rule); D is never padded."""
+    if mesh is None:
+        return None
+    part = shlib.spec_for((n_dt,), ("hyperdim",), mesh)[0]
+    if part is None:
+        return None
+    return part if isinstance(part, tuple) else (part,)
+
+
+def local_geometry(geom, lo: int, hi: int):
+    """D-tiles ``lo:hi`` of a (float or int) score geometry, copied once:
+    the slabs, bias tiles and rotation gather, whose leading axis is the
+    D-tile (the reference's ``_tiles_specs``). The window mask and the slab
+    scale are whole-D quantities and stay as they are, and so do the class
+    norms :func:`~repro_torch.kernels.ops.retile_classes` computes from
+    the whole classifier. The copy gives each slice an allocation of its
+    own, so its slabs keep the 16-byte alignment the float kernel copies
+    them in, without a copy in every call."""
+    def cut(x):
+        return x[lo:hi].clone()
+    slabs = "slabs_q" if hasattr(geom, "slabs_q") else "slabs"
+    return dataclasses.replace(geom, **{slabs: cut(getattr(geom, slabs))},
+                               bias_t=cut(geom.bias_t), idx=cut(geom.idx))
+
+
+def rank_device(device: torch.device) -> torch.device:
+    """``device`` with this rank's card made explicit: ``"cuda"`` becomes
+    ``cuda:<torch.cuda.current_device()>`` (each rank sets its own card
+    with ``torch.cuda.set_device`` first)."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 def stream_seed(adc_seed: int, stream: int) -> int:
@@ -150,6 +211,17 @@ class FleetRunner:
     per-stream bounded buffers (:meth:`drain_hp`). The fleet's
     :attr:`capture_log` is the ``(S, N)`` billing ground truth
     :func:`fleet_report` prefers over the duty-cycle approximation.
+
+    ``mesh`` (a ``DeviceMesh`` with ``("data", "model")`` dims, default:
+    the current :func:`~repro_torch.distributed.sharding.use_mesh` mesh,
+    fixed when the runner is built) shards each super-chunk: S pads to the
+    "sensors" extent, each rank scores its contiguous slots against its
+    contiguous D-tiles (replicated when the "model" extent does not divide
+    the tile count), the scores are gathered over the sensor ranks and
+    every rank runs the gate over all streams. Every rank calls
+    ``process`` (and :attr:`class_hvs`, a gather in per-stream scope) with
+    the same global arguments and gets the unsharded runner's results,
+    bitwise. The default device is then the rank's own card.
     """
 
     def __init__(self, model: HyperSenseModel,
@@ -160,10 +232,13 @@ class FleetRunner:
                  adapt: AdaptConfig | None = None,
                  precision: str = "float32",
                  control: CaptureConfig | None = None,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None, mesh=None):
         stream_mod.validate_runner_args(chunk_size, adc_bits, adc_sigma,
                                         precision)
+        self._mesh = mesh if mesh is not None else shlib.current_mesh()
         self.device = resolve_device(device)
+        if self._mesh is not None:
+            self.device = rank_device(self.device)
         self.precision = precision
         self.model = model.to(self.device)
         self.config = config or ControllerConfig()
@@ -179,13 +254,17 @@ class FleetRunner:
         self._decim = (None if control is None
                        else (decimation(self.config) if control.subsample
                              else 1))
-        self._geom = None       # (W, geometry) — class-independent
+        axes, self._sensor_k = _sensor_axes(self._mesh)
+        self._sensor_group = (shlib.axis_group(self._mesh, axes) if axes
+                              else None)
+        self._geom = None       # (W, geometry, hyperdim group) — no classes
         self._frame_pixels = 0
         self._frame_hw: tuple[int, int] | None = None
         self.reset()
 
     def reset(self) -> None:
         self._state = None      # StreamState, allocated on first process()
+        self._n_streams = 0     # S (the state's holds cover S padded)
         self._n_seen = 0
         self._tiles = None      # (W, class_hvs ref, tiles) — frozen path
         self._log_sampled: list[np.ndarray] = []   # (S, chunk) blocks
@@ -193,17 +272,39 @@ class FleetRunner:
         self._hp: list[list] = []   # per stream: [(abs_idx, frame), ...]
         self.hp_dropped = 0
 
+    def _slots(self, S: int) -> tuple[int, int, int]:
+        """``(S_pad, lo, hi)``: S padded to the "sensors" extent and this
+        rank's contiguous slots ``lo:hi`` of it."""
+        S_pad = -(-S // self._sensor_k) * self._sensor_k
+        if self._sensor_group is None:
+            return S_pad, 0, S_pad
+        return (S_pad, *shlib.local_range(S_pad, self._sensor_group))
+
+    def _local_stack(self, class_hvs: torch.Tensor, S: int) -> torch.Tensor:
+        """This rank's rows of an ``(S, 2, D)`` classifier stack padded
+        with copies of the model's (real values, never NaN)."""
+        S_pad, lo, hi = self._slots(S)
+        pad = self.model.class_hvs.expand(S_pad - S, *class_hvs.shape[1:])
+        return torch.cat([class_hvs, pad])[lo:hi].clone()
+
     @property
     def holds(self) -> torch.Tensor | None:
         """(S,) controller hold state after the last processed frame."""
-        return None if self._state is None else self._state.holds
+        return (None if self._state is None
+                else self._state.holds[:self._n_streams])
 
     @property
     def class_hvs(self) -> torch.Tensor:
         """The live classifier: ``(2, D)`` shared, ``(S, 2, D)`` per-stream
-        (before the first ``process`` call: the model's)."""
-        return (self.model.class_hvs if self._state is None
-                else self._state.class_hvs)
+        (before the first ``process`` call: the model's). On a mesh the
+        per-stream stack is gathered from every sensor rank: every rank
+        reads it."""
+        if self._state is None:
+            return self.model.class_hvs
+        chvs = self._state.class_hvs
+        if chvs.ndim == 3 and self._sensor_group is not None:
+            chvs = shlib.all_gather_cat(chvs, self._sensor_group)
+        return chvs[:self._n_streams] if chvs.ndim == 3 else chvs
 
     def set_class_hvs(self, class_hvs) -> None:
         """Install an externally updated classifier mid-stream.
@@ -223,24 +324,50 @@ class FleetRunner:
             if class_hvs.ndim == 3:
                 # the stack fixes the fleet size; allocate the state now so
                 # the per-stream classifiers are not silently dropped
-                self._state = init_stream_state(
-                    class_hvs, class_hvs.shape[0], per_stream=True)
+                self._init_state(class_hvs.shape[0], class_hvs)
             return  # ndim == 2: the first process() starts from the model
-        carried = self._state.class_hvs.shape
-        if class_hvs.ndim == 2 and len(carried) == 3:
-            class_hvs = class_hvs.expand(carried).clone()
-        if class_hvs.shape != carried:
+        S = self._n_streams
+        if class_hvs.ndim == 2 and self._state.class_hvs.ndim == 3:
+            class_hvs = class_hvs.expand(S, *class_hvs.shape).clone()
+        if class_hvs.ndim == 3:
+            if class_hvs.shape[0] != S:
+                raise ValueError(f"class_hvs shape {tuple(class_hvs.shape)}"
+                                 f" != carried state of {S} streams")
+            class_hvs = self._local_stack(class_hvs, S)
+        if class_hvs.shape != self._state.class_hvs.shape:
             raise ValueError(f"class_hvs shape {tuple(class_hvs.shape)} != "
-                             f"carried state {tuple(carried)}")
+                             f"carried state "
+                             f"{tuple(self._state.class_hvs.shape)}")
         self._state = dataclasses.replace(self._state, class_hvs=class_hvs)
+
+    def _init_state(self, S: int, class_hvs: torch.Tensor) -> None:
+        """Fresh state for S streams: holds and phases over S padded, a
+        per-stream classifier stack over this rank's slots."""
+        S_pad, lo, hi = self._slots(S)
+        if class_hvs.ndim == 2 and self._per_stream():
+            class_hvs = class_hvs.expand(S, *class_hvs.shape)
+        if class_hvs.ndim == 3:
+            class_hvs = (self._local_stack(class_hvs, S)
+                         if self._mesh is not None else class_hvs.clone())
+        self._state = init_stream_state(class_hvs, S_pad)
+        self._n_streams = S
 
     def _per_stream(self) -> bool:
         return self.adapt is not None and self.adapt.scope == "per-stream"
 
     def _ensure_geom(self, W: int):
+        """The class-independent geometry for width ``W`` — on a mesh, this
+        rank's D-tiles of it — and the hyperdim group (None unsplit)."""
         if self._geom is None or self._geom[0] != W:
-            self._geom = (W, model_geometry(self.model, W, self.block_d,
-                                            self.precision))
+            geom = model_geometry(self.model, W, self.block_d,
+                                  self.precision)
+            group = None
+            hd = _hyperdim_axes(self._mesh, geom.idx.shape[0])
+            if hd is not None:
+                group = shlib.axis_group(self._mesh, hd)
+                geom = local_geometry(
+                    geom, *shlib.local_range(geom.idx.shape[0], group))
+            self._geom = (W, geom, group)
         return self._geom[1]
 
     def _ensure_tiles(self, W: int):
@@ -283,11 +410,11 @@ class FleetRunner:
         self._hp = [[] for _ in self._hp]
         return out
 
-    def _adc(self, frames: torch.Tensor) -> torch.Tensor:
+    def _adc(self, frames: torch.Tensor, first: int = 0) -> torch.Tensor:
         """The ADC view each stream's scorer sees: integer codes for the
         integer precisions, the float reconstruction with ``adc_bits``,
-        else the frames; stream ``s`` keyed by ``stream_seed(adc_seed,
-        s)``."""
+        else the frames; ``frames[i]`` is stream ``first + i``, keyed by
+        ``stream_seed(adc_seed, first + i)``."""
         if self.precision in adc_sim.INT_PRECISIONS:
             view = adc_view_codes
         elif self.adc_bits is not None:
@@ -295,10 +422,10 @@ class FleetRunner:
         else:
             return frames
         return torch.stack([
-            view(frames[s], self.adc_bits, sigma=self.adc_sigma,
-                 seed=stream_seed(self.adc_seed, s),
+            view(frames[i], self.adc_bits, sigma=self.adc_sigma,
+                 seed=stream_seed(self.adc_seed, first + i),
                  start_index=self._n_seen)
-            for s in range(frames.shape[0])])
+            for i in range(frames.shape[0])])
 
     def process(self, frames, labels=None
                 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -332,22 +459,33 @@ class FleetRunner:
                 raise ValueError(f"labels shape {tuple(labels.shape)} != "
                                  f"(S, n) = {(S, n)}")
         if self._state is None:
-            self._state = init_stream_state(self.model.class_hvs, S,
-                                            per_stream=self._per_stream())
-        elif self._state.holds.shape[0] != S:
+            self._init_state(S, self.model.class_hvs)
+        elif self._n_streams != S:
             raise ValueError(f"fleet size changed: carried state has "
-                             f"{self._state.holds.shape[0]} streams, "
-                             f"got {S}")
+                             f"{self._n_streams} streams, got {S}")
         if self.precision in adc_sim.INT_PRECISIONS:
             ops.assert_int_datapath_fits(self.adc_bits, H, W, self.model.h,
                                          self.model.w,
                                          stride=self.model.stride)
-        frames = self._adc(frames)
+        S_pad, lo, hi = self._slots(S)
+        slot_mask = None
+        if self._mesh is not None:
+            # this rank's slots of S padded with masked all-zero streams
+            frames = torch.cat([frames, frames.new_zeros(
+                (S_pad - S, *frames.shape[1:]))])[lo:hi]
+            if labels is not None:
+                labels = torch.cat([labels, labels.new_zeros(
+                    (S_pad - S, n))])[lo:hi]
+            slot_mask = torch.arange(lo, hi) < S
+        frames = self._adc(frames, lo)
         self._n_seen += n
 
         m = self.model
         tiles = (self._ensure_geom(W) if self.adapt is not None
                  else self._ensure_tiles(W))
+        groups = ({} if self._mesh is None else
+                  dict(sensor_group=self._sensor_group,
+                       hyperdim_group=self._geom[2]))
         scores = np.empty((S, n), np.float32)
         fired = np.empty((S, n), bool)
         gated = np.empty((S, n), bool)
@@ -360,25 +498,26 @@ class FleetRunner:
             if n_valid < self.chunk_size:
                 chunk = pad_frames(chunk, self.chunk_size)
                 lab = torch.cat([lab, torch.zeros(
-                    (S, self.chunk_size - n_valid), dtype=lab.dtype)], 1)
+                    (lab.shape[0], self.chunk_size - n_valid),
+                    dtype=lab.dtype)], 1)
             s, f, g, smp, self._state = super_chunk_fn(
                 chunk, self._state, m.B0, m.b, tiles, m.t_score, n_valid,
-                lab, h=m.h, w=m.w, stride=m.stride,
+                lab, slot_mask, h=m.h, w=m.w, stride=m.stride,
                 nonlinearity=m.nonlinearity, t_detection=self.t_detection,
                 hold_frames=self.config.hold_frames, adapt=self.adapt,
                 precision=self.precision, adc_lsb=self._adc_lsb,
-                decim=self._decim)
+                decim=self._decim, **groups)
             sl = slice(start, start + n_valid)
-            scores[:, sl] = s[:, :n_valid].numpy()
-            fired[:, sl] = f[:, :n_valid].numpy()
-            gated[:, sl] = g[:, :n_valid].numpy()
-            self._log_sampled.append(smp[:, :n_valid].numpy().copy())
+            scores[:, sl] = s[:S, :n_valid].numpy()
+            fired[:, sl] = f[:S, :n_valid].numpy()
+            gated[:, sl] = g[:S, :n_valid].numpy()
+            self._log_sampled.append(smp[:S, :n_valid].numpy().copy())
             self._log_gated.append(gated[:, sl].copy())
             if hp_k > 0:
                 raw_chunk = pad_frames(raw[:, start:start + self.chunk_size],
                                        self.chunk_size)
                 entries, dropped = stream_mod.collect_hp(
-                    raw_chunk, g, n_valid, hp_k, self.control.hp_bits,
+                    raw_chunk, g[:S], n_valid, hp_k, self.control.hp_bits,
                     base + start)
                 for si in range(S):
                     self._hp[si].extend(entries[si])
@@ -395,7 +534,8 @@ def simulate_fleet(model: HyperSenseModel, frames, labels,
                    energy_params: energy.EnergyParams | None = None,
                    precision: str = "float32",
                    control: CaptureConfig | None = None,
-                   device: str | torch.device | None = None) -> FleetReport:
+                   device: str | torch.device | None = None,
+                   mesh=None) -> FleetReport:
     """Run a whole ``(S, N, H, W)`` fleet recording end-to-end.
 
     One :class:`FleetRunner` pass followed by :func:`fleet_report`:
@@ -405,14 +545,16 @@ def simulate_fleet(model: HyperSenseModel, frames, labels,
     made — with ``control=`` the closed loop's savings are real Joules
     here, not a duty-cycle estimate). ``adapt`` switches on online
     learning; in ``"label"`` mode the ground-truth ``labels`` double as
-    the feedback signal.
+    the feedback signal. ``mesh`` shards the run as in
+    :class:`FleetRunner`: every rank calls with the same arguments and
+    gets the whole report.
     """
     runner = FleetRunner(model, config, chunk_size=chunk_size,
                          t_detection=t_detection, block_d=block_d,
                          adc_bits=adc_bits, adc_sigma=adc_sigma,
                          adc_seed=adc_seed, adapt=adapt,
                          precision=precision, control=control,
-                         device=device)
+                         device=device, mesh=mesh)
     feed = (labels if adapt is not None and adapt.mode == "label"
             else None)
     _, fired, gated = runner.process(frames, labels=feed)

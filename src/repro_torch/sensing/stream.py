@@ -32,6 +32,7 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.core import online
@@ -42,6 +43,7 @@ from repro_torch.core.sensor_control import (CaptureConfig, CaptureLog,
                                              ControllerConfig, StreamStats,
                                              assemble_capture_log,
                                              decimation, stats_from)
+from repro_torch.distributed.sharding import all_gather_cat, local_range
 from repro_torch.kernels import ops
 from repro_torch.sensing import adc as adc_sim
 
@@ -309,13 +311,20 @@ def fold_chunk(frames: torch.Tensor, maps: torch.Tensor,
                class_hvs: torch.Tensor, B0: torch.Tensor, b: torch.Tensor,
                labels: torch.Tensor, mask2d: torch.Tensor, *, h: int,
                w: int, stride: int, nonlinearity, adapt: AdaptConfig,
-               precision: str = "float32", adc_lsb: float = 1.0
-               ) -> torch.Tensor:
+               precision: str = "float32", adc_lsb: float = 1.0,
+               sensor_group=None) -> torch.Tensor:
     """The online perceptron fold of one ``(S, C)`` chunk: each frame's
     top fragment re-encoded and folded where ``mask2d`` is set. Per-stream
     classifiers ``(S, 2, D)`` fold stream by stream; one shared ``(2, D)``
     classifier folds the streams' samples in time order, the stream index
-    breaking ties. ``labels`` and ``mask2d`` may lie on the host."""
+    breaking ties. ``labels`` and ``mask2d`` may lie on the host.
+
+    With ``sensor_group`` the ``S`` streams are this rank's contiguous
+    slots of the group's: a shared fold gathers every rank's samples,
+    labels and masks in global stream order and replays the whole
+    sequential fold on every rank (masked samples leave the classifier
+    bitwise untouched, so masked pad slots change nothing); a per-stream
+    fold stays local."""
     S, C = frames.shape[:2]
     mx = maps.shape[-1]
     dev = class_hvs.device
@@ -334,10 +343,15 @@ def fold_chunk(frames: torch.Tensor, maps: torch.Tensor,
             online.apply_chunk(adapt, class_hvs[s].clone(), hvs[s],
                                labels[s], mask2d[s])[0]
             for s in range(S)])
-    dim = hvs[0].shape[-1]
-    return online.apply_chunk(
-        adapt, class_hvs, torch.stack(hvs, 1).reshape(C * S, dim),
-        labels.T.reshape(C * S), mask2d.T.reshape(C * S))[0]
+    hv = torch.stack(hvs, 1)                                   # (C, S, D)
+    if sensor_group is not None:
+        hv = all_gather_cat(hv, sensor_group, dim=1)
+        labels = all_gather_cat(labels, sensor_group)
+        mask2d = all_gather_cat(mask2d.to(torch.uint8),
+                                sensor_group).to(torch.bool)
+    n = hv.shape[0] * hv.shape[1]
+    return online.apply_chunk(adapt, class_hvs, hv.reshape(n, hv.shape[-1]),
+                              labels.T.reshape(n), mask2d.T.reshape(n))[0]
 
 
 def park_classes(class_hvs: torch.Tensor, before: torch.Tensor,
@@ -356,10 +370,15 @@ def chunk_device_half(frames: torch.Tensor, class_hvs: torch.Tensor,
                       w: int, stride: int, nonlinearity, t_detection: int,
                       adapt: AdaptConfig | None = None,
                       precision: str = "float32", adc_lsb: float = 1.0,
-                      decim: int | None = None, park_masked: bool = False):
+                      decim: int | None = None, park_masked: bool = False,
+                      sensor_group=None, hyperdim_group=None):
     """The device half of :func:`super_chunk_fn`: the scorer call and the
     frame scores, and, in the open loop, the online fold (its mask is the
     valid frames of the unmasked slots, which the card can build).
+
+    ``hyperdim_group`` splits the scorer's D at its tile fold (``tiles``
+    hold this rank's D-tiles); ``sensor_group`` makes a shared-scope fold
+    gather the samples of every rank's slots (:func:`fold_chunk`).
 
     Returns ``(maps (S, C, my, mx), scores (S, C), class_hvs)``, all on the
     model's device; ``class_hvs`` is the folded (and, with
@@ -383,7 +402,8 @@ def chunk_device_half(frames: torch.Tensor, class_hvs: torch.Tensor,
         kframes = adc_sim.pack_nibbles(frames) if packed else frames
         maps = ops.fragment_score_map_fleet_int(
             kframes, class_hvs, B0, b, h=h, w=w, stride=stride,
-            nonlinearity=nonlinearity, tiles=ktiles, packed=packed)
+            nonlinearity=nonlinearity, tiles=ktiles, packed=packed,
+            hyperdim_group=hyperdim_group)
     else:
         if adapt is None:
             ktiles = tiles
@@ -393,7 +413,8 @@ def chunk_device_half(frames: torch.Tensor, class_hvs: torch.Tensor,
             ktiles = ops.retile_classes(tiles, class_hvs)
         maps = ops.fragment_score_map_fleet(
             frames, class_hvs, B0, b, h=h, w=w, stride=stride,
-            nonlinearity=nonlinearity, tiles=ktiles)         # (S, C, my, mx)
+            nonlinearity=nonlinearity, tiles=ktiles,
+            hyperdim_group=hyperdim_group)                   # (S, C, my, mx)
     scores = frame_detection_score(maps, t_detection)            # (S, C)
 
     folded = None
@@ -405,7 +426,8 @@ def chunk_device_half(frames: torch.Tensor, class_hvs: torch.Tensor,
         folded = fold_chunk(frames, maps, class_hvs, B0, b, labels, mask2d,
                             h=h, w=w, stride=stride,
                             nonlinearity=nonlinearity, adapt=adapt,
-                            precision=precision, adc_lsb=adc_lsb)
+                            precision=precision, adc_lsb=adc_lsb,
+                            sensor_group=sensor_group)
         if park_masked and slot_mask is not None:
             folded = park_classes(folded, class_hvs, slot_mask)
     return maps, scores, folded
@@ -470,7 +492,8 @@ def super_chunk_fn(frames: torch.Tensor, state: StreamState,
                    stride: int, nonlinearity, t_detection: int,
                    hold_frames: int, adapt: AdaptConfig | None = None,
                    precision: str = "float32", adc_lsb: float = 1.0,
-                   decim: int | None = None, park_masked: bool = False):
+                   decim: int | None = None, park_masked: bool = False,
+                   sensor_group=None, hyperdim_group=None):
     """One streaming step over an ``(S, C, H, W)`` super-chunk: the device
     half, the copy of the scores to the host, the host half, and the
     closed loop's fold (which reads the scan).
@@ -491,17 +514,39 @@ def super_chunk_fn(frames: torch.Tensor, state: StreamState,
     marks real sensor slots; ``park_masked`` freezes the masked slots'
     carried state in place.
 
+    On a mesh, ``frames``, ``labels``, ``slot_mask``, ``tiles`` and a
+    per-stream ``state.class_hvs`` are this rank's: its contiguous slots of
+    ``sensor_group``'s and its D-tiles of ``hyperdim_group``'s (the scorer
+    folds the gathered tile partials). The frame scores and slot masks are
+    gathered over ``sensor_group`` on the card, and the host half runs over
+    every slot of the group, so ``state.holds`` and ``state.phases`` and
+    the returned scores and decisions cover all of them, on every rank.
+
     Returns ``(scores (S, C), fired, gated, sampled, new_state)``; scores
     on the host as float32, the decisions as host bool tensors.
     """
     C = frames.shape[1]
     kw = dict(h=h, w=w, stride=stride, nonlinearity=nonlinearity)
+    groups = dict(sensor_group=sensor_group, hyperdim_group=hyperdim_group)
     maps, scores, class_hvs = chunk_device_half(
         frames, state.class_hvs, B0, b, tiles, n_valid, labels, slot_mask,
         t_detection=t_detection, adapt=adapt, precision=precision,
-        adc_lsb=adc_lsb, decim=decim, park_masked=park_masked, **kw)
-    scores = scores.cpu()
+        adc_lsb=adc_lsb, decim=decim, park_masked=park_masked, **groups,
+        **kw)
+    local = slice(None)
     host_mask = None if slot_mask is None else slot_mask.cpu()
+    if sensor_group is not None:
+        lo, hi = local_range(scores.shape[0] * dist.get_world_size(
+            sensor_group), sensor_group)
+        local = slice(lo, hi)
+        mask = (torch.ones(frames.shape[0], dtype=torch.bool)
+                if slot_mask is None else slot_mask)
+        # the slot mask rides the scores' gather as one more column
+        both = all_gather_cat(torch.cat([scores, to_device(
+            mask, scores.device).to(scores.dtype)[:, None]], 1),
+            sensor_group).cpu()
+        scores, host_mask = both[:, :-1].contiguous(), both[:, -1] > 0
+    scores = scores.cpu()
     fired, gated, sampled, holds, phases = chunk_host_half(
         scores, state.holds, state.phases, n_valid, host_mask,
         t_score=t_score, can_fire=t_detection < maps.shape[-2] *
@@ -514,10 +559,12 @@ def super_chunk_fn(frames: torch.Tensor, state: StreamState,
         # online update either (sampled carries the slot mask)
         class_hvs = fold_chunk(
             frames, maps, state.class_hvs, B0, b, labels,
-            sampled & (torch.arange(C) < n_valid)[None, :], adapt=adapt,
-            precision=precision, adc_lsb=adc_lsb, **kw)
+            sampled[local] & (torch.arange(C) < n_valid)[None, :],
+            adapt=adapt, precision=precision, adc_lsb=adc_lsb,
+            sensor_group=sensor_group, **kw)
         if park_masked and host_mask is not None:
-            class_hvs = park_classes(class_hvs, state.class_hvs, host_mask)
+            class_hvs = park_classes(class_hvs, state.class_hvs,
+                                     host_mask[local])
     new_state = StreamState(class_hvs=class_hvs, holds=holds, phases=phases,
                             frame_idx=state.frame_idx + n_valid)
     return scores, fired, gated, sampled, new_state
