@@ -79,7 +79,22 @@ mesh phase's NCCL world). It
    checkpoint at tick 4 resumed sharded and unsharded, and the unsharded
    one resumed sharded), each bitwise the unsharded run this process
    makes on the same inputs and hands over through a file, with fps
-   sharded and unsharded;
+   sharded and unsharded; and ``CascadeService(mesh=)`` over the
+   full-width ``hubert-xlarge`` detector (below), its weights drawn on
+   each rank's card from the cascade phase's seed and sharded
+   tensor-parallel over "model" and FSDP over "data", its step captured
+   with its NCCL collectives in one CUDA graph: 11 of the closed-loop
+   runner's HP frames (a full batch and a padded tail), every rank's
+   logits bitwise the same, batched bitwise ``eager``, two passes
+   bitwise, one graph build, within 5% of the largest |logit| of this
+   process's unsharded cascade (at 2 layers where bf16 drift over 48
+   exceeds it, the 48-layer differences in bf16 and float32 printed beside
+   how far a 1e-7 perturbation of one weight moves the unsharded float32
+   logits), ``backbone_cost`` every
+   rank's products, the collectives of a batch counted under
+   ``roofline()`` (printed), and ms a batch in turns against an
+   unsharded cascade on the rank's card; ``nvidia-smi topo -m`` is
+   printed once;
 10. serves the gated cascade (paper §V-E): the closed-loop float32
    ``FleetService`` (8 slots, 8 ticks, HP at 12 bits) feeds its HP drains
    to a ``CascadeService`` over the full-width ``hubert-xlarge`` detector
@@ -91,9 +106,11 @@ mesh phase's NCCL world). It
    graph is built once, warm submits are free of host syncs, and the card
    agrees with the CPU at full width on 2 layers (bf16) and at the smoke
    config (float32); ``backbone_cost`` must equal the hand count of the
-   products. It prints the backbone's frames/s and ms per batch against
+   products, and ``roofline()``'s compute and memory terms the batch's
+   hand bounds. It prints the backbone's frames/s and ms per batch against
    the batch's bounds, its device busy share, the site's frames/s against
-   the gate's alone, and the energy bill against an always-on backbone;
+   the gate's alone, ``roofline().to_dict()``, and the energy bill against
+   an always-on backbone;
 11. drives the training path (paper Fig. 5a) at the same width: samples
    balanced fragments from 256 synthetic training frames and 128 held-out
    frames (``sensing.fragments``), trains the Fragment model on the
@@ -198,6 +215,7 @@ from repro_torch.kernels import sliding_scores_int as ssi  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.configs import hypersense as paper_config  # noqa: E402
 from repro_torch.core import gate as hs_gate  # noqa: E402
+from repro_torch.distributed import sharding  # noqa: E402
 from repro_torch.kernels import int_expanded as ie  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
 from repro_torch.launch.cascade import CascadeService  # noqa: E402
@@ -1354,6 +1372,13 @@ MESH_RUNS = {
 # seconds the world's ranks may take, their builds excluded (the parent
 # builds every kernel before it spawns them)
 MESH_TIMEOUT_S = 600
+# the sharded cascade: the full-width detector on every mesh, fed a full
+# batch and a padded tail of 3 of the closed-loop runner's HP frames;
+# full batches timed warm in turns with an unsharded one on the rank's card
+MESH_CASCADE_TAIL, MESH_CASCADE_TIMED = 3, 4
+# the detector's own sensitivity at full depth: its float32 logits moved by
+# a relative perturbation of this size in one weight (the MLPs' w_down)
+MESH_PERTURB = 1e-7
 
 
 def split_views(raw, precision, bits):
@@ -1575,8 +1600,10 @@ def mesh_shapes(world: int) -> list[tuple[int, int]]:
 def mesh_rank(rank: int, world: int, root: str) -> None:
     """One rank of the NCCL world: its own card, the payload the parent
     wrote, every mesh shape of ``mesh_shapes``; each run checked bitwise
-    against the parent's unsharded run. Writes its records to
-    ``root/rank<r>.json``; any failed check raises (a non-zero exit)."""
+    against the parent's unsharded run, and the sharded cascade
+    (:func:`mesh_cascade`) against the parent's unsharded one. Writes its
+    records to ``root/rank<r>.json``; any failed check raises (a non-zero
+    exit)."""
     import datetime
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
@@ -1596,12 +1623,15 @@ def mesh_rank(rank: int, world: int, root: str) -> None:
         ref = torch.load(root / "payload.pt", map_location=dev,
                          weights_only=False)
         raw, labels_np = ref["raw"], ref["labels"]
+        plain = detector()
         records = []
         for shape in mesh_shapes(world):
             mesh = (make_host_mesh(DEVICE) if shape == (1, world) else
                     init_device_mesh(DEVICE, shape,
                                      mesh_dim_names=("data", "model")))
-            records.append(mesh_runs(mesh, shape, ref, raw, labels_np, root))
+            rec = mesh_runs(mesh, shape, ref, raw, labels_np, root)
+            rec["cascade"] = mesh_cascade(mesh, shape, ref["cascade"], plain)
+            records.append(rec)
         (root / f"rank{rank}.json").write_text(json.dumps(records))
         dist.destroy_process_group()
     except BaseException:
@@ -1703,6 +1733,165 @@ def mesh_runs(mesh, shape, ref, raw, labels_np, root) -> dict:
     return rec
 
 
+def detector(mesh=None, n_layers: int | None = None, seed: int = SEED + 9,
+             compute_dtype: str | None = None, perturb: float = 0.0):
+    """A ``CascadeService`` over the full-width detector (``n_layers`` deep,
+    or all 48; in ``compute_dtype``, or bf16), its parameters drawn on this
+    process's card from ``seed`` (the cascade phase's; with ``perturb``,
+    the MLPs' ``w_down`` times ``1 + perturb · N(0, 1)``), sharded over
+    ``mesh`` if given."""
+    cfg = configs.get_config(CASCADE_ARCH)
+    if n_layers is not None:
+        cfg = cfg.replace(n_layers=n_layers)
+    if compute_dtype is not None:
+        cfg = cfg.replace(compute_dtype=compute_dtype)
+    hw = (FRAME, FRAME)
+    params = steps.init_detector_params(
+        torch.Generator(device=DEVICE).manual_seed(seed), cfg, frame_hw=hw,
+        patch=CASCADE_PATCH)
+    if perturb:
+        mlp = params["backbone"]["layers"]["mlp"]
+        mlp["w_down"] = mlp["w_down"] * (1.0 + perturb * torch.randn(
+            mlp["w_down"].shape, device=DEVICE,
+            generator=torch.Generator(device=DEVICE).manual_seed(seed + 1)))
+    return CascadeService(params, cfg, batch_size=CASCADE_BATCH,
+                          frame_hw=hw, patch=CASCADE_PATCH,
+                          max_inflight=CASCADE_INFLIGHT, device=DEVICE,
+                          mesh=mesh)
+
+
+def mesh_cascade_reference(hp) -> dict:
+    """The unsharded card cascade the ranks' sharded ones are held
+    against: the first CASCADE_BATCH + MESH_CASCADE_TAIL HP frames of the
+    closed-loop runner's drains ``hp`` (streams in order), batched; and
+    at full depth in float32 on the first CASCADE_REF_FRAMES of them, the
+    logits and how far a MESH_PERTURB perturbation of one weight moves
+    them (how much the detector amplifies a change in the last bits)."""
+    n = CASCADE_BATCH + MESH_CASCADE_TAIL
+    frames = np.concatenate([f for _, f in hp])[:n]
+    check(len(frames) == n, f"mesh cascade: {len(frames)} HP frames")
+    casc = detector()
+    casc.submit("ref", np.arange(n), frames)
+    logits = np.concatenate([b.logits for b in casc.flush()])
+    del casc
+    f32, moved = (detector(compute_dtype="float32", perturb=p).eager(
+        frames[:CASCADE_REF_FRAMES]) for p in (0.0, MESH_PERTURB))
+    return dict(frames=frames, logits=logits, f32_logits=f32,
+                sensitivity=dict(perturb=MESH_PERTURB,
+                                 max_abs_diff=float(np.abs(moved - f32).max()),
+                                 max_abs_logit=float(np.abs(f32).max())))
+
+
+def mesh_cascade(mesh, shape, want, plain) -> dict:
+    """The full-width sharded cascade on one mesh, in every rank: the
+    parent's HP frames fed as 5 + 0 + the rest (a full batch, a padded
+    tail), finite; batched bitwise ``eager`` at every position and in the
+    tail; a second pass bitwise the first; one graph build; within
+    CASCADE_BF16_RTOL of the parent's unsharded logits relative to their
+    largest |logit| (where bf16 drift over all the layers exceeds it, the
+    bound is held at CASCADE_REF_LAYERS, sharded against unsharded on
+    this card, and the full-depth difference recorded, in bf16 and in
+    float32 against the parent's float32 logits, beside the parent's
+    measure of the detector's sensitivity);
+    ``backbone_cost`` every rank's products; the collectives of one
+    batch, counted under ``roofline()``. Then full batches timed warm in
+    turns against ``plain``, an unsharded cascade on this rank's card.
+    Returns the record, with the logits for the parent to hold every
+    rank's against each other."""
+    frames, B = want["frames"], CASCADE_BATCH
+    casc = detector(mesh)
+    what = f"sharded cascade on a {shape} mesh"
+
+    def serve_frames():
+        n = len(frames)
+        for lo, hi in ((0, 5), (5, 5), (5, n)):
+            casc.submit("mesh", np.arange(lo, hi), frames[lo:hi])
+        return casc.flush()
+
+    batches = serve_frames()
+    check([b.n_padded for b in batches] == [0, B - MESH_CASCADE_TAIL],
+          f"{what}: batches padded {[b.n_padded for b in batches]}")
+    logits = np.concatenate([b.logits for b in batches])
+    check(logits.shape == (len(frames), casc.n_out)
+          and np.isfinite(logits).all(), f"{what}: logits")
+    check(np.array_equal(casc.eager(frames), logits),
+          f"{what}: batched logits differ from eager")
+    check(np.array_equal(np.concatenate([b.logits for b in serve_frames()]),
+                         logits), f"{what}: two runs differ")
+    check(casc.rebuild_count() == 1, f"{what}: rebuilt")
+    cfg = casc.cfg
+    scale = float(np.abs(want["logits"]).max())
+    diff = float(np.abs(logits - want["logits"]).max())
+    rec = dict(mesh=list(shape), layers=cfg.n_layers, d_model=cfg.d_model,
+               compute_dtype=cfg.compute_dtype, frames=len(frames),
+               logits=logits.tolist(), bitwise_vs_eager=True,
+               runs_bitwise=True, rebuild_count=casc.rebuild_count(),
+               max_abs_diff_vs_unsharded=diff, max_abs_logit=scale,
+               rtol=CASCADE_BF16_RTOL, held_at_layers=cfg.n_layers)
+    if diff > CASCADE_BF16_RTOL * scale:
+        cut = [detector(m, CASCADE_REF_LAYERS, SEED + 10).eager(
+            frames[:CASCADE_REF_FRAMES]) for m in (mesh, None)]
+        cut_diff = float(np.abs(cut[0] - cut[1]).max())
+        cut_scale = float(np.abs(cut[1]).max())
+        check(cut_diff <= CASCADE_BF16_RTOL * cut_scale,
+              f"{what}: {CASCADE_REF_LAYERS} layers differ by {cut_diff} "
+              f"(largest |logit| {cut_scale}; {cfg.n_layers} layers: "
+              f"{diff} of {scale})")
+        f32 = detector(mesh, compute_dtype="float32").eager(
+            frames[:CASCADE_REF_FRAMES])
+        rec.update(held_at_layers=CASCADE_REF_LAYERS,
+                   cut_max_abs_diff=cut_diff, cut_max_abs_logit=cut_scale,
+                   f32_max_abs_diff=float(np.abs(
+                       f32 - want["f32_logits"]).max()),
+                   f32_max_abs_logit=float(np.abs(want["f32_logits"]).max()))
+        print(f"{what}: {cfg.n_layers} layers differ by {diff} in bf16 and "
+              f"{rec['f32_max_abs_diff']} in float32 (largest |logit| "
+              f"{scale}, {rec['f32_max_abs_logit']}); the detector's own "
+              f"sensitivity {want['sensitivity']}; held at "
+              f"{CASCADE_REF_LAYERS} layers: {cut_diff} of {cut_scale}",
+              flush=True)
+    # every rank's products: the unsharded hand count split over "model",
+    # the embedder on every rank, the whole program on every data rank
+    D, M = shape
+    seq = steps.detector_seq_len((FRAME, FRAME), CASCADE_PATCH)
+    hand = detector_matmul_flops(cfg, seq, CASCADE_PATCH)
+    emb = 2 * seq * CASCADE_PATCH * CASCADE_PATCH * cfg.d_model
+    cost = casc.backbone_cost()
+    check(cost.flops == D * (hand - emb) + D * M * emb,
+          f"{what}: backbone_cost {cost.flops} FLOPs/frame, hand count "
+          f"{D * (hand - emb) + D * M * emb}")
+    with sharding.count_collectives() as coll:
+        rl = casc.roofline()
+    # a frame: 6 FSDP gathers and 2 folds a layer, the unembedding's
+    # gather and the head's row of logits
+    calls = B * (cfg.n_layers * 8 + 2)
+    check(coll.calls == {"all-gather": calls}
+          and rl.hlo_gflops == cost.flops * B / 1e9,
+          f"{what}: {coll.calls} collectives a batch, want {calls}")
+    timed = np.concatenate([frames[:B]] * MESH_CASCADE_TIMED)
+
+    def backbone(c):
+        c.submit("timed", np.arange(len(timed)), timed)
+        return c.flush()
+
+    backbone(plain)
+    walls = {}
+    for turn, c in (("unsharded", plain), ("sharded", casc),
+                    ("sharded_again", casc), ("unsharded_again", plain)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        backbone(c)
+        torch.cuda.synchronize()
+        walls[turn] = time.perf_counter() - t0
+    rec.update(
+        backbone_cost=dataclasses.asdict(cost), flops_hand_count=hand,
+        collectives_per_batch=dict(calls=coll.calls, bytes=coll.bytes),
+        roofline=rl.to_dict(),
+        ms_per_batch={k: v / MESH_CASCADE_TIMED * 1e3
+                      for k, v in walls.items()})
+    return rec
+
+
 def mesh_phase(base_model, cal, raw, labels):
     """(a) :func:`split_checks`; (b) an NCCL world of every card of the
     host (one rank a card, ``torch.multiprocessing`` with ``spawn``, after
@@ -1722,8 +1911,20 @@ def mesh_phase(base_model, cal, raw, labels):
     shutil.rmtree(root, ignore_errors=True)
     root.mkdir(parents=True)
     ref = mesh_reference(base_model, cal, raw, labels, root)
+    ref["cascade"] = mesh_cascade_reference(
+        ref["runs"]["mesh_closed_loop_float32"]["hp"])
     torch.save(dict(ref, raw=raw.cpu(), labels=labels.cpu().numpy()),
                root / "payload.pt")
+    topo = "not measured"
+    if DEVICE == "cuda":
+        # the link matrix (NVLink or PCIe) where the host's driver reports
+        # it; what it says otherwise, with its exit code
+        smi = subprocess.run(["nvidia-smi", "topo", "-m"],
+                             capture_output=True, text=True)
+        topo = (smi.stdout if smi.returncode == 0 else
+                f"nvidia-smi topo -m: exit {smi.returncode}: "
+                f"{(smi.stdout + smi.stderr).strip()}")
+    print(topo, flush=True)
     world = torch.cuda.device_count()
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=mesh_rank, args=(r, world, str(root)))
@@ -1748,6 +1949,10 @@ def mesh_phase(base_model, cal, raw, labels):
               f"{err.read_text() if err.exists() else ''}")
     ranks = [json.loads((root / f"rank{r}.json").read_text())
              for r in range(world)]
+    for i, rec in enumerate(ranks[0]):
+        check(all(r[i]["cascade"]["logits"] == rec["cascade"]["logits"]
+                  for r in ranks[1:]),
+              f"sharded cascade on a {rec['mesh']} mesh: ranks differ")
     first = ranks[0][0]
     # the first mesh's checkpoint (written by its rank 0), resumed unsharded
     svc = mesh_churn_service(ref["models"]["churn"], first["churn"][
@@ -1759,7 +1964,8 @@ def mesh_phase(base_model, cal, raw, labels):
     launches = {k: sum(rec["launches"][k] for rec in ranks[0])
                 for k in ("sliding_scores_f32", "sliding_scores_int")}
     out = dict(world=world, meshes=[rec["mesh"] for rec in ranks[0]],
-               block_d=MESH_BLOCK_D, n_dt=DIM // MESH_BLOCK_D,
+               topology=topo, block_d=MESH_BLOCK_D, n_dt=DIM // MESH_BLOCK_D,
+               cascade_sensitivity=ref["cascade"]["sensitivity"],
                split=splits, unsharded_runner_fps=ref["runner_fps"],
                ranks=ranks, world_s=world_s,
                sharded_checkpoint_resumed_unsharded=True)
@@ -1962,6 +2168,12 @@ def cascade_phase(base_model, cal, raw):
           f"{hand}")
     bounds = dict(bytes_ms=B * cost.bytes / HBM_BYTES_S * 1e3,
                   flops_ms=B * cost.flops / BF16_OPS_S * 1e3)
+    rl = casc.roofline()
+    check(math.isclose(rl.t_compute * 1e3, bounds["flops_ms"], rel_tol=1e-9)
+          and math.isclose(rl.t_memory * 1e3, bounds["bytes_ms"],
+                           rel_tol=1e-9),
+          f"cascade: roofline {rl.t_compute}, {rl.t_memory} s against the "
+          f"bounds {bounds}")
     refs = [cascade_reference(cfg.replace(n_layers=CASCADE_REF_LAYERS),
                               timed[:CASCADE_REF_FRAMES]),
             cascade_reference(configs.get_smoke(CASCADE_ARCH),
@@ -2001,6 +2213,7 @@ def cascade_phase(base_model, cal, raw):
         hp_fps_passed_by_gate=gate_fps * len(want) / (S * n),
         hp_fps_backbone_sustains=backbone_fps,
         backbone_cost=dataclasses.asdict(cost), flops_hand_count=hand,
+        roofline=rl.to_dict(),
         energy_slot0={k: dict(dataclasses.asdict(v), total=v.total)
                       for k, v in bill.items()},
         energy_saving=energy.savings(bill["cascade"],

@@ -281,7 +281,8 @@ class BackboneCost:
 
 
 def backbone_cost(step_fn, weights, frames: torch.Tensor, *,
-                  j_per_flop: float = EDGE_J_PER_FLOP) -> BackboneCost:
+                  j_per_flop: float = EDGE_J_PER_FLOP,
+                  ranks: int = 1) -> BackboneCost:
     """Per-frame :class:`BackboneCost` of one ``step_fn(weights, frames)``.
 
     ``flops``: every product's ``2·M·N·K`` as
@@ -293,17 +294,24 @@ def backbone_cost(step_fn, weights, frames: torch.Tensor, *,
     ``bytes``: what the per-frame program must move for one frame: every
     tensor of ``weights`` once at its dtype (the program reads all the
     weights again for each frame), the frame in and its logits out.
+
+    On a mesh of ``ranks`` ranks, ``weights`` are this rank's blocks and
+    the run is a real one (meta tensors issue no collective: every rank
+    calls this together); the count is this rank's times ``ranks``, since
+    every rank runs blocks of the same shapes. So it covers every rank's
+    products, where the reference's XLA count bills one device's share
+    (``ROADMAP.md`` §3).
     """
     batch = frames.shape[0]
     if batch < 1:
         raise ValueError(f"batch must be >= 1, got {batch}")
     with FlopCounterMode(display=False) as counter:
         out = step_fn(weights, frames)
-    flops = counter.get_total_flops() / batch
-    nbytes = (sum(t.numel() * t.element_size()
-                  for t in model_common.leaves(weights))
-              + (frames.numel() * frames.element_size()
-                 + out.numel() * out.element_size()) / batch)
+    flops = ranks * counter.get_total_flops() / batch
+    nbytes = ranks * (sum(t.numel() * t.element_size()
+                          for t in model_common.leaves(weights))
+                      + (frames.numel() * frames.element_size()
+                         + out.numel() * out.element_size()) / batch)
     return BackboneCost(flops=float(flops), bytes=float(nbytes),
                         joules=flops * j_per_flop)
 

@@ -15,15 +15,25 @@ The rule functions read only a mesh's dimension names and sizes, so they
 take a ``torch.distributed.device_mesh.DeviceMesh`` with named dimensions
 or a plain ``{name: size}`` mapping. A spec is a tuple with one entry per
 tensor dimension: a mesh dimension's name, a tuple of names, or None
-(replicated). The runtime helpers (:func:`axis_group`, :func:`local_range`,
-:func:`all_gather_cat`) work on the process groups of a ``DeviceMesh``.
+(replicated). The runtime helpers work on the process groups of a
+``DeviceMesh``: :func:`axis_group`, :func:`local_range`,
+:func:`local_block` (this rank's block of a whole tensor),
+:func:`all_gather_cat` (the blocks back together, in rank order) and
+:func:`fold_partials` (the partial sums of a row-parallel product added
+in rank order, in float32); :func:`count_collectives` records the bytes
+they move. The detector's sharded forward
+(:mod:`repro_torch.models`) is written out with them, as there is no
+GSPMD to insert its collectives.
 
 Not ported yet: ``shard`` and ``logical_sharding``, the LM models'
-activation constraints, which wait for the LM zoo's slice.
+activation constraints (the sequence-parallel residual among them), which
+wait for the LM zoo's slice; a group over several mesh dims, which waits
+for the production mesh.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import threading
 from contextlib import contextmanager
 from typing import Iterator, Mapping, Sequence
@@ -218,11 +228,12 @@ def spec_for(shape: Sequence[int], axes: Sequence[str | None], mesh=None,
 # Runtime: process groups, this rank's slice, the gather
 # ---------------------------------------------------------------------------
 
-def axis_group(mesh, axes: Sequence[str]):
-    """The process group of ``mesh``'s dims ``axes`` that holds this rank
-    (the ranks that differ from it along those dims alone). One dim only:
-    a (pod, data) group waits for the production mesh's slice."""
-    axes = tuple(axes)
+def axis_group(mesh, axes: str | Sequence[str]):
+    """The process group of ``mesh``'s dims ``axes`` (a spec entry: one
+    name or a tuple of names) that holds this rank (the ranks that differ
+    from it along those dims alone). One dim only: a (pod, data) group
+    waits for the production mesh's slice."""
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
     if len(axes) != 1:
         raise NotImplementedError(
             f"a group over several mesh dims {axes} is not ported")
@@ -240,12 +251,80 @@ def local_range(n: int, group) -> tuple[int, int]:
     return r * (n // k), (r + 1) * (n // k)
 
 
-def all_gather_cat(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
-    """Every rank's ``x`` of ``group`` concatenated along ``dim`` in
-    group-rank order (``dist.all_gather``, which every torch version and
-    backend has; NCCL enqueues it on the card's stream, with no host
-    wait)."""
+def local_block(t: torch.Tensor, spec: Sequence, mesh) -> torch.Tensor:
+    """This rank's contiguous block of the whole tensor ``t`` along every
+    dim that ``spec`` (from :func:`spec_for`) shards: along each, the
+    :func:`local_range` of the dim's group, in group-rank order, which is
+    the order :func:`all_gather_cat` restores. A fresh tensor, so ``t``
+    can be freed."""
+    if len(spec) != t.ndim:
+        raise ValueError(f"spec {tuple(spec)} does not fit a tensor of "
+                         f"shape {tuple(t.shape)}")
+    for dim, axes in enumerate(spec):
+        if axes is not None:
+            lo, hi = local_range(t.shape[dim], axis_group(mesh, axes))
+            t = t.narrow(dim, lo, hi - lo)
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+@dataclasses.dataclass
+class CollectiveCount:
+    """What the helpers' collectives moved inside a
+    :func:`count_collectives` scope, keyed by the reference's HLO op names
+    (``repro.distributed.roofline._COLL_OPS``): ``bytes``, each
+    collective's output payload summed (the reference's
+    ``collective_bytes`` sums output shapes, too), and ``calls``."""
+    bytes: dict = dataclasses.field(default_factory=dict)
+    calls: dict = dataclasses.field(default_factory=dict)
+
+
+@contextmanager
+def count_collectives() -> Iterator[CollectiveCount]:
+    """Record the collectives :func:`all_gather_cat` and
+    :func:`fold_partials` issue in this thread inside the scope (every
+    open scope records them): the port's counterpart of the reference's
+    HLO parse (``roofline.collective_bytes``), which has no meaning
+    without XLA. A collective is recorded where Python issues it, so a
+    CUDA graph's replay records nothing: count over an uncaptured run."""
+    count = CollectiveCount()
+    prev = getattr(_CTX, "colls", ())
+    _CTX.colls = (*prev, count)
+    try:
+        yield count
+    finally:
+        _CTX.colls = prev
+
+
+def _gather(x: torch.Tensor, group) -> list[torch.Tensor]:
+    """Every rank's ``x`` of ``group``, in group-rank order
+    (``dist.all_gather``, which every torch version and backend has; NCCL
+    enqueues it on the card's stream, with no host wait)."""
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, x, group=group)
-    return torch.cat(parts, dim)
+    for count in getattr(_CTX, "colls", ()):
+        count.bytes["all-gather"] = (count.bytes.get("all-gather", 0)
+                                     + len(parts) * x.numel()
+                                     * x.element_size())
+        count.calls["all-gather"] = count.calls.get("all-gather", 0) + 1
+    return parts
+
+
+def all_gather_cat(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """Every rank's ``x`` of ``group`` concatenated along ``dim`` in
+    group-rank order."""
+    return torch.cat(_gather(x, group), dim)
+
+
+def fold_partials(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum over ``group`` of every rank's partial ``x`` (a row-parallel
+    product's), cast back to ``x``'s dtype: gathered, then added in
+    group-rank order in float32 (the scorers' ``_ordered_tile_fold``
+    discipline). Not ``dist.all_reduce``, whose order is the algorithm
+    NCCL picks: this fold is the same bits on every rank and from run to
+    run. On a one-rank group it is ``x`` itself."""
+    parts = _gather(x, group)
+    acc = parts[0].to(torch.float32)
+    for p in parts[1:]:
+        acc = acc + p.to(torch.float32)
+    return acc.to(x.dtype)

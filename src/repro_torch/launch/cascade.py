@@ -1,5 +1,5 @@
 """Gated-frame -> downstream-backbone cascade serving on PyTorch (the
-paper's loop). Twin of ``repro.launch.cascade`` on one device.
+paper's loop). Twin of ``repro.launch.cascade``.
 
 HyperSense's system claim is gate-then-detect: the always-on HDC gate runs
 on low-precision ADC data, and only the frames it passes are captured at
@@ -34,13 +34,21 @@ Every gate runner's ``drain_hp()`` delivers ``(absolute frame indices,
   directly.
 * **System accounting.** :meth:`~CascadeService.backbone_cost` counts the
   step's products and bytes per frame
-  (:func:`repro_torch.core.energy.backbone_cost`) and
+  (:func:`repro_torch.core.energy.backbone_cost`),
   :meth:`~CascadeService.system_energy` bills gate duty × backbone cost
-  against the always-on backbone.
+  against the always-on backbone, and :meth:`~CascadeService.roofline`
+  gives a batch's roofline terms on the H100
+  (:mod:`repro_torch.distributed.roofline`).
+* **Sharded** (``mesh=``, a ``("data", "model")`` ``DeviceMesh`` of every
+  rank of the world). Every rank builds the service from the same whole
+  parameters and is fed the same drains: the frames are replicated, the
+  backbone's weights sharded
+  (:func:`repro_torch.launch.steps.build_detector_cell`'s ``mesh=``), and
+  every rank returns the same logits, bitwise. On the card the sharded
+  step is captured in the one CUDA graph with its NCCL collectives; the
+  warm run before the capture creates the communicators.
 
-Not ported: ``roofline()`` and ``mesh=`` wait for
-``distributed/roofline.py`` and the multi-GPU layer (``ROADMAP.md`` §1
-item 6). ``compile_count()`` becomes :meth:`~CascadeService.rebuild_count`.
+``compile_count()`` becomes :meth:`~CascadeService.rebuild_count`.
 """
 
 from __future__ import annotations
@@ -52,12 +60,15 @@ from typing import Hashable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core import energy
+from repro_torch.distributed import roofline as roofline_mod
 from repro_torch.launch import steps
 from repro_torch.models import common
+from repro_torch.sensing import fleet
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,6 +107,10 @@ class CascadeService:
     their compute-dtype copy is kept. ``frame_hw`` must match the gate's
     frames; ``batch_size`` fixes the step's shape. ``device``: ``None`` ->
     ``"cuda"``, raising without CUDA; pass ``"cpu"`` for the plain run.
+    With a ``mesh`` (every rank of the world, each on its own card, or on
+    the CPU with ``gloo``), only this rank's blocks of the backbone are
+    kept, and every rank makes the same calls in the same order: a step
+    is a collective.
 
     Feed it directly (:meth:`submit` takes any ``drain_hp()`` output) or
     through :meth:`pump`, which drains a
@@ -108,12 +123,16 @@ class CascadeService:
 
     def __init__(self, params, cfg: ModelConfig, *, batch_size: int,
                  frame_hw: tuple[int, int], patch: int = 8,
-                 n_out: int = 2, max_inflight: int = 2,
+                 n_out: int = 2, mesh=None, max_inflight: int = 2,
                  j_per_flop: float = energy.EDGE_J_PER_FLOP,
                  device: str | torch.device | None = None):
         if max_inflight < 1:
             raise ValueError(f"max_inflight must be >= 1, "
                              f"got {max_inflight}")
+        if mesh is not None and mesh.size() != dist.get_world_size():
+            # every rank of the world runs the step's collectives
+            raise ValueError(f"a CascadeService mesh must span every rank: "
+                             f"{mesh.size()} of {dist.get_world_size()}")
         self.cfg = cfg
         self.batch_size = batch_size
         self.frame_hw = (int(frame_hw[0]), int(frame_hw[1]))
@@ -121,10 +140,13 @@ class CascadeService:
         self.n_out = n_out
         self.max_inflight = max_inflight
         self.j_per_flop = j_per_flop
+        self._mesh = mesh
         self._cell = steps.build_detector_cell(
             cfg, batch=batch_size, frame_hw=self.frame_hw, patch=patch,
-            n_out=n_out)
+            n_out=n_out, mesh=mesh)
         self.device = resolve_device(device)
+        if mesh is not None:
+            self.device = fleet.rank_device(self.device)
         self._cuda = self.device.type == "cuda"
         self._weights = self._cell.prepare(common.tree_map(
             lambda a: torch.as_tensor(a).to(self.device), params))
@@ -213,7 +235,8 @@ class CascadeService:
         if not self._cuda:
             return
         # one run outside the capture makes the library's handles and
-        # workspaces, as a capture requires
+        # workspaces, and on a mesh the NCCL communicators of its groups,
+        # as a capture requires
         side = torch.cuda.Stream(device=self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
@@ -339,15 +362,45 @@ class CascadeService:
 
     def backbone_cost(self) -> energy.BackboneCost:
         """Per-frame FLOPs, bytes and Joules of the step, counted over one
-        run on meta tensors of the step's weights and block."""
+        run on meta tensors of the step's weights and block; on a mesh over
+        one real run (a collective: every rank calls it), every rank's
+        products."""
         if self._cost is None:
-            meta = common.tree_map(
-                lambda a: torch.empty_like(a, device="meta"), self._weights)
-            block = torch.zeros((self.batch_size, *self.frame_hw),
-                                device="meta")
+            if self._mesh is None:
+                weights = common.tree_map(
+                    lambda a: torch.empty_like(a, device="meta"),
+                    self._weights)
+                block = torch.zeros((self.batch_size, *self.frame_hw),
+                                    device="meta")
+            else:
+                weights, block = self._weights, self._zero_block()
             self._cost = energy.backbone_cost(
-                self._cell.step_fn, meta, block, j_per_flop=self.j_per_flop)
+                self._cell.step_fn, weights, block,
+                j_per_flop=self.j_per_flop, ranks=self._chips())
         return self._cost
+
+    def roofline(self) -> roofline_mod.Roofline:
+        """Roofline latency model of one backbone batch on the H100 (the
+        per-batch service step the gate's duty cycle amortizes), from one
+        uncaptured run of the step (on a mesh a collective: every rank
+        calls it)."""
+        seq = steps.detector_seq_len(self.frame_hw, self.patch)
+        shape = ShapeConfig(name=f"detector_b{self.batch_size}",
+                            seq_len=seq, global_batch=self.batch_size,
+                            kind="prefill")
+        mesh_name = ("x".join(str(n) for n in self._mesh.mesh.shape)
+                     if self._mesh is not None else "single")
+        return roofline_mod.from_step(
+            self._cell.step_fn, self._weights, self._zero_block(),
+            arch=self.cfg.arch_id, shape=shape, mesh_name=mesh_name,
+            chips=self._chips())
+
+    def _chips(self) -> int:
+        return 1 if self._mesh is None else self._mesh.size()
+
+    def _zero_block(self) -> torch.Tensor:
+        return torch.zeros((self.batch_size, *self.frame_hw),
+                           device=self.device)
 
     def system_energy(self, log, params: energy.EnergyParams | None = None,
                       precision: str = "float32"

@@ -1,9 +1,11 @@
 """Device meshes over ``torch.distributed``. Twin of the host half of
-``repro.launch.mesh``.
+``repro.launch.mesh``: the ``("data", "model")`` mesh of the host's ranks
+that the sharded fleet, its service and the sharded cascade run on.
 
 A FUNCTION, not a module-level constant: importing this module touches no
 process group. ``make_production_mesh`` (the reference's 256-chip TPU
-mesh) waits for the dry-run slice.
+mesh) waits for the dry-run slice (``launch/dryrun.py`` with
+``distributed/memory_model.py``).
 """
 
 from __future__ import annotations

@@ -1,9 +1,9 @@
 """The detector cell on PyTorch: the gated cascade's downstream step.
 
 The twin of ``repro.launch.steps``' detector cell (``detector_seq_len``,
-``build_detector_cell``, ``init_detector_params``). The train, prefill and
-decode cells come with the LM zoo (``ROADMAP.md`` §1 item 7), and so does
-``mesh=``: the port runs the cell on one device.
+``build_detector_cell`` with its ``mesh=``, ``init_detector_params``). The
+train, prefill and decode cells come with the LM zoo (``ROADMAP.md`` §1
+item 4).
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ import torch
 
 from repro_torch import pin_detector_matmul
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding
 from repro_torch.models import common, lm
 
 
@@ -21,7 +22,7 @@ class DetectorCell(NamedTuple):
     """``step_fn(weights, frames)``: a fixed ``(batch, H, W)`` float32 block
     of frames -> ``(batch, n_out)`` float32 logits, with ``weights =
     prepare(params)`` made once from :func:`init_detector_params`-shaped
-    parameters."""
+    parameters (on a mesh: this rank's blocks of them)."""
     step_fn: Callable
     prepare: Callable
 
@@ -36,7 +37,8 @@ def detector_seq_len(frame_hw: tuple[int, int], patch: int) -> int:
 
 def build_detector_cell(cfg: ModelConfig, *, batch: int,
                         frame_hw: tuple[int, int], patch: int,
-                        n_out: int = 2) -> DetectorCell:
+                        n_out: int = 2, mesh=None,
+                        rules: dict | None = None) -> DetectorCell:
     """Downstream-backbone detector step for the gated cascade.
 
     Each frame is patchified to ``seq = (H/patch)*(W/patch)`` tokens,
@@ -55,6 +57,17 @@ def build_detector_cell(cfg: ModelConfig, *, batch: int,
     ``prepare`` makes the compute-dtype copy of the backbone once; the
     reference casts at every use, and the cast is deterministic, so the
     bits are the same.
+
+    With a ``mesh`` (a ``("data", "model")`` ``DeviceMesh``; every rank
+    builds the cell and runs every step together) the backbone is sharded
+    by :meth:`~repro_torch.models.lm.Model.param_specs` (``rules`` over
+    the default rules), as the reference's ``param_shardings``:
+    ``prepare`` takes the whole parameters, the same on every rank, and
+    keeps this rank's compute-dtype blocks; the step runs the sharded
+    forward (:class:`~repro_torch.models.common.Parallel`), and the
+    detection head's logits are gathered over the vocab's group in rank
+    order. Frames and the embedder are replicated, so every rank returns
+    the same logits, bitwise.
     """
     if not cfg.embeds_in:
         raise ValueError(f"{cfg.arch_id}: detector backbone needs an "
@@ -68,10 +81,19 @@ def build_detector_cell(cfg: ModelConfig, *, batch: int,
     H, W = frame_hw
     seq = detector_seq_len(frame_hw, patch)
     dt = model.compute_dtype
+    # the rules resolved once, so the blocks prepare cuts are those the
+    # step reads, whatever use_mesh scope each runs in
+    rules = rules or sharding.current_rules()
+    par = None if mesh is None else common.Parallel(mesh, rules)
+    vocab_group = None if par is None else par.group(
+        common.unembed_spec(cfg.vocab, cfg.d_model)["kernel"], "vocab")
 
     def prepare(params: dict) -> dict:
-        return {"backbone": common.tree_map(lambda a: a.to(dt),
-                                            params["backbone"]),
+        backbone = common.tree_map(lambda a: a.to(dt), params["backbone"])
+        if mesh is not None:
+            backbone = common.local_params(
+                backbone, model.param_specs(mesh, rules), mesh)
+        return {"backbone": backbone,
                 "embedder": {k: v.to(torch.float32)
                              for k, v in params["embedder"].items()}}
 
@@ -80,8 +102,11 @@ def build_detector_cell(cfg: ModelConfig, *, batch: int,
         p = p.permute(0, 2, 1, 3).reshape(seq, patch * patch)
         emb = (p.to(torch.float32) @ weights["embedder"]["proj"]
                + weights["embedder"]["pos"])
-        logits = model.forward(weights["backbone"], emb[None].to(dt))
-        return logits[0, -1, :n_out].to(torch.float32)
+        last = model.forward(weights["backbone"], emb[None].to(dt),
+                             par)[0, -1]
+        if vocab_group is not None:
+            last = sharding.all_gather_cat(last, vocab_group)
+        return last[:n_out].to(torch.float32)
 
     def detector_step(weights: dict, frames: torch.Tensor) -> torch.Tensor:
         # the scope covers a CUDA graph's capture of the step too

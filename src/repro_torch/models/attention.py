@@ -9,8 +9,15 @@ float32 cast back to the compute dtype; the ``wo`` product in the compute
 dtype. Not ``F.scaled_dot_product_attention``: its backend changes with
 the shape, and with it the arithmetic.
 
+Sharded (``par``, a :class:`~repro_torch.models.common.Parallel`): ``wq``,
+``wk`` and ``wv`` are column-parallel over this rank's heads, so q, k, v,
+the scores and ``P·V`` are those of its heads alone, unchanged per head;
+``wo`` is row-parallel, and its ``(s, d)`` partial is folded over the
+heads' group (:func:`~repro_torch.distributed.sharding.fold_partials`).
+Heads that the mesh does not divide run whole and fold nothing.
+
 ``KVCache`` and ``decode_step`` come with the decode cell
-(``ROADMAP.md`` §1 item 7).
+(``ROADMAP.md`` §1 item 4).
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.distributed import sharding
 from repro_torch.models import common
 from repro_torch.models.common import P
 
@@ -120,13 +128,26 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def full(params: dict, x: torch.Tensor, cfg: AttnConfig,
-         positions: torch.Tensor | None = None) -> torch.Tensor:
-    """Training / prefill attention over the whole sequence."""
+         positions: torch.Tensor | None = None,
+         par: common.Parallel | None = None) -> torch.Tensor:
+    """Training / prefill attention over the whole sequence; with ``par``,
+    over this rank's heads, folded."""
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device)
+    group = None
+    if par is not None:
+        decl = spec(cfg)
+        if par.spec(decl["wq"])[1] != par.spec(decl["wk"])[1]:
+            raise NotImplementedError(
+                "query heads and kv heads split differently over the mesh "
+                "(grouped-query attention) is not ported")
+        group = par.group(decl["wq"], "heads")
+        params = dict(params, **{k: par.gather(params[k], decl[k])
+                                 for k in ("wq", "wk", "wv", "wo")})
     q, k, v = _project_qkv(params, x, cfg, positions)
     out = _sdpa(q, k, v, cfg, positions, positions)
     h, hd, d = params["wo"].shape
-    return out.reshape(b, s, h * hd) @ params["wo"].to(x.dtype).reshape(
+    out = out.reshape(b, s, h * hd) @ params["wo"].to(x.dtype).reshape(
         h * hd, d)
+    return out if group is None else sharding.fold_partials(out, group)

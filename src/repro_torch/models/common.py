@@ -1,10 +1,15 @@
-"""Shared model substrate on PyTorch: parameter specs, norms, RoPE and the
-unembedding. The forward half of ``repro.models.common``.
+"""Shared model substrate on PyTorch: parameter specs and their
+sharding, norms, RoPE and the unembedding. The forward half of
+``repro.models.common``.
 
 Every parameter is declared once as :class:`P` (shape, logical axes,
 init); :func:`init_params` materialises a spec tree (nested dicts and
-lists) in the reference's leaf order. The logical axes are kept for
-readability: the port runs on one device and shards nothing.
+lists) in the reference's leaf order. The logical axes place it on a
+mesh: :func:`param_specs` (the twin of ``param_shardings``) gives each
+leaf's :func:`~repro_torch.distributed.sharding.spec_for` entry,
+:func:`local_params` cuts this rank's blocks, and :class:`Parallel` is
+what a sharded forward asks of the mesh. ``embed``, ``embed_spec`` and
+``abstract_params`` wait for the LM zoo.
 
 The norms keep the reference's dtype discipline: float32 statistics, the
 normalisation applied in the compute dtype.
@@ -16,6 +21,8 @@ import math
 from typing import Any, Callable, NamedTuple
 
 import torch
+
+from repro_torch.distributed import sharding
 
 
 class P(NamedTuple):
@@ -75,6 +82,61 @@ def init_params(generator: torch.Generator, spec: SpecTree,
                                     dtype=torch.float32)).to(dtype)
 
     return tree_map(one, spec, _is_p)
+
+
+# ---------------------------------------------------------------------------
+# Sharding
+# ---------------------------------------------------------------------------
+
+def param_specs(spec: SpecTree, mesh, rules: dict | None = None) -> dict:
+    """Each declared parameter's spec on ``mesh`` (one entry per dim: a
+    mesh dim's name, a tuple of names, or None), from its logical axes:
+    the twin of the reference's ``param_shardings``. The tree of ``spec``
+    with a tuple at every leaf."""
+    return tree_map(lambda p: sharding.spec_for(p.shape, p.axes, mesh,
+                                                rules), spec, _is_p)
+
+
+def local_params(params, specs, mesh):
+    """This rank's block of every tensor of ``params`` (the whole tree,
+    the same on every rank) under ``specs`` (:func:`param_specs`)."""
+    if isinstance(params, dict):
+        return {k: local_params(params[k], specs[k], mesh)
+                for k in sorted(params)}
+    if isinstance(params, list):
+        return [local_params(p, s, mesh) for p, s in zip(params, specs)]
+    return sharding.local_block(params, specs, mesh)
+
+
+class Parallel(NamedTuple):
+    """A mesh as the sharded forward sees it. Weights are this rank's
+    blocks (:func:`local_params`); each is declared by a :class:`P` whose
+    logical axes say how it was cut, by ``rules`` (None: the current
+    rules, :data:`~repro_torch.distributed.sharding.DEFAULT_RULES`
+    outside a ``use_mesh`` scope)."""
+    mesh: Any
+    rules: dict | None = None
+
+    def spec(self, p: P) -> tuple:
+        return sharding.spec_for(p.shape, p.axes, self.mesh, self.rules)
+
+    def group(self, p: P, logical: str):
+        """The process group ``p``'s ``logical`` dim is split over, or None
+        when :func:`~repro_torch.distributed.sharding.spec_for` leaves it
+        whole."""
+        axes = self.spec(p)[p.axes.index(logical)]
+        return None if axes is None else sharding.axis_group(self.mesh,
+                                                             axes)
+
+    def gather(self, w: torch.Tensor, p: P) -> torch.Tensor:
+        """``w``, this rank's block of ``p``, with its ``"embed"`` dim whole
+        again (FSDP: gathered right before each use, as GSPMD does per
+        layer); its other dims as they are."""
+        if "embed" in p.axes:
+            g = self.group(p, "embed")
+            if g is not None:
+                w = sharding.all_gather_cat(w, g, p.axes.index("embed"))
+        return w
 
 
 # ---------------------------------------------------------------------------
@@ -161,9 +223,15 @@ def unembed_spec(vocab: int, d: int) -> dict:
     return {"kernel": P((d, vocab), ("embed", "vocab"))}
 
 
-def unembed(params: dict, x: torch.Tensor, compute_dtype: torch.dtype
-            ) -> torch.Tensor:
-    return x.to(compute_dtype) @ params["kernel"].to(compute_dtype)
+def unembed(params: dict, x: torch.Tensor, compute_dtype: torch.dtype,
+            par: Parallel | None = None, vocab: int = 0) -> torch.Tensor:
+    """Logits; with ``par``, this rank's block of the ``vocab`` columns
+    (all of them where :func:`~repro_torch.distributed.sharding.spec_for`
+    leaves the vocab whole)."""
+    w = params["kernel"]
+    if par is not None:
+        w = par.gather(w, unembed_spec(vocab, x.shape[-1])["kernel"])
+    return x.to(compute_dtype) @ w.to(compute_dtype)
 
 
 def true_divide(x: torch.Tensor, value: float) -> torch.Tensor:

@@ -3,13 +3,19 @@ runs. The twin of ``repro.models.lm``'s ``Model`` (``spec``, ``init``,
 ``forward``) for the ``encoder`` family without experts: embeds in, the
 pre-norm transformer stack, the final norm, the unembedding.
 
-The reference's sharding hints (``shard``, ``_seq_gather``,
-``_opt_barrier``) do nothing without a mesh and are dropped, and so is
-``remat`` (the port runs no backward pass here). Layers are stacked on a
+Sharded (``par``, a :class:`~repro_torch.models.common.Parallel` over
+the blocks of :meth:`Model.param_specs`), the forward is written out:
+attention and MLP tensor-parallel over ``"model"`` with their row-parallel
+partials folded, every ``"embed"`` dim (FSDP over ``"data"``) gathered
+right before its use, the unembedding this rank's vocab block; norms and
+the residual stream replicated. The reference's activation hints
+(``shard``, ``_seq_gather``: the sequence-parallel residual,
+``act_resid_seq``) and ``_opt_barrier`` constrain GSPMD and are dropped,
+and so is ``remat`` (the port runs no backward pass here). Layers are stacked on a
 leading axis (``scan_layers=True``) or kept as a list, as in the
 reference; the stack runs as a Python loop over the layers. Token
 embeddings, experts, the hybrid and xLSTM families, ``loss`` and the decode
-step come with the LM zoo (``ROADMAP.md`` §1 item 7).
+step come with the LM zoo (``ROADMAP.md`` §1 item 4).
 """
 
 from __future__ import annotations
@@ -52,13 +58,13 @@ def _tf_layer_spec(cfg: ModelConfig) -> dict:
     }
 
 
-def _tf_layer(params: dict, x: torch.Tensor, cfg: ModelConfig
-              ) -> torch.Tensor:
+def _tf_layer(params: dict, x: torch.Tensor, cfg: ModelConfig,
+              par: common.Parallel | None = None) -> torch.Tensor:
     """Pre-norm transformer block."""
     a = common.apply_norm(x, params.get("attn_norm"), cfg.norm)
-    x = x + attention.full(params["attn"], a, _attn_cfg(cfg))
+    x = x + attention.full(params["attn"], a, _attn_cfg(cfg), par=par)
     m = common.apply_norm(x, params.get("mlp_norm"), cfg.norm)
-    return x + mlp.apply(params["mlp"], m, _mlp_cfg(cfg))
+    return x + mlp.apply(params["mlp"], m, _mlp_cfg(cfg), par=par)
 
 
 def layer_params(layers, i: int) -> dict:
@@ -97,21 +103,33 @@ class Model:
         return common.init_params(generator, self.spec(),
                                   dtype_of(self.cfg.param_dtype))
 
-    def _trunk(self, params: dict, embeds: torch.Tensor) -> torch.Tensor:
+    def param_specs(self, mesh, rules: dict | None = None) -> dict:
+        """Each parameter's spec on ``mesh``: the twin of the reference's
+        ``param_shardings``."""
+        return common.param_specs(self.spec(), mesh, rules)
+
+    def _trunk(self, params: dict, embeds: torch.Tensor,
+               par: common.Parallel | None = None) -> torch.Tensor:
         """Embeds in -> layer stack -> final norm: the hidden states."""
         cfg = self.cfg
         h = embeds.to(self.compute_dtype)
         for i in range(cfg.n_layers):
-            h = _tf_layer(layer_params(params["layers"], i), h, cfg)
+            h = _tf_layer(layer_params(params["layers"], i), h, cfg, par)
         return common.apply_norm(h, params.get("final_norm"), cfg.norm)
 
-    def forward(self, params: dict, embeds: torch.Tensor) -> torch.Tensor:
+    def forward(self, params: dict, embeds: torch.Tensor,
+                par: common.Parallel | None = None) -> torch.Tensor:
         """``(b, s, d_model)`` embeddings -> ``(b, s, vocab)`` logits in the
         compute dtype (the reference's ``forward`` with ``Batch(embeds=...)``;
         its MoE auxiliary loss is always 0 here and is not returned). Its
         products run in :func:`~repro_torch.pin_detector_matmul`'s scope:
         float32 ones in full float32, bf16 ones reduced in float32, as the
-        reference's dots accumulate, whatever the caller's flags."""
+        reference's dots accumulate, whatever the caller's flags.
+
+        With ``par``, ``params`` are this rank's blocks and the logits are
+        this rank's block of the vocab (``par.group`` of the unembedding's
+        ``"vocab"`` dim gathers them)."""
         with pin_detector_matmul():
-            h = self._trunk(params, embeds)
-            return common.unembed(params["unembed"], h, self.compute_dtype)
+            h = self._trunk(params, embeds, par)
+            return common.unembed(params["unembed"], h, self.compute_dtype,
+                                  par, self.cfg.vocab)

@@ -299,16 +299,19 @@ def _rank_main(rank: int, world: int, shape: tuple, work: list,
 
 
 def spawn(shape: tuple[int, int], work: list, t_scores: dict, root: str,
-          timeout: float = 240.0) -> list[dict]:
+          timeout: float = 240.0, target=None) -> list[dict]:
     """Run ``work`` (``[(kind, name, args), ...]``) in every rank of a
     ``gloo`` world on a ``shape`` ``("data", "model")`` mesh; returns each
     rank's results. Raises if a rank fails, or terminates every rank and
-    raises if they are not all done within ``timeout`` seconds."""
+    raises if they are not all done within ``timeout`` seconds. ``target``
+    (default :func:`_rank_main`) is another module's rank function of the
+    same arguments, ``t_scores`` then its payload; it writes
+    ``rank<r>.pkl`` or ``rank<r>.err`` under ``root`` as this one does."""
     import torch.multiprocessing as mp
     os.makedirs(root, exist_ok=True)
     world = shape[0] * shape[1]
     ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=_rank_main,
+    procs = [ctx.Process(target=target or _rank_main,
                          args=(r, world, shape, work, t_scores, root))
              for r in range(world)]
     for p in procs:

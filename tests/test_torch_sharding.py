@@ -135,3 +135,31 @@ def test_mesh_shape_needs_named_dims():
         tsh.mesh_shape(Unnamed())
     with pytest.raises(NotImplementedError):
         tsh.axis_group(None, ("pod", "data"))
+
+
+@pytest.mark.parametrize("arch", ["full", "smoke"])
+@pytest.mark.parametrize("name", list(SHAPES))
+def test_param_specs_match_the_reference_param_shardings(name, arch):
+    """``Model.param_specs`` (the blocks the sharded detector keeps) is
+    the reference's ``Model.param_shardings`` leaf by leaf, on the
+    ``hubert-xlarge`` config and its smoke config."""
+    from repro import configs as jconfigs
+    from repro.models import lm as jlm
+    from repro_torch import configs
+    from repro_torch.models import common, lm
+    jm, tm = meshes(name)
+    get = "get_config" if arch == "full" else "get_smoke"
+    model = lm.Model(getattr(configs, get)("hubert-xlarge"))
+    decls = common.leaves(model.spec())
+    jtree = jlm.build(getattr(jconfigs, get)("hubert-xlarge")
+                      ).param_shardings(jm)
+    shardings = jax.tree.leaves(jtree)
+    assert len(shardings) == len(decls) == 13
+    want = [tuple(s.spec) + (None,) * (len(p.shape) - len(s.spec))
+            for s, p in zip(shardings, decls)]
+    got = []
+    common.tree_map(got.append, model.param_specs(tm),
+                    lambda x: isinstance(x, tuple))
+    assert got == want
+    if "model" in tm and tm["model"] > 1:
+        assert any("model" in spec for spec in got)
