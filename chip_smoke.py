@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only mesh    # the build and the mesh phase
+    python3 chip_smoke.py --only cells   # the cells phase alone
 
 from the root of a checkout, on a machine with one CUDA card (built for
 sm_90a: an H100; with ``--only mesh``, every card of the host joins the
@@ -111,7 +112,25 @@ mesh phase's NCCL world). It
    the batch's bounds, its device busy share, the site's frames/s against
    the gate's alone, ``roofline().to_dict()``, and the energy bill against
    an always-on backbone;
-11. drives the training path (paper Fig. 5a) at the same width: samples
+11. runs the encoder's training path (``cells`` phase) at full
+   ``hubert-xlarge`` width (48 layers, bf16, remat "full", weights from
+   ``Model.init`` on a seeded generator): counts the train cell at
+   ``train_4k`` and the prefill cell at ``prefill_32k`` on meta tensors
+   (``FlopCounterMode`` equal to the hand count; ``analyze()`` on one
+   card, 16x16 and 2x16x16); runs the train step at 4096 tokens x 4 (the
+   batch cut from 256), a warm step and three timed ones from the same
+   state, each bitwise the warm one, the loss and gradients twice
+   bitwise, one step profiled, with ms a step, tokens/s, TFLOP/s and the
+   allocator's peak beside ``analyze()``; runs the prefill cell at 32,768
+   tokens x 1 (cut from 32), its logits finite, of the right shape and
+   bitwise ``Model.forward``'s; holds the card against the CPU at 2
+   layers (1,024 tokens, weights at std 0.02): float32 loss within 1e-5
+   relative and every gradient within 1e-4 of its leaf's largest
+   |entry|, bf16 within 1e-2 and 5%; records the float32 difference at
+   ``Model.init``'s weights beside the card's response to a 1e-7
+   perturbation; and takes 10 AdamW steps at a constant 1e-4 on a fixed
+   batch, the loss falling;
+12. drives the training path (paper Fig. 5a) at the same width: samples
    balanced fragments from 256 synthetic training frames and 128 held-out
    frames (``sensing.fragments``), trains the Fragment model on the
    permutation base (``train_fragment_model``, 20 epochs), scores the
@@ -128,7 +147,7 @@ mesh phase's NCCL world). It
    both encoders the same way at ragged shapes (N, K and D off the tiles,
    K steps that straddle generator rows) for each nonlinearity, and
    reports their tiles, blocks and waves;
-12. drives the int-datapath path (``benchmarks/int_datapath.py``'s
+13. drives the int-datapath path (``benchmarks/int_datapath.py``'s
    claims): the float32 kernel, the live int8 kernel and the expanded-slab
    kernel (the int scorer's retired layout, ``csrc/int_expanded.cu``, on
    the int8 tensor cores) race on one ADC capture at the reference's shape
@@ -153,7 +172,7 @@ mesh phase's NCCL world). It
    equal to the same gate's on the CPU wherever the deciding score sits
    more than 2.5e-4 from ``t_score``, its frames/s, duty cycle and the
    detector FLOPs it saves;
-13. runs Table I and Fig. 16's model comparison (``baselines`` phase):
+14. runs Table I and Fig. 16's model comparison (``baselines`` phase):
    ``benchmarks/common.py``'s noisy 4-bit data made with
    ``sensing.synthetic`` (training noise 0.20; held-out noise 0.30 with
    3% impulse spikes), balanced fragments, at the paper's operating point
@@ -170,7 +189,7 @@ mesh phase's NCCL world). It
    then times, per frame of a 32-frame chunk, the float32 HDC scorer
    against MLP2 on all 25 windows (beside the paper's 2.4x) and
    ``encode_frames`` with and without reuse;
-14. prints one JSON line per phase, a ``kernels`` line, and last
+15. prints one JSON line per phase, a ``kernels`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises: the script exits non-zero and prints no result.
@@ -194,6 +213,7 @@ import time
 
 import numpy as np
 import torch
+from torch.utils.flop_counter import FlopCounterMode
 
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -215,12 +235,13 @@ from repro_torch.kernels import sliding_scores_int as ssi  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.configs import hypersense as paper_config  # noqa: E402
 from repro_torch.core import gate as hs_gate  # noqa: E402
-from repro_torch.distributed import sharding  # noqa: E402
+from repro_torch.distributed import memory_model, sharding  # noqa: E402
 from repro_torch.kernels import int_expanded as ie  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
 from repro_torch.launch.cascade import CascadeService  # noqa: E402
 from repro_torch.launch.serve import FleetService  # noqa: E402
 from repro_torch.models import common as model_common  # noqa: E402
+from repro_torch.models import lm  # noqa: E402
 from repro_torch.sensing import (adc, baselines, fleet,  # noqa: E402
                                  fragments, stream, synthetic)
 from repro_torch.train import optim  # noqa: E402
@@ -2223,6 +2244,317 @@ def cascade_phase(base_model, cal, raw):
     return rec, launches
 
 
+# the encoder's training path (cells phase): the train cell at train_4k's
+# sequence, its batch cut from 256 to CELLS_TRAIN_BATCH to fit one card;
+# the prefill cell at prefill_32k's, its batch cut from 32 to
+# CELLS_PREFILL_BATCH; CELLS_TIMED timed steps after a warm one
+CELLS_TRAIN_BATCH, CELLS_PREFILL_BATCH, CELLS_TIMED = 4, 1, 3
+# card against the CPU and the learning check: full width at
+# CELLS_CHECK_LAYERS layers, (batch, seq) tokens, weights at
+# CELLS_WEIGHT_STD (where the float32 problem is well conditioned; at
+# Model.init's scale the attention is near one-hot and the difference is
+# recorded beside the card's own response to a CELLS_PERTURB change);
+# tolerances (loss relative, each gradient leaf of its largest |entry|)
+CELLS_CHECK_LAYERS, CELLS_CHECK_TOKENS = 2, (2, 512)
+CELLS_WEIGHT_STD, CELLS_PERTURB = 0.02, 1e-7
+CELLS_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (1e-2, 5e-2)}
+CELLS_LEARN_TOKENS, CELLS_LEARN_STEPS, CELLS_LEARN_LR = (1, 512), 10, 1e-4
+# the production meshes analyze() is printed for
+CELLS_MESHES = ({"data": 1, "model": 1}, {"data": 16, "model": 16},
+                {"pod": 2, "data": 16, "model": 16})
+
+
+def cell_matmul_flops(cfg, b: int, s: int, train: bool) -> dict:
+    """Hand count of a cell's products, split into the bf16 ones (the
+    projections, the MLP, the unembedding) and the float32 ones (the
+    scores and ``P·V``). Forward: per layer q, k, v, o, the scores and
+    ``P·V``, the MLP; the unembedding. Train: the forward, the backward
+    (two products a product: every layer's input takes a gradient, since
+    the norms' weights do), and with ``"full"`` remat each layer's
+    recompute, which stops before ``w_down`` (``torch.utils.checkpoint``'s
+    early stop: the backward pass saved that product's inputs)."""
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.kv_heads, \
+        cfg.resolved_head_dim
+    f, T = cfg.d_ff, b * s
+    down = 2 * T * f * d
+    proj = 2 * T * d * (h + 2 * kv) * hd + 2 * T * h * hd * d + 2 * T * d * f
+    attn = 2 * 2 * b * s * s * h * hd
+    unembed = 2 * T * d * cfg.vocab
+    L = cfg.n_layers
+    low = L * (proj + down) + unembed
+    f32 = L * attn
+    if train:
+        remat = cfg.remat == "full"
+        low = 3 * low + (L * proj if remat else 0)
+        f32 = 3 * f32 + (L * attn if remat else 0)
+    return {"bf16": low, "float32": f32, "total": low + f32}
+
+
+def counted_flops(fn, *args) -> int:
+    with FlopCounterMode(display=False) as fc:
+        fn(*args)
+    return fc.get_total_flops()
+
+
+def cells_counted() -> dict:
+    """The train and prefill cells at ``train_4k`` and ``prefill_32k``,
+    full batches, on meta tensors: ``FlopCounterMode`` FLOPs against the
+    hand count, and ``analyze()`` on one card and the production
+    meshes."""
+    cfg = configs.get_config(CASCADE_ARCH)
+    out = {}
+    for name in ("train_4k", "prefill_32k"):
+        shape = configs.SHAPES[name]
+        cell = steps.build_cell(cfg, shape)
+        got = counted_flops(cell.step_fn, *cell.abstract_args)
+        hand = cell_matmul_flops(cfg, shape.global_batch, shape.seq_len,
+                                 shape.kind == "train")
+        check(got == hand["total"], f"cells: {name} counts {got} FLOPs, "
+              f"hand count {hand}")
+        out[name] = dict(batch=shape.global_batch, seq=shape.seq_len,
+                         flops=got, flops_hand=hand, memory={
+                             "x".join(map(str, m.values())):
+                             memory_record(cfg, shape, m)
+                             for m in CELLS_MESHES})
+    return out
+
+
+def memory_record(cfg, shape, mesh) -> dict:
+    mb = memory_model.analyze(cfg, shape, mesh)
+    return dict(dataclasses.asdict(mb), total_gb=mb.total_gb,
+                fits_h100=mb.fits_h100)
+
+
+def scaled_params(cfg, seed: int, device) -> dict:
+    """``cfg``'s parameters drawn on the CPU from ``seed``: normal leaves
+    at CELLS_WEIGHT_STD, norm scales ``1 + 0.1 N``, biases ``0.1 N``."""
+    g = torch.Generator().manual_seed(seed)
+
+    def one(p):
+        x = torch.randn(p.shape, generator=g)
+        x = (1 + 0.1 * x if p.init == "ones" else 0.1 * x
+             if p.init == "zeros" else CELLS_WEIGHT_STD * x)
+        return x.to(device)
+    return model_common.tree_map(one, lm.Model(cfg).spec(),
+                                 lambda x: isinstance(x, model_common.P))
+
+
+def cell_batch(cfg, b: int, s: int, seed: int, device) -> lm.Batch:
+    """Embeddings ``N(0, 1)`` in bf16 (the cells' input spec) and int32
+    labels in ``[-1, vocab)`` (-1 masked), drawn on the CPU from ``seed``."""
+    g = torch.Generator().manual_seed(seed)
+    emb = torch.randn((b, s, cfg.d_model), generator=g).to(torch.bfloat16)
+    labels = torch.randint(-1, cfg.vocab, (b, s), generator=g,
+                           dtype=torch.int32)
+    return lm.Batch(None, labels.to(device), emb.to(device))
+
+
+def leaf_errs(got, want) -> float:
+    """Largest |got - want| over each leaf's largest |want|, over all
+    leaves."""
+    errs = [float((a.float().cpu() - b.float()).abs().max()
+                  / b.float().abs().max())
+            for a, b in zip(model_common.leaves(got),
+                            model_common.leaves(want))]
+    return max(errs)
+
+
+def same_bits(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(model_common.leaves(a),
+                                                 model_common.leaves(b)))
+
+
+def card_vs_cpu(cfg, params) -> dict:
+    """``loss_and_grads`` on the card and on the CPU (``params`` copied),
+    one CELLS_CHECK_TOKENS batch: the loss's relative difference and the
+    gradients' largest difference of a leaf's largest |entry|."""
+    model = lm.Model(cfg)
+    b, s = CELLS_CHECK_TOKENS
+    batch = cell_batch(cfg, b, s, SEED + 16, DEVICE)
+    loss, grads = steps.loss_and_grads(model, params, batch)
+    cpu = model_common.tree_map(lambda a: a.cpu(), params)
+    cbatch = lm.Batch(None, batch.labels.cpu(), batch.embeds.cpu())
+    closs, cgrads = steps.loss_and_grads(model, cpu, cbatch)
+    return dict(loss=float(closs),
+                loss_rel_diff=abs(float(loss) - float(closs))
+                / abs(float(closs)),
+                grad_rel_diff=leaf_errs(grads, cgrads))
+
+
+def cells_checks() -> dict:
+    """Full width at CELLS_CHECK_LAYERS layers: the card against the CPU
+    in float32 and bf16 (held); at ``Model.init``'s weights in float32,
+    the difference recorded beside the card's own response to a
+    CELLS_PERTURB relative change of every weight; the loss over
+    CELLS_LEARN_STEPS AdamW steps at a constant CELLS_LEARN_LR on a fixed
+    batch (must fall)."""
+    base = configs.get_config(CASCADE_ARCH).replace(
+        n_layers=CELLS_CHECK_LAYERS)
+    out = {}
+    for dt, (loss_tol, grad_tol) in CELLS_TOL.items():
+        cfg = base.replace(compute_dtype=dt)
+        r = card_vs_cpu(cfg, scaled_params(cfg, SEED + 17, DEVICE))
+        r.update(loss_rtol=loss_tol, grad_rtol=grad_tol)
+        check(r["loss_rel_diff"] <= loss_tol
+              and r["grad_rel_diff"] <= grad_tol, f"cells: card vs CPU {dt}"
+              f" at {CELLS_CHECK_LAYERS} layers: {r}")
+        out[dt] = r
+    cfg = base.replace(compute_dtype="float32")
+    model = lm.Model(cfg)
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(SEED + 18))
+    rec = card_vs_cpu(cfg, params)
+    gp = torch.Generator(device=DEVICE).manual_seed(SEED + 19)
+    moved = model_common.tree_map(lambda a: a * (1 + CELLS_PERTURB * (
+        torch.randn(a.shape, generator=gp, device=DEVICE))), params)
+    b, s = CELLS_CHECK_TOKENS
+    batch = cell_batch(cfg, b, s, SEED + 16, DEVICE)
+    _, g0 = steps.loss_and_grads(model, params, batch)
+    _, g1 = steps.loss_and_grads(model, moved, batch)
+    rec["perturbed_grad_rel_diff"] = leaf_errs(g1, model_common.tree_map(
+        lambda a: a.cpu(), g0))
+    out["float32_model_init"] = rec
+
+    # the model learns: a constant learning rate (the cell's warmup gives
+    # ~1e-7 in its first steps)
+    cfg = base
+    model = lm.Model(cfg)
+    step = steps.train_step_fn(model, optim.AdamW(
+        lr=optim.constant(CELLS_LEARN_LR)))
+    params = scaled_params(cfg, SEED + 20, DEVICE)
+    state = optim.AdamW().init(params)
+    batch = cell_batch(cfg, *CELLS_LEARN_TOKENS, SEED + 21, DEVICE)
+    losses = []
+    for _ in range(CELLS_LEARN_STEPS):
+        params, state, loss = step(params, state, batch)
+        losses.append(loss)
+    losses = torch.stack(losses).tolist()
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"cells: the loss did not fall: {losses}")
+    out["learn"] = dict(layers=cfg.n_layers, tokens=CELLS_LEARN_TOKENS,
+                        lr=CELLS_LEARN_LR, losses=losses)
+    return out
+
+
+def timed_run(fn, *args):
+    """``fn(*args)`` between CUDA events: (its output, ms)."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn(*args)
+    stop.record()
+    stop.synchronize()
+    return out, start.elapsed_time(stop)
+
+
+def train_cell_run(cfg, params) -> dict:
+    """The full-width train cell at train_4k's sequence, CELLS_TRAIN_BATCH
+    sequences: a warm step, then CELLS_TIMED timed steps from the same
+    state, each bitwise the warm one (loss, parameters, moments); the
+    loss and gradients twice, bitwise; one step profiled; the allocator's
+    peak beside ``analyze()``."""
+    shape = dataclasses.replace(configs.SHAPES["train_4k"],
+                                global_batch=CELLS_TRAIN_BATCH)
+    b, s = shape.global_batch, shape.seq_len
+    cell = steps.build_cell(cfg, shape)
+    step = cell.step_fn
+    state = steps.make_optimizer(cfg).init(params)
+    batch = cell_batch(cfg, b, s, SEED + 22, DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before_gb = torch.cuda.memory_allocated() / 1e9
+    warm, first_ms = timed_run(step, params, state, batch)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(warm[2].shape == () and math.isfinite(float(warm[2])),
+          f"cells: train loss {warm[2]}")
+    ms = []
+    for _ in range(CELLS_TIMED):
+        out, t = timed_run(step, params, state, batch)
+        ms.append(t)
+        check(same_bits(list(out), list(warm)),
+              "cells: two train steps from one state differ")
+        del out
+    model = lm.Model(cfg)
+    la, ga = steps.loss_and_grads(model, params, batch)
+    lb, gb = steps.loss_and_grads(model, params, batch)
+    check(torch.equal(la, lb) and same_bits(ga, gb),
+          "cells: the loss or a gradient differs run to run")
+    del ga, gb, warm
+    prof = device_profile(lambda: step(params, state, batch))
+    flops = counted_flops(step, *cell.abstract_args)
+    hand = cell_matmul_flops(cfg, b, s, True)
+    check(flops == hand["total"], f"cells: train step {flops} FLOPs, hand "
+          f"{hand}")
+    step_ms = statistics.median(ms)
+    return dict(
+        batch=b, seq=s, cut="train_4k's batch 256 -> 4", loss=float(la),
+        first_step_ms=first_ms, ms_per_step=ms, median_ms=step_ms,
+        tokens_per_s=b * s / (step_ms / 1e3), flops=flops, flops_hand=hand,
+        tflops_per_s=flops / (step_ms / 1e3) / 1e12, bf16_peak_tflops=989,
+        bound_ms={"bf16_at_989": hand["bf16"] / BF16_OPS_S * 1e3,
+                  "float32_at_67": hand["float32"] / F32_OPS_S * 1e3},
+        bitwise_run_to_run=True, allocated_before_gb=before_gb,
+        peak_allocated_gb=peak_gb,
+        memory_model=memory_record(cfg, shape, CELLS_MESHES[0]),
+        profile=prof)
+
+
+def prefill_cell_run(cfg, params) -> dict:
+    """The full-width prefill cell at prefill_32k's sequence,
+    CELLS_PREFILL_BATCH sequence: logits of the right shape, finite,
+    bitwise ``Model.forward``'s on the same embeddings; ms of both runs
+    and the allocator's peak beside ``analyze()``."""
+    shape = dataclasses.replace(configs.SHAPES["prefill_32k"],
+                                global_batch=CELLS_PREFILL_BATCH)
+    b, s = shape.global_batch, shape.seq_len
+    cell = steps.build_cell(cfg, shape)
+    batch = cell_batch(cfg, b, s, SEED + 23, DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        got, step_ms = timed_run(cell.step_fn, params, batch)
+        want, forward_ms = timed_run(lm.Model(cfg).forward, params,
+                                     batch.embeds)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(tuple(got.shape) == (b, s, cfg.vocab)
+          and bool(torch.isfinite(got).all()), f"cells: prefill logits "
+          f"{tuple(got.shape)} or not finite")
+    check(torch.equal(got, want), "cells: prefill logits differ from "
+          "Model.forward")
+    hand = cell_matmul_flops(cfg, b, s, False)
+    return dict(batch=b, seq=s, cut="prefill_32k's batch 32 -> 1",
+                logits_shape=list(got.shape), bitwise_vs_forward=True,
+                ms=step_ms, forward_ms=forward_ms, flops_hand=hand,
+                tflops_per_s=hand["total"] / (step_ms / 1e3) / 1e12,
+                bound_ms={"bf16_at_989": hand["bf16"] / BF16_OPS_S * 1e3,
+                          "float32_at_67": hand["float32"] / F32_OPS_S
+                          * 1e3},
+                peak_allocated_gb=peak_gb,
+                memory_model=memory_record(cfg, shape, CELLS_MESHES[0]))
+
+
+def cells_phase(card: str) -> dict:
+    """The encoder's training path at full ``hubert-xlarge`` width (48
+    layers, bf16 compute, remat "full", weights from ``Model.init`` on a
+    seeded generator): the cells counted on meta tensors, the train and
+    prefill cells run, the card against the CPU, the model learning.
+    Every record carries the card's name and power limit."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rec = {"card": card, "counted": cells_counted()}
+    cfg = configs.get_config(CASCADE_ARCH)
+    params = lm.Model(cfg).init(
+        torch.Generator(device=DEVICE).manual_seed(SEED + 15))
+    rec["train"] = train_cell_run(cfg, params)
+    torch.cuda.empty_cache()
+    rec["prefill"] = prefill_cell_run(cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    rec["checks"] = cells_checks()
+    rec["phase_s"] = time.perf_counter() - t0
+    emit({"cells": rec})
+    return rec
+
+
 def device_profile(fn, top: int = 6) -> dict:
     """``fn`` once under ``torch.profiler``: the device busy share of its
     wall time and the device time of its top kernels. The profiler's own
@@ -3525,9 +3857,10 @@ def mesh_only(model, cal) -> int:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
-        "--only", choices=("mesh",),
-        help="build the kernels and run the mesh phase alone (on a host "
-             "with several cards: the NCCL world takes every card)")
+        "--only", choices=("mesh", "cells"),
+        help="mesh: build the kernels and run the mesh phase alone (on a "
+             "host with several cards: the NCCL world takes every card); "
+             "cells: the cells phase alone (it runs none of the kernels)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3539,6 +3872,11 @@ def main(argv=None) -> int:
     print(smi, flush=True)
     emit({"nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "python": sys.version.split()[0]})
+
+    if args.only == "cells":
+        cells_phase(smi)
+        ok_line()
+        return 0
 
     t0 = time.perf_counter()
     logs = _build.build()
@@ -3590,6 +3928,7 @@ def main(argv=None) -> int:
     cascade, cascade_launches = cascade_phase(model, cal, fleet_raw)
     del fleet_raw
     emit({"cascade_phase_s": time.perf_counter() - t0})
+    cells_phase(smi)
     train, train_launches, train_records = train_phase(g)
     emit({"train": train})
     for r in train_records:

@@ -3,14 +3,16 @@
 Each module defines ``config()`` (the exact numbers) and ``smoke()`` (a
 reduced config of the same family for CPU tests), as in
 ``repro.configs``. The port has the architectures its ported models run;
-the others come with the LM zoo (``ROADMAP.md`` §1 item 7).
+the others come with the LM zoo (``ROADMAP.md`` §1 item 4).
 """
 
 from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ModelConfig, ShapeConfig  # noqa: F401
+from repro_torch.configs.base import (SHAPES, SKIP_REASONS,  # noqa: F401
+                                      SMOKE_SHAPE, ModelConfig, ShapeConfig,
+                                      applicable_shapes)
 
 ARCH_IDS = ["hubert-xlarge"]
 
@@ -23,7 +25,7 @@ def _module(arch_id: str):
     if arch_id not in ARCH_IDS:
         raise ValueError(f"{arch_id!r} is not ported yet (the port has "
                          f"{ARCH_IDS}); the other architectures come with "
-                         f"the LM zoo, ROADMAP.md §1 item 7")
+                         f"the LM zoo, ROADMAP.md §1 item 4")
     name = arch_id.replace("-", "_").replace(".", "_")
     return importlib.import_module(f"repro_torch.configs.{name}")
 

@@ -1,4 +1,5 @@
-"""Config dataclasses: model architecture and input-shape cells.
+"""Config dataclasses (model architecture, input shape) and the assigned
+shape cells (``SHAPES``, ``applicable_shapes``).
 
 A copy of ``repro.configs.base`` kept inside the port, so that
 ``repro_torch`` imports nothing of the JAX package. One ``ModelConfig`` per
@@ -74,3 +75,39 @@ class ShapeConfig:
     seq_len: int
     global_batch: int
     kind: Literal["train", "prefill", "decode"]
+
+
+# The assigned shape set (identical for every LM arch).
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+#: smoke-test shape (reduced)
+SMOKE_SHAPE = ShapeConfig("smoke", 64, 2, "train")
+
+
+def applicable_shapes(cfg: ModelConfig) -> dict[str, ShapeConfig | None]:
+    """Which of the 4 assigned shapes run for this arch (None = skip).
+
+    Skip rules: encoder-only archs have no decode step; long_500k runs
+    only for sub-quadratic (ssm/hybrid) archs.
+    """
+    out: dict[str, ShapeConfig | None] = dict(SHAPES)
+    if cfg.is_encoder:
+        out["decode_32k"] = None
+        out["long_500k"] = None
+    if cfg.family not in ("ssm", "hybrid"):
+        out["long_500k"] = None
+    return out
+
+
+SKIP_REASONS = {
+    ("encoder", "decode_32k"): "encoder-only arch: no decode step exists",
+    ("encoder", "long_500k"): "encoder-only arch: no decode step exists",
+    ("full_attn", "long_500k"):
+        "pure full-attention arch: 500K context requires sub-quadratic "
+        "attention (assignment: run only for SSM/hybrid/linear-attn)",
+}

@@ -1,9 +1,10 @@
-"""Carry a HyperSense model's, a Fragment model's, a detector's or a
-baseline's weights across into the port.
+"""Carry a HyperSense model's, a Fragment model's, a detector's, an LM's
+or a baseline's weights, or an AdamW state, across into the port.
 
 The tests build a model in the JAX package and hand its arrays over as
 numpy (``np.asarray(jax_model.class_hvs)`` etc.), so that both packages
-compute with identical parameters.
+compute with identical parameters, or take a step from the same mid-run
+state.
 """
 
 from __future__ import annotations
@@ -16,7 +17,9 @@ from repro_torch.core.encoding import NonLin
 from repro_torch.core.fragment_model import FragmentModel
 from repro_torch.core.hypersense import HyperSenseModel
 from repro_torch.models import common
+from repro_torch.models.lm import dtype_of
 from repro_torch.sensing.baselines import MLP, TinyConv
+from repro_torch.train.optim import AdamWState
 
 
 def _float32_on(device):
@@ -73,6 +76,36 @@ def detector_params_from_arrays(tree, *,
         raise ValueError(f"a detector tree has 'backbone' and 'embedder', "
                          f"got {sorted(tree)}")
     return common.tree_map(_float32_on(device), tree)
+
+
+def lm_params_from_arrays(tree, *, cfg,
+                          device: str | torch.device | None = None) -> dict:
+    """The port's :class:`~repro_torch.models.lm.Model` parameters from the
+    reference's ``Model.init`` tree as numpy arrays (the same nesting and
+    leaf names, layers stacked on a leading axis or listed), each leaf in
+    ``cfg.param_dtype`` on ``device`` (``None`` -> CUDA, raising without
+    it)."""
+    dev = resolve_device(device)
+    dt = dtype_of(cfg.param_dtype)
+    return common.tree_map(
+        lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev
+                                  ).to(dt), tree)
+
+
+def adamw_state_from_arrays(state, *,
+                            device: str | torch.device | None = None
+                            ) -> AdamWState:
+    """An :class:`~repro_torch.train.optim.AdamWState` from the reference's
+    ``optim.AdamWState`` as numpy arrays: the int32 step and the ``mu`` and
+    ``nu`` trees, each leaf in its own dtype, on ``device`` (``None`` ->
+    CUDA, raising without it)."""
+    dev = resolve_device(device)
+
+    def t(a):
+        return torch.as_tensor(np.array(a), device=dev)
+    return AdamWState(step=t(np.asarray(state.step, np.int32)),
+                      mu=common.tree_map(t, state.mu),
+                      nu=common.tree_map(t, state.nu))
 
 
 def baseline_from_arrays(tree, *, kind: str,

@@ -25,10 +25,13 @@ they move. The detector's sharded forward
 (:mod:`repro_torch.models`) is written out with them, as there is no
 GSPMD to insert its collectives.
 
-Not ported yet: ``shard`` and ``logical_sharding``, the LM models'
-activation constraints (the sequence-parallel residual among them), which
-wait for the LM zoo's slice; a group over several mesh dims, which waits
-for the production mesh.
+:func:`logical_sharding` is the spec a cell's inputs and outputs carry
+(the train and prefill cells of :mod:`repro_torch.launch.steps`).
+
+Not ported yet: ``shard``, the LM models' activation constraints (the
+sequence-parallel residual among them), which GSPMD reads and the
+port's written-out forward has no use for; a group over several mesh
+dims, which waits for the production mesh.
 """
 
 from __future__ import annotations
@@ -222,6 +225,18 @@ def spec_for(shape: Sequence[int], axes: Sequence[str | None], mesh=None,
             taken.update(resolved)
             parts[i] = resolved if len(resolved) > 1 else resolved[0]
     return tuple(parts)
+
+
+def logical_sharding(shape: Sequence[int], axes: Sequence[str | None],
+                     mesh=None, rules: dict | None = None) -> tuple | None:
+    """The sharding of a tensor of ``shape`` with logical ``axes`` on
+    ``mesh`` (or the current one): the twin of the reference's
+    ``logical_sharding``. In the port a sharding is the :func:`spec_for`
+    tuple; None without a mesh."""
+    mesh = mesh if mesh is not None else current_mesh()
+    if mesh is None:
+        return None
+    return spec_for(shape, axes, mesh, rules)
 
 
 # ---------------------------------------------------------------------------

@@ -1,21 +1,208 @@
-"""The detector cell on PyTorch: the gated cascade's downstream step.
+"""Step builders and input specs on PyTorch: the train and prefill cells
+and the detector cell of the gated cascade.
 
-The twin of ``repro.launch.steps``' detector cell (``detector_seq_len``,
-``build_detector_cell`` with its ``mesh=``, ``init_detector_params``). The
-train, prefill and decode cells come with the LM zoo (``ROADMAP.md`` §1
-item 4).
+The twin of ``repro.launch.steps``: ``input_specs(cfg, shape)`` gives
+meta-tensor stand-ins for every input of a cell's step (no allocation);
+``build_cell(cfg, shape, mesh)`` gives a :class:`Cell` with the step, the
+spec trees of its inputs and outputs on ``mesh`` (each a
+:func:`~repro_torch.distributed.sharding.logical_sharding` tuple, None
+without a mesh) and its abstract arguments. Cells:
+
+* train — the full step: the loss, its gradients, the AdamW update;
+* prefill — the logits over the whole sequence;
+* detector — a fixed batch of frames through an embeds-in backbone, the
+  gated cascade's downstream step (``build_detector_cell``, with its
+  ``mesh=``, ``init_detector_params``).
+
+The train and prefill steps run unsharded; with a mesh their cells carry
+the spec trees and the steps raise (the sharded steps are ``ROADMAP.md``
+§1 item 2b). The decode cell comes with the LM zoo (item 4).
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Any, Callable, NamedTuple
 
 import torch
 
 from repro_torch import pin_detector_matmul
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.distributed import sharding
 from repro_torch.models import common, lm
+from repro_torch.models.lm import Batch
+from repro_torch.train import optim
+
+
+class Cell(NamedTuple):
+    step_fn: Callable
+    in_shardings: Any
+    out_shardings: Any
+    abstract_args: tuple
+    donate_argnums: tuple
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _batch_specs(cfg: ModelConfig, shape: ShapeConfig) -> Batch:
+    """An embeds-in batch (the only kind :class:`~repro_torch.models.lm.
+    Model` takes): no tokens, int32 labels, bf16 embeddings."""
+    b, s = shape.global_batch, shape.seq_len
+    return Batch(tokens=None, labels=_meta((b, s), torch.int32),
+                 embeds=_meta((b, s, cfg.d_model), torch.bfloat16))
+
+
+def _batch_shardings(cfg: ModelConfig, shape: ShapeConfig, mesh,
+                     rules=None) -> Batch:
+    def sh(t, axes):
+        if t is None:
+            return None
+        return sharding.logical_sharding(t.shape, axes, mesh, rules)
+
+    specs = _batch_specs(cfg, shape)
+    return Batch(
+        tokens=sh(specs.tokens, ("act_batch", "act_seq")),
+        labels=sh(specs.labels, ("act_batch", "act_seq")),
+        embeds=sh(specs.embeds, ("act_batch", "act_seq", "act_embed")),
+    )
+
+
+def _abstract_opt_state(p_abs: dict) -> optim.AdamWState:
+    return optim.AdamWState(
+        step=_meta((), torch.int32),
+        mu=common.tree_map(lambda t: _meta(t.shape, t.dtype), p_abs),
+        nu=common.tree_map(lambda t: _meta(t.shape, t.dtype), p_abs))
+
+
+def _unsharded(fn: Callable, mesh) -> Callable:
+    """``fn``, or on a mesh a step that raises: the cell's spec trees are
+    there for counting, the sharded step is the next slice's."""
+    if mesh is None:
+        return fn
+
+    def sharded(*args):
+        raise NotImplementedError(
+            "the sharded train and prefill steps (collectives autograd "
+            "differentiates) are ROADMAP.md §1 item 2b; build the cell "
+            "with mesh=None to run the step")
+    return sharded
+
+
+# ---------------------------------------------------------------------------
+# Cell builders
+# ---------------------------------------------------------------------------
+
+def make_optimizer(cfg: ModelConfig) -> optim.AdamW:
+    return optim.AdamW(lr=optim.warmup_cosine(3e-4, 2000, 100_000),
+                       weight_decay=0.1)
+
+
+def loss_and_grads(model: lm.Model, params: dict, batch: Batch):
+    """``(loss, grads)`` of ``model.loss`` at ``params``: the float32
+    master weights cast to the compute dtype once, the gradients taken
+    with respect to that cast tree (in bf16 for a bf16 config, as the
+    reference's ``value_and_grad`` on ``cast_params``). The loss and its
+    backward pass run in one :func:`~repro_torch.pin_detector_matmul`
+    scope, since autograd runs the backward pass (and each remat layer's
+    recompute) under the flags set when it runs. ``loss`` is a float32
+    0-d tensor, never read back to the host here."""
+    dt = model.compute_dtype
+
+    def cast(p: torch.Tensor) -> torch.Tensor:
+        c = p.detach().to(dt) if p.dtype == torch.float32 else p.detach()
+        return c.requires_grad_()
+
+    cast_params = common.tree_map(cast, params)
+    with pin_detector_matmul():
+        loss = model.loss(cast_params, batch)
+        flat = iter(torch.autograd.grad(loss, common.leaves(cast_params)))
+    return loss.detach(), common.tree_map(lambda _: next(flat), cast_params)
+
+
+def train_step_fn(model: lm.Model, opt: optim.AdamW) -> Callable:
+    """``step(params, opt_state, batch) -> (params, opt_state, loss)``:
+    :func:`loss_and_grads`, then ``opt.update`` with float32 moments and
+    ``apply_updates``."""
+    def train_step(params, opt_state, batch):
+        loss, grads = loss_and_grads(model, params, batch)
+        with torch.no_grad():
+            updates, opt_state = opt.update(grads, opt_state, params)
+            params = optim.apply_updates(params, updates)
+        return params, opt_state, loss
+
+    return train_step
+
+
+def build_train_cell(cfg: ModelConfig, shape: ShapeConfig, mesh=None,
+                     rules=None) -> Cell:
+    model = lm.Model(cfg)
+    p_abs = model.abstract_params()
+    opt_abs = _abstract_opt_state(p_abs)
+    b_abs = _batch_specs(cfg, shape)
+    in_sh = out_sh = None
+    if mesh is not None:
+        p_sh = model.param_specs(mesh, rules)
+        opt_sh = optim.AdamWState(step=(), mu=p_sh, nu=p_sh)
+        in_sh = (p_sh, opt_sh, _batch_shardings(cfg, shape, mesh, rules))
+        out_sh = (p_sh, opt_sh, ())
+    return Cell(
+        step_fn=_unsharded(train_step_fn(model, make_optimizer(cfg)), mesh),
+        in_shardings=in_sh,
+        out_shardings=out_sh,
+        abstract_args=(p_abs, opt_abs, b_abs),
+        donate_argnums=(0, 1),
+    )
+
+
+def build_prefill_cell(cfg: ModelConfig, shape: ShapeConfig, mesh=None,
+                       rules=None) -> Cell:
+    model = lm.Model(cfg)
+
+    def prefill_step(params, batch):
+        return model.forward(params, batch.embeds)
+
+    in_sh = out_sh = None
+    if mesh is not None:
+        out_shape = (shape.global_batch, shape.seq_len, cfg.vocab)
+        in_sh = (model.param_specs(mesh, rules),
+                 _batch_shardings(cfg, shape, mesh, rules))
+        out_sh = sharding.logical_sharding(
+            out_shape, ("act_batch", "act_seq", "act_vocab"), mesh, rules)
+    return Cell(
+        step_fn=_unsharded(prefill_step, mesh),
+        in_shardings=in_sh,
+        out_shardings=out_sh,
+        abstract_args=(model.abstract_params(), _batch_specs(cfg, shape)),
+        donate_argnums=(),
+    )
+
+
+def _no_decode(cfg: ModelConfig):
+    if cfg.is_encoder:
+        raise ValueError("encoder-only arch has no decode step")
+    raise NotImplementedError("the decode cell comes with the LM zoo, "
+                              "ROADMAP.md §1 item 4(b)")
+
+
+def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh=None,
+               rules=None) -> Cell:
+    if shape.kind == "decode":
+        _no_decode(cfg)
+    builder = {"train": build_train_cell,
+               "prefill": build_prefill_cell}[shape.kind]
+    return builder(cfg, shape, mesh, rules)
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> tuple:
+    """Meta-tensor stand-ins for every step input (no allocation)."""
+    if shape.kind == "decode":
+        _no_decode(cfg)
+    model = lm.Model(cfg)
+    p_abs = model.abstract_params()
+    if shape.kind == "train":
+        return (p_abs, _abstract_opt_state(p_abs), _batch_specs(cfg, shape))
+    return (p_abs, _batch_specs(cfg, shape))
 
 
 class DetectorCell(NamedTuple):

@@ -8,8 +8,9 @@ lists) in the reference's leaf order. The logical axes place it on a
 mesh: :func:`param_specs` (the twin of ``param_shardings``) gives each
 leaf's :func:`~repro_torch.distributed.sharding.spec_for` entry,
 :func:`local_params` cuts this rank's blocks, and :class:`Parallel` is
-what a sharded forward asks of the mesh. ``embed``, ``embed_spec`` and
-``abstract_params`` wait for the LM zoo.
+what a sharded forward asks of the mesh. :func:`abstract_params` is the
+same tree on ``device="meta"`` (shapes and dtypes, no storage), what a
+cell is counted on. ``embed`` and ``embed_spec`` wait for the LM zoo.
 
 The norms keep the reference's dtype discipline: float32 statistics, the
 normalisation applied in the compute dtype.
@@ -82,6 +83,20 @@ def init_params(generator: torch.Generator, spec: SpecTree,
                                     dtype=torch.float32)).to(dtype)
 
     return tree_map(one, spec, _is_p)
+
+
+def abstract_params(spec: SpecTree,
+                    dtype: torch.dtype = torch.float32) -> dict:
+    """The spec tree as meta tensors of ``dtype``: the twin of the
+    reference's ``ShapeDtypeStruct`` tree, for counting a step without
+    allocating it."""
+    return tree_map(lambda p: torch.empty(p.shape, dtype=dtype,
+                                          device="meta"), spec, _is_p)
+
+
+def spec_param_count(spec: SpecTree) -> int:
+    """Elements declared by a spec tree (:func:`count_params` of it)."""
+    return count_params(spec)
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """The LM model facade on PyTorch, for the transformer families the port
 runs. The twin of ``repro.models.lm``'s ``Model`` (``spec``, ``init``,
-``forward``) for the ``encoder`` family without experts: embeds in, the
-pre-norm transformer stack, the final norm, the unembedding.
+``abstract_params``, ``forward``, ``loss``) and ``Batch`` for the
+``encoder`` family without experts: embeds in, the pre-norm transformer
+stack, the final norm, the unembedding, and the masked NLL over it.
 
 Sharded (``par``, a :class:`~repro_torch.models.common.Parallel` over
 the blocks of :meth:`Model.param_specs`), the forward is written out:
@@ -10,19 +11,23 @@ partials folded, every ``"embed"`` dim (FSDP over ``"data"``) gathered
 right before its use, the unembedding this rank's vocab block; norms and
 the residual stream replicated. The reference's activation hints
 (``shard``, ``_seq_gather``: the sequence-parallel residual,
-``act_resid_seq``) and ``_opt_barrier`` constrain GSPMD and are dropped,
-and so is ``remat`` (the port runs no backward pass here). Layers are stacked on a
-leading axis (``scan_layers=True``) or kept as a list, as in the
-reference; the stack runs as a Python loop over the layers. Token
-embeddings, experts, the hybrid and xLSTM families, ``loss`` and the decode
-step come with the LM zoo (``ROADMAP.md`` §1 item 4).
+``act_resid_seq``) and ``_opt_barrier`` constrain GSPMD and are dropped.
+Layers are stacked on a leading axis (``scan_layers=True``) or kept as a
+list, as in the reference; the stack runs as a Python loop over the
+layers, each layer under ``remat`` when a backward pass will need it
+(``"full"``: a per-layer ``torch.utils.checkpoint``). A stacked tree is
+unbound once a pass, so the backward pass of its views is one ``stack``
+a leaf. Token embeddings, experts, the hybrid and xLSTM families,
+``"dots"`` remat and the decode step come with the LM zoo
+(``ROADMAP.md`` §1 item 4).
 """
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Callable, NamedTuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch import pin_detector_matmul
 from repro_torch.configs.base import ModelConfig
@@ -74,6 +79,52 @@ def layer_params(layers, i: int) -> dict:
     return common.tree_map(lambda a: a[i], layers)
 
 
+def unbind_layers(layers, n_layers: int) -> list:
+    """Every layer's tree of a stacked tree (or the list as it is): the
+    views ``layer_params`` takes, made by one ``unbind`` a leaf, whose
+    backward pass is one ``stack`` (a view ``a[i]`` a layer would add
+    into a zero tensor the size of the whole stack, every layer)."""
+    if isinstance(layers, list):
+        return layers
+    cols = common.tree_map(lambda a: a.unbind(0), layers)
+    return [common.tree_map(lambda c: c[i], cols,
+                            lambda x: isinstance(x, tuple))
+            for i in range(n_layers)]
+
+
+def _remat(fn: Callable, cfg: ModelConfig) -> Callable:
+    """``fn(params, x)`` under the config's rematerialisation: ``"none"``
+    keeps its activations for the backward pass; ``"full"`` keeps only
+    its inputs and runs it again in the backward pass (a non-reentrant
+    ``torch.utils.checkpoint``), applied where autograd records the call,
+    so a pass without gradients runs ``fn`` itself."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat != "full":
+        raise NotImplementedError(
+            f"remat {cfg.remat!r}: the port has 'full' and 'none'; 'dots' "
+            f"(keep the products' outputs) comes with the LM zoo, "
+            f"ROADMAP.md §1 item 4")
+
+    def layer(p, x):
+        if not torch.is_grad_enabled() or not (
+                x.requires_grad
+                or any(t.requires_grad for t in common.leaves(p))):
+            return fn(p, x)
+        return torch.utils.checkpoint.checkpoint(
+            fn, p, x, use_reentrant=False, preserve_rng_state=False)
+    return layer
+
+
+class Batch(NamedTuple):
+    """Inputs for train and prefill: ``tokens`` is None for the embeds-in
+    configs, ``labels`` (int32) marks masked-out positions with -1, and
+    ``embeds`` holds the ``(b, s, d_model)`` inputs."""
+    tokens: torch.Tensor | None
+    labels: torch.Tensor
+    embeds: torch.Tensor | None = None
+
+
 class Model:
     def __init__(self, cfg: ModelConfig):
         if cfg.family not in PORTED_FAMILIES or cfg.n_experts \
@@ -81,7 +132,7 @@ class Model:
             raise ValueError(
                 f"{cfg.arch_id}: the port's Model runs the embeds-in "
                 f"{PORTED_FAMILIES} family without experts; family "
-                f"{cfg.family!r} comes with the LM zoo, ROADMAP.md §1 item 7")
+                f"{cfg.family!r} comes with the LM zoo, ROADMAP.md §1 item 4")
         self.cfg = cfg
         self.compute_dtype = dtype_of(cfg.compute_dtype)
 
@@ -103,6 +154,11 @@ class Model:
         return common.init_params(generator, self.spec(),
                                   dtype_of(self.cfg.param_dtype))
 
+    def abstract_params(self) -> dict:
+        """The parameter tree as meta tensors in ``param_dtype``."""
+        return common.abstract_params(self.spec(),
+                                      dtype_of(self.cfg.param_dtype))
+
     def param_specs(self, mesh, rules: dict | None = None) -> dict:
         """Each parameter's spec on ``mesh``: the twin of the reference's
         ``param_shardings``."""
@@ -112,9 +168,10 @@ class Model:
                par: common.Parallel | None = None) -> torch.Tensor:
         """Embeds in -> layer stack -> final norm: the hidden states."""
         cfg = self.cfg
+        layer = _remat(lambda p, x: _tf_layer(p, x, cfg, par), cfg)
         h = embeds.to(self.compute_dtype)
-        for i in range(cfg.n_layers):
-            h = _tf_layer(layer_params(params["layers"], i), h, cfg, par)
+        for p in unbind_layers(params["layers"], cfg.n_layers):
+            h = layer(p, h)
         return common.apply_norm(h, params.get("final_norm"), cfg.norm)
 
     def forward(self, params: dict, embeds: torch.Tensor,
@@ -133,3 +190,47 @@ class Model:
             h = self._trunk(params, embeds, par)
             return common.unembed(params["unembed"], h, self.compute_dtype,
                                   par, self.cfg.vocab)
+
+    #: the seq-chunked cross entropy kicks in above this sequence length
+    _LOSS_CHUNK = 1024
+
+    def loss(self, params: dict, batch: Batch) -> torch.Tensor:
+        """The masked NLL of ``batch.labels`` under the logits of
+        ``batch.embeds``, a float32 0-d tensor: the reference's ``loss``.
+        Each position's ``logsumexp - gold`` in float32, summed over the
+        positions whose label is not -1 and divided by
+        ``max(count, 1)``. For a vocab of 8192 or more over a sequence of
+        more than ``_LOSS_CHUNK`` that it divides, the logits are made
+        one chunk of positions at a time, each chunk under a checkpoint,
+        so the float32 logits never live for the whole sequence. The MoE
+        auxiliary term is 0 for the ported families and is not added.
+        The products run in :func:`~repro_torch.pin_detector_matmul`'s
+        scope; a caller that runs the backward pass keeps it open across
+        both, as :mod:`repro_torch.launch.steps`' train step does."""
+        cfg = self.cfg
+        unembed = params["unembed"]
+
+        def chunk_nll(hc, lc):
+            logits = common.unembed(unembed, hc, self.compute_dtype)
+            logits = logits.to(torch.float32)
+            mask = (lc >= 0).to(torch.float32)
+            safe = torch.clamp(lc, min=0).to(torch.int64)
+            logz = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+            return ((logz - gold) * mask).sum(), mask.sum()
+
+        with pin_detector_matmul():
+            h = self._trunk(params, batch.embeds)
+            labels = batch.labels
+            s, ch = h.shape[1], self._LOSS_CHUNK
+            if s <= ch or s % ch or cfg.vocab < 8192:
+                nll, cnt = chunk_nll(h, labels)
+            else:
+                nll = cnt = torch.zeros((), dtype=torch.float32,
+                                        device=h.device)
+                for lo in range(0, s, ch):
+                    n, c = torch.utils.checkpoint.checkpoint(
+                        chunk_nll, h[:, lo:lo + ch], labels[:, lo:lo + ch],
+                        use_reentrant=False, preserve_rng_state=False)
+                    nll, cnt = nll + n, cnt + c
+            return nll / torch.clamp(cnt, min=1.0)

@@ -141,7 +141,10 @@ def clip_by_global_norm(grads: PyTree, max_norm: float) -> PyTree:
     norm = global_norm(grads)
     scale = torch.clamp(_scalar(norm, max_norm)
                         / torch.clamp(norm, min=1e-12), max=1.0)
-    return tree_map(lambda g: g * scale, grads)
+    # JAX's promotion: a bf16 gradient times the float32 scale is float32
+    # (torch would keep a 0-d tensor's product in bf16)
+    return tree_map(lambda g: g.to(torch.promote_types(g.dtype, scale.dtype))
+                    * scale, grads)
 
 
 # ---------------------------------------------------------------------------

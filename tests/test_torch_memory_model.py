@@ -1,0 +1,113 @@
+"""PyTorch port, the analytic memory model:
+``repro_torch.distributed.memory_model.analyze`` against
+``repro.distributed.memory_model.analyze`` term by term.
+
+``hubert-xlarge`` full and smoke, at ``train_4k``, ``prefill_32k``,
+``SMOKE_SHAPE`` and a batch-4 ``train_4k``; on (data, model) meshes
+(1, 1), (1, 4), (2, 2), 16x16 and the 2x16x16 (pod, data, model) one. The
+reference takes a ``jax.sharding.AbstractMesh``, the port a
+``{name: size}`` mapping of the same shape. Both compute on Python
+integers, so every term must be equal, not close. ``fits_h100`` replaces
+the reference's ``fits_v5e``: the same total against 80 GB, not 16.
+"""
+
+import dataclasses
+
+import jax
+import pytest
+
+from repro import configs as jconfigs
+from repro.distributed import memory_model as jmm
+from repro_torch import configs
+from repro_torch.distributed import memory_model as mm
+
+jax.config.update("jax_platform_name", "cpu")
+
+ARCH = "hubert-xlarge"
+MESHES = {"1x1": (1, 1), "1x4": (1, 4), "2x2": (2, 2), "16x16": (16, 16),
+          "2x16x16": (2, 16, 16)}
+SHAPES = ("train_4k", "prefill_32k", "smoke", "train_4k_b4")
+
+
+def meshes(name):
+    shape = MESHES[name]
+    names = (("data", "model") if len(shape) == 2
+             else ("pod", "data", "model"))
+    return (jax.sharding.AbstractMesh(shape, names),
+            dict(zip(names, shape)))
+
+
+def shapes(name):
+    """``(reference ShapeConfig, the port's)`` of a shape's name."""
+    if name == "smoke":
+        return jconfigs.SMOKE_SHAPE, configs.SMOKE_SHAPE
+    if name == "train_4k_b4":
+        return (jconfigs.ShapeConfig("train_4k_b4", 4096, 4, "train"),
+                configs.ShapeConfig("train_4k_b4", 4096, 4, "train"))
+    return jconfigs.SHAPES[name], configs.SHAPES[name]
+
+
+def cfgs(which):
+    return (getattr(jconfigs, which)(ARCH), getattr(configs, which)(ARCH))
+
+
+def same_breakdown(got, want):
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert got.total_gb == want.total_gb
+    assert got.fits_h100 == (want.total_gb <= 80.0)
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("which", ["get_config", "get_smoke"])
+def test_analyze_equals_the_reference(which, shape, mesh):
+    jcfg, cfg = cfgs(which)
+    jshape, tshape = shapes(shape)
+    jm, tm = meshes(mesh)
+    same_breakdown(mm.analyze(cfg, tshape, tm),
+                   jmm.analyze(jcfg, jshape, jm))
+
+
+RULES = {"no_fsdp": {"embed": None},
+         "no_tp": {"heads": None, "kv_heads": None, "mlp": None,
+                   "vocab": None},
+         "pod_only": {"embed": ("pod",), "act_batch": ("pod",)}}
+
+
+@pytest.mark.parametrize("rules", list(RULES))
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k"])
+def test_rules_overrides(shape, rules):
+    jcfg, cfg = cfgs("get_config")
+    jshape, tshape = shapes(shape)
+    jm, tm = meshes("2x16x16")
+    got = mm.analyze(cfg, tshape, tm, RULES[rules])
+    same_breakdown(got, jmm.analyze(jcfg, jshape, jm, RULES[rules]))
+    assert got != mm.analyze(cfg, tshape, tm) or rules == "pod_only"
+
+
+def test_recorded_points():
+    """The figures the chip phase records beside the allocator: train_4k
+    needs 286.8 GB on one card and 1.439 GB a card on 16x16; at batch 4
+    it fits one H100 (19.36 GB); prefill_32k counts 77.0 GB at batch 32
+    and 4.24 at batch 1."""
+    cfg = configs.get_config(ARCH)
+    one = {"data": 1, "model": 1}
+    full = mm.analyze(cfg, configs.SHAPES["train_4k"], one)
+    assert round(full.total_gb, 1) == 286.8 and not full.fits_h100
+    assert round(mm.analyze(cfg, configs.SHAPES["train_4k"],
+                            {"data": 16, "model": 16}).total_gb, 3) == 1.439
+    b4 = mm.analyze(cfg, shapes("train_4k_b4")[1], one)
+    assert b4.fits_h100 and round(b4.total_gb, 2) == 19.36
+    pre = configs.SHAPES["prefill_32k"]
+    assert round(mm.analyze(cfg, pre, one).total_gb, 1) == 77.0
+    assert round(mm.analyze(cfg, dataclasses.replace(pre, global_batch=1),
+                            one).total_gb, 2) == 4.24
+
+
+def test_decode_raises_as_the_reference():
+    jcfg, cfg = cfgs("get_config")
+    jm, tm = meshes("16x16")
+    with pytest.raises(ValueError, match="no decode step"):
+        mm.analyze(cfg, configs.SHAPES["decode_32k"], tm)
+    with pytest.raises(ValueError, match="no decode step"):
+        jmm.analyze(jcfg, jconfigs.SHAPES["decode_32k"], jm)
