@@ -24,7 +24,8 @@ SHARD1_FILES = tests/test_kernels.py tests/test_kernels_batch.py \
 	tests/test_torch_fleet.py tests/test_torch_serve.py \
 	tests/test_torch_cascade.py tests/test_torch_int_expanded.py \
 	tests/test_torch_synthetic.py tests/test_torch_baselines.py \
-	tests/test_torch_mesh.py tests/test_torch_cascade_mesh.py
+	tests/test_torch_mesh.py tests/test_torch_cascade_mesh.py \
+	tests/test_torch_train_mesh.py
 SHARD2_FILES = tests/test_arch_smoke.py tests/test_cells.py \
 	tests/test_data_pipeline.py tests/test_gate.py tests/test_hdc_core.py \
 	tests/test_hypersense.py tests/test_online.py tests/test_system.py \
@@ -37,7 +38,7 @@ SHARD2_FILES = tests/test_arch_smoke.py tests/test_cells.py \
 	tests/test_torch_gate.py tests/test_torch_flags.py \
 	tests/test_torch_optim.py tests/test_torch_sharding.py \
 	tests/test_torch_roofline.py tests/test_torch_cells.py \
-	tests/test_torch_memory_model.py
+	tests/test_torch_memory_model.py tests/test_torch_dryrun.py
 
 # PYTEST_EXTRA lets CI attach coverage flags (see .github/workflows/ci.yml);
 # plain local runs need no pytest-cov install.

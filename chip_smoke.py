@@ -13,7 +13,9 @@ mesh phase's NCCL world). It
 2. builds all six kernels from ``src/repro_torch/kernels/csrc`` with
    nvcc, one process per source, all at once, and counts ``similarity``'s
    launches per call at 2, 9, 17 and 33 classes from the profiler's
-   events (one each; first, before any other profile of the process);
+   events (one each; first, before any other profile of the process),
+   then takes ``similarity``'s and ``hdc_encode_perm``'s device ms from
+   the next profiles (later ones have recorded neither);
 3. makes a HyperSense model at the paper's operating point (128x128
    frames, 96x96 fragments, stride 8, D=5000, RFF) from a seeded
    ``torch.Generator`` on the card: ``B0 ~ N(0, 1)``, ``b ~ U(0, 2 pi)``,
@@ -94,8 +96,21 @@ mesh phase's NCCL world). It
    logits), ``backbone_cost`` every
    rank's products, the collectives of a batch counted under
    ``roofline()`` (printed), and ms a batch in turns against an
-   unsharded cascade on the rank's card; ``nvidia-smi topo -m`` is
-   printed once;
+   unsharded cascade on the rank's card; then the sharded train and
+   prefill cells at full ``hubert-xlarge`` width (``train_4k``'s 4096
+   tokens x 4, ``prefill_32k``'s 32,768 x 1, the cells phase's cuts) on
+   every mesh, each rank fed its blocks of one whole state this process
+   makes and hands over in ``build/mesh/cells.pt``: a warm step (its
+   collectives counted, the allocator's peak beside ``analyze()`` on the
+   mesh), then the unsharded and sharded steps in turns, each sharded
+   step bitwise the warm one; the loss and exact digests of the gathered
+   parameters, moments and prefill logits the same on every rank; on a
+   (1, 1) mesh the step and the prefill bitwise the unsharded ones; at 2
+   layers (weights at std 0.02) in float32 and bf16 the step, its
+   gradients and the prefill against the unsharded ones on the rank's
+   card (the cells phase's card-vs-CPU bounds; the parameters after
+   AdamW within 1e-5);
+   ``nvidia-smi topo -m`` is printed once;
 10. serves the gated cascade (paper §V-E): the closed-loop float32
    ``FleetService`` (8 slots, 8 ticks, HP at 12 bits) feeds its HP drains
    to a ``CascadeService`` over the full-width ``hubert-xlarge`` detector
@@ -128,8 +143,14 @@ mesh phase's NCCL world). It
    relative and every gradient within 1e-4 of its leaf's largest
    |entry|, bf16 within 1e-2 and 5%; records the float32 difference at
    ``Model.init``'s weights beside the card's response to a 1e-7
-   perturbation; and takes 10 AdamW steps at a constant 1e-4 on a fixed
-   batch, the loss falling;
+   perturbation; takes 10 AdamW steps at a constant 1e-4 on a fixed
+   batch, the loss falling; and meanwhile runs the dry run
+   (``python -m repro_torch.launch.dryrun --all``, a subprocess on the
+   host's CPU, no card): the sharded train and prefill cells counted on
+   the 16x16 and 2x16x16 meshes, every ``hubert-xlarge`` record ``ok``,
+   its FLOPs the hand count plus the unembedding the "model" ranks
+   repeat, its memory ``analyze()``'s, a ``not_ported`` row for each
+   other architecture;
 12. drives the training path (paper Fig. 5a) at the same width: samples
    balanced fragments from 256 synthetic training frames and 128 held-out
    frames (``sensing.fragments``), trains the Fragment model on the
@@ -204,6 +225,7 @@ import ctypes
 import dataclasses
 import json
 import math
+import os
 import pathlib
 import shutil
 import statistics
@@ -1646,13 +1668,21 @@ def mesh_rank(rank: int, world: int, root: str) -> None:
         raw, labels_np = ref["raw"], ref["labels"]
         plain = detector()
         records = []
-        for shape in mesh_shapes(world):
-            mesh = (make_host_mesh(DEVICE) if shape == (1, world) else
-                    init_device_mesh(DEVICE, shape,
-                                     mesh_dim_names=("data", "model")))
+        meshes = [make_host_mesh(DEVICE) if shape == (1, world) else
+                  init_device_mesh(DEVICE, shape,
+                                   mesh_dim_names=("data", "model"))
+                  for shape in mesh_shapes(world)]
+        for shape, mesh in zip(mesh_shapes(world), meshes):
             rec = mesh_runs(mesh, shape, ref, raw, labels_np, root)
             rec["cascade"] = mesh_cascade(mesh, shape, ref["cascade"], plain)
             records.append(rec)
+        del plain
+        torch.cuda.empty_cache()
+        st = torch.load(root / "cells.pt", map_location=dev,
+                        weights_only=False)
+        cells_ref = mesh_cells_reference(st)
+        for shape, mesh, rec in zip(mesh_shapes(world), meshes, records):
+            rec["cells"] = mesh_cells(mesh, shape, st, cells_ref)
         (root / f"rank{rank}.json").write_text(json.dumps(records))
         dist.destroy_process_group()
     except BaseException:
@@ -1913,6 +1943,249 @@ def mesh_cascade(mesh, shape, want, plain) -> dict:
     return rec
 
 
+# the sharded cells: full-width hubert-xlarge at train_4k's 4096 tokens x
+# CELLS_TRAIN_BATCH and prefill_32k's 32,768 x CELLS_PREFILL_BATCH (the
+# cells phase's cuts), from one whole state this process makes; held
+# against the unsharded step at CELLS_CHECK_LAYERS, weights at
+# CELLS_WEIGHT_STD, on the same batches; the moments within the
+# gradients' bound (mu) and twice it (nu = 0.05 g^2), the parameters
+# after AdamW within MESH_CELLS_PARAM_RTOL of each leaf's largest |entry|
+MESH_CELLS_PARAM_RTOL = 1e-5
+
+
+def mesh_cells_payload(root) -> None:
+    """The whole states every rank's sharded cells start from, written to
+    ``root/cells.pt``: the full-width parameters (``Model.init`` on this
+    card from the cells phase's seed), the 2-layer parameters at
+    CELLS_WEIGHT_STD (one float32 tree for both compute dtypes), and the
+    train and prefill batches (the cells phase's seeds)."""
+    cfg = configs.get_config(CASCADE_ARCH)
+    params = lm.Model(cfg).init(
+        torch.Generator(device=DEVICE).manual_seed(SEED + 15))
+    check_cfg = cfg.replace(n_layers=CELLS_CHECK_LAYERS)
+    train, prefill = cut_shape("train_4k"), cut_shape("prefill_32k")
+    torch.save(dict(
+        params=cpu_tree(params),
+        check_params=scaled_params(check_cfg, SEED + 24, "cpu"),
+        train=cell_batch(cfg, train.global_batch, train.seq_len, SEED + 22,
+                         "cpu"),
+        prefill=cell_batch(cfg, prefill.global_batch, prefill.seq_len,
+                           SEED + 23, "cpu")),
+        root / "cells.pt")
+    del params
+    torch.cuda.empty_cache()
+
+
+def cut_shape(name: str):
+    """``name``'s cell with its batch cut as the cells phase cuts it."""
+    batch = CELLS_TRAIN_BATCH if name == "train_4k" else CELLS_PREFILL_BATCH
+    return dataclasses.replace(configs.SHAPES[name], global_batch=batch)
+
+
+def digest(t: torch.Tensor) -> int:
+    """An exact fingerprint of ``t``'s bits: its words as integers, each
+    times a weight of its position, summed in int64 (wrapping, so the
+    order of the sum does not matter)."""
+    words = t.contiguous().view(
+        {4: torch.int32, 2: torch.int16}[t.element_size()]).flatten()
+    w = torch.arange(words.numel(), device=t.device) % 65521 + 1
+    return int((words.to(torch.int64) * w).sum())
+
+
+def whole_digests(blocks, specs, mesh) -> list[int]:
+    """:func:`digest` of every leaf of ``blocks`` gathered whole, one leaf
+    at a time."""
+    out = []
+    for t, spec in zip(model_common.leaves(blocks), spec_leaves(specs)):
+        whole = sharding.whole_block(t, spec, mesh)
+        out.append(digest(whole))
+        del whole
+    return out
+
+
+def spec_leaves(specs) -> list:
+    out = []
+    model_common.tree_map(out.append, specs, lambda x: isinstance(x, tuple))
+    return out
+
+
+def mesh_cells_reference(st) -> dict:
+    """In each rank, before its meshes: the whole optimizer state, the
+    unsharded full-width prefill (its logits and ms), and the unsharded
+    step, gradients and prefill at CELLS_CHECK_LAYERS in each compute
+    dtype on the same batches."""
+    cfg = configs.get_config(CASCADE_ARCH)
+    ref = dict(state=steps.make_optimizer(cfg).init(st["params"]))
+    cell = steps.build_cell(cfg, cut_shape("prefill_32k"))
+    with torch.no_grad():
+        ref["logits"], ref["prefill_ms"] = wall_ms(
+            cell.step_fn, st["params"], st["prefill"])
+    ref["check"] = {}
+    for dt in CELLS_TOL:
+        c = cfg.replace(n_layers=CELLS_CHECK_LAYERS, compute_dtype=dt)
+        state = steps.make_optimizer(c).init(st["check_params"])
+        new_p, new_s, loss = steps.build_cell(c, cut_shape("train_4k")
+                                              ).step_fn(
+            st["check_params"], state, st["train"])
+        _, grads = steps.loss_and_grads(lm.Model(c), st["check_params"],
+                                        st["train"])
+        with torch.no_grad():
+            logits = steps.build_cell(c, cut_shape("prefill_32k")).step_fn(
+                st["check_params"], st["prefill"])
+        ref["check"][dt] = dict(loss=loss, grads=grads, params=new_p,
+                                mu=new_s.mu, nu=new_s.nu, logits=logits)
+    return ref
+
+
+def wall_ms(fn, *args):
+    """``fn(*args)`` on the host clock between synchronisations (its
+    collectives run on NCCL's streams): (its output, ms)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def mesh_cells(mesh, shape, st, ref) -> dict:
+    """The sharded train and prefill cells on one mesh, in every rank, fed
+    this rank's blocks of the whole state ``st``: at full width a warm
+    step (its collectives counted, the allocator's peak beside
+    ``analyze()`` on the mesh), then the unsharded and sharded steps in
+    turns (unsharded, sharded, sharded, unsharded: ms), each sharded step
+    bitwise the warm one; the loss, the digests of the gathered
+    parameters and moments, and of the gathered prefill logits, for the
+    parent to hold across ranks (on a (1, 1) mesh the step and the
+    prefill are held bitwise the unsharded ones here); at
+    CELLS_CHECK_LAYERS in each compute dtype, the step, its gradients and
+    the prefill against the unsharded ones (:func:`mesh_cells_reference`).
+    """
+    cfg = configs.get_config(CASCADE_ARCH)
+    what = f"sharded cells on a {shape} mesh"
+    one = tuple(shape) == (1, 1)
+    torch.cuda.empty_cache()
+    train = cut_shape("train_4k")
+    cell = steps.build_cell(cfg, train, mesh)
+    plain = steps.build_cell(cfg, train)
+    whole = (st["params"], ref["state"], st["train"])
+    args = steps.local_args(whole, cell.in_shardings, mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before_gb = torch.cuda.memory_allocated() / 1e9
+    with sharding.count_collectives() as coll:
+        warm, first_ms = wall_ms(cell.step_fn, *args)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    loss = float(warm[2])
+    check(math.isfinite(loss), f"{what}: loss {loss}")
+    turns = {}
+    for turn in ("unsharded", "sharded", "sharded_again", "unsharded_again"):
+        if turn.startswith("unsharded"):
+            out, turns[turn] = wall_ms(plain.step_fn, *whole)
+            if one and turn == "unsharded":
+                check(same_bits(list(out), list(warm)),
+                      f"{what}: the (1, 1) step differs from the unsharded "
+                      f"step")
+        else:
+            out, turns[turn] = wall_ms(cell.step_fn, *args)
+            check(same_bits(list(out), list(warm)),
+                  f"{what}: two steps from one state differ")
+        del out
+    p_sh, opt_sh, _ = cell.out_shardings
+    digests = dict(params=whole_digests(warm[0], p_sh, mesh),
+                   mu=whole_digests(warm[1].mu, opt_sh.mu, mesh),
+                   nu=whole_digests(warm[1].nu, opt_sh.nu, mesh))
+    del warm, args
+    torch.cuda.empty_cache()
+    pcell = steps.build_cell(cfg, cut_shape("prefill_32k"), mesh)
+    pargs = steps.local_args((st["params"], st["prefill"]),
+                             pcell.in_shardings, mesh)
+    with torch.no_grad():
+        logits, prefill_ms = wall_ms(pcell.step_fn, *pargs)
+    logits = sharding.whole_block(logits, pcell.out_shardings, mesh)
+    check(tuple(logits.shape) == tuple(ref["logits"].shape)
+          and bool(torch.isfinite(logits).all()), f"{what}: prefill logits")
+    if one:
+        check(torch.equal(logits, ref["logits"]),
+              f"{what}: the (1, 1) prefill differs from the unsharded one")
+    digests["logits"] = digest(logits)
+    del logits, pargs
+    rec = dict(
+        mesh=list(shape), layers=cfg.n_layers, train_tokens=[
+            train.global_batch, train.seq_len],
+        prefill_tokens=list(ref["logits"].shape[:2]),
+        loss=loss, digests=digests, run_to_run_bitwise=True,
+        bitwise_vs_unsharded=one or "not held (a mesh of several ranks)",
+        first_step_ms=first_ms, ms_per_step=turns, prefill_ms=prefill_ms,
+        unsharded_prefill_ms=ref["prefill_ms"],
+        collectives_per_step=dict(calls=coll.calls, bytes=coll.bytes),
+        allocated_before_gb=before_gb, peak_allocated_gb=peak_gb,
+        memory_model=memory_record(cfg, train, mesh),
+        check=mesh_cells_check(mesh, shape, st, ref))
+    torch.cuda.empty_cache()
+    return rec
+
+
+def mesh_cells_check(mesh, shape, st, ref) -> dict:
+    """The sharded step, its gradients and its prefill at
+    CELLS_CHECK_LAYERS against :func:`mesh_cells_reference`'s unsharded
+    ones, in each compute dtype: loss, gradients and moments within
+    CELLS_TOL (nu twice the gradients' bound), the parameters after AdamW
+    within MESH_CELLS_PARAM_RTOL, the prefill logits within
+    CASCADE_BF16_RTOL of the largest |logit| (the detector's bound)."""
+    out = {}
+    for dt, (loss_tol, grad_tol) in CELLS_TOL.items():
+        want = ref["check"][dt]
+        c = configs.get_config(CASCADE_ARCH).replace(
+            n_layers=CELLS_CHECK_LAYERS, compute_dtype=dt)
+        cell = steps.build_cell(c, cut_shape("train_4k"), mesh)
+        whole = (st["check_params"],
+                 steps.make_optimizer(c).init(st["check_params"]),
+                 st["train"])
+        args = steps.local_args(whole, cell.in_shardings, mesh)
+        new_p, new_s, loss = cell.step_fn(*args)
+        p_sh, opt_sh, _ = cell.out_shardings
+        _, grads = steps.loss_and_grads(lm.Model(c), args[0], args[2],
+                                        model_common.Parallel(mesh))
+        pcell = steps.build_cell(c, cut_shape("prefill_32k"), mesh)
+        with torch.no_grad():
+            logits = pcell.step_fn(*steps.local_args(
+                (st["check_params"], st["prefill"]), pcell.in_shardings,
+                mesh))
+        logits = sharding.whole_block(logits, pcell.out_shardings, mesh)
+        r = dict(
+            loss_rel_diff=abs(float(loss) - float(want["loss"]))
+            / abs(float(want["loss"])),
+            grad_rel_diff=leaf_errs(steps.whole_args(grads, p_sh, mesh),
+                                    cpu_tree(want["grads"])),
+            params_rel_diff=leaf_errs(steps.whole_args(new_p, p_sh, mesh),
+                                      cpu_tree(want["params"])),
+            mu_rel_diff=leaf_errs(steps.whole_args(new_s.mu, opt_sh.mu, mesh),
+                                  cpu_tree(want["mu"])),
+            nu_rel_diff=leaf_errs(steps.whole_args(new_s.nu, opt_sh.nu, mesh),
+                                  cpu_tree(want["nu"])),
+            logits_max_abs_diff=float((logits.float() - want["logits"].float()
+                                       ).abs().max()),
+            max_abs_logit=float(want["logits"].float().abs().max()),
+            loss_rtol=loss_tol, grad_rtol=grad_tol,
+            param_rtol=MESH_CELLS_PARAM_RTOL,
+            logits_rtol=CASCADE_BF16_RTOL)
+        check(r["loss_rel_diff"] <= loss_tol
+              and r["grad_rel_diff"] <= grad_tol
+              and r["mu_rel_diff"] <= grad_tol
+              and r["nu_rel_diff"] <= 2 * grad_tol
+              and r["params_rel_diff"] <= MESH_CELLS_PARAM_RTOL
+              and r["logits_max_abs_diff"]
+              <= CASCADE_BF16_RTOL * r["max_abs_logit"],
+              f"sharded cells on a {shape} mesh against the unsharded step "
+              f"at {CELLS_CHECK_LAYERS} layers, {dt}: {r}")
+        out[dt] = r
+    return out
+
+
+def cpu_tree(tree):
+    return model_common.tree_map(lambda a: a.cpu(), tree)
+
+
 def mesh_phase(base_model, cal, raw, labels):
     """(a) :func:`split_checks`; (b) an NCCL world of every card of the
     host (one rank a card, ``torch.multiprocessing`` with ``spawn``, after
@@ -1936,6 +2209,7 @@ def mesh_phase(base_model, cal, raw, labels):
         ref["runs"]["mesh_closed_loop_float32"]["hp"])
     torch.save(dict(ref, raw=raw.cpu(), labels=labels.cpu().numpy()),
                root / "payload.pt")
+    mesh_cells_payload(root)
     topo = "not measured"
     if DEVICE == "cuda":
         # the link matrix (NVLink or PCIe) where the host's driver reports
@@ -1974,6 +2248,12 @@ def mesh_phase(base_model, cal, raw, labels):
         check(all(r[i]["cascade"]["logits"] == rec["cascade"]["logits"]
                   for r in ranks[1:]),
               f"sharded cascade on a {rec['mesh']} mesh: ranks differ")
+        check(all(r[i]["cells"]["loss"] == rec["cells"]["loss"]
+                  and r[i]["cells"]["digests"] == rec["cells"]["digests"]
+                  for r in ranks[1:]),
+              f"sharded cells on a {rec['mesh']} mesh: the loss, the "
+              f"gathered parameters, moments or prefill logits differ "
+              f"between ranks")
     first = ranks[0][0]
     # the first mesh's checkpoint (written by its rank 0), resumed unsharded
     svc = mesh_churn_service(ref["models"]["churn"], first["churn"][
@@ -2532,24 +2812,95 @@ def prefill_cell_run(cfg, params) -> dict:
                 memory_model=memory_record(cfg, shape, CELLS_MESHES[0]))
 
 
+# seconds the dry run's subprocess may take (its four cells take about a
+# minute of one host core)
+DRYRUN_TIMEOUT_S = 600
+
+
+def dryrun_start():
+    """``python -m repro_torch.launch.dryrun --all`` started in a
+    subprocess on the host's CPU (it runs no card), its records to
+    ``build/dryrun.jsonl``: ``(process, records path, log path)``."""
+    out = ROOT / "build" / "dryrun.jsonl"
+    log = ROOT / "build" / "dryrun.log"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.unlink(missing_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    with open(log, "w") as fh:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+             "--out", str(out)], cwd=ROOT, env=env, stdout=fh,
+            stderr=subprocess.STDOUT)
+    return proc, out, log
+
+
+def dryrun_records(proc, out, log) -> list[dict]:
+    """The dry run's records once its subprocess ends: exit 0; every
+    ``hubert-xlarge`` cell (``train_4k``, ``prefill_32k`` on the 16x16
+    and 2x16x16 meshes) ``ok``, its FLOPs at least the hand count of the
+    products and equal to it plus the unembedding every "model" rank
+    repeats (a vocab of 504 does not split 16 ways), its memory
+    ``analyze()``'s on the mesh; a ``not_ported`` row for each other
+    architecture on each mesh. Each record printed."""
+    rc = proc.wait(timeout=DRYRUN_TIMEOUT_S)
+    check(rc == 0, f"dry run: exit {rc}\n{log.read_text()[-3000:]}")
+    records = [json.loads(line) for line in out.read_text().splitlines()]
+    for r in records:
+        emit({"dryrun": r})
+    cfg = configs.get_config(CASCADE_ARCH)
+    ok = [r for r in records if r["arch"] == CASCADE_ARCH]
+    check(len(ok) == 4 and all(r["status"] == "ok" for r in ok),
+          f"dry run: {CASCADE_ARCH}'s records {ok}")
+    check(sum(r["status"] == "not_ported" for r in records)
+          == len(records) - 4 == 18, "dry run: the not-ported rows")
+    for r in ok:
+        shape = configs.SHAPES[r["shape"]]
+        b, s = shape.global_batch, shape.seq_len
+        train = shape.kind == "train"
+        hand = cell_matmul_flops(cfg, b, s, train)["total"]
+        unembed = (3 if train else 1) * 2 * b * s * cfg.d_model * cfg.vocab
+        model = 16
+        got = r["hlo_gflops"] * 1e9
+        check(got >= hand and math.isclose(
+            got, hand + (model - 1) * unembed, rel_tol=1e-12),
+            f"dry run {r['shape']} {r['mesh']}: {got} FLOPs, hand count "
+            f"{hand} + {model - 1} x {unembed}")
+        mesh = ({"data": 16, "model": 16} if r["mesh"] == "single"
+                else {"pod": 2, "data": 16, "model": 16})
+        mem = memory_model.analyze(cfg, shape, mesh).total_gb
+        check(r["per_device_peak_mem_gb"] == mem,
+              f"dry run {r['shape']} {r['mesh']}: memory "
+              f"{r['per_device_peak_mem_gb']} against analyze() {mem}")
+    return ok
+
+
 def cells_phase(card: str) -> dict:
     """The encoder's training path at full ``hubert-xlarge`` width (48
     layers, bf16 compute, remat "full", weights from ``Model.init`` on a
     seeded generator): the cells counted on meta tensors, the train and
-    prefill cells run, the card against the CPU, the model learning.
-    Every record carries the card's name and power limit."""
+    prefill cells run, the card against the CPU, the model learning; and
+    meanwhile, on the host's CPU, the dry run of the sharded cells on
+    the production meshes (:func:`dryrun_records`). Every record carries
+    the card's name and power limit."""
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    rec = {"card": card, "counted": cells_counted()}
-    cfg = configs.get_config(CASCADE_ARCH)
-    params = lm.Model(cfg).init(
-        torch.Generator(device=DEVICE).manual_seed(SEED + 15))
-    rec["train"] = train_cell_run(cfg, params)
-    torch.cuda.empty_cache()
-    rec["prefill"] = prefill_cell_run(cfg, params)
-    del params
-    torch.cuda.empty_cache()
-    rec["checks"] = cells_checks()
+    dry = dryrun_start()
+    try:
+        rec = {"card": card, "counted": cells_counted()}
+        cfg = configs.get_config(CASCADE_ARCH)
+        params = lm.Model(cfg).init(
+            torch.Generator(device=DEVICE).manual_seed(SEED + 15))
+        rec["train"] = train_cell_run(cfg, params)
+        torch.cuda.empty_cache()
+        rec["prefill"] = prefill_cell_run(cfg, params)
+        del params
+        torch.cuda.empty_cache()
+        rec["checks"] = cells_checks()
+        rec["dryrun"] = dryrun_records(*dry)
+    finally:
+        if dry[0].poll() is None:
+            dry[0].kill()
+            dry[0].wait()
     rec["phase_s"] = time.perf_counter() - t0
     emit({"cells": rec})
     return rec
@@ -2873,6 +3224,30 @@ def similarity_launches() -> dict:
                                           "sim_cluster")
     return dict(launches_per_call={nc: 1 for nc in windows},
                 profile_windows=windows)
+
+
+def first_profile_device_ms() -> dict:
+    """The device ms of ``similarity`` (``sim_cluster``) at the held-out
+    call's shape (384 x DIM, 2 classes) and of ``hdc_encode_perm``
+    (``encode_kernel``) at the training encode's (512 x FRAG^2 x DIM),
+    on seeded random inputs, from the process's first profiles (right
+    after :func:`similarity_launches`): after the large profiles of the
+    later phases the H100's profiler has recorded none of these
+    single-launch calls."""
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(SEED + 25)
+    q = torch.randn((384, DIM), generator=g, device=DEVICE)
+    c = torch.randn((2, DIM), generator=g, device=DEVICE)
+    x = torch.rand((512, FRAG * FRAG), generator=g, device=DEVICE)
+    B0 = torch.randn((FRAG, DIM), generator=g, device=DEVICE)
+    b = 2 * math.pi * torch.rand((DIM,), generator=g, device=DEVICE)
+    sim.similarity(q, c)
+    enc_perm.hdc_encode_perm(x, B0, b, h=FRAG, w=FRAG)
+    return {"similarity": kernel_device_ms(
+                lambda: sim.similarity(q, c), ("sim_cluster",))[0],
+            "hdc_encode_perm": kernel_device_ms(
+                lambda: enc_perm.hdc_encode_perm(x, B0, b, h=FRAG, w=FRAG),
+                ("encode_kernel",))[0]}
 
 
 def similarity_checks(q, hv_tr, C) -> dict:
@@ -3809,30 +4184,36 @@ def baselines_phase(g):
     return rec, launches
 
 
-def kernel_device_ms(fn, names, calls: int = 5):
+def kernel_device_ms(fn, names, calls: int = 5, windows: int = 3):
     """Device time of one call of ``fn`` spent in the kernels whose names
     contain one of ``names``: ``calls`` calls under ``torch.profiler``, each
     kernel's mean over the launches the profiler recorded (it has dropped
-    single launches on the H100, so the window opens with a one-element
-    fill), summed over the kernels. "not measured" if a kernel was never
-    recorded. Returns the sum and the means."""
-    torch.cuda.synchronize()
+    single launches on the H100, so the window opens and closes with a
+    one-element fill), summed over the kernels. A window in which a
+    kernel was never recorded (the profiler has lost every event of a
+    window after a large profile) is taken again, up to ``windows``
+    times; "not measured" if none recorded them all. Returns the sum and
+    the means."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        torch.zeros(1, device=DEVICE)
+    for _ in range(windows):
         torch.cuda.synchronize()
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    means = {n: e.self_device_time_total / e.count / 1e3
-             for e in prof.key_averages()
-             if e.device_type != torch.autograd.DeviceType.CPU
-             and e.self_device_time_total > 0
-             for n in names if n in e.key}
-    total = sum(means.values()) if len(means) == len(names) else \
-        "not measured"
-    return total, means
+        with torch.profiler.profile(activities=acts) as prof:
+            torch.zeros(1, device=DEVICE)
+            torch.cuda.synchronize()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            torch.zeros(1, device=DEVICE)
+            torch.cuda.synchronize()
+        means = {n: e.self_device_time_total / e.count / 1e3
+                 for e in prof.key_averages()
+                 if e.device_type != torch.autograd.DeviceType.CPU
+                 and e.self_device_time_total > 0
+                 for n in names if n in e.key}
+        if len(means) == len(names):
+            return sum(means.values()), means
+    return "not measured", means
 
 
 def ok_line() -> None:
@@ -3887,6 +4268,8 @@ def main(argv=None) -> int:
 
     sim_launches = similarity_launches()
     emit({"similarity_launches": sim_launches})
+    first_ms = first_profile_device_ms()
+    emit({"first_profile_device_ms": first_ms})
 
     g = torch.Generator(device=DEVICE)
     g.manual_seed(SEED)
@@ -3934,6 +4317,10 @@ def main(argv=None) -> int:
     for r in train_records:
         if r["name"] == "similarity":
             r.update(sim_launches)
+        if r["kernel_device_ms"] == "not measured" and \
+                r["name"] in first_ms:
+            r["kernel_device_ms"] = first_ms[r["name"]]
+            r["kernel_device_ms_from"] = "the process's first profile"
         emit({"kernel_check": r})
     records += train_records
     gi = torch.Generator(device=DEVICE)

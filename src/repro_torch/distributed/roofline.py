@@ -19,6 +19,12 @@ The reference reads its terms off a compiled XLA module
 * peak memory: the allocator's peak over the run on the card (0.0 on the
   CPU).
 
+:func:`from_counts` takes the same terms for a train or prefill cell from
+one run of a rank's step on meta tensors (the dry run,
+:mod:`repro_torch.launch.dryrun`): FLOPs from ``FlopCounterMode``, bytes
+from every op's inputs and outputs, collectives from ``count_collectives``
+and the peak from :func:`repro_torch.distributed.memory_model.analyze`.
+
 :class:`Roofline` keeps the reference's fields, properties and
 ``to_dict()`` keys, so one table renders the records of both packages.
 """
@@ -28,9 +34,12 @@ from __future__ import annotations
 from dataclasses import asdict, dataclass, field
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
+from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.core import energy
-from repro_torch.distributed import sharding
+from repro_torch.distributed import memory_model, sharding
 
 PEAK_FLOPS = 989e12        # bf16 / card (tensor cores, dense)
 HBM_BW = 3.35e12           # bytes/s / card
@@ -151,3 +160,54 @@ def from_step(step_fn, weights, frames: torch.Tensor, *, arch: str, shape,
         model_gflops=mf / 1e9,
         per_device_peak_mem_gb=peak / 1e9,
     )
+
+
+class _OpBytes(TorchDispatchMode):
+    """Sums the bytes of every tensor each op reads and writes (its tensor
+    arguments and outputs), views and the collectives' own ops left out:
+    the traffic of eager PyTorch, each op its own pass through memory."""
+
+    def __init__(self):
+        super().__init__()
+        self.bytes = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if not func.is_view and func.namespace != "c10d":
+            self.bytes += sum(t.numel() * t.element_size() for t in
+                              tree_leaves((args, kwargs, out))
+                              if isinstance(t, torch.Tensor))
+        return out
+
+
+def from_counts(step_fn, args, *, arch: str, shape, mesh, mesh_name: str,
+                cfg, n_params: int, rules: dict | None = None) -> Roofline:
+    """The roofline of one train or prefill step of ``cfg`` at ``shape``
+    from one run of ``step_fn(*args)``, this rank's step on ``mesh``
+    (every rank of which calls this together; on meta tensors under a
+    fake process group, one process counts a rank of any mesh):
+
+    * ``hlo_gflops``: the run's products (``FlopCounterMode``) times the
+      mesh's ranks, every layer and every backward product counted (the
+      ranks run the same program on blocks of the same shapes);
+    * ``hlo_gbytes``: the bytes every op reads and writes times the ranks,
+      the traffic of eager PyTorch, not of a fused program: an upper
+      bound on what the step must move;
+    * ``coll_gbytes``: the collectives' output bytes, per rank, as the
+      reference's HLO shapes are per device;
+    * ``per_device_peak_mem_gb``: :func:`memory_model.analyze` of the
+      cell on ``mesh`` (meta tensors have no allocator);
+    * ``model_gflops``: :func:`model_flops`."""
+    chips = mesh.size()
+    with sharding.count_collectives() as coll, \
+            FlopCounterMode(display=False) as fc, _OpBytes() as ob:
+        step_fn(*args)
+    mem = memory_model.analyze(cfg, shape, mesh, rules)
+    return Roofline(
+        arch=arch, shape=shape.name, mesh=mesh_name, chips=chips,
+        hlo_gflops=fc.get_total_flops() * chips / 1e9,
+        hlo_gbytes=ob.bytes * chips / 1e9,
+        coll_gbytes=sum(coll.bytes.values()) / 1e9,
+        coll_breakdown={k: v / 1e9 for k, v in coll.bytes.items() if v},
+        model_gflops=model_flops(cfg, shape, n_params) / 1e9,
+        per_device_peak_mem_gb=mem.total_gb)

@@ -16,27 +16,38 @@ take a ``torch.distributed.device_mesh.DeviceMesh`` with named dimensions
 or a plain ``{name: size}`` mapping. A spec is a tuple with one entry per
 tensor dimension: a mesh dimension's name, a tuple of names, or None
 (replicated). The runtime helpers work on the process groups of a
-``DeviceMesh``: :func:`axis_group`, :func:`local_range`,
-:func:`local_block` (this rank's block of a whole tensor),
-:func:`all_gather_cat` (the blocks back together, in rank order) and
+``DeviceMesh``: :func:`axis_group` (over one mesh dim or several),
+:func:`local_range`, :func:`local_block` (this rank's block of a whole
+tensor) and :func:`whole_block` (the blocks back together),
+:func:`all_gather_cat` (the blocks back together, in rank order),
 :func:`fold_partials` (the partial sums of a row-parallel product added
-in rank order, in float32); :func:`count_collectives` records the bytes
-they move. The detector's sharded forward
-(:mod:`repro_torch.models`) is written out with them, as there is no
-GSPMD to insert its collectives.
+in rank order, in float32), :func:`enter_group` (a replicated activation
+entering a column-parallel product) and :func:`max_over`;
+:func:`count_collectives` records the bytes they move. The detector's and
+the cells' sharded steps (:mod:`repro_torch.models`,
+:mod:`repro_torch.launch.steps`) are written out with them, as there is
+no GSPMD to insert its collectives.
+
+Autograd differentiates the collectives, each backward pass in a fixed
+order, so every rank and every run gets the same bits: the gather's is a
+reduce-scatter (an all-to-all, then the blocks added in group-rank order
+in float32), the fold's the identity (its output is the same on every
+rank of the group), and :func:`enter_group`'s a fold (Megatron's "f" and
+"g"). None of them uses ``all_reduce`` or ``reduce_scatter``, whose order
+is the algorithm NCCL picks.
 
 :func:`logical_sharding` is the spec a cell's inputs and outputs carry
 (the train and prefill cells of :mod:`repro_torch.launch.steps`).
 
 Not ported yet: ``shard``, the LM models' activation constraints (the
 sequence-parallel residual among them), which GSPMD reads and the
-port's written-out forward has no use for; a group over several mesh
-dims, which waits for the production mesh.
+port's written-out forward has no use for.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import threading
 from contextlib import contextmanager
 from typing import Iterator, Mapping, Sequence
@@ -245,14 +256,29 @@ def logical_sharding(shape: Sequence[int], axes: Sequence[str | None],
 
 def axis_group(mesh, axes: str | Sequence[str]):
     """The process group of ``mesh``'s dims ``axes`` (a spec entry: one
-    name or a tuple of names) that holds this rank (the ranks that differ
-    from it along those dims alone). One dim only: a (pod, data) group
-    waits for the production mesh's slice."""
+    name or a tuple of names) that holds this rank: the ranks that differ
+    from it along those dims alone. Over several dims the group's ranks
+    run in the mesh's row-major order of those dims (for ``("pod",
+    "data")``: pod-major), whatever order ``axes`` names them in; every
+    rank makes every such group of the mesh (``dist.new_group``, one per
+    row, in the same order) the first time it asks for those dims, and
+    the mesh keeps them."""
     axes = (axes,) if isinstance(axes, str) else tuple(axes)
-    if len(axes) != 1:
-        raise NotImplementedError(
-            f"a group over several mesh dims {axes} is not ported")
-    return mesh.get_group(axes[0])
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    names = list(mesh_shape(mesh))
+    dims = sorted(names.index(a) for a in axes)
+    key = tuple(names[i] for i in dims)
+    cache = mesh.__dict__.setdefault("_axis_groups", {})
+    if key not in cache:
+        rest = [i for i in range(len(names)) if i not in dims]
+        k = math.prod(mesh.mesh.shape[i] for i in dims)
+        me = dist.get_rank()
+        for row in mesh.mesh.permute(*rest, *dims).reshape(-1, k).tolist():
+            group = dist.new_group(row)
+            if me in row:
+                cache[key] = group
+    return cache[key]
 
 
 def local_range(n: int, group) -> tuple[int, int]:
@@ -282,6 +308,20 @@ def local_block(t: torch.Tensor, spec: Sequence, mesh) -> torch.Tensor:
     return t.clone(memory_format=torch.contiguous_format)
 
 
+def whole_block(t: torch.Tensor, spec: Sequence, mesh) -> torch.Tensor:
+    """The whole tensor of which ``t`` is this rank's :func:`local_block`
+    under ``spec``: gathered in group-rank order along every dim that
+    ``spec`` shards (the same on every rank of those groups)."""
+    if len(spec) != t.ndim:
+        raise ValueError(f"spec {tuple(spec)} does not fit a tensor of "
+                         f"shape {tuple(t.shape)}")
+    with torch.no_grad():
+        for dim, axes in enumerate(spec):
+            if axes is not None:
+                t = all_gather_cat(t, axis_group(mesh, axes), dim)
+    return t
+
+
 @dataclasses.dataclass
 class CollectiveCount:
     """What the helpers' collectives moved inside a
@@ -293,21 +333,35 @@ class CollectiveCount:
     calls: dict = dataclasses.field(default_factory=dict)
 
 
+# the open count_collectives scopes: process-wide, since autograd runs a
+# CUDA backward pass (and a remat layer's recompute) on its own threads
+_COUNTS: list[CollectiveCount] = []
+_COUNTS_LOCK = threading.Lock()
+
+
 @contextmanager
 def count_collectives() -> Iterator[CollectiveCount]:
-    """Record the collectives :func:`all_gather_cat` and
-    :func:`fold_partials` issue in this thread inside the scope (every
-    open scope records them): the port's counterpart of the reference's
-    HLO parse (``roofline.collective_bytes``), which has no meaning
-    without XLA. A collective is recorded where Python issues it, so a
-    CUDA graph's replay records nothing: count over an uncaptured run."""
+    """Record the collectives the helpers issue inside the scope, in any
+    thread of the process (every open scope records them), the backward
+    passes' included: the port's counterpart of the reference's HLO parse
+    (``roofline.collective_bytes``), which has no meaning without XLA. A
+    collective is recorded where Python issues it, so a CUDA graph's
+    replay records nothing: count over an uncaptured run."""
     count = CollectiveCount()
-    prev = getattr(_CTX, "colls", ())
-    _CTX.colls = (*prev, count)
+    with _COUNTS_LOCK:
+        _COUNTS.append(count)
     try:
         yield count
     finally:
-        _CTX.colls = prev
+        with _COUNTS_LOCK:
+            _COUNTS.remove(count)
+
+
+def _record(op: str, n_bytes: int) -> None:
+    with _COUNTS_LOCK:
+        for count in _COUNTS:
+            count.bytes[op] = count.bytes.get(op, 0) + n_bytes
+            count.calls[op] = count.calls.get(op, 0) + 1
 
 
 def _gather(x: torch.Tensor, group) -> list[torch.Tensor]:
@@ -317,18 +371,73 @@ def _gather(x: torch.Tensor, group) -> list[torch.Tensor]:
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, x, group=group)
-    for count in getattr(_CTX, "colls", ()):
-        count.bytes["all-gather"] = (count.bytes.get("all-gather", 0)
-                                     + len(parts) * x.numel()
-                                     * x.element_size())
-        count.calls["all-gather"] = count.calls.get("all-gather", 0) + 1
+    _record("all-gather", len(parts) * x.numel() * x.element_size())
     return parts
+
+
+def _ordered_sum(parts, dtype: torch.dtype) -> torch.Tensor:
+    """``parts`` added in their order in float32, cast to ``dtype``."""
+    acc = parts[0].to(torch.float32)
+    for p in parts[1:]:
+        acc = acc + p.to(torch.float32)
+    return acc.to(dtype)
+
+
+def _fold(x: torch.Tensor, group) -> torch.Tensor:
+    return _ordered_sum(_gather(x, group), x.dtype)
+
+
+def _reduce_scatter(g: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """This rank's block along ``dim`` of the sum over ``group`` of every
+    rank's ``g``: each rank sends every rank its block
+    (``dist.all_to_all_single``), and the blocks received are added in
+    group-rank order in float32, then cast back to ``g``'s dtype."""
+    k = dist.get_world_size(group)
+    send = torch.stack(g.chunk(k, dim))
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    _record("all-to-all", recv.numel() * recv.element_size())
+    return _ordered_sum(recv.unbind(0), g.dtype)
+
+
+class _GatherCat(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return torch.cat(_gather(x, group), dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _reduce_scatter(grad, ctx.group, ctx.dim), None, None
+
+
+class _Fold(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _fold(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _fold(grad, ctx.group), None
 
 
 def all_gather_cat(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     """Every rank's ``x`` of ``group`` concatenated along ``dim`` in
-    group-rank order."""
-    return torch.cat(_gather(x, group), dim)
+    group-rank order. Its backward pass gives each rank its block of the
+    sum of every rank's gradient (:func:`_reduce_scatter`): an FSDP
+    weight's gradient, summed over the ranks that gathered it."""
+    return _GatherCat.apply(x, group, dim)
 
 
 def fold_partials(x: torch.Tensor, group) -> torch.Tensor:
@@ -337,9 +446,22 @@ def fold_partials(x: torch.Tensor, group) -> torch.Tensor:
     group-rank order in float32 (the scorers' ``_ordered_tile_fold``
     discipline). Not ``dist.all_reduce``, whose order is the algorithm
     NCCL picks: this fold is the same bits on every rank and from run to
-    run. On a one-rank group it is ``x`` itself."""
-    parts = _gather(x, group)
-    acc = parts[0].to(torch.float32)
-    for p in parts[1:]:
-        acc = acc + p.to(torch.float32)
-    return acc.to(x.dtype)
+    run. On a one-rank group it is ``x`` itself. Its backward pass is the
+    identity: the output is the same on every rank, so each partial's
+    gradient is the output's."""
+    return _Fold.apply(x, group)
+
+
+def enter_group(x: torch.Tensor, group) -> torch.Tensor:
+    """``x``, a value the same on every rank of ``group`` that feeds a
+    product split over ``group`` (a column-parallel weight's out-dim):
+    the identity forward; backward, the ranks' partial gradients of
+    ``x`` folded (:func:`fold_partials`), so every rank holds the whole
+    gradient."""
+    return _Enter.apply(x, group)
+
+
+def max_over(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise maximum of every rank's ``x`` over ``group``, with
+    no gradient (a logsumexp's shift)."""
+    return torch.stack(_gather(x.detach(), group)).amax(0)

@@ -14,9 +14,19 @@ without a mesh) and its abstract arguments. Cells:
   gated cascade's downstream step (``build_detector_cell``, with its
   ``mesh=``, ``init_detector_params``).
 
-The train and prefill steps run unsharded; with a mesh their cells carry
-the spec trees and the steps raise (the sharded steps are ``ROADMAP.md``
-§1 item 2b). The decode cell comes with the LM zoo (item 4).
+With a mesh (a named ``DeviceMesh``; every rank builds the cell and runs
+every step together) the train and prefill steps take this rank's
+blocks, those ``in_shardings`` describes, and return the blocks
+``out_shardings`` describes: the forward written out over the mesh
+(:class:`~repro_torch.models.common.Parallel`), the loss vocab-parallel
+and folded over the batch's group, the gradients through collectives
+that autograd differentiates (:mod:`repro_torch.distributed.sharding`),
+the clip's norm folded over each leaf's groups, AdamW on the blocks.
+:func:`local_args` cuts a whole ``(params, opt_state, batch)`` into a
+rank's arguments and :func:`whole_args` puts blocks back together. A
+cell built with a ``{name: size}`` mapping carries its spec trees for
+counting; its step needs a ``DeviceMesh``. The decode cell comes with
+the LM zoo (``ROADMAP.md`` §1 item 4).
 """
 
 from __future__ import annotations
@@ -75,18 +85,62 @@ def _abstract_opt_state(p_abs: dict) -> optim.AdamWState:
         nu=common.tree_map(lambda t: _meta(t.shape, t.dtype), p_abs))
 
 
-def _unsharded(fn: Callable, mesh) -> Callable:
-    """``fn``, or on a mesh a step that raises: the cell's spec trees are
-    there for counting, the sharded step is the next slice's."""
-    if mesh is None:
-        return fn
+def _blockwise(fn: Callable, tree, specs, mesh):
+    """``fn(tensor, spec, mesh)`` at every tensor of ``tree`` (nested
+    dicts, lists and tuples, NamedTuples among them) and its spec in the
+    tree ``specs`` of the same structure; None stays None."""
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        return fn(tree, specs, mesh)
+    if isinstance(tree, dict):
+        return {k: _blockwise(fn, tree[k], specs[k], mesh) for k in tree}
+    parts = [_blockwise(fn, t, s, mesh) for t, s in zip(tree, specs)]
+    return type(tree)(*parts) if hasattr(tree, "_fields") \
+        else type(tree)(parts)
 
-    def sharded(*args):
-        raise NotImplementedError(
-            "the sharded train and prefill steps (collectives autograd "
-            "differentiates) are ROADMAP.md §1 item 2b; build the cell "
-            "with mesh=None to run the step")
-    return sharded
+
+def local_args(args, specs, mesh):
+    """This rank's blocks of ``args`` (whole tensors, the same on every
+    rank) under ``specs``, a cell's ``in_shardings`` or ``out_shardings``
+    of the same structure (:func:`~repro_torch.distributed.sharding.
+    local_block` at each tensor). On meta tensors it allocates nothing."""
+    return _blockwise(sharding.local_block, args, specs, mesh)
+
+
+def whole_args(blocks, specs, mesh):
+    """The inverse of :func:`local_args`: every block gathered whole
+    (:func:`~repro_torch.distributed.sharding.whole_block`), the same on
+    every rank."""
+    return _blockwise(sharding.whole_block, blocks, specs, mesh)
+
+
+def _split_axes(spec) -> tuple[str, ...]:
+    """The mesh dims a spec splits its tensor over."""
+    out: list[str] = []
+    for axes in spec:
+        if axes is not None:
+            out.extend((axes,) if isinstance(axes, str) else axes)
+    return tuple(out)
+
+
+def _grad_groups(model: lm.Model, par: common.Parallel):
+    """Per parameter, in leaf order: the group over the batch's mesh dims
+    its spec does not split it over (its gradient is a partial sum over
+    the batch blocks there), or None; and the tree of the clip's groups,
+    each leaf's over every mesh dim its spec splits it over, or None."""
+    batch_axes, _ = sharding.mesh_extent("act_batch", par.mesh, par.rules)
+
+    def group(axes):
+        return sharding.axis_group(par.mesh, axes) if axes else None
+
+    spec = model.spec()
+    split = [_split_axes(par.spec(p)) for p in common.leaves(spec)]
+    folds = [group(tuple(a for a in batch_axes if a not in s))
+             for s in split]
+    norm = iter([group(s) for s in split])
+    return folds, common.tree_map(lambda _: next(norm), spec,
+                                  lambda x: isinstance(x, common.P))
 
 
 # ---------------------------------------------------------------------------
@@ -98,7 +152,8 @@ def make_optimizer(cfg: ModelConfig) -> optim.AdamW:
                        weight_decay=0.1)
 
 
-def loss_and_grads(model: lm.Model, params: dict, batch: Batch):
+def loss_and_grads(model: lm.Model, params: dict, batch: Batch,
+                   par: common.Parallel | None = None):
     """``(loss, grads)`` of ``model.loss`` at ``params``: the float32
     master weights cast to the compute dtype once, the gradients taken
     with respect to that cast tree (in bf16 for a bf16 config, as the
@@ -106,7 +161,14 @@ def loss_and_grads(model: lm.Model, params: dict, batch: Batch):
     backward pass run in one :func:`~repro_torch.pin_detector_matmul`
     scope, since autograd runs the backward pass (and each remat layer's
     recompute) under the flags set when it runs. ``loss`` is a float32
-    0-d tensor, never read back to the host here."""
+    0-d tensor, never read back to the host here.
+
+    With ``par``, ``params`` and ``batch`` are this rank's blocks and so
+    are the gradients. A leaf that its spec does not split over the
+    batch's mesh dims (a norm's scale and bias, for one) holds this
+    rank's batch block's share of its gradient: it is folded over those
+    dims, in rank order. An FSDP leaf already has that sum from its
+    gather's backward pass."""
     dt = model.compute_dtype
 
     def cast(p: torch.Tensor) -> torch.Tensor:
@@ -115,19 +177,29 @@ def loss_and_grads(model: lm.Model, params: dict, batch: Batch):
 
     cast_params = common.tree_map(cast, params)
     with pin_detector_matmul():
-        loss = model.loss(cast_params, batch)
-        flat = iter(torch.autograd.grad(loss, common.leaves(cast_params)))
+        loss = model.loss(cast_params, batch, par)
+        flat = torch.autograd.grad(loss, common.leaves(cast_params))
+    if par is not None:
+        folds, _ = _grad_groups(model, par)
+        with torch.no_grad():
+            flat = [g if grp is None else sharding.fold_partials(g, grp)
+                    for g, grp in zip(flat, folds)]
+    flat = iter(flat)
     return loss.detach(), common.tree_map(lambda _: next(flat), cast_params)
 
 
-def train_step_fn(model: lm.Model, opt: optim.AdamW) -> Callable:
+def train_step_fn(model: lm.Model, opt: optim.AdamW,
+                  par: common.Parallel | None = None) -> Callable:
     """``step(params, opt_state, batch) -> (params, opt_state, loss)``:
     :func:`loss_and_grads`, then ``opt.update`` with float32 moments and
-    ``apply_updates``."""
+    ``apply_updates``; with ``par``, on this rank's blocks, the clip's
+    norm folded over each leaf's groups."""
     def train_step(params, opt_state, batch):
-        loss, grads = loss_and_grads(model, params, batch)
+        loss, grads = loss_and_grads(model, params, batch, par)
+        norm_groups = None if par is None else _grad_groups(model, par)[1]
         with torch.no_grad():
-            updates, opt_state = opt.update(grads, opt_state, params)
+            updates, opt_state = opt.update(grads, opt_state, params,
+                                            norm_groups)
             params = optim.apply_updates(params, updates)
         return params, opt_state, loss
 
@@ -140,14 +212,18 @@ def build_train_cell(cfg: ModelConfig, shape: ShapeConfig, mesh=None,
     p_abs = model.abstract_params()
     opt_abs = _abstract_opt_state(p_abs)
     b_abs = _batch_specs(cfg, shape)
-    in_sh = out_sh = None
+    in_sh = out_sh = par = None
     if mesh is not None:
+        # the rules resolved once, so the step reads the blocks the spec
+        # trees describe, whatever use_mesh scope it runs in
+        rules = rules or sharding.current_rules()
+        par = common.Parallel(mesh, rules)
         p_sh = model.param_specs(mesh, rules)
         opt_sh = optim.AdamWState(step=(), mu=p_sh, nu=p_sh)
         in_sh = (p_sh, opt_sh, _batch_shardings(cfg, shape, mesh, rules))
         out_sh = (p_sh, opt_sh, ())
     return Cell(
-        step_fn=_unsharded(train_step_fn(model, make_optimizer(cfg)), mesh),
+        step_fn=train_step_fn(model, make_optimizer(cfg), par),
         in_shardings=in_sh,
         out_shardings=out_sh,
         abstract_args=(p_abs, opt_abs, b_abs),
@@ -158,19 +234,21 @@ def build_train_cell(cfg: ModelConfig, shape: ShapeConfig, mesh=None,
 def build_prefill_cell(cfg: ModelConfig, shape: ShapeConfig, mesh=None,
                        rules=None) -> Cell:
     model = lm.Model(cfg)
-
-    def prefill_step(params, batch):
-        return model.forward(params, batch.embeds)
-
-    in_sh = out_sh = None
+    in_sh = out_sh = par = None
     if mesh is not None:
+        rules = rules or sharding.current_rules()
+        par = common.Parallel(mesh, rules)
         out_shape = (shape.global_batch, shape.seq_len, cfg.vocab)
         in_sh = (model.param_specs(mesh, rules),
                  _batch_shardings(cfg, shape, mesh, rules))
         out_sh = sharding.logical_sharding(
             out_shape, ("act_batch", "act_seq", "act_vocab"), mesh, rules)
+
+    def prefill_step(params, batch):
+        return model.forward(params, batch.embeds, par)
+
     return Cell(
-        step_fn=_unsharded(prefill_step, mesh),
+        step_fn=prefill_step,
         in_shardings=in_sh,
         out_shardings=out_sh,
         abstract_args=(model.abstract_params(), _batch_specs(cfg, shape)),

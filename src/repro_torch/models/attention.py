@@ -13,8 +13,10 @@ Sharded (``par``, a :class:`~repro_torch.models.common.Parallel`): ``wq``,
 ``wk`` and ``wv`` are column-parallel over this rank's heads, so q, k, v,
 the scores and ``P·V`` are those of its heads alone, unchanged per head;
 ``wo`` is row-parallel, and its ``(s, d)`` partial is folded over the
-heads' group (:func:`~repro_torch.distributed.sharding.fold_partials`).
-Heads that the mesh does not divide run whole and fold nothing.
+heads' group (:func:`~repro_torch.distributed.sharding.fold_partials`);
+``x`` enters the heads' group (``Parallel.enter``), so its gradient is
+summed over the heads. Heads that the mesh does not divide run whole and
+fold nothing.
 
 ``KVCache`` and ``decode_step`` come with the decode cell
 (``ROADMAP.md`` §1 item 4).
@@ -143,6 +145,7 @@ def full(params: dict, x: torch.Tensor, cfg: AttnConfig,
                 "query heads and kv heads split differently over the mesh "
                 "(grouped-query attention) is not ported")
         group = par.group(decl["wq"], "heads")
+        x = par.enter(x, decl["wq"], "heads")
         params = dict(params, **{k: par.gather(params[k], decl[k])
                                  for k in ("wq", "wk", "wv", "wo")})
     q, k, v = _project_qkv(params, x, cfg, positions)

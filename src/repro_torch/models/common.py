@@ -10,7 +10,8 @@ leaf's :func:`~repro_torch.distributed.sharding.spec_for` entry,
 :func:`local_params` cuts this rank's blocks, and :class:`Parallel` is
 what a sharded forward asks of the mesh. :func:`abstract_params` is the
 same tree on ``device="meta"`` (shapes and dtypes, no storage), what a
-cell is counted on. ``embed`` and ``embed_spec`` wait for the LM zoo.
+cell is counted on, and :func:`abstract_local_params` this rank's blocks
+of it. ``embed`` and ``embed_spec`` wait for the LM zoo.
 
 The norms keep the reference's dtype discipline: float32 statistics, the
 normalisation applied in the compute dtype.
@@ -123,6 +124,15 @@ def local_params(params, specs, mesh):
     return sharding.local_block(params, specs, mesh)
 
 
+def abstract_local_params(spec: SpecTree, mesh, rules: dict | None = None,
+                          dtype: torch.dtype = torch.float32) -> dict:
+    """The meta-tensor twin of :func:`local_params`: each leaf at the shape
+    of this rank's block under :func:`param_specs` on ``mesh``, allocating
+    nothing (what the dry run counts a rank's step on)."""
+    return local_params(abstract_params(spec, dtype),
+                        param_specs(spec, mesh, rules), mesh)
+
+
 class Parallel(NamedTuple):
     """A mesh as the sharded forward sees it. Weights are this rank's
     blocks (:func:`local_params`); each is declared by a :class:`P` whose
@@ -142,6 +152,22 @@ class Parallel(NamedTuple):
         axes = self.spec(p)[p.axes.index(logical)]
         return None if axes is None else sharding.axis_group(self.mesh,
                                                              axes)
+
+    def enter(self, x: torch.Tensor, p: P, logical: str) -> torch.Tensor:
+        """``x``, replicated over the group ``p``'s ``logical`` dim is split
+        over, entering the column-parallel product with ``p``
+        (:func:`~repro_torch.distributed.sharding.enter_group`: its
+        gradient folded over that group); ``x`` itself where the dim is
+        whole."""
+        g = self.group(p, logical)
+        return x if g is None else sharding.enter_group(x, g)
+
+    def batch_group(self):
+        """The group of the mesh dims the rules map ``"act_batch"`` to,
+        whether or not they split a given batch (a batch they do not
+        split runs whole on each of their ranks), or None."""
+        axes, _ = sharding.mesh_extent("act_batch", self.mesh, self.rules)
+        return sharding.axis_group(self.mesh, axes) if axes else None
 
     def gather(self, w: torch.Tensor, p: P) -> torch.Tensor:
         """``w``, this rank's block of ``p``, with its ``"embed"`` dim whole
@@ -242,10 +268,12 @@ def unembed(params: dict, x: torch.Tensor, compute_dtype: torch.dtype,
             par: Parallel | None = None, vocab: int = 0) -> torch.Tensor:
     """Logits; with ``par``, this rank's block of the ``vocab`` columns
     (all of them where :func:`~repro_torch.distributed.sharding.spec_for`
-    leaves the vocab whole)."""
+    leaves the vocab whole), ``x`` entering the vocab's group."""
     w = params["kernel"]
     if par is not None:
-        w = par.gather(w, unembed_spec(vocab, x.shape[-1])["kernel"])
+        decl = unembed_spec(vocab, x.shape[-1])["kernel"]
+        x = par.enter(x, decl, "vocab")
+        w = par.gather(w, decl)
     return x.to(compute_dtype) @ w.to(compute_dtype)
 
 

@@ -9,9 +9,12 @@ the blocks of :meth:`Model.param_specs`), the forward is written out:
 attention and MLP tensor-parallel over ``"model"`` with their row-parallel
 partials folded, every ``"embed"`` dim (FSDP over ``"data"``) gathered
 right before its use, the unembedding this rank's vocab block; norms and
-the residual stream replicated. The reference's activation hints
-(``shard``, ``_seq_gather``: the sequence-parallel residual,
-``act_resid_seq``) and ``_opt_barrier`` constrain GSPMD and are dropped.
+the residual stream replicated. ``Model.loss`` takes the same ``par``
+(the vocab-parallel logsumexp), and autograd differentiates the
+collectives (:mod:`repro_torch.distributed.sharding`). The reference's
+activation hints (``shard``, ``_seq_gather``: the sequence-parallel
+residual, ``act_resid_seq``) and ``_opt_barrier`` constrain GSPMD and
+are dropped.
 Layers are stacked on a leading axis (``scan_layers=True``) or kept as a
 list, as in the reference; the stack runs as a Python loop over the
 layers, each layer under ``remat`` when a backward pass will need it
@@ -31,6 +34,7 @@ import torch.utils.checkpoint
 
 from repro_torch import pin_detector_matmul
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding
 from repro_torch.models import attention, common, mlp
 
 PORTED_FAMILIES = ("encoder",)
@@ -194,33 +198,68 @@ class Model:
     #: the seq-chunked cross entropy kicks in above this sequence length
     _LOSS_CHUNK = 1024
 
-    def loss(self, params: dict, batch: Batch) -> torch.Tensor:
+    def loss(self, params: dict, batch: Batch,
+             par: common.Parallel | None = None) -> torch.Tensor:
         """The masked NLL of ``batch.labels`` under the logits of
         ``batch.embeds``, a float32 0-d tensor: the reference's ``loss``.
         Each position's ``logsumexp - gold`` in float32, summed over the
         positions whose label is not -1 and divided by
-        ``max(count, 1)``. For a vocab of 8192 or more over a sequence of
-        more than ``_LOSS_CHUNK`` that it divides, the logits are made
-        one chunk of positions at a time, each chunk under a checkpoint,
-        so the float32 logits never live for the whole sequence. The MoE
-        auxiliary term is 0 for the ported families and is not added.
-        The products run in :func:`~repro_torch.pin_detector_matmul`'s
-        scope; a caller that runs the backward pass keeps it open across
-        both, as :mod:`repro_torch.launch.steps`' train step does."""
+        ``max(count, 1)``. The logsumexp is the reference's
+        (``jax.nn.logsumexp``): the row's maximum, held constant,
+        subtracted before ``exp`` and added back after ``log``. For a
+        vocab of 8192 or more over a sequence of more than ``_LOSS_CHUNK``
+        that it divides, the logits are made one chunk of positions at a
+        time, each chunk under a checkpoint, so the float32 logits never
+        live for the whole sequence. The MoE auxiliary term is 0 for the
+        ported families and is not added. The products run in
+        :func:`~repro_torch.pin_detector_matmul`'s scope; a caller that
+        runs the backward pass keeps it open across both, as
+        :mod:`repro_torch.launch.steps`' train step does.
+
+        With ``par``, ``params`` are this rank's blocks and ``batch`` its
+        block of the batch. Over the vocab's group the logsumexp is
+        vocab-parallel: the ranks' maxima gathered, ``exp`` summed over
+        this rank's columns and folded, the gold logit taken by the rank
+        whose block holds the label (zero elsewhere) and folded. The NLL
+        sum and the label count are folded over the batch's group
+        (``Parallel.batch_group``) before the division, so the loss is
+        the whole batch's on every rank. A batch that group does not
+        split runs whole on each of its ranks: both sums then count it
+        once a rank, and their ratio is the batch's loss."""
         cfg = self.cfg
         unembed = params["unembed"]
+        vocab_group, lo = None, 0
+        batch_group = None
+        if par is not None:
+            vocab_group = par.group(
+                common.unembed_spec(cfg.vocab, cfg.d_model)["kernel"],
+                "vocab")
+            if vocab_group is not None:
+                lo, _ = sharding.local_range(cfg.vocab, vocab_group)
+            batch_group = par.batch_group()
 
         def chunk_nll(hc, lc):
-            logits = common.unembed(unembed, hc, self.compute_dtype)
+            logits = common.unembed(unembed, hc, self.compute_dtype, par,
+                                    cfg.vocab)
             logits = logits.to(torch.float32)
             mask = (lc >= 0).to(torch.float32)
-            safe = torch.clamp(lc, min=0).to(torch.int64)
-            logz = torch.logsumexp(logits, dim=-1)
-            gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+            m = logits.detach().amax(dim=-1)
+            idx = lc.to(torch.int64) - lo
+            here = (idx >= 0) & (idx < logits.shape[-1])
+            gold = torch.gather(logits, -1, torch.where(
+                here, idx, 0)[..., None])[..., 0]
+            gold = torch.where(here, gold, 0.0)
+            if vocab_group is not None:
+                m = sharding.max_over(m, vocab_group)
+            z = torch.exp(logits - m[..., None]).sum(dim=-1)
+            if vocab_group is not None:
+                z = sharding.fold_partials(z, vocab_group)
+                gold = sharding.fold_partials(gold, vocab_group)
+            logz = torch.log(z) + m
             return ((logz - gold) * mask).sum(), mask.sum()
 
         with pin_detector_matmul():
-            h = self._trunk(params, batch.embeds)
+            h = self._trunk(params, batch.embeds, par)
             labels = batch.labels
             s, ch = h.shape[1], self._LOSS_CHUNK
             if s <= ch or s % ch or cfg.vocab < 8192:
@@ -228,9 +267,13 @@ class Model:
             else:
                 nll = cnt = torch.zeros((), dtype=torch.float32,
                                         device=h.device)
-                for lo in range(0, s, ch):
+                for lo_s in range(0, s, ch):
                     n, c = torch.utils.checkpoint.checkpoint(
-                        chunk_nll, h[:, lo:lo + ch], labels[:, lo:lo + ch],
+                        chunk_nll, h[:, lo_s:lo_s + ch],
+                        labels[:, lo_s:lo_s + ch],
                         use_reentrant=False, preserve_rng_state=False)
                     nll, cnt = nll + n, cnt + c
+            if batch_group is not None:
+                nll = sharding.fold_partials(nll, batch_group)
+                cnt = sharding.fold_partials(cnt, batch_group)
             return nll / torch.clamp(cnt, min=1.0)

@@ -4,8 +4,9 @@ the mixture of experts comes with the LM zoo (``ROADMAP.md`` §1 item 4).
 
 Every product runs in the input's (compute) dtype, as in the reference.
 Sharded (``par``): ``w_up`` and ``w_gate`` column-parallel over this
-rank's block of ``d_ff``, ``w_down`` row-parallel, its partial folded over
-that block's group; a ``d_ff`` the mesh does not divide runs whole.
+rank's block of ``d_ff`` (``x`` entering its group), ``w_down``
+row-parallel, its partial folded over that block's group; a ``d_ff`` the
+mesh does not divide runs whole.
 """
 
 from __future__ import annotations
@@ -48,6 +49,7 @@ def apply(params: dict, x: torch.Tensor, cfg: MLPConfig,
     if par is not None:
         decl = spec(cfg)
         group = par.group(decl["w_down"], "mlp")
+        x = par.enter(x, decl["w_up"], "mlp")
         params = {k: par.gather(w, decl[k]) for k, w in params.items()}
     up = x @ params["w_up"].to(dt)
     if cfg.gated:

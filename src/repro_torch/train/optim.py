@@ -28,6 +28,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from repro_torch.distributed.sharding import fold_partials
 from repro_torch.models.common import leaves, tree_map
 
 PyTree = object
@@ -78,11 +79,15 @@ class AdamW(NamedTuple):
                           mu=tree_map(torch.zeros_like, params),
                           nu=tree_map(torch.zeros_like, params))
 
-    def update(self, grads: PyTree, state: AdamWState, params: PyTree
+    def update(self, grads: PyTree, state: AdamWState, params: PyTree,
+               norm_groups: PyTree | None = None
                ) -> tuple[PyTree, AdamWState]:
+        """``(updates, state)``; on a mesh, ``grads``, ``state`` and
+        ``params`` are this rank's blocks and ``norm_groups`` the clip's
+        groups (:func:`global_norm`): the update itself is elementwise."""
         step = state.step + 1
         if self.clip_norm is not None:
-            grads = clip_by_global_norm(grads, self.clip_norm)
+            grads = clip_by_global_norm(grads, self.clip_norm, norm_groups)
         b1, b2 = self.b1, self.b2
         mu = _map(lambda m, g: b1 * m + (1 - b1) * g, state.mu, grads)
         nu = _map(lambda v, g: b2 * v + (1 - b2) * g * g, state.nu, grads)
@@ -132,13 +137,26 @@ def apply_updates(params: PyTree, updates: PyTree) -> PyTree:
     return _map(lambda p, u: p + u, params, updates)
 
 
-def global_norm(tree: PyTree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
-                          for x in leaves(tree)))
+def global_norm(tree: PyTree, groups: PyTree | None = None
+                ) -> torch.Tensor:
+    """The float32 norm of every leaf together, the leaves' sums of squares
+    added in the reference's order. On a mesh, ``tree`` holds this rank's
+    blocks and ``groups`` (a tree of the same structure) each leaf's
+    process group over the mesh dims its spec splits it over, or None:
+    each block's sum of squares is folded over its group first
+    (:func:`~repro_torch.distributed.sharding.fold_partials`), so a leaf
+    replicated over a dim is counted once, and every rank gets the same
+    norm."""
+    sq = [torch.sum(torch.square(x.to(torch.float32))) for x in leaves(tree)]
+    if groups is not None:
+        sq = [s if g is None else fold_partials(s, g)
+              for s, g in zip(sq, leaves(groups))]
+    return torch.sqrt(sum(sq))
 
 
-def clip_by_global_norm(grads: PyTree, max_norm: float) -> PyTree:
-    norm = global_norm(grads)
+def clip_by_global_norm(grads: PyTree, max_norm: float,
+                        groups: PyTree | None = None) -> PyTree:
+    norm = global_norm(grads, groups)
     scale = torch.clamp(_scalar(norm, max_norm)
                         / torch.clamp(norm, min=1e-12), max=1.0)
     # JAX's promotion: a bf16 gradient times the float32 scale is float32

@@ -1,0 +1,214 @@
+"""Scenarios of ``tests/test_torch_train_mesh.py`` (and the count
+``tests/test_torch_dryrun.py`` holds the dry run's against), and the
+ranks that run them.
+
+Each scenario is a train or prefill cell of the port on the CPU, a
+function of its case and a mesh: the test process runs it with
+``mesh=None`` (the unsharded port), and every rank of a ``gloo`` world
+spawned by ``_torch_mesh_worker.spawn`` runs it on each mesh shape of
+its world (``WORLDS``). The whole state comes in the payload (numpy
+arrays the test process made); each rank cuts its own blocks from it
+(``steps.local_args``) and gathers the results back whole
+(``steps.whole_args``), so every side is compared on whole arrays.
+"""
+
+from __future__ import annotations
+
+import datetime
+import os
+import pickle
+import traceback
+
+import numpy as np
+import torch
+
+ARCH = "hubert-xlarge"
+#: ModelConfig overrides of the smoke hubert-xlarge, and (batch, seq):
+#: the smoke cell; remat "full" in bf16 (the collectives inside each
+#: layer's recompute); a vocab of 8192 over 2048 positions (the chunked
+#: loss, two checkpointed chunks, vocab-parallel in each)
+CASES = {
+    "smoke": ({}, (2, 64)),
+    "remat-bf16": ({"remat": "full", "compute_dtype": "bfloat16"}, (2, 64)),
+    "chunked": ({"vocab": 8192, "d_model": 16, "n_heads": 2, "kv_heads": 2,
+                 "d_ff": 32, "n_layers": 1}, (1, 2048)),
+}
+#: the worlds, each spawned once, and the mesh shapes every rank of one
+#: runs: (4, 1) leaves the smoke batch of 2 whole on every data rank; the
+#: ("pod", "data", "model") (2, 1, 2) splits the batch and every "embed"
+#: dim over the two-dim ("pod", "data") group
+WORLDS = {1: [(1, 1)], 2: [(1, 2), (2, 1)],
+          4: [(2, 2), (1, 4), (4, 1), (2, 1, 2)]}
+#: the meshes a case runs on where not all of them (the chunked loss is
+#: the slowest case: the two-rank splits and the one-rank mesh)
+CASE_MESHES = {"chunked": [(1, 1), (1, 2), (2, 2)]}
+#: the detector the cascade's bits are held on: frames, patch, batch
+HW, PATCH, DETECT_BATCH = (16, 16), 8, 2
+
+
+def mesh_key(shape) -> str:
+    return "x".join(map(str, shape))
+
+
+def config(case: str):
+    from repro_torch import configs
+    return configs.get_smoke(ARCH).replace(**CASES[case][0])
+
+
+def shapes(case: str):
+    """The case's train and prefill ``ShapeConfig``s."""
+    from repro_torch.configs import ShapeConfig
+    b, s = CASES[case][1]
+    return (ShapeConfig(f"{case}_train", s, b, "train"),
+            ShapeConfig(f"{case}_prefill", s, b, "prefill"))
+
+
+def whole_state(case: str, payload: dict):
+    """``(params, opt_state, batch)`` on the CPU from the payload's numpy
+    arrays for ``case``."""
+    from repro_torch.convert import (adamw_state_from_arrays,
+                                     lm_params_from_arrays)
+    from repro_torch.models import lm
+    p = payload[case]
+    params = lm_params_from_arrays(p["params"], cfg=config(case),
+                                   device="cpu")
+    state = adamw_state_from_arrays(p["state"], device="cpu")
+    batch = lm.Batch(None, torch.from_numpy(p["labels"]),
+                     torch.from_numpy(p["embeds"]))
+    return params, state, batch
+
+
+def np_leaves(tree) -> list[np.ndarray]:
+    from repro_torch.models import common
+    return [t.detach().to(torch.float32).numpy().copy()
+            for t in common.leaves(tree)]
+
+
+def run_case(case: str, payload: dict, mesh) -> dict:
+    """The case's train step (twice from one state), its loss and
+    gradients, and its prefill, on ``mesh`` (this rank's blocks) or
+    unsharded; every result whole, as numpy."""
+    from repro_torch.launch import steps
+    from repro_torch.models import common, lm
+    cfg = config(case)
+    train, prefill = shapes(case)
+    params, state, batch = whole_state(case, payload)
+    cell = steps.build_cell(cfg, train, mesh)
+    pcell = steps.build_cell(cfg, prefill, mesh)
+    args, pargs = (params, state, batch), (params, batch)
+    par = None
+    if mesh is not None:
+        args = steps.local_args(args, cell.in_shardings, mesh)
+        pargs = steps.local_args(pargs, pcell.in_shardings, mesh)
+        par = common.Parallel(mesh)
+    out = cell.step_fn(*args)
+    again = cell.step_fn(*args)
+    run_to_run = all(torch.equal(a, b) for a, b in zip(
+        common.leaves(list(out)), common.leaves(list(again))))
+    loss, grads = steps.loss_and_grads(lm.Model(cfg), args[0], args[2], par)
+    with torch.no_grad():
+        logits = pcell.step_fn(*pargs)
+    if mesh is not None:
+        p_sh, opt_sh, _ = cell.out_shardings
+        out = steps.whole_args(out, cell.out_shardings, mesh)
+        grads = steps.whole_args(grads, p_sh, mesh)
+        logits = steps.whole_args(logits, pcell.out_shardings, mesh)
+    new_params, new_state, step_loss = out
+    return dict(
+        loss=float(loss), step_loss=float(step_loss), grads=np_leaves(grads),
+        params=np_leaves(new_params), mu=np_leaves(new_state.mu),
+        nu=np_leaves(new_state.nu), step=int(new_state.step),
+        logits=logits.to(torch.float32).numpy(), run_to_run=run_to_run,
+        batch_spec=None if mesh is None else cell.in_shardings[2].labels)
+
+
+def count_case(case: str, payload: dict, mesh) -> dict:
+    """What this rank's train step does on ``mesh``: its products'
+    FLOPs (``FlopCounterMode``) and its collectives' calls and bytes
+    (``count_collectives``), the backward pass's included."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import steps
+    cell = steps.build_cell(config(case), shapes(case)[0], mesh)
+    args = steps.local_args(whole_state(case, payload), cell.in_shardings,
+                            mesh)
+    with sharding.count_collectives() as coll, \
+            FlopCounterMode(display=False) as fc:
+        cell.step_fn(*args)
+    return dict(flops=fc.get_total_flops(), calls=coll.calls,
+                bytes=coll.bytes)
+
+
+def cascade_bits(payload: dict, mesh) -> dict:
+    """The sharded detector step (``build_detector_cell(mesh=)``, the
+    smoke config in float32) through the collectives autograd
+    differentiates, and through their forward arithmetic alone (the
+    gather and the fold as plain functions, the group's entry as the
+    identity): the logits of both."""
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import steps
+    from repro_torch import configs
+    cfg = configs.get_smoke(ARCH)
+    params = steps.init_detector_params(torch.Generator().manual_seed(3),
+                                        cfg, frame_hw=HW, patch=PATCH)
+    frames = torch.from_numpy(payload["frames"])
+    out = {}
+    for how in ("autograd", "plain"):
+        saved = (sharding.all_gather_cat, sharding.fold_partials,
+                 sharding.enter_group)
+        if how == "plain":
+            sharding.all_gather_cat = lambda x, g, dim=0: torch.cat(
+                sharding._gather(x, g), dim)
+            sharding.fold_partials = sharding._fold
+            sharding.enter_group = lambda x, g: x
+        try:
+            cell = steps.build_detector_cell(
+                cfg, batch=DETECT_BATCH, frame_hw=HW, patch=PATCH,
+                mesh=mesh)
+            with torch.no_grad():
+                out[how] = cell.step_fn(cell.prepare(params), frames).numpy()
+        finally:
+            (sharding.all_gather_cat, sharding.fold_partials,
+             sharding.enter_group) = saved
+    return out
+
+
+def run(kind: str, name: str, payload: dict, mesh):
+    """A work item: ``("case", case)``, ``("count", case)`` or
+    ``("cascade", name)``."""
+    if kind == "case":
+        return run_case(name, payload, mesh)
+    if kind == "count":
+        return count_case(name, payload, mesh)
+    return cascade_bits(payload, mesh)
+
+
+def _rank_main(rank: int, world: int, shape: tuple, work: list,
+               payload: dict, root: str) -> None:
+    """One rank: every mesh shape of ``WORLDS[world]``, every work item
+    ``(kind, name, args)`` on each; ``{mesh key: {(kind, name): result}}``
+    written to ``root/rank<r>.pkl``."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    torch.set_num_threads(1)
+    try:
+        store = dist.FileStore(os.path.join(root, "store"), world)
+        dist.init_process_group("gloo", store=store, rank=rank,
+                                world_size=world,
+                                timeout=datetime.timedelta(seconds=60))
+        results = {}
+        for mshape in WORLDS[world]:
+            names = (("data", "model") if len(mshape) == 2
+                     else ("pod", "data", "model"))
+            mesh = init_device_mesh("cpu", mshape, mesh_dim_names=names)
+            results[mesh_key(mshape)] = {
+                (kind, name): run(kind, name, payload, mesh)
+                for kind, name, _ in work
+                if mshape in CASE_MESHES.get(name, [mshape])}
+        with open(os.path.join(root, f"rank{rank}.pkl"), "wb") as fh:
+            pickle.dump(results, fh)
+        dist.destroy_process_group()
+    except BaseException:
+        with open(os.path.join(root, f"rank{rank}.err"), "w") as fh:
+            fh.write(traceback.format_exc())
+        raise

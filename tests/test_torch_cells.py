@@ -220,14 +220,42 @@ def test_build_cell_equals_the_reference(shape, mesh):
             assert a == (None if b is None else tuple(b.spec))
 
 
-def test_cell_without_a_mesh_runs_and_with_one_raises():
+def test_cell_on_a_one_rank_mesh_is_bitwise_the_unsharded_one():
+    """Without a mesh a cell has no spec trees; on a (1, 1) ``DeviceMesh``
+    of a one-rank ``gloo`` group its train and prefill steps, fed this
+    rank's blocks (the whole state), are bitwise the unsharded steps:
+    every collective on a one-rank group gives its input's bits back."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
     cfg = configs.get_smoke(ARCH)
-    cell = steps.build_cell(cfg, configs.SMOKE_SHAPE)
+    shape = configs.SMOKE_SHAPE
+    cell = steps.build_cell(cfg, shape)
     assert cell.in_shardings is None and cell.out_shardings is None
-    sharded = steps.build_cell(cfg, configs.SMOKE_SHAPE,
-                               {"data": 1, "model": 1})
-    with pytest.raises(NotImplementedError, match="item 2b"):
-        sharded.step_fn(*sharded.abstract_args)
+    arrays = np_params(lm.Model(cfg).spec(), 16)
+    _, tb = np_batch(17, shape.global_batch, shape.seq_len, cfg.d_model,
+                     cfg.vocab)
+    params = lm_params_from_arrays(arrays, cfg=cfg, device="cpu")
+    state = steps.make_optimizer(cfg).init(params)
+    want = cell.step_fn(params, state, tb)
+    want_logits = steps.build_cell(cfg, configs.SHAPES["prefill_32k"]
+                                   ).step_fn(params, tb)
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = init_device_mesh("cpu", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        sharded = steps.build_cell(cfg, shape, mesh)
+        got = sharded.step_fn(*steps.local_args(
+            (params, state, tb), sharded.in_shardings, mesh))
+        pcell = steps.build_cell(cfg, configs.SHAPES["prefill_32k"], mesh)
+        got_logits = pcell.step_fn(*steps.local_args(
+            (params, tb), pcell.in_shardings, mesh))
+    finally:
+        dist.destroy_process_group()
+    for a, b in zip(common.leaves(list(got)), common.leaves(list(want)),
+                    strict=True):
+        assert torch.equal(a, b)
+    assert torch.equal(got_logits, want_logits)
 
 
 def test_decode_raises_as_the_reference():

@@ -133,8 +133,8 @@ def test_mesh_shape_needs_named_dims():
         mesh_dim_names = None
     with pytest.raises(ValueError):
         tsh.mesh_shape(Unnamed())
-    with pytest.raises(NotImplementedError):
-        tsh.axis_group(None, ("pod", "data"))
+    with pytest.raises(ValueError):
+        tsh.axis_group(Unnamed(), ("pod", "data"))
 
 
 @pytest.mark.parametrize("arch", ["full", "smoke"])

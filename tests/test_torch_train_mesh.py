@@ -1,0 +1,259 @@
+"""PyTorch port, the sharded train and prefill steps on the CPU:
+``steps.build_cell(cfg, shape, mesh)`` over ``gloo`` worlds of 1, 2 and
+4 ranks, each spawned once per module
+(``tests/_torch_train_mesh_worker.py``), every rank running each mesh
+shape of its world: (1, 1); (1, 2), (2, 1); (2, 2), (1, 4), (4, 1) and a
+("pod", "data", "model") (2, 1, 2).
+
+Every rank cuts its blocks from one whole mid-run state (numpy arrays:
+weights at ``WEIGHT_STD``, as in ``tests/test_torch_cells.py``, moments
+drawn, the step counter at ``MID_RUN_STEP``, past the warmup) and gathers
+its results back whole. Held: the sharded step (loss, gradients, the
+parameters and both moments after AdamW) against the unsharded port
+step and the reference's jitted ``build_train_cell`` step; the sharded
+prefill's logits against ``Model.forward`` and the reference's prefill;
+every replicated value bitwise the same on every rank, and two steps
+from one state bitwise the same; the (1, 1) mesh bitwise the unsharded
+step; the batch's layout on each mesh (on (4, 1) the batch of 2 runs
+whole on every data rank, and the result is still the batch's);
+the sharded detector's forward bitwise through the differentiable
+collectives and through their forward arithmetic alone.
+
+Tolerances, float32: the loss within ``LOSS_RTOL``, each gradient and
+each leaf after AdamW within ``GRAD_RTOL`` of its largest |entry| (the
+packages and the meshes sum in other orders). bf16 (``BF16_TOL``): the
+loss within 1e-2 relative, gradients and moments within 5% of each
+leaf's largest |entry| (``chip_smoke.py``'s card-vs-CPU bounds); the
+parameters after AdamW are not held across layouts in bf16: AdamW
+divides each element by the root of its second moment, so a bf16
+gradient's rounding comes back magnified where that moment is small
+(they are held bitwise across ranks and run to run).
+"""
+
+from concurrent.futures import ThreadPoolExecutor
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import _torch_mesh_worker as W
+import _torch_train_mesh_worker as TW
+from repro import configs as jconfigs
+from repro.launch import steps as jsteps
+from repro.models import lm as jlm
+from repro.train import optim as joptim
+from repro_torch.models import common, lm
+from repro_torch.train import optim
+
+jax.config.update("jax_platform_name", "cpu")
+
+WEIGHT_STD = 0.2
+MID_RUN_STEP = 2400
+LOSS_RTOL = 1e-6
+GRAD_RTOL = 1e-5
+BF16_TOL = {"loss": 1e-2, "grads": 5e-2, "mu": 5e-2, "nu": 5e-2}
+SPAWN_TIMEOUT = 240.0
+#: the batch's spec (``act_batch``) on each mesh: (4, 1) does not split
+#: a batch of 2, nor (2, 2) a batch of 1; (2, 1, 2) splits it over the
+#: two-dim ("pod", "data") group
+BATCH_SPEC = {"1x1": "data", "1x2": "data", "2x1": "data", "2x2": "data",
+              "1x4": "data", "4x1": None, "2x1x2": ("pod", "data")}
+RUNS = [(TW.mesh_key(m), c) for ms in TW.WORLDS.values() for m in ms
+        for c in TW.CASES if m in TW.CASE_MESHES.get(c, [m])]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """The spawned ranks run single-threaded; so does the unsharded side
+    (and the files after this one get their thread count back)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+def np_params(spec, seed):
+    rng = np.random.default_rng(seed)
+
+    def one(p):
+        x = rng.standard_normal(p.shape).astype(np.float32)
+        if p.init == "ones":
+            return 1 + 0.1 * x
+        if p.init == "zeros":
+            return 0.1 * x
+        return WEIGHT_STD * x
+    return common.tree_map(one, spec, lambda x: isinstance(x, common.P))
+
+
+def case_payload(case, seed):
+    """The whole mid-run state and batch of ``case``, as numpy."""
+    cfg = TW.config(case)
+    arrays = np_params(lm.Model(cfg).spec(), seed)
+    rng = np.random.default_rng(seed + 1)
+    b, s = TW.CASES[case][1]
+    state = optim.AdamWState(
+        step=np.int32(MID_RUN_STEP),
+        mu=common.tree_map(lambda a: 0.01 * rng.standard_normal(
+            a.shape).astype(np.float32), arrays),
+        nu=common.tree_map(lambda a: 1e-4 * rng.random(a.shape).astype(
+            np.float32), arrays))
+    return dict(params=arrays, state=state,
+                labels=rng.integers(-1, cfg.vocab, (b, s)).astype(np.int32),
+                embeds=rng.standard_normal((b, s, cfg.d_model)).astype(
+                    np.float32))
+
+
+def reference(case, p):
+    """The reference's jitted train step from the same state (loss,
+    parameters, moments), its gradients (float32 cases) and its prefill
+    logits, as numpy leaves."""
+    jcfg = jconfigs.get_smoke(TW.ARCH).replace(**TW.CASES[case][0])
+    mesh = jax.sharding.AbstractMesh((1, 1), ("data", "model"))
+    params = jax.tree.map(jnp.asarray, p["params"])
+    state = joptim.AdamWState(
+        step=jnp.int32(MID_RUN_STEP),
+        mu=jax.tree.map(jnp.asarray, p["state"].mu),
+        nu=jax.tree.map(jnp.asarray, p["state"].nu))
+    batch = jlm.Batch(tokens=None, labels=jnp.asarray(p["labels"]),
+                      embeds=jnp.asarray(p["embeds"]))
+    shape = jconfigs.SMOKE_SHAPE
+    new_p, new_s, loss = jax.jit(jsteps.build_train_cell(
+        jcfg, shape, mesh).step_fn)(params, state, batch)
+    logits = jax.jit(jsteps.build_prefill_cell(jcfg, shape, mesh).step_fn)(
+        params, batch)
+
+    def leaves(t):
+        return [np.asarray(x, np.float32) for x in jax.tree.leaves(t)]
+    out = dict(loss=float(loss), params=leaves(new_p), mu=leaves(new_s.mu),
+               nu=leaves(new_s.nu), step=int(new_s.step),
+               logits=np.asarray(logits, np.float32))
+    if jcfg.compute_dtype == "float32":
+        model = jlm.build(jcfg)
+        _, grads = jax.jit(jax.value_and_grad(
+            lambda q: model.loss(q, batch)))(params)
+        out["grads"] = leaves(grads)
+    return out
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Every case unsharded (``"ref"``) and through the reference
+    (``"jax"``), and every world's ranks (``{mesh key: {(kind, name):
+    result}}`` a rank)."""
+    payload = {c: case_payload(c, 20 + 5 * i)
+               for i, c in enumerate(TW.CASES)}
+    payload["frames"] = np.random.default_rng(6).normal(
+        size=(TW.DETECT_BATCH, *TW.HW)).astype(np.float32)
+    out = {"ref": {c: TW.run_case(c, payload, None) for c in TW.CASES},
+           "jax": {c: reference(c, payload[c]) for c in TW.CASES}}
+    work = [("case", c, ()) for c in TW.CASES] + [("cascade", "cascade",
+                                                    ())]
+    # the worlds run at once, each in its own processes
+    with ThreadPoolExecutor(len(TW.WORLDS)) as pool:
+        futures = [pool.submit(
+            W.spawn, (1, world), work, payload,
+            str(tmp_path_factory.mktemp(f"train{world}")),
+            timeout=SPAWN_TIMEOUT, target=TW._rank_main)
+            for world in TW.WORLDS]
+        for fut in futures:
+            ranks = fut.result()
+            for key in ranks[0]:
+                out[key] = [r[key] for r in ranks]
+    return out
+
+
+def rel(got, want) -> float:
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def hold(got, want, case, keys=("grads", "params", "mu", "nu")):
+    """``got`` against ``want`` within the case's tolerances."""
+    bf16 = TW.config(case).compute_dtype == "bfloat16"
+    tol = BF16_TOL["loss"] if bf16 else LOSS_RTOL
+    assert abs(got["loss"] - want["loss"]) <= tol * abs(want["loss"])
+    for key in keys:
+        if key not in want or (bf16 and key == "params"):
+            continue
+        assert len(got[key]) == len(want[key])
+        for i, (g, w) in enumerate(zip(got[key], want[key])):
+            assert g.shape == w.shape, (key, i)
+            err = rel(g, w)
+            assert err <= (BF16_TOL[key] if bf16 else GRAD_RTOL), \
+                (key, i, err)
+
+
+@pytest.mark.parametrize("mesh,case", RUNS)
+def test_train_step_against_the_unsharded_port_and_the_reference(
+        runs, mesh, case):
+    """Rank 0's gathered step (every rank's is the same, below)."""
+    got = runs[mesh][0][("case", case)]
+    assert got["step"] == MID_RUN_STEP + 1
+    assert got["step_loss"] == got["loss"]
+    hold(got, runs["ref"][case], case)
+    want = runs["jax"][case]
+    assert want["step"] == got["step"]
+    bf16 = TW.config(case).compute_dtype == "bfloat16"
+    hold(got, want, case, keys=() if bf16 else (
+        "grads", "params", "mu", "nu"))
+
+
+@pytest.mark.parametrize("mesh,case", RUNS)
+def test_replicated_values_bitwise_on_every_rank(runs, mesh, case):
+    """The loss, the gathered gradients, parameters and moments and the
+    gathered prefill logits: the same bits on every rank; and two steps
+    from one state the same bits."""
+    first = runs[mesh][0][("case", case)]
+    for rank, got in enumerate(runs[mesh]):
+        got = got[("case", case)]
+        assert got["run_to_run"], rank
+        assert got["loss"] == first["loss"], rank
+        np.testing.assert_array_equal(got["logits"], first["logits"])
+        for key in ("grads", "params", "mu", "nu"):
+            for g, w in zip(got[key], first[key], strict=True):
+                np.testing.assert_array_equal(g, w, err_msg=f"{rank} {key}")
+
+
+@pytest.mark.parametrize("case", list(TW.CASES))
+def test_one_rank_mesh_is_bitwise_the_unsharded_step(runs, case):
+    got, want = runs["1x1"][0][("case", case)], runs["ref"][case]
+    assert got["loss"] == want["loss"] and got["step"] == want["step"]
+    np.testing.assert_array_equal(got["logits"], want["logits"])
+    for key in ("grads", "params", "mu", "nu"):
+        for g, w in zip(got[key], want[key], strict=True):
+            np.testing.assert_array_equal(g, w, err_msg=key)
+
+
+@pytest.mark.parametrize("mesh,case", RUNS)
+def test_prefill_against_forward_and_the_reference(runs, mesh, case):
+    """The gathered logits against the unsharded ``Model.forward`` and the
+    reference's prefill: within GRAD_RTOL of the largest |logit| in
+    float32, 5% in bf16."""
+    got = runs[mesh][0][("case", case)]["logits"]
+    tol = BF16_TOL["grads"] if TW.config(case).compute_dtype == \
+        "bfloat16" else GRAD_RTOL
+    for want in (runs["ref"][case]["logits"], runs["jax"][case]["logits"]):
+        assert got.shape == want.shape
+        assert rel(got, want) <= tol
+
+
+@pytest.mark.parametrize("mesh,case", RUNS)
+def test_the_batch_layout(runs, mesh, case):
+    """The batch's spec on each mesh: a batch the data dims do not split
+    runs whole on each of their ranks (the loss folds it once a rank over
+    the batch's group, so nothing comes back scaled: the step is held
+    above)."""
+    want = BATCH_SPEC[mesh] if TW.CASES[case][1][0] == 2 else \
+        {"2x2": None}.get(mesh, "data")
+    assert runs[mesh][0][("case", case)]["batch_spec"] == (want, None)
+
+
+@pytest.mark.parametrize("mesh", [TW.mesh_key(m) for ms in TW.WORLDS.values()
+                                  for m in ms])
+def test_the_sharded_cascade_keeps_its_bits(runs, mesh):
+    """The detector's sharded forward through the collectives autograd
+    differentiates is bitwise their forward arithmetic alone."""
+    for got in runs[mesh]:
+        got = got[("cascade", "cascade")]
+        np.testing.assert_array_equal(got["autograd"], got["plain"])
