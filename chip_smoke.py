@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --only mesh    # the build and the mesh phase
     python3 chip_smoke.py --only cells   # the cells phase alone
+    python3 chip_smoke.py --only lm      # the LM phase alone
 
 from the root of a checkout, on a machine with one CUDA card (built for
 sm_90a: an H100; with ``--only mesh``, every card of the host joins the
@@ -97,19 +98,19 @@ mesh phase's NCCL world). It
    rank's products, the collectives of a batch counted under
    ``roofline()`` (printed), and ms a batch in turns against an
    unsharded cascade on the rank's card; then the sharded train and
-   prefill cells at full ``hubert-xlarge`` width (``train_4k``'s 4096
-   tokens x 4, ``prefill_32k``'s 32,768 x 1, the cells phase's cuts) on
-   every mesh, each rank fed its blocks of one whole state this process
-   makes and hands over in ``build/mesh/cells.pt``: a warm step (its
-   collectives counted, the allocator's peak beside ``analyze()`` on the
-   mesh), then the unsharded and sharded steps in turns, each sharded
-   step bitwise the warm one; the loss and exact digests of the gathered
-   parameters, moments and prefill logits the same on every rank; on a
-   (1, 1) mesh the step and the prefill bitwise the unsharded ones; at 2
-   layers (weights at std 0.02) in float32 and bf16 the step, its
-   gradients and the prefill against the unsharded ones on the rank's
-   card (the cells phase's card-vs-CPU bounds; the parameters after
-   AdamW within 1e-5);
+   prefill cells at full ``hubert-xlarge`` and ``internlm2-1.8b`` width
+   (``train_4k``'s 4096 tokens x 4, ``prefill_32k``'s 32,768 x 1, the
+   cells phase's cuts) on every mesh, each rank fed its blocks of one
+   whole state this process makes and hands over in
+   ``build/mesh/cells-<arch>.pt``: a warm step (its collectives counted,
+   the allocator's peak beside ``analyze()`` on the mesh), then the
+   unsharded and sharded steps in turns, each sharded step bitwise the
+   warm one; the loss and exact digests of the gathered parameters,
+   moments and prefill logits the same on every rank; on a (1, 1) mesh
+   the step and the prefill bitwise the unsharded ones; at 2 layers
+   (weights at std 0.02) in float32 and bf16 the step, its gradients and
+   the prefill against the unsharded ones on the rank's card (the cells
+   phase's card-vs-CPU bounds; the parameters after AdamW within 1e-5);
    ``nvidia-smi topo -m`` is printed once;
 10. serves the gated cascade (paper §V-E): the closed-loop float32
    ``FleetService`` (8 slots, 8 ticks, HP at 12 bits) feeds its HP drains
@@ -144,14 +145,28 @@ mesh phase's NCCL world). It
    |entry|, bf16 within 1e-2 and 5%; records the float32 difference at
    ``Model.init``'s weights beside the card's response to a 1e-7
    perturbation; takes 10 AdamW steps at a constant 1e-4 on a fixed
-   batch, the loss falling; and meanwhile runs the dry run
-   (``python -m repro_torch.launch.dryrun --all``, a subprocess on the
-   host's CPU, no card): the sharded train and prefill cells counted on
-   the 16x16 and 2x16x16 meshes, every ``hubert-xlarge`` record ``ok``,
-   its FLOPs the hand count plus the unembedding the "model" ranks
-   repeat, its memory ``analyze()``'s, a ``not_ported`` row for each
-   other architecture;
-12. drives the training path (paper Fig. 5a) at the same width: samples
+   batch, the loss falling; and reads the dry run (``python -m
+   repro_torch.launch.dryrun --all``, a subprocess on the host's CPU, no
+   card, started before the kernels' build): the sharded train and
+   prefill cells of the six ported architectures counted on the 16x16
+   and 2x16x16 meshes, 24 ``ok`` records, their FLOPs the hand count
+   plus what the "model" ranks repeat (hubert-xlarge's unembedding; the
+   k and v projections of the kv heads 16 ranks do not divide), their
+   memory ``analyze()``'s, 18 ``not_ported`` rows (the four
+   architectures still to port, each decoder's ``decode_32k``);
+12. runs the dense and vlm families (``lm`` phase) at full width (bf16,
+   remat "full", weights from ``Model.init`` on seeded generators):
+   ``internlm2-1.8b`` (24 layers, 16 heads over 8 kv heads, vocab
+   92,544) through the cells phase's runs and checks (counted on meta
+   tensors against the causal hand count, which follows the query
+   blocks; the train step bitwise run to run, the step and its gradients
+   again under ``torch.use_deterministic_algorithms(True)`` with no op
+   flagged; the prefill bitwise ``Model.forward``; card vs CPU at 2
+   layers; the loss falling); ``olmo-1b``'s train step and prefill (its
+   norms hold no parameters); ``internvl2-76b`` at 2 of its 80 layers, a
+   prefill of 32,768 tokens behind 256 image embeddings, its text logits
+   bitwise run to run and moved by another image prefix;
+13. drives the training path (paper Fig. 5a) at the same width: samples
    balanced fragments from 256 synthetic training frames and 128 held-out
    frames (``sensing.fragments``), trains the Fragment model on the
    permutation base (``train_fragment_model``, 20 epochs), scores the
@@ -168,7 +183,7 @@ mesh phase's NCCL world). It
    both encoders the same way at ragged shapes (N, K and D off the tiles,
    K steps that straddle generator rows) for each nonlinearity, and
    reports their tiles, blocks and waves;
-13. drives the int-datapath path (``benchmarks/int_datapath.py``'s
+14. drives the int-datapath path (``benchmarks/int_datapath.py``'s
    claims): the float32 kernel, the live int8 kernel and the expanded-slab
    kernel (the int scorer's retired layout, ``csrc/int_expanded.cu``, on
    the int8 tensor cores) race on one ADC capture at the reference's shape
@@ -193,7 +208,7 @@ mesh phase's NCCL world). It
    equal to the same gate's on the CPU wherever the deciding score sits
    more than 2.5e-4 from ``t_score``, its frames/s, duty cycle and the
    detector FLOPs it saves;
-14. runs Table I and Fig. 16's model comparison (``baselines`` phase):
+15. runs Table I and Fig. 16's model comparison (``baselines`` phase):
    ``benchmarks/common.py``'s noisy 4-bit data made with
    ``sensing.synthetic`` (training noise 0.20; held-out noise 0.30 with
    3% impulse spikes), balanced fragments, at the paper's operating point
@@ -210,7 +225,7 @@ mesh phase's NCCL world). It
    then times, per frame of a 32-frame chunk, the float32 HDC scorer
    against MLP2 on all 25 windows (beside the paper's 2.4x) and
    ``encode_frames`` with and without reuse;
-15. prints one JSON line per phase, a ``kernels`` line, and last
+16. prints one JSON line per phase, a ``kernels`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises: the script exits non-zero and prints no result.
@@ -232,6 +247,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -1677,12 +1693,14 @@ def mesh_rank(rank: int, world: int, root: str) -> None:
             rec["cascade"] = mesh_cascade(mesh, shape, ref["cascade"], plain)
             records.append(rec)
         del plain
-        torch.cuda.empty_cache()
-        st = torch.load(root / "cells.pt", map_location=dev,
-                        weights_only=False)
-        cells_ref = mesh_cells_reference(st)
-        for shape, mesh, rec in zip(mesh_shapes(world), meshes, records):
-            rec["cells"] = mesh_cells(mesh, shape, st, cells_ref)
+        for arch, (key, _) in MESH_CELLS.items():
+            torch.cuda.empty_cache()
+            st = torch.load(root / f"cells-{arch}.pt", map_location=dev,
+                            weights_only=False)
+            cells_ref = mesh_cells_reference(st, arch)
+            for shape, mesh, rec in zip(mesh_shapes(world), meshes, records):
+                rec[key] = mesh_cells(mesh, shape, st, cells_ref, arch)
+            del st, cells_ref
         (root / f"rank{rank}.json").write_text(json.dumps(records))
         dist.destroy_process_group()
     except BaseException:
@@ -1943,25 +1961,26 @@ def mesh_cascade(mesh, shape, want, plain) -> dict:
     return rec
 
 
-# the sharded cells: full-width hubert-xlarge at train_4k's 4096 tokens x
-# CELLS_TRAIN_BATCH and prefill_32k's 32,768 x CELLS_PREFILL_BATCH (the
-# cells phase's cuts), from one whole state this process makes; held
-# against the unsharded step at CELLS_CHECK_LAYERS, weights at
-# CELLS_WEIGHT_STD, on the same batches; the moments within the
+# the sharded cells: full-width hubert-xlarge and LM_ARCH at train_4k's
+# 4096 tokens x CELLS_TRAIN_BATCH and prefill_32k's 32,768 x
+# CELLS_PREFILL_BATCH (the cells phase's cuts), from one whole state this
+# process makes; held against the unsharded step at CELLS_CHECK_LAYERS,
+# weights at CELLS_WEIGHT_STD, on the same batches; the moments within the
 # gradients' bound (mu) and twice it (nu = 0.05 g^2), the parameters
 # after AdamW within MESH_CELLS_PARAM_RTOL of each leaf's largest |entry|
 MESH_CELLS_PARAM_RTOL = 1e-5
 
 
-def mesh_cells_payload(root) -> None:
-    """The whole states every rank's sharded cells start from, written to
-    ``root/cells.pt``: the full-width parameters (``Model.init`` on this
-    card from the cells phase's seed), the 2-layer parameters at
-    CELLS_WEIGHT_STD (one float32 tree for both compute dtypes), and the
-    train and prefill batches (the cells phase's seeds)."""
-    cfg = configs.get_config(CASCADE_ARCH)
+def mesh_cells_payload(root, arch: str) -> None:
+    """The whole states every rank's sharded cells of ``arch`` start from,
+    written to ``root/cells-<arch>.pt``: the full-width parameters
+    (``Model.init`` on this card from the cells or LM phase's seed), the
+    2-layer parameters at CELLS_WEIGHT_STD (one float32 tree for both
+    compute dtypes), and the train and prefill batches (the cells phase's
+    seeds)."""
+    cfg = configs.get_config(arch)
     params = lm.Model(cfg).init(
-        torch.Generator(device=DEVICE).manual_seed(SEED + 15))
+        torch.Generator(device=DEVICE).manual_seed(MESH_CELLS[arch][1]))
     check_cfg = cfg.replace(n_layers=CELLS_CHECK_LAYERS)
     train, prefill = cut_shape("train_4k"), cut_shape("prefill_32k")
     torch.save(dict(
@@ -1971,7 +1990,7 @@ def mesh_cells_payload(root) -> None:
                          "cpu"),
         prefill=cell_batch(cfg, prefill.global_batch, prefill.seq_len,
                            SEED + 23, "cpu")),
-        root / "cells.pt")
+        root / f"cells-{arch}.pt")
     del params
     torch.cuda.empty_cache()
 
@@ -1982,14 +2001,22 @@ def cut_shape(name: str):
     return dataclasses.replace(configs.SHAPES[name], global_batch=batch)
 
 
+# words a digest takes at a time (its int64 temporaries 1 GiB each)
+DIGEST_CHUNK = 1 << 27
+
+
 def digest(t: torch.Tensor) -> int:
     """An exact fingerprint of ``t``'s bits: its words as integers, each
     times a weight of its position, summed in int64 (wrapping, so the
-    order of the sum does not matter)."""
+    order of the sum does not matter: DIGEST_CHUNK words at a time)."""
     words = t.contiguous().view(
         {4: torch.int32, 2: torch.int16}[t.element_size()]).flatten()
-    w = torch.arange(words.numel(), device=t.device) % 65521 + 1
-    return int((words.to(torch.int64) * w).sum())
+    acc = torch.zeros((), dtype=torch.int64, device=t.device)
+    for lo in range(0, words.numel(), DIGEST_CHUNK):
+        part = words[lo:lo + DIGEST_CHUNK]
+        w = torch.arange(lo, lo + part.numel(), device=t.device) % 65521 + 1
+        acc += (part.to(torch.int64) * w).sum()
+    return int(acc)
 
 
 def whole_digests(blocks, specs, mesh) -> list[int]:
@@ -2009,31 +2036,18 @@ def spec_leaves(specs) -> list:
     return out
 
 
-def mesh_cells_reference(st) -> dict:
-    """In each rank, before its meshes: the whole optimizer state, the
-    unsharded full-width prefill (its logits and ms), and the unsharded
-    step, gradients and prefill at CELLS_CHECK_LAYERS in each compute
-    dtype on the same batches."""
-    cfg = configs.get_config(CASCADE_ARCH)
+def mesh_cells_reference(st, arch: str) -> dict:
+    """In each rank, before its meshes: the whole optimizer state, and the
+    unsharded full-width prefill's logits (their shape and
+    :func:`digest`) and ms."""
+    cfg = configs.get_config(arch)
     ref = dict(state=steps.make_optimizer(cfg).init(st["params"]))
     cell = steps.build_cell(cfg, cut_shape("prefill_32k"))
     with torch.no_grad():
-        ref["logits"], ref["prefill_ms"] = wall_ms(
-            cell.step_fn, st["params"], st["prefill"])
-    ref["check"] = {}
-    for dt in CELLS_TOL:
-        c = cfg.replace(n_layers=CELLS_CHECK_LAYERS, compute_dtype=dt)
-        state = steps.make_optimizer(c).init(st["check_params"])
-        new_p, new_s, loss = steps.build_cell(c, cut_shape("train_4k")
-                                              ).step_fn(
-            st["check_params"], state, st["train"])
-        _, grads = steps.loss_and_grads(lm.Model(c), st["check_params"],
-                                        st["train"])
-        with torch.no_grad():
-            logits = steps.build_cell(c, cut_shape("prefill_32k")).step_fn(
-                st["check_params"], st["prefill"])
-        ref["check"][dt] = dict(loss=loss, grads=grads, params=new_p,
-                                mu=new_s.mu, nu=new_s.nu, logits=logits)
+        logits, ref["prefill_ms"] = wall_ms(cell.step_fn, st["params"],
+                                            st["prefill"])
+    ref["logits_shape"] = tuple(logits.shape)
+    ref["logits_digest"] = digest(logits)
     return ref
 
 
@@ -2047,28 +2061,30 @@ def wall_ms(fn, *args):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def mesh_cells(mesh, shape, st, ref) -> dict:
-    """The sharded train and prefill cells on one mesh, in every rank, fed
-    this rank's blocks of the whole state ``st``: at full width a warm
-    step (its collectives counted, the allocator's peak beside
-    ``analyze()`` on the mesh), then the unsharded and sharded steps in
-    turns (unsharded, sharded, sharded, unsharded: ms), each sharded step
-    bitwise the warm one; the loss, the digests of the gathered
-    parameters and moments, and of the gathered prefill logits, for the
-    parent to hold across ranks (on a (1, 1) mesh the step and the
-    prefill are held bitwise the unsharded ones here); at
-    CELLS_CHECK_LAYERS in each compute dtype, the step, its gradients and
-    the prefill against the unsharded ones (:func:`mesh_cells_reference`).
-    """
-    cfg = configs.get_config(CASCADE_ARCH)
-    what = f"sharded cells on a {shape} mesh"
+def mesh_cells(mesh, shape, st, ref, arch: str) -> dict:
+    """``arch``'s sharded train and prefill cells on one mesh, in every
+    rank, fed this rank's blocks of the whole state ``st`` (on a (1, 1)
+    mesh the blocks are the whole tensors, passed as they are, not
+    copied): at full width a warm step (its collectives counted, the
+    allocator's peak beside ``analyze()`` on the mesh), then the
+    unsharded and sharded steps in turns (unsharded, sharded, sharded,
+    unsharded: ms), each sharded step bitwise the warm one (their
+    :func:`fingerprint`s, so no two steps' outputs live at once); the
+    loss, the digests of the gathered parameters and moments, and of the
+    gathered prefill logits, for the parent to hold across ranks (on a
+    (1, 1) mesh the step and the prefill are held bitwise the unsharded
+    ones here); at CELLS_CHECK_LAYERS in each compute dtype, the step,
+    its gradients and the prefill against the unsharded ones
+    (:func:`mesh_cells_check`)."""
+    cfg = configs.get_config(arch)
+    what = f"sharded {arch} cells on a {shape} mesh"
     one = tuple(shape) == (1, 1)
     torch.cuda.empty_cache()
     train = cut_shape("train_4k")
     cell = steps.build_cell(cfg, train, mesh)
     plain = steps.build_cell(cfg, train)
     whole = (st["params"], ref["state"], st["train"])
-    args = steps.local_args(whole, cell.in_shardings, mesh)
+    args = whole if one else steps.local_args(whole, cell.in_shardings, mesh)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before_gb = torch.cuda.memory_allocated() / 1e9
@@ -2077,42 +2093,45 @@ def mesh_cells(mesh, shape, st, ref) -> dict:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     loss = float(warm[2])
     check(math.isfinite(loss), f"{what}: loss {loss}")
+    p_sh, opt_sh, _ = cell.out_shardings
+    want = fingerprint(list(warm))
+    digests = dict(params=whole_digests(warm[0], p_sh, mesh),
+                   mu=whole_digests(warm[1].mu, opt_sh.mu, mesh),
+                   nu=whole_digests(warm[1].nu, opt_sh.nu, mesh))
+    del warm
+    torch.cuda.empty_cache()
     turns = {}
     for turn in ("unsharded", "sharded", "sharded_again", "unsharded_again"):
         if turn.startswith("unsharded"):
             out, turns[turn] = wall_ms(plain.step_fn, *whole)
             if one and turn == "unsharded":
-                check(same_bits(list(out), list(warm)),
+                check(fingerprint(list(out)) == want,
                       f"{what}: the (1, 1) step differs from the unsharded "
                       f"step")
         else:
             out, turns[turn] = wall_ms(cell.step_fn, *args)
-            check(same_bits(list(out), list(warm)),
+            check(fingerprint(list(out)) == want,
                   f"{what}: two steps from one state differ")
         del out
-    p_sh, opt_sh, _ = cell.out_shardings
-    digests = dict(params=whole_digests(warm[0], p_sh, mesh),
-                   mu=whole_digests(warm[1].mu, opt_sh.mu, mesh),
-                   nu=whole_digests(warm[1].nu, opt_sh.nu, mesh))
-    del warm, args
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
+    del args
     pcell = steps.build_cell(cfg, cut_shape("prefill_32k"), mesh)
     pargs = steps.local_args((st["params"], st["prefill"]),
                              pcell.in_shardings, mesh)
     with torch.no_grad():
         logits, prefill_ms = wall_ms(pcell.step_fn, *pargs)
     logits = sharding.whole_block(logits, pcell.out_shardings, mesh)
-    check(tuple(logits.shape) == tuple(ref["logits"].shape)
+    check(tuple(logits.shape) == ref["logits_shape"]
           and bool(torch.isfinite(logits).all()), f"{what}: prefill logits")
-    if one:
-        check(torch.equal(logits, ref["logits"]),
-              f"{what}: the (1, 1) prefill differs from the unsharded one")
     digests["logits"] = digest(logits)
+    if one:
+        check(digests["logits"] == ref["logits_digest"],
+              f"{what}: the (1, 1) prefill differs from the unsharded one")
     del logits, pargs
     rec = dict(
-        mesh=list(shape), layers=cfg.n_layers, train_tokens=[
+        arch=arch, mesh=list(shape), layers=cfg.n_layers, train_tokens=[
             train.global_batch, train.seq_len],
-        prefill_tokens=list(ref["logits"].shape[:2]),
+        prefill_tokens=list(ref["logits_shape"][:2]),
         loss=loss, digests=digests, run_to_run_bitwise=True,
         bitwise_vs_unsharded=one or "not held (a mesh of several ranks)",
         first_step_ms=first_ms, ms_per_step=turns, prefill_ms=prefill_ms,
@@ -2120,55 +2139,63 @@ def mesh_cells(mesh, shape, st, ref) -> dict:
         collectives_per_step=dict(calls=coll.calls, bytes=coll.bytes),
         allocated_before_gb=before_gb, peak_allocated_gb=peak_gb,
         memory_model=memory_record(cfg, train, mesh),
-        check=mesh_cells_check(mesh, shape, st, ref))
+        check=mesh_cells_check(mesh, shape, st, arch))
     torch.cuda.empty_cache()
     return rec
 
 
-def mesh_cells_check(mesh, shape, st, ref) -> dict:
+def mesh_cells_check(mesh, shape, st, arch: str) -> dict:
     """The sharded step, its gradients and its prefill at
-    CELLS_CHECK_LAYERS against :func:`mesh_cells_reference`'s unsharded
-    ones, in each compute dtype: loss, gradients and moments within
-    CELLS_TOL (nu twice the gradients' bound), the parameters after AdamW
-    within MESH_CELLS_PARAM_RTOL, the prefill logits within
-    CASCADE_BF16_RTOL of the largest |logit| (the detector's bound)."""
+    CELLS_CHECK_LAYERS against the unsharded ones on this rank's card, in
+    each compute dtype (each reference made and dropped in turn): loss,
+    gradients and moments within CELLS_TOL (nu twice the gradients'
+    bound), the parameters after AdamW within MESH_CELLS_PARAM_RTOL, the
+    prefill logits within CASCADE_BF16_RTOL of the largest |logit| (the
+    detector's bound)."""
     out = {}
     for dt, (loss_tol, grad_tol) in CELLS_TOL.items():
-        want = ref["check"][dt]
-        c = configs.get_config(CASCADE_ARCH).replace(
-            n_layers=CELLS_CHECK_LAYERS, compute_dtype=dt)
+        c = configs.get_config(arch).replace(n_layers=CELLS_CHECK_LAYERS,
+                                             compute_dtype=dt)
+        state = steps.make_optimizer(c).init(st["check_params"])
+        w_p, w_s, w_loss = steps.build_cell(c, cut_shape("train_4k")).step_fn(
+            st["check_params"], state, st["train"])
+        _, w_grads = steps.loss_and_grads(lm.Model(c), st["check_params"],
+                                          st["train"])
         cell = steps.build_cell(c, cut_shape("train_4k"), mesh)
-        whole = (st["check_params"],
-                 steps.make_optimizer(c).init(st["check_params"]),
-                 st["train"])
+        whole = (st["check_params"], state, st["train"])
         args = steps.local_args(whole, cell.in_shardings, mesh)
         new_p, new_s, loss = cell.step_fn(*args)
         p_sh, opt_sh, _ = cell.out_shardings
         _, grads = steps.loss_and_grads(lm.Model(c), args[0], args[2],
                                         model_common.Parallel(mesh))
+        r = dict(
+            loss_rel_diff=abs(float(loss) - float(w_loss))
+            / abs(float(w_loss)),
+            grad_rel_diff=leaf_errs(steps.whole_args(grads, p_sh, mesh),
+                                    cpu_tree(w_grads)),
+            params_rel_diff=leaf_errs(steps.whole_args(new_p, p_sh, mesh),
+                                      cpu_tree(w_p)),
+            mu_rel_diff=leaf_errs(steps.whole_args(new_s.mu, opt_sh.mu, mesh),
+                                  cpu_tree(w_s.mu)),
+            nu_rel_diff=leaf_errs(steps.whole_args(new_s.nu, opt_sh.nu, mesh),
+                                  cpu_tree(w_s.nu)))
+        del w_p, w_s, w_grads, new_p, new_s, grads, args, state
+        torch.cuda.empty_cache()
         pcell = steps.build_cell(c, cut_shape("prefill_32k"), mesh)
         with torch.no_grad():
             logits = pcell.step_fn(*steps.local_args(
                 (st["check_params"], st["prefill"]), pcell.in_shardings,
                 mesh))
-        logits = sharding.whole_block(logits, pcell.out_shardings, mesh)
-        r = dict(
-            loss_rel_diff=abs(float(loss) - float(want["loss"]))
-            / abs(float(want["loss"])),
-            grad_rel_diff=leaf_errs(steps.whole_args(grads, p_sh, mesh),
-                                    cpu_tree(want["grads"])),
-            params_rel_diff=leaf_errs(steps.whole_args(new_p, p_sh, mesh),
-                                      cpu_tree(want["params"])),
-            mu_rel_diff=leaf_errs(steps.whole_args(new_s.mu, opt_sh.mu, mesh),
-                                  cpu_tree(want["mu"])),
-            nu_rel_diff=leaf_errs(steps.whole_args(new_s.nu, opt_sh.nu, mesh),
-                                  cpu_tree(want["nu"])),
-            logits_max_abs_diff=float((logits.float() - want["logits"].float()
-                                       ).abs().max()),
-            max_abs_logit=float(want["logits"].float().abs().max()),
-            loss_rtol=loss_tol, grad_rtol=grad_tol,
-            param_rtol=MESH_CELLS_PARAM_RTOL,
-            logits_rtol=CASCADE_BF16_RTOL)
+            logits = sharding.whole_block(logits, pcell.out_shardings, mesh)
+            want = steps.build_cell(c, cut_shape("prefill_32k")).step_fn(
+                st["check_params"], st["prefill"])
+            r.update(logits_max_abs_diff=max_abs_diff(logits, want),
+                     max_abs_logit=max_abs(want))
+        del logits, want
+        torch.cuda.empty_cache()
+        r.update(loss_rtol=loss_tol, grad_rtol=grad_tol,
+                 param_rtol=MESH_CELLS_PARAM_RTOL,
+                 logits_rtol=CASCADE_BF16_RTOL)
         check(r["loss_rel_diff"] <= loss_tol
               and r["grad_rel_diff"] <= grad_tol
               and r["mu_rel_diff"] <= grad_tol
@@ -2176,8 +2203,8 @@ def mesh_cells_check(mesh, shape, st, ref) -> dict:
               and r["params_rel_diff"] <= MESH_CELLS_PARAM_RTOL
               and r["logits_max_abs_diff"]
               <= CASCADE_BF16_RTOL * r["max_abs_logit"],
-              f"sharded cells on a {shape} mesh against the unsharded step "
-              f"at {CELLS_CHECK_LAYERS} layers, {dt}: {r}")
+              f"sharded {arch} cells on a {shape} mesh against the "
+              f"unsharded step at {CELLS_CHECK_LAYERS} layers, {dt}: {r}")
         out[dt] = r
     return out
 
@@ -2209,7 +2236,8 @@ def mesh_phase(base_model, cal, raw, labels):
         ref["runs"]["mesh_closed_loop_float32"]["hp"])
     torch.save(dict(ref, raw=raw.cpu(), labels=labels.cpu().numpy()),
                root / "payload.pt")
-    mesh_cells_payload(root)
+    for arch in MESH_CELLS:
+        mesh_cells_payload(root, arch)
     topo = "not measured"
     if DEVICE == "cuda":
         # the link matrix (NVLink or PCIe) where the host's driver reports
@@ -2248,12 +2276,13 @@ def mesh_phase(base_model, cal, raw, labels):
         check(all(r[i]["cascade"]["logits"] == rec["cascade"]["logits"]
                   for r in ranks[1:]),
               f"sharded cascade on a {rec['mesh']} mesh: ranks differ")
-        check(all(r[i]["cells"]["loss"] == rec["cells"]["loss"]
-                  and r[i]["cells"]["digests"] == rec["cells"]["digests"]
-                  for r in ranks[1:]),
-              f"sharded cells on a {rec['mesh']} mesh: the loss, the "
-              f"gathered parameters, moments or prefill logits differ "
-              f"between ranks")
+        for arch, (key, _) in MESH_CELLS.items():
+            check(all(r[i][key]["loss"] == rec[key]["loss"]
+                      and r[i][key]["digests"] == rec[key]["digests"]
+                      for r in ranks[1:]),
+                  f"sharded {arch} cells on a {rec['mesh']} mesh: the loss, "
+                  f"the gathered parameters, moments or prefill logits "
+                  f"differ between ranks")
     first = ranks[0][0]
     # the first mesh's checkpoint (written by its rank 0), resumed unsharded
     svc = mesh_churn_service(ref["models"]["churn"], first["churn"][
@@ -2542,30 +2571,75 @@ CELLS_LEARN_TOKENS, CELLS_LEARN_STEPS, CELLS_LEARN_LR = (1, 512), 10, 1e-4
 # the production meshes analyze() is printed for
 CELLS_MESHES = ({"data": 1, "model": 1}, {"data": 16, "model": 16},
                 {"pod": 2, "data": 16, "model": 16})
+# the LM phase, the dense and vlm families (ROADMAP.md §1 item 4(a)): the
+# dense model at full width through the cells phase's runs and checks;
+# OLMo's parameter-free norms and MHA at full width; the VLM at full width
+# and LM_VLM_LAYERS of its 80 layers (their bf16 weights alone are
+# ~150 GB), its prefill behind its image prefix
+LM_ARCH, LM_OLMO, LM_VLM, LM_VLM_LAYERS = ("internlm2-1.8b", "olmo-1b",
+                                           "internvl2-76b", 2)
+# the "model" ranks of the production meshes the dry run counts
+DRYRUN_MODEL = 16
+# the mesh phase's sharded cells (mesh_cells): each architecture's rank
+# record key and the seed of its full-width weights
+MESH_CELLS = {CASCADE_ARCH: ("cells", SEED + 15), LM_ARCH: ("cells_lm",
+                                                            SEED + 25)}
 
 
-def cell_matmul_flops(cfg, b: int, s: int, train: bool) -> dict:
+def attn_pairs(S_all: int, causal: bool, q_chunk: int = 1024) -> int:
+    """(query, key) pairs the attention scores (``attention._sdpa``): the
+    whole square in one query block; past it, each block ``[lo, hi)``
+    against every key, or causally against its first ``hi``."""
+    if S_all <= q_chunk:
+        return S_all * S_all
+    return sum((min(lo + q_chunk, S_all) - lo)
+               * (min(lo + q_chunk, S_all) if causal else S_all)
+               for lo in range(0, S_all, q_chunk))
+
+
+def cell_matmul_flops(cfg, b: int, s: int, train: bool,
+                      model: int = 1) -> dict:
     """Hand count of a cell's products, split into the bf16 ones (the
     projections, the MLP, the unembedding) and the float32 ones (the
-    scores and ``P·V``). Forward: per layer q, k, v, o, the scores and
-    ``P·V``, the MLP; the unembedding. Train: the forward, the backward
-    (two products a product: every layer's input takes a gradient, since
-    the norms' weights do), and with ``"full"`` remat each layer's
-    recompute, which stops before ``w_down`` (``torch.utils.checkpoint``'s
-    early stop: the backward pass saved that product's inputs)."""
+    scores and ``P·V``). Forward: per layer q, k, v, o, the MLP (SwiGLU:
+    three products) over every position (the VLM's image prefix too),
+    the scores and ``P·V`` over :func:`attn_pairs`; the unembedding over
+    the ``s`` text positions. Train: the forward, the backward (two
+    products a product: every layer's input takes a gradient, since the
+    norms' weights or the embedding table do), with ``"full"`` remat
+    each layer's recompute, which stops before ``w_down``
+    (``torch.utils.checkpoint``'s early stop: the backward pass saved
+    that product's inputs), and the chunked loss's recompute of the
+    unembedding (a vocab of 8192 or more over more than 1024 positions
+    that 1024 divides). Over ``model`` ranks of "model", what each rank
+    repeats: kv heads ``model`` does not divide, one a rank
+    (``attention.kv_heads_of_rank`` for the published configs), and a
+    vocab it does not divide, whole on every rank."""
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.kv_heads, \
         cfg.resolved_head_dim
-    f, T = cfg.d_ff, b * s
+    vocab = cfg.vocab
+    if kv % model:
+        kv = model * max(h // model // (h // kv), 1)
+    if vocab % model:
+        vocab *= model
+    S_all = s + (cfg.n_image_tokens if cfg.family == "vlm"
+                 and not cfg.embeds_in else 0)
+    f, T = cfg.d_ff, b * S_all
+    n_in = 2 if cfg.activation == "silu" else 1
     down = 2 * T * f * d
-    proj = 2 * T * d * (h + 2 * kv) * hd + 2 * T * h * hd * d + 2 * T * d * f
-    attn = 2 * 2 * b * s * s * h * hd
-    unembed = 2 * T * d * cfg.vocab
+    proj = (2 * T * d * (h + 2 * kv) * hd + 2 * T * h * hd * d
+            + n_in * 2 * T * d * f)
+    attn = 2 * 2 * b * attn_pairs(S_all, cfg.causal and not cfg.is_encoder
+                                  ) * h * hd
+    unembed = 2 * b * s * d * vocab
     L = cfg.n_layers
     low = L * (proj + down) + unembed
     f32 = L * attn
     if train:
         remat = cfg.remat == "full"
-        low = 3 * low + (L * proj if remat else 0)
+        chunked = cfg.vocab >= 8192 and s > 1024 and s % 1024 == 0
+        low = (3 * low + (L * proj if remat else 0)
+               + (unembed if chunked else 0))
         f32 = 3 * f32 + (L * attn if remat else 0)
     return {"bf16": low, "float32": f32, "total": low + f32}
 
@@ -2576,12 +2650,12 @@ def counted_flops(fn, *args) -> int:
     return fc.get_total_flops()
 
 
-def cells_counted() -> dict:
-    """The train and prefill cells at ``train_4k`` and ``prefill_32k``,
-    full batches, on meta tensors: ``FlopCounterMode`` FLOPs against the
-    hand count, and ``analyze()`` on one card and the production
-    meshes."""
-    cfg = configs.get_config(CASCADE_ARCH)
+def cells_counted(arch: str = CASCADE_ARCH) -> dict:
+    """``arch``'s train and prefill cells at ``train_4k`` and
+    ``prefill_32k``, full batches, on meta tensors: ``FlopCounterMode``
+    FLOPs against the hand count, and ``analyze()`` on one card and the
+    production meshes."""
+    cfg = configs.get_config(arch)
     out = {}
     for name in ("train_4k", "prefill_32k"):
         shape = configs.SHAPES[name]
@@ -2589,8 +2663,8 @@ def cells_counted() -> dict:
         got = counted_flops(cell.step_fn, *cell.abstract_args)
         hand = cell_matmul_flops(cfg, shape.global_batch, shape.seq_len,
                                  shape.kind == "train")
-        check(got == hand["total"], f"cells: {name} counts {got} FLOPs, "
-              f"hand count {hand}")
+        check(got == hand["total"], f"cells: {arch} {name} counts {got} "
+              f"FLOPs, hand count {hand}")
         out[name] = dict(batch=shape.global_batch, seq=shape.seq_len,
                          flops=got, flops_hand=hand, memory={
                              "x".join(map(str, m.values())):
@@ -2619,14 +2693,33 @@ def scaled_params(cfg, seed: int, device) -> dict:
                                  lambda x: isinstance(x, model_common.P))
 
 
-def cell_batch(cfg, b: int, s: int, seed: int, device) -> lm.Batch:
-    """Embeddings ``N(0, 1)`` in bf16 (the cells' input spec) and int32
-    labels in ``[-1, vocab)`` (-1 masked), drawn on the CPU from ``seed``."""
+def cell_batch(cfg, b: int, s: int, seed: int, device,
+               image_seed: int | None = None) -> lm.Batch:
+    """A cell's batch drawn on the CPU from ``seed``: for an embeds-in
+    config embeddings ``N(0, 1)`` in bf16 (the cells' input spec), else
+    int32 tokens in ``[0, vocab)``; int32 labels in ``[-1, vocab)`` (-1
+    masked); for the VLM its ``(b, n_image_tokens, d_model)`` image
+    prefix ``N(0, 1)`` in bf16, from ``image_seed`` if given."""
     g = torch.Generator().manual_seed(seed)
-    emb = torch.randn((b, s, cfg.d_model), generator=g).to(torch.bfloat16)
+    emb = tokens = None
+    if cfg.embeds_in:
+        emb = torch.randn((b, s, cfg.d_model), generator=g).to(
+            torch.bfloat16)
+    else:
+        tokens = torch.randint(0, cfg.vocab, (b, s), generator=g,
+                               dtype=torch.int32)
     labels = torch.randint(-1, cfg.vocab, (b, s), generator=g,
                            dtype=torch.int32)
-    return lm.Batch(None, labels.to(device), emb.to(device))
+    if cfg.family == "vlm" and not cfg.embeds_in:
+        gi = g if image_seed is None else torch.Generator().manual_seed(
+            image_seed)
+        emb = torch.randn((b, cfg.n_image_tokens, cfg.d_model),
+                          generator=gi).to(torch.bfloat16)
+    return batch_to(lm.Batch(tokens, labels, emb), device)
+
+
+def batch_to(batch: lm.Batch, device) -> lm.Batch:
+    return lm.Batch(*(None if t is None else t.to(device) for t in batch))
 
 
 def leaf_errs(got, want) -> float:
@@ -2644,6 +2737,25 @@ def same_bits(a, b) -> bool:
                                                  model_common.leaves(b)))
 
 
+def max_abs(t: torch.Tensor) -> float:
+    """The largest |entry| of ``t``, with no copy of it."""
+    return max(float(t.max()), -float(t.min()))
+
+
+def max_abs_diff(a: torch.Tensor, b: torch.Tensor, dim: int = 1,
+                 block: int = 4096) -> float:
+    """The largest |a - b| in float32, ``block`` positions of ``dim`` at a
+    time (full-width logits are GBs)."""
+    return max(float((x.float() - y.float()).abs().max())
+               for x, y in zip(a.split(block, dim), b.split(block, dim)))
+
+
+def fingerprint(tree) -> list[int]:
+    """:func:`digest` of every leaf of ``tree`` (a step's outputs, say):
+    two runs' bits compared without holding both runs' tensors."""
+    return [digest(t) for t in model_common.leaves(tree)]
+
+
 def card_vs_cpu(cfg, params) -> dict:
     """``loss_and_grads`` on the card and on the CPU (``params`` copied),
     one CELLS_CHECK_TOKENS batch: the loss's relative difference and the
@@ -2653,46 +2765,46 @@ def card_vs_cpu(cfg, params) -> dict:
     batch = cell_batch(cfg, b, s, SEED + 16, DEVICE)
     loss, grads = steps.loss_and_grads(model, params, batch)
     cpu = model_common.tree_map(lambda a: a.cpu(), params)
-    cbatch = lm.Batch(None, batch.labels.cpu(), batch.embeds.cpu())
-    closs, cgrads = steps.loss_and_grads(model, cpu, cbatch)
+    closs, cgrads = steps.loss_and_grads(model, cpu, batch_to(batch, "cpu"))
     return dict(loss=float(closs),
                 loss_rel_diff=abs(float(loss) - float(closs))
                 / abs(float(closs)),
                 grad_rel_diff=leaf_errs(grads, cgrads))
 
 
-def cells_checks() -> dict:
-    """Full width at CELLS_CHECK_LAYERS layers: the card against the CPU
-    in float32 and bf16 (held); at ``Model.init``'s weights in float32,
-    the difference recorded beside the card's own response to a
-    CELLS_PERTURB relative change of every weight; the loss over
-    CELLS_LEARN_STEPS AdamW steps at a constant CELLS_LEARN_LR on a fixed
-    batch (must fall)."""
-    base = configs.get_config(CASCADE_ARCH).replace(
-        n_layers=CELLS_CHECK_LAYERS)
+def cells_checks(arch: str = CASCADE_ARCH, model_init: bool = True) -> dict:
+    """``arch`` at full width and CELLS_CHECK_LAYERS layers: the card
+    against the CPU in float32 and bf16 (held); with ``model_init``, at
+    ``Model.init``'s weights in float32, the difference recorded beside
+    the card's own response to a CELLS_PERTURB relative change of every
+    weight; the loss over CELLS_LEARN_STEPS AdamW steps at a constant
+    CELLS_LEARN_LR on a fixed batch (must fall)."""
+    base = configs.get_config(arch).replace(n_layers=CELLS_CHECK_LAYERS)
     out = {}
     for dt, (loss_tol, grad_tol) in CELLS_TOL.items():
         cfg = base.replace(compute_dtype=dt)
         r = card_vs_cpu(cfg, scaled_params(cfg, SEED + 17, DEVICE))
         r.update(loss_rtol=loss_tol, grad_rtol=grad_tol)
         check(r["loss_rel_diff"] <= loss_tol
-              and r["grad_rel_diff"] <= grad_tol, f"cells: card vs CPU {dt}"
-              f" at {CELLS_CHECK_LAYERS} layers: {r}")
+              and r["grad_rel_diff"] <= grad_tol, f"cells: {arch} card vs "
+              f"CPU {dt} at {CELLS_CHECK_LAYERS} layers: {r}")
         out[dt] = r
-    cfg = base.replace(compute_dtype="float32")
-    model = lm.Model(cfg)
-    params = model.init(torch.Generator(device=DEVICE).manual_seed(SEED + 18))
-    rec = card_vs_cpu(cfg, params)
-    gp = torch.Generator(device=DEVICE).manual_seed(SEED + 19)
-    moved = model_common.tree_map(lambda a: a * (1 + CELLS_PERTURB * (
-        torch.randn(a.shape, generator=gp, device=DEVICE))), params)
-    b, s = CELLS_CHECK_TOKENS
-    batch = cell_batch(cfg, b, s, SEED + 16, DEVICE)
-    _, g0 = steps.loss_and_grads(model, params, batch)
-    _, g1 = steps.loss_and_grads(model, moved, batch)
-    rec["perturbed_grad_rel_diff"] = leaf_errs(g1, model_common.tree_map(
-        lambda a: a.cpu(), g0))
-    out["float32_model_init"] = rec
+    if model_init:
+        cfg = base.replace(compute_dtype="float32")
+        model = lm.Model(cfg)
+        params = model.init(torch.Generator(device=DEVICE).manual_seed(
+            SEED + 18))
+        rec = card_vs_cpu(cfg, params)
+        gp = torch.Generator(device=DEVICE).manual_seed(SEED + 19)
+        moved = model_common.tree_map(lambda a: a * (1 + CELLS_PERTURB * (
+            torch.randn(a.shape, generator=gp, device=DEVICE))), params)
+        b, s = CELLS_CHECK_TOKENS
+        batch = cell_batch(cfg, b, s, SEED + 16, DEVICE)
+        _, g0 = steps.loss_and_grads(model, params, batch)
+        _, g1 = steps.loss_and_grads(model, moved, batch)
+        rec["perturbed_grad_rel_diff"] = leaf_errs(
+            g1, model_common.tree_map(lambda a: a.cpu(), g0))
+        out["float32_model_init"] = rec
 
     # the model learns: a constant learning rate (the cell's warmup gives
     # ~1e-7 in its first steps)
@@ -2709,7 +2821,7 @@ def cells_checks() -> dict:
         losses.append(loss)
     losses = torch.stack(losses).tolist()
     check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
-          f"cells: the loss did not fall: {losses}")
+          f"cells: {arch}'s loss did not fall: {losses}")
     out["learn"] = dict(layers=cfg.n_layers, tokens=CELLS_LEARN_TOKENS,
                         lr=CELLS_LEARN_LR, losses=losses)
     return out
@@ -2726,12 +2838,47 @@ def timed_run(fn, *args):
     return out, start.elapsed_time(stop)
 
 
-def train_cell_run(cfg, params) -> dict:
+def deterministic_run_to_run(step, model, params, state, batch) -> dict:
+    """Under ``torch.use_deterministic_algorithms(True)`` (``warn_only``:
+    a cuBLAS product warns for want of ``CUBLAS_WORKSPACE_CONFIG``, which
+    the process would have to set before its first product): two steps
+    from one state and the loss and gradients twice, each pair bitwise;
+    an op without a deterministic implementation on the path fails the
+    check."""
+    before = torch.are_deterministic_algorithms_enabled()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            a = fingerprint(list(step(params, state, batch)))
+            b = fingerprint(list(step(params, state, batch)))
+            la, ga = steps.loss_and_grads(model, params, batch)
+            fa = fingerprint(ga)
+            del ga
+            lb, gb = steps.loss_and_grads(model, params, batch)
+            fb = fingerprint(gb)
+            del gb
+        finally:
+            torch.use_deterministic_algorithms(before)
+    flagged = sorted({str(w.message)[:160] for w in seen
+                      if "deterministic implementation" in str(w.message)})
+    check(not flagged, f"cells: ops without a deterministic implementation "
+          f"on the train step: {flagged}")
+    check(a == b and torch.equal(la, lb) and fa == fb, "cells: under "
+          "torch.use_deterministic_algorithms(True) two train steps or the "
+          "loss and gradients differ")
+    return dict(bitwise=True, nondeterministic_ops=flagged,
+                other_warnings=len(seen))
+
+
+def train_cell_run(cfg, params, deterministic: bool = False) -> dict:
     """The full-width train cell at train_4k's sequence, CELLS_TRAIN_BATCH
     sequences: a warm step, then CELLS_TIMED timed steps from the same
-    state, each bitwise the warm one (loss, parameters, moments); the
-    loss and gradients twice, bitwise; one step profiled; the allocator's
-    peak beside ``analyze()``."""
+    state, each bitwise the warm one (loss, parameters, moments: their
+    :func:`fingerprint`, so no two steps' outputs live at once); the loss
+    and gradients twice, bitwise; with ``deterministic``, both again
+    under :func:`deterministic_run_to_run`; one step profiled; the
+    allocator's peak beside ``analyze()``."""
     shape = dataclasses.replace(configs.SHAPES["train_4k"],
                                 global_batch=CELLS_TRAIN_BATCH)
     b, s = shape.global_batch, shape.seq_len
@@ -2745,44 +2892,51 @@ def train_cell_run(cfg, params) -> dict:
     warm, first_ms = timed_run(step, params, state, batch)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check(warm[2].shape == () and math.isfinite(float(warm[2])),
-          f"cells: train loss {warm[2]}")
+          f"cells: {cfg.arch_id} train loss {warm[2]}")
+    want = fingerprint(list(warm))
+    del warm
     ms = []
     for _ in range(CELLS_TIMED):
         out, t = timed_run(step, params, state, batch)
         ms.append(t)
-        check(same_bits(list(out), list(warm)),
-              "cells: two train steps from one state differ")
+        check(fingerprint(list(out)) == want,
+              f"cells: {cfg.arch_id}: two train steps from one state differ")
         del out
     model = lm.Model(cfg)
     la, ga = steps.loss_and_grads(model, params, batch)
     lb, gb = steps.loss_and_grads(model, params, batch)
     check(torch.equal(la, lb) and same_bits(ga, gb),
-          "cells: the loss or a gradient differs run to run")
-    del ga, gb, warm
+          f"cells: {cfg.arch_id}: the loss or a gradient differs run to run")
+    del ga, gb
+    det = (deterministic_run_to_run(step, model, params, state, batch)
+           if deterministic else "not run")
     prof = device_profile(lambda: step(params, state, batch))
     flops = counted_flops(step, *cell.abstract_args)
     hand = cell_matmul_flops(cfg, b, s, True)
-    check(flops == hand["total"], f"cells: train step {flops} FLOPs, hand "
-          f"{hand}")
+    check(flops == hand["total"], f"cells: {cfg.arch_id} train step {flops} "
+          f"FLOPs, hand {hand}")
     step_ms = statistics.median(ms)
     return dict(
-        batch=b, seq=s, cut="train_4k's batch 256 -> 4", loss=float(la),
+        arch=cfg.arch_id, layers=cfg.n_layers, batch=b, seq=s,
+        cut=f"train_4k's batch 256 -> {b}", loss=float(la),
         first_step_ms=first_ms, ms_per_step=ms, median_ms=step_ms,
         tokens_per_s=b * s / (step_ms / 1e3), flops=flops, flops_hand=hand,
         tflops_per_s=flops / (step_ms / 1e3) / 1e12, bf16_peak_tflops=989,
         bound_ms={"bf16_at_989": hand["bf16"] / BF16_OPS_S * 1e3,
                   "float32_at_67": hand["float32"] / F32_OPS_S * 1e3},
-        bitwise_run_to_run=True, allocated_before_gb=before_gb,
-        peak_allocated_gb=peak_gb,
+        bitwise_run_to_run=True, deterministic_algorithms=det,
+        allocated_before_gb=before_gb, peak_allocated_gb=peak_gb,
         memory_model=memory_record(cfg, shape, CELLS_MESHES[0]),
         profile=prof)
 
 
-def prefill_cell_run(cfg, params) -> dict:
+def prefill_cell_run(cfg, params, image_seed: int | None = None) -> dict:
     """The full-width prefill cell at prefill_32k's sequence,
-    CELLS_PREFILL_BATCH sequence: logits of the right shape, finite,
-    bitwise ``Model.forward``'s on the same embeddings; ms of both runs
-    and the allocator's peak beside ``analyze()``."""
+    CELLS_PREFILL_BATCH sequence: logits of the right shape (the text
+    positions), finite, bitwise ``Model.forward``'s on the same batch;
+    ms of both runs and the allocator's peak beside ``analyze()``. For
+    the VLM: another image prefix (``image_seed``) on the same tokens
+    changes the text logits."""
     shape = dataclasses.replace(configs.SHAPES["prefill_32k"],
                                 global_batch=CELLS_PREFILL_BATCH)
     b, s = shape.global_batch, shape.seq_len
@@ -2792,18 +2946,32 @@ def prefill_cell_run(cfg, params) -> dict:
     torch.cuda.reset_peak_memory_stats()
     with torch.no_grad():
         got, step_ms = timed_run(cell.step_fn, params, batch)
-        want, forward_ms = timed_run(lm.Model(cfg).forward, params,
-                                     batch.embeds)
+        check(tuple(got.shape) == (b, s, cfg.vocab)
+              and bool(torch.isfinite(got).all()), f"cells: {cfg.arch_id} "
+              f"prefill logits {tuple(got.shape)} or not finite")
+        want, forward_ms = timed_run(lm.Model(cfg).forward, params, batch)
+        check(torch.equal(got, want), f"cells: {cfg.arch_id} prefill "
+              f"logits differ from Model.forward")
+        del want
+        image = "no image prefix"
+        if image_seed is not None:
+            other = cell_batch(cfg, b, s, SEED + 23, DEVICE, image_seed)
+            moved = cell.step_fn(params, other)
+            diff = max_abs_diff(moved, got)
+            check(diff > 0, f"cells: {cfg.arch_id}: another image prefix "
+                  f"leaves the text logits as they were")
+            image = dict(n_image_tokens=cfg.n_image_tokens,
+                         max_abs_logit_change=diff,
+                         max_abs_logit=max_abs(got))
+            del moved
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    check(tuple(got.shape) == (b, s, cfg.vocab)
-          and bool(torch.isfinite(got).all()), f"cells: prefill logits "
-          f"{tuple(got.shape)} or not finite")
-    check(torch.equal(got, want), "cells: prefill logits differ from "
-          "Model.forward")
+    del got
     hand = cell_matmul_flops(cfg, b, s, False)
-    return dict(batch=b, seq=s, cut="prefill_32k's batch 32 -> 1",
-                logits_shape=list(got.shape), bitwise_vs_forward=True,
-                ms=step_ms, forward_ms=forward_ms, flops_hand=hand,
+    return dict(arch=cfg.arch_id, layers=cfg.n_layers, batch=b, seq=s,
+                cut=f"prefill_32k's batch 32 -> {b}",
+                logits_shape=[b, s, cfg.vocab], bitwise_vs_forward=True,
+                image_prefix=image, ms=step_ms, forward_ms=forward_ms,
+                flops_hand=hand,
                 tflops_per_s=hand["total"] / (step_ms / 1e3) / 1e12,
                 bound_ms={"bf16_at_989": hand["bf16"] / BF16_OPS_S * 1e3,
                           "float32_at_67": hand["float32"] / F32_OPS_S
@@ -2812,8 +2980,8 @@ def prefill_cell_run(cfg, params) -> dict:
                 memory_model=memory_record(cfg, shape, CELLS_MESHES[0]))
 
 
-# seconds the dry run's subprocess may take (its four cells take about a
-# minute of one host core)
+# seconds the dry run's subprocess may take once its records are wanted
+# (its 24 cells take about five minutes of one host core)
 DRYRUN_TIMEOUT_S = 600
 
 
@@ -2834,57 +3002,65 @@ def dryrun_start():
     return proc, out, log
 
 
+def dryrun_stop(dry) -> None:
+    if dry is not None and dry[0].poll() is None:
+        dry[0].kill()
+        dry[0].wait()
+
+
 def dryrun_records(proc, out, log) -> list[dict]:
-    """The dry run's records once its subprocess ends: exit 0; every
-    ``hubert-xlarge`` cell (``train_4k``, ``prefill_32k`` on the 16x16
-    and 2x16x16 meshes) ``ok``, its FLOPs at least the hand count of the
-    products and equal to it plus the unembedding every "model" rank
-    repeats (a vocab of 504 does not split 16 ways), its memory
-    ``analyze()``'s on the mesh; a ``not_ported`` row for each other
-    architecture on each mesh. Each record printed."""
+    """The dry run's records once its subprocess ends: exit 0; 24 ``ok``
+    records (``train_4k`` and ``prefill_32k`` of each ported architecture
+    on the 16x16 and 2x16x16 meshes), their FLOPs at least the hand count
+    of the products and equal to it plus what the 16 "model" ranks repeat
+    (:func:`cell_matmul_flops`: hubert-xlarge's unembedding, a vocab of
+    504; the k and v projections of the kv heads 16 does not divide), their
+    memory ``analyze()``'s on the mesh; 18 ``not_ported`` rows (each
+    other architecture on each mesh, each ported decoder's
+    ``decode_32k``); no ``fail``. Each record printed."""
     rc = proc.wait(timeout=DRYRUN_TIMEOUT_S)
     check(rc == 0, f"dry run: exit {rc}\n{log.read_text()[-3000:]}")
     records = [json.loads(line) for line in out.read_text().splitlines()]
     for r in records:
         emit({"dryrun": r})
-    cfg = configs.get_config(CASCADE_ARCH)
-    ok = [r for r in records if r["arch"] == CASCADE_ARCH]
-    check(len(ok) == 4 and all(r["status"] == "ok" for r in ok),
-          f"dry run: {CASCADE_ARCH}'s records {ok}")
-    check(sum(r["status"] == "not_ported" for r in records)
-          == len(records) - 4 == 18, "dry run: the not-ported rows")
+    ok = [r for r in records if r["status"] == "ok"]
+    check(len(ok) == 24 and {r["arch"] for r in ok} == set(configs.ARCH_IDS),
+          f"dry run: the ok records {[(r['arch'], r['shape']) for r in ok]}")
+    check(sum(r["status"] == "not_ported" for r in records) == 18
+          and len(records) == 42, "dry run: the not-ported rows")
     for r in ok:
+        cfg = configs.get_config(r["arch"])
         shape = configs.SHAPES[r["shape"]]
         b, s = shape.global_batch, shape.seq_len
         train = shape.kind == "train"
         hand = cell_matmul_flops(cfg, b, s, train)["total"]
-        unembed = (3 if train else 1) * 2 * b * s * cfg.d_model * cfg.vocab
-        model = 16
+        want = cell_matmul_flops(cfg, b, s, train, DRYRUN_MODEL)["total"]
         got = r["hlo_gflops"] * 1e9
-        check(got >= hand and math.isclose(
-            got, hand + (model - 1) * unembed, rel_tol=1e-12),
-            f"dry run {r['shape']} {r['mesh']}: {got} FLOPs, hand count "
-            f"{hand} + {model - 1} x {unembed}")
+        what = f"dry run {r['arch']} {r['shape']} {r['mesh']}"
+        check(got >= hand and math.isclose(got, want, rel_tol=1e-12),
+              f"{what}: {got} FLOPs, hand count {hand}, with the repeats "
+              f"{want}")
         mesh = ({"data": 16, "model": 16} if r["mesh"] == "single"
                 else {"pod": 2, "data": 16, "model": 16})
         mem = memory_model.analyze(cfg, shape, mesh).total_gb
         check(r["per_device_peak_mem_gb"] == mem,
-              f"dry run {r['shape']} {r['mesh']}: memory "
-              f"{r['per_device_peak_mem_gb']} against analyze() {mem}")
+              f"{what}: memory {r['per_device_peak_mem_gb']} against "
+              f"analyze() {mem}")
     return ok
 
 
-def cells_phase(card: str) -> dict:
+def cells_phase(card: str, dry=None) -> dict:
     """The encoder's training path at full ``hubert-xlarge`` width (48
     layers, bf16 compute, remat "full", weights from ``Model.init`` on a
     seeded generator): the cells counted on meta tensors, the train and
     prefill cells run, the card against the CPU, the model learning; and
-    meanwhile, on the host's CPU, the dry run of the sharded cells on
-    the production meshes (:func:`dryrun_records`). Every record carries
-    the card's name and power limit."""
+    the records of the dry run of the sharded cells on the production
+    meshes (:func:`dryrun_records`), started at the top of the script on
+    the host's CPU (``dry``: :func:`dryrun_start`'s; None starts it
+    here). Every record carries the card's name and power limit."""
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    dry = dryrun_start()
+    dry = dry or dryrun_start()
     try:
         rec = {"card": card, "counted": cells_counted()}
         cfg = configs.get_config(CASCADE_ARCH)
@@ -2898,11 +3074,52 @@ def cells_phase(card: str) -> dict:
         rec["checks"] = cells_checks()
         rec["dryrun"] = dryrun_records(*dry)
     finally:
-        if dry[0].poll() is None:
-            dry[0].kill()
-            dry[0].wait()
+        dryrun_stop(dry)
     rec["phase_s"] = time.perf_counter() - t0
     emit({"cells": rec})
+    return rec
+
+
+def lm_phase(card: str) -> dict:
+    """The dense and vlm families at full width (bf16 compute, remat
+    "full", weights from ``Model.init`` on seeded generators):
+    ``internlm2-1.8b`` (24 layers, 16 heads over 8 kv heads, vocab
+    92,544) through the cells phase's runs: counted on meta tensors, the
+    train step (its run-to-run check also under deterministic
+    algorithms), the prefill, the card against the CPU at 2 layers, the
+    model learning; ``olmo-1b``'s train step and prefill (its norms hold
+    no parameters); ``internvl2-76b`` at LM_VLM_LAYERS layers, its
+    prefill behind 256 image embeddings. Every record carries the card's
+    name and power limit."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rec = {"card": card, "counted": cells_counted(LM_ARCH)}
+    emit({"lm": {"card": card, "counted": rec["counted"]}})
+    for arch, seed in ((LM_ARCH, SEED + 25), (LM_OLMO, SEED + 26)):
+        cfg = configs.get_config(arch)
+        params = lm.Model(cfg).init(
+            torch.Generator(device=DEVICE).manual_seed(seed))
+        rec[arch] = dict(train=train_cell_run(cfg, params,
+                                              deterministic=arch == LM_ARCH))
+        torch.cuda.empty_cache()
+        rec[arch]["prefill"] = prefill_cell_run(cfg, params)
+        del params
+        torch.cuda.empty_cache()
+        if arch == LM_ARCH:
+            rec[arch]["checks"] = cells_checks(arch, model_init=False)
+            torch.cuda.empty_cache()
+        emit({"lm": {"card": card, arch: rec[arch]}})
+    cfg = configs.get_config(LM_VLM).replace(n_layers=LM_VLM_LAYERS)
+    params = lm.Model(cfg).init(
+        torch.Generator(device=DEVICE).manual_seed(SEED + 27))
+    rec[LM_VLM] = dict(cut=f"{LM_VLM_LAYERS} of 80 layers",
+                       prefill=prefill_cell_run(cfg, params,
+                                                image_seed=SEED + 28))
+    del params
+    torch.cuda.empty_cache()
+    emit({"lm": {"card": card, LM_VLM: rec[LM_VLM]}})
+    rec["phase_s"] = time.perf_counter() - t0
+    emit({"lm_phase_s": rec["phase_s"]})
     return rec
 
 
@@ -4238,10 +4455,11 @@ def mesh_only(model, cal) -> int:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
-        "--only", choices=("mesh", "cells"),
+        "--only", choices=("mesh", "cells", "lm"),
         help="mesh: build the kernels and run the mesh phase alone (on a "
              "host with several cards: the NCCL world takes every card); "
-             "cells: the cells phase alone (it runs none of the kernels)")
+             "cells: the cells phase alone; lm: the LM phase alone (neither "
+             "runs any of the kernels)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4253,9 +4471,23 @@ def main(argv=None) -> int:
     print(smi, flush=True)
     emit({"nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "python": sys.version.split()[0]})
+    # the dry run counts on the host's CPU while the card works
+    dry = dryrun_start() if args.only in (None, "cells") else None
+    try:
+        return run_phases(args, smi, dry)
+    finally:
+        dryrun_stop(dry)
 
+
+def run_phases(args, smi: str, dry) -> int:
+    """The phases :func:`main` was asked for, the dry run ``dry`` (or
+    None) running meanwhile."""
     if args.only == "cells":
-        cells_phase(smi)
+        cells_phase(smi, dry)
+        ok_line()
+        return 0
+    if args.only == "lm":
+        lm_phase(smi)
         ok_line()
         return 0
 
@@ -4311,7 +4543,8 @@ def main(argv=None) -> int:
     cascade, cascade_launches = cascade_phase(model, cal, fleet_raw)
     del fleet_raw
     emit({"cascade_phase_s": time.perf_counter() - t0})
-    cells_phase(smi)
+    cells_phase(smi, dry)
+    lm_phase(smi)
     train, train_launches, train_records = train_phase(g)
     emit({"train": train})
     for r in train_records:

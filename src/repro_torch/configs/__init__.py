@@ -2,8 +2,10 @@
 
 Each module defines ``config()`` (the exact numbers) and ``smoke()`` (a
 reduced config of the same family for CPU tests), as in
-``repro.configs``. The port has the architectures its ported models run;
-the others come with the LM zoo (``ROADMAP.md`` §1 item 4).
+``repro.configs``. The port has the architectures its ported models run,
+in the reference's order: the encoder and the dense and vlm families;
+the MoE, hybrid and xLSTM ones come with the LM zoo (``ROADMAP.md`` §1
+items 4(c)-(e)).
 """
 
 from __future__ import annotations
@@ -14,7 +16,14 @@ from repro_torch.configs.base import (SHAPES, SKIP_REASONS,  # noqa: F401
                                       SMOKE_SHAPE, ModelConfig, ShapeConfig,
                                       applicable_shapes)
 
-ARCH_IDS = ["hubert-xlarge"]
+ARCH_IDS = [
+    "hubert-xlarge",
+    "olmo-1b",
+    "codeqwen1.5-7b",
+    "internlm2-1.8b",
+    "deepseek-67b",
+    "internvl2-76b",
+]
 
 #: the paper's own workload (``configs/hypersense.py``: a
 #: ``HyperSenseConfig``, not a ``ModelConfig``)

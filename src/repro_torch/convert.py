@@ -82,9 +82,10 @@ def lm_params_from_arrays(tree, *, cfg,
                           device: str | torch.device | None = None) -> dict:
     """The port's :class:`~repro_torch.models.lm.Model` parameters from the
     reference's ``Model.init`` tree as numpy arrays (the same nesting and
-    leaf names, layers stacked on a leading axis or listed), each leaf in
-    ``cfg.param_dtype`` on ``device`` (``None`` -> CUDA, raising without
-    it)."""
+    leaf names, layers stacked on a leading axis or listed; the token
+    embedding's ``embed`` subtree; a parameter-free norm's empty
+    subtree, kept empty), each leaf in ``cfg.param_dtype`` on ``device``
+    (``None`` -> CUDA, raising without it)."""
     dev = resolve_device(device)
     dt = dtype_of(cfg.param_dtype)
     return common.tree_map(

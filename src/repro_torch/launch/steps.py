@@ -25,8 +25,10 @@ the clip's norm folded over each leaf's groups, AdamW on the blocks.
 :func:`local_args` cuts a whole ``(params, opt_state, batch)`` into a
 rank's arguments and :func:`whole_args` puts blocks back together. A
 cell built with a ``{name: size}`` mapping carries its spec trees for
-counting; its step needs a ``DeviceMesh``. The decode cell comes with
-the LM zoo (``ROADMAP.md`` §1 item 4).
+counting; its step needs a ``DeviceMesh``. A token batch is cut over
+the batch's mesh dims like an embeds-in one, and so is the VLM's image
+prefix. The decode cell comes with the LM zoo (``ROADMAP.md`` §1 item
+4(b)).
 """
 
 from __future__ import annotations
@@ -56,11 +58,18 @@ def _meta(shape, dtype) -> torch.Tensor:
 
 
 def _batch_specs(cfg: ModelConfig, shape: ShapeConfig) -> Batch:
-    """An embeds-in batch (the only kind :class:`~repro_torch.models.lm.
-    Model` takes): no tokens, int32 labels, bf16 embeddings."""
+    """The cell's batch: int32 labels; int32 tokens, or for an embeds-in
+    config bf16 ``(b, s, d_model)`` embeddings; the VLM's bf16 ``(b,
+    n_image_tokens, d_model)`` image prefix beside its tokens."""
     b, s = shape.global_batch, shape.seq_len
-    return Batch(tokens=None, labels=_meta((b, s), torch.int32),
-                 embeds=_meta((b, s, cfg.d_model), torch.bfloat16))
+    tokens = None if cfg.embeds_in else _meta((b, s), torch.int32)
+    embeds = None
+    if cfg.embeds_in:
+        embeds = _meta((b, s, cfg.d_model), torch.bfloat16)
+    elif cfg.family == "vlm":
+        embeds = _meta((b, cfg.n_image_tokens, cfg.d_model), torch.bfloat16)
+    return Batch(tokens=tokens, labels=_meta((b, s), torch.int32),
+                 embeds=embeds)
 
 
 def _batch_shardings(cfg: ModelConfig, shape: ShapeConfig, mesh,
@@ -245,7 +254,7 @@ def build_prefill_cell(cfg: ModelConfig, shape: ShapeConfig, mesh=None,
             out_shape, ("act_batch", "act_seq", "act_vocab"), mesh, rules)
 
     def prefill_step(params, batch):
-        return model.forward(params, batch.embeds, par)
+        return model.forward(params, batch, par)
 
     return Cell(
         step_fn=prefill_step,
@@ -259,8 +268,8 @@ def build_prefill_cell(cfg: ModelConfig, shape: ShapeConfig, mesh=None,
 def _no_decode(cfg: ModelConfig):
     if cfg.is_encoder:
         raise ValueError("encoder-only arch has no decode step")
-    raise NotImplementedError("the decode cell comes with the LM zoo, "
-                              "ROADMAP.md §1 item 4(b)")
+    raise NotImplementedError(f"{cfg.arch_id}: the decode cell comes with "
+                              f"the LM zoo, ROADMAP.md §1 item 4(b)")
 
 
 def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh=None,
@@ -367,8 +376,8 @@ def build_detector_cell(cfg: ModelConfig, *, batch: int,
         p = p.permute(0, 2, 1, 3).reshape(seq, patch * patch)
         emb = (p.to(torch.float32) @ weights["embedder"]["proj"]
                + weights["embedder"]["pos"])
-        last = model.forward(weights["backbone"], emb[None].to(dt),
-                             par)[0, -1]
+        last = model.forward(weights["backbone"], Batch(
+            tokens=None, labels=None, embeds=emb[None].to(dt)), par)[0, -1]
         if vocab_group is not None:
             last = sharding.all_gather_cat(last, vocab_group)
         return last[:n_out].to(torch.float32)

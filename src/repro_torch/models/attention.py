@@ -16,10 +16,17 @@ the scores and ``P·V`` are those of its heads alone, unchanged per head;
 heads' group (:func:`~repro_torch.distributed.sharding.fold_partials`);
 ``x`` enters the heads' group (``Parallel.enter``), so its gradient is
 summed over the heads. Heads that the mesh does not divide run whole and
-fold nothing.
+fold nothing. Where the query heads split and the kv heads do not (GQA
+with fewer kv heads than "model" ranks: ``spec_for`` leaves them whole),
+each rank takes the kv heads its query heads read, ``[q_lo // group,
+ceil(q_hi / group))``, from the whole ``wk`` and ``wv``; those enter the
+heads' group first, so their gradient (each rank's a part of it) is
+folded there and whole on every rank. A rank's query heads must fill
+whole groups or lie in one group; any other placement is refused. Ranks
+that share a kv head repeat its projection.
 
 ``KVCache`` and ``decode_step`` come with the decode cell
-(``ROADMAP.md`` §1 item 4).
+(``ROADMAP.md`` §1 item 4(b)).
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ import math
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.distributed import sharding
 from repro_torch.models import common
@@ -129,6 +137,24 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.cat(outs, dim=1)
 
 
+def kv_heads_of_rank(cfg: AttnConfig, group) -> tuple[int, int]:
+    """``[kv_lo, kv_hi)``: the kv heads this rank's query heads (its block
+    of ``n_heads`` over ``group``) read. Raises unless every rank's query
+    heads fill whole groups of ``n_heads // kv_heads`` or lie in one."""
+    g = cfg.n_heads // cfg.kv_heads
+    k = dist.get_world_size(group)
+    n = cfg.n_heads // k
+    for r in range(k):
+        lo, hi = r * n, (r + 1) * n
+        if not (lo % g == 0 and hi % g == 0) and lo // g != (hi - 1) // g:
+            raise ValueError(
+                f"{cfg.n_heads} query heads in groups of {g} over {k} ranks: "
+                f"rank {r}'s heads [{lo}, {hi}) neither fill whole groups "
+                f"nor lie in one")
+    q_lo, q_hi = sharding.local_range(cfg.n_heads, group)
+    return q_lo // g, -(-q_hi // g)
+
+
 def full(params: dict, x: torch.Tensor, cfg: AttnConfig,
          positions: torch.Tensor | None = None,
          par: common.Parallel | None = None) -> torch.Tensor:
@@ -140,14 +166,22 @@ def full(params: dict, x: torch.Tensor, cfg: AttnConfig,
     group = None
     if par is not None:
         decl = spec(cfg)
-        if par.spec(decl["wq"])[1] != par.spec(decl["wk"])[1]:
-            raise NotImplementedError(
-                "query heads and kv heads split differently over the mesh "
-                "(grouped-query attention) is not ported")
         group = par.group(decl["wq"], "heads")
+        kv_group = par.group(decl["wk"], "kv_heads")
+        if group is None and kv_group is not None:
+            raise ValueError(f"the kv heads split over the mesh and the "
+                             f"query heads do not: {par.spec(decl['wq'])}")
+        kv_whole = group is not None and kv_group is None
         x = par.enter(x, decl["wq"], "heads")
+        if kv_whole:
+            kv_lo, kv_hi = kv_heads_of_rank(cfg, group)
+            params = dict(params, **{k: sharding.enter_group(params[k], group)
+                                     for k in ("wk", "wv")})
         params = dict(params, **{k: par.gather(params[k], decl[k])
                                  for k in ("wq", "wk", "wv", "wo")})
+        if kv_whole:
+            params = dict(params, **{k: params[k][:, kv_lo:kv_hi]
+                                     for k in ("wk", "wv")})
     q, k, v = _project_qkv(params, x, cfg, positions)
     out = _sdpa(q, k, v, cfg, positions, positions)
     h, hd, d = params["wo"].shape

@@ -1,6 +1,6 @@
 """Shared model substrate on PyTorch: parameter specs and their
-sharding, norms, RoPE and the unembedding. The forward half of
-``repro.models.common``.
+sharding, norms, RoPE, the token embedding and the unembedding. The
+twin of ``repro.models.common``.
 
 Every parameter is declared once as :class:`P` (shape, logical axes,
 init); :func:`init_params` materialises a spec tree (nested dicts and
@@ -11,7 +11,9 @@ leaf's :func:`~repro_torch.distributed.sharding.spec_for` entry,
 what a sharded forward asks of the mesh. :func:`abstract_params` is the
 same tree on ``device="meta"`` (shapes and dtypes, no storage), what a
 cell is counted on, and :func:`abstract_local_params` this rank's blocks
-of it. ``embed`` and ``embed_spec`` wait for the LM zoo.
+of it. :func:`embed` is vocab-parallel under a :class:`Parallel`: each
+rank looks up the tokens of its vocab block, and the blocks' rows are
+folded, one nonzero row a token, so the sum is exact.
 
 The norms keep the reference's dtype discipline: float32 statistics, the
 normalisation applied in the compute dtype.
@@ -254,6 +256,45 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding
+# ---------------------------------------------------------------------------
+
+def embed_spec(vocab: int, d: int) -> dict:
+    return {"embedding": P((vocab, d), ("vocab", "embed"), "normal", 0.02)}
+
+
+def embed(params: dict, tokens: torch.Tensor, compute_dtype: torch.dtype,
+          par: Parallel | None = None, vocab: int = 0,
+          d: int = 0) -> torch.Tensor:
+    """The rows of ``tokens`` ``(b, s)`` in the compute dtype: the
+    reference's ``jnp.take`` of the table cast to it. ``F.embedding``,
+    whose CUDA backward pass sorts the indices and adds colliding rows in
+    a fixed order (not ``index_select``'s atomics).
+
+    With ``par``, ``params`` is this rank's block of the ``(vocab, d)``
+    table: its ``embed`` dim is gathered (FSDP), the tokens in this
+    rank's block ``[lo, hi)`` of the ``vocab`` dim take its rows and the
+    others zeros, and the blocks are folded over the vocab's group
+    (:func:`~repro_torch.distributed.sharding.fold_partials`). Each token
+    has one nonzero row, so the result is bitwise the unsharded lookup,
+    the same on every rank of the group."""
+    w = params["embedding"]
+    idx = tokens.to(torch.int64)
+    group = None
+    if par is not None:
+        decl = embed_spec(vocab, d)["embedding"]
+        w = par.gather(w, decl)
+        group = par.group(decl, "vocab")
+    if group is None:
+        return torch.nn.functional.embedding(idx, w).to(compute_dtype)
+    lo, hi = sharding.local_range(vocab, group)
+    here = (idx >= lo) & (idx < hi)
+    rows = torch.nn.functional.embedding(torch.where(here, idx - lo, 0), w)
+    rows = torch.where(here[..., None], rows, rows.new_zeros(()))
+    return sharding.fold_partials(rows, group).to(compute_dtype)
 
 
 # ---------------------------------------------------------------------------

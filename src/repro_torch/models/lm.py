@@ -1,11 +1,15 @@
 """The LM model facade on PyTorch, for the transformer families the port
 runs. The twin of ``repro.models.lm``'s ``Model`` (``spec``, ``init``,
 ``abstract_params``, ``forward``, ``loss``) and ``Batch`` for the
-``encoder`` family without experts: embeds in, the pre-norm transformer
-stack, the final norm, the unembedding, and the masked NLL over it.
+``encoder``, ``dense`` and ``vlm`` families without experts: the inputs
+(the encoder's embeddings; the dense family's token embeddings; the
+VLM's image embeddings ahead of its token embeddings), the pre-norm
+transformer stack, the final norm, the unembedding, and the masked NLL
+over it. The VLM's logits and loss cover its text positions alone.
 
 Sharded (``par``, a :class:`~repro_torch.models.common.Parallel` over
 the blocks of :meth:`Model.param_specs`), the forward is written out:
+the token embedding vocab-parallel over ``"model"`` and folded,
 attention and MLP tensor-parallel over ``"model"`` with their row-parallel
 partials folded, every ``"embed"`` dim (FSDP over ``"data"``) gathered
 right before its use, the unembedding this rank's vocab block; norms and
@@ -20,9 +24,8 @@ list, as in the reference; the stack runs as a Python loop over the
 layers, each layer under ``remat`` when a backward pass will need it
 (``"full"``: a per-layer ``torch.utils.checkpoint``). A stacked tree is
 unbound once a pass, so the backward pass of its views is one ``stack``
-a leaf. Token embeddings, experts, the hybrid and xLSTM families,
-``"dots"`` remat and the decode step come with the LM zoo
-(``ROADMAP.md`` §1 item 4).
+a leaf. Experts, the hybrid and xLSTM families, ``"dots"`` remat and the
+decode step come with the LM zoo (``ROADMAP.md`` §1 item 4(b)-(e)).
 """
 
 from __future__ import annotations
@@ -37,7 +40,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import sharding
 from repro_torch.models import attention, common, mlp
 
-PORTED_FAMILIES = ("encoder",)
+PORTED_FAMILIES = ("dense", "encoder", "vlm")
+#: the ROADMAP.md item each family the port's Model does not take yet
+#: waits for
+UNPORTED_FAMILIES = {"moe": "4(c)", "hybrid": "4(d)", "ssm": "4(e)"}
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -121,35 +127,40 @@ def _remat(fn: Callable, cfg: ModelConfig) -> Callable:
 
 
 class Batch(NamedTuple):
-    """Inputs for train and prefill: ``tokens`` is None for the embeds-in
-    configs, ``labels`` (int32) marks masked-out positions with -1, and
-    ``embeds`` holds the ``(b, s, d_model)`` inputs."""
+    """Inputs for train and prefill: ``tokens`` ``(b, s)`` int32, None for
+    the embeds-in configs; ``labels`` ``(b, s)`` int32, -1 marking
+    masked-out positions (unread by ``forward``: None will do there);
+    ``embeds`` the embeds-in configs' ``(b, s, d_model)`` inputs or the
+    VLM's ``(b, n_image_tokens, d_model)`` image prefix, else None."""
     tokens: torch.Tensor | None
-    labels: torch.Tensor
+    labels: torch.Tensor | None
     embeds: torch.Tensor | None = None
 
 
 class Model:
     def __init__(self, cfg: ModelConfig):
-        if cfg.family not in PORTED_FAMILIES or cfg.n_experts \
-                or not cfg.embeds_in:
+        if cfg.family not in PORTED_FAMILIES or cfg.n_experts:
+            item = "4(c)" if cfg.n_experts else UNPORTED_FAMILIES.get(
+                cfg.family, "4")
             raise ValueError(
-                f"{cfg.arch_id}: the port's Model runs the embeds-in "
-                f"{PORTED_FAMILIES} family without experts; family "
-                f"{cfg.family!r} comes with the LM zoo, ROADMAP.md §1 item 4")
+                f"{cfg.arch_id}: the port's Model runs the {PORTED_FAMILIES} "
+                f"families without experts; family {cfg.family!r}"
+                f"{' with experts' if cfg.n_experts else ''} comes with the "
+                f"LM zoo, ROADMAP.md §1 item {item}")
         self.cfg = cfg
         self.compute_dtype = dtype_of(cfg.compute_dtype)
 
     def spec(self) -> dict:
         cfg = self.cfg
         layer = _tf_layer_spec(cfg)
-        s: dict[str, Any] = {
-            "final_norm": common.norm_spec(cfg.d_model, cfg.norm),
-            "unembed": common.unembed_spec(cfg.vocab, cfg.d_model),
-            "layers": (common.map_layers(layer, cfg.n_layers)
+        s: dict[str, Any] = {}
+        if not cfg.embeds_in:
+            s["embed"] = common.embed_spec(cfg.vocab, cfg.d_model)
+        s["final_norm"] = common.norm_spec(cfg.d_model, cfg.norm)
+        s["unembed"] = common.unembed_spec(cfg.vocab, cfg.d_model)
+        s["layers"] = (common.map_layers(layer, cfg.n_layers)
                        if cfg.scan_layers
-                       else [layer for _ in range(cfg.n_layers)]),
-        }
+                       else [layer for _ in range(cfg.n_layers)])
         return s
 
     def init(self, generator: torch.Generator) -> dict:
@@ -168,30 +179,56 @@ class Model:
         ``param_shardings``."""
         return common.param_specs(self.spec(), mesh, rules)
 
-    def _trunk(self, params: dict, embeds: torch.Tensor,
+    def _image_tokens(self, batch: Batch) -> int:
+        """The VLM's image positions ahead of the text (0 for the other
+        families and a VLM batch without an image)."""
+        cfg = self.cfg
+        if cfg.family != "vlm" or cfg.embeds_in or batch.embeds is None:
+            return 0
+        return batch.embeds.shape[1]
+
+    def _inputs_to_h(self, params: dict, batch: Batch,
+                     par: common.Parallel | None = None) -> torch.Tensor:
+        """The stack's input: the embeds-in configs' embeddings, else the
+        token embeddings, behind the VLM's image prefix."""
+        cfg, dt = self.cfg, self.compute_dtype
+        if cfg.embeds_in:
+            return batch.embeds.to(dt)
+        h = common.embed(params["embed"], batch.tokens, dt, par, cfg.vocab,
+                         cfg.d_model)
+        if self._image_tokens(batch):
+            h = torch.cat([batch.embeds.to(dt), h], dim=1)
+        return h
+
+    def _trunk(self, params: dict, batch: Batch,
                par: common.Parallel | None = None) -> torch.Tensor:
-        """Embeds in -> layer stack -> final norm: the hidden states."""
+        """Inputs -> layer stack -> final norm: the hidden states, the text
+        positions alone (the VLM's image prefix cut after the stack)."""
         cfg = self.cfg
         layer = _remat(lambda p, x: _tf_layer(p, x, cfg, par), cfg)
-        h = embeds.to(self.compute_dtype)
+        h = self._inputs_to_h(params, batch, par)
         for p in unbind_layers(params["layers"], cfg.n_layers):
             h = layer(p, h)
-        return common.apply_norm(h, params.get("final_norm"), cfg.norm)
+        h = common.apply_norm(h, params.get("final_norm"), cfg.norm)
+        n_img = self._image_tokens(batch)
+        return h[:, n_img:] if n_img else h
 
-    def forward(self, params: dict, embeds: torch.Tensor,
+    def forward(self, params: dict, batch: Batch,
                 par: common.Parallel | None = None) -> torch.Tensor:
-        """``(b, s, d_model)`` embeddings -> ``(b, s, vocab)`` logits in the
-        compute dtype (the reference's ``forward`` with ``Batch(embeds=...)``;
-        its MoE auxiliary loss is always 0 here and is not returned). Its
-        products run in :func:`~repro_torch.pin_detector_matmul`'s scope:
-        float32 ones in full float32, bf16 ones reduced in float32, as the
-        reference's dots accumulate, whatever the caller's flags.
+        """``batch`` -> ``(b, s, vocab)`` logits in the compute dtype over
+        its ``s`` text (or embeds-in) positions (the reference's
+        ``forward``; its MoE auxiliary loss is always 0 here and is not
+        returned). The VLM's image positions are cut before the
+        unembedding, which the reference runs over them and then drops.
+        Its products run in :func:`~repro_torch.pin_detector_matmul`'s
+        scope: float32 ones in full float32, bf16 ones reduced in float32,
+        as the reference's dots accumulate, whatever the caller's flags.
 
         With ``par``, ``params`` are this rank's blocks and the logits are
         this rank's block of the vocab (``par.group`` of the unembedding's
         ``"vocab"`` dim gathers them)."""
         with pin_detector_matmul():
-            h = self._trunk(params, embeds, par)
+            h = self._trunk(params, batch, par)
             return common.unembed(params["unembed"], h, self.compute_dtype,
                                   par, self.cfg.vocab)
 
@@ -201,7 +238,8 @@ class Model:
     def loss(self, params: dict, batch: Batch,
              par: common.Parallel | None = None) -> torch.Tensor:
         """The masked NLL of ``batch.labels`` under the logits of
-        ``batch.embeds``, a float32 0-d tensor: the reference's ``loss``.
+        ``batch`` (its text positions), a float32 0-d tensor: the
+        reference's ``loss``.
         Each position's ``logsumexp - gold`` in float32, summed over the
         positions whose label is not -1 and divided by
         ``max(count, 1)``. The logsumexp is the reference's
@@ -259,7 +297,7 @@ class Model:
             return ((logz - gold) * mask).sum(), mask.sum()
 
         with pin_detector_matmul():
-            h = self._trunk(params, batch.embeds, par)
+            h = self._trunk(params, batch, par)
             labels = batch.labels
             s, ch = h.shape[1], self._LOSS_CHUNK
             if s <= ch or s % ch or cfg.vocab < 8192:

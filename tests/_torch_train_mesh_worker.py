@@ -23,16 +23,26 @@ import numpy as np
 import torch
 
 ARCH = "hubert-xlarge"
-#: ModelConfig overrides of the smoke hubert-xlarge, and (batch, seq):
-#: the smoke cell; remat "full" in bf16 (the collectives inside each
-#: layer's recompute); a vocab of 8192 over 2048 positions (the chunked
-#: loss, two checkpointed chunks, vocab-parallel in each)
+#: ModelConfig overrides of a smoke config (hubert-xlarge's unless
+#: CASE_ARCH names another), and (batch, seq): the smoke cell; remat
+#: "full" in bf16 (the collectives inside each layer's recompute); a vocab
+#: of 8192 over 2048 positions (the chunked loss, two checkpointed chunks,
+#: vocab-parallel in each); the dense and vlm families' token batches
 CASES = {
     "smoke": ({}, (2, 64)),
     "remat-bf16": ({"remat": "full", "compute_dtype": "bfloat16"}, (2, 64)),
     "chunked": ({"vocab": 8192, "d_model": 16, "n_heads": 2, "kv_heads": 2,
                  "d_ff": 32, "n_layers": 1}, (1, 2048)),
+    "internlm2": ({}, (2, 64)),
+    "olmo": ({}, (2, 64)),
+    "internvl2": ({}, (2, 64)),
 }
+#: the architecture of each case that is not hubert-xlarge's: internlm2's
+#: 4 heads over 2 kv heads, which (1, 4) splits while it leaves the kv
+#: heads whole (each rank one query head of a group of two); OLMo's
+#: parameter-free norms and MHA; the VLM's image prefix
+CASE_ARCH = {"internlm2": "internlm2-1.8b", "olmo": "olmo-1b",
+             "internvl2": "internvl2-76b"}
 #: the worlds, each spawned once, and the mesh shapes every rank of one
 #: runs: (4, 1) leaves the smoke batch of 2 whole on every data rank; the
 #: ("pod", "data", "model") (2, 1, 2) splits the batch and every "embed"
@@ -41,7 +51,10 @@ WORLDS = {1: [(1, 1)], 2: [(1, 2), (2, 1)],
           4: [(2, 2), (1, 4), (4, 1), (2, 1, 2)]}
 #: the meshes a case runs on where not all of them (the chunked loss is
 #: the slowest case: the two-rank splits and the one-rank mesh)
-CASE_MESHES = {"chunked": [(1, 1), (1, 2), (2, 2)]}
+CASE_MESHES = {"chunked": [(1, 1), (1, 2), (2, 2)],
+               "internlm2": [(1, 1), (1, 4)],
+               "olmo": [(1, 1), (2, 2), (4, 1)],
+               "internvl2": [(1, 1), (2, 2), (4, 1)]}
 #: the detector the cascade's bits are held on: frames, patch, batch
 HW, PATCH, DETECT_BATCH = (16, 16), 8, 2
 
@@ -50,9 +63,13 @@ def mesh_key(shape) -> str:
     return "x".join(map(str, shape))
 
 
+def arch(case: str) -> str:
+    return CASE_ARCH.get(case, ARCH)
+
+
 def config(case: str):
     from repro_torch import configs
-    return configs.get_smoke(ARCH).replace(**CASES[case][0])
+    return configs.get_smoke(arch(case)).replace(**CASES[case][0])
 
 
 def shapes(case: str):
@@ -73,8 +90,8 @@ def whole_state(case: str, payload: dict):
     params = lm_params_from_arrays(p["params"], cfg=config(case),
                                    device="cpu")
     state = adamw_state_from_arrays(p["state"], device="cpu")
-    batch = lm.Batch(None, torch.from_numpy(p["labels"]),
-                     torch.from_numpy(p["embeds"]))
+    batch = lm.Batch(*(None if p.get(k) is None else torch.from_numpy(p[k])
+                       for k in ("tokens", "labels", "embeds")))
     return params, state, batch
 
 
@@ -139,6 +156,26 @@ def count_case(case: str, payload: dict, mesh) -> dict:
                 bytes=coll.bytes)
 
 
+def embed_bits(case: str, payload: dict, mesh) -> dict:
+    """The case's token embedding vocab-parallel on ``mesh`` (this rank's
+    block of the table, the whole tokens) and unsharded, in float32 and
+    bf16: whether they are bitwise equal, and the sharded rows as float32
+    numpy."""
+    from repro_torch.models import common, lm
+    cfg = config(case)
+    params, _, batch = whole_state(case, payload)
+    specs = common.param_specs(lm.Model(cfg).spec()["embed"], mesh)
+    local = common.local_params(params["embed"], specs, mesh)
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        got = common.embed(local, batch.tokens, dt, common.Parallel(mesh),
+                           cfg.vocab, cfg.d_model)
+        want = common.embed(params["embed"], batch.tokens, dt)
+        out[str(dt)] = (got.dtype == dt and torch.equal(got, want),
+                        got.to(torch.float32).numpy())
+    return out
+
+
 def cascade_bits(payload: dict, mesh) -> dict:
     """The sharded detector step (``build_detector_cell(mesh=)``, the
     smoke config in float32) through the collectives autograd
@@ -174,12 +211,14 @@ def cascade_bits(payload: dict, mesh) -> dict:
 
 
 def run(kind: str, name: str, payload: dict, mesh):
-    """A work item: ``("case", case)``, ``("count", case)`` or
-    ``("cascade", name)``."""
+    """A work item: ``("case", case)``, ``("count", case)``, ``("embed",
+    case)`` or ``("cascade", name)``."""
     if kind == "case":
         return run_case(name, payload, mesh)
     if kind == "count":
         return count_case(name, payload, mesh)
+    if kind == "embed":
+        return embed_bits(name, payload, mesh)
     return cascade_bits(payload, mesh)
 
 
@@ -204,7 +243,8 @@ def _rank_main(rank: int, world: int, shape: tuple, work: list,
             results[mesh_key(mshape)] = {
                 (kind, name): run(kind, name, payload, mesh)
                 for kind, name, _ in work
-                if mshape in CASE_MESHES.get(name, [mshape])}
+                if kind != "case"
+                or mshape in CASE_MESHES.get(name, [mshape])}
         with open(os.path.join(root, f"rank{rank}.pkl"), "wb") as fh:
             pickle.dump(results, fh)
         dist.destroy_process_group()

@@ -3,17 +3,20 @@ production meshes (``launch.mesh.make_production_mesh``), on the CPU.
 
 ``python -m repro_torch.launch.dryrun --all`` runs in a subprocess, its
 cells cut to ``DEPTH`` layers (``--override``; the full depth is counted
-by ``chip_smoke.py``'s cells phase): one ``ok`` record for each of
-hubert-xlarge's cells (``train_4k``, ``prefill_32k``) on each production
-mesh, with the reference's record keys, its FLOPs the hand count of the
-products plus the unembedding every "model" rank repeats (the vocab of
-504 does not split 16 ways), its memory ``analyze()``'s; one
-``not_ported`` row a mesh for each other architecture. In this process,
-under the dry run's fake process group: the production meshes' shapes,
-a wrong world refused, the two-dim ``("pod", "data")`` group; and the
-fake group's count of the smoke train cell on each 4-rank mesh against
-a real ``gloo`` run of the same step (``tests/_torch_train_mesh_worker``):
-the FLOPs and every collective's calls and bytes.
+by ``chip_smoke.py``'s cells phase): one ``ok`` record for each
+``train_4k`` and ``prefill_32k`` cell of each ported architecture on
+each production mesh, with the reference's record keys, its FLOPs the
+hand count of the products plus what the ranks repeat (hubert-xlarge's
+unembedding, whose vocab of 504 does not split 16 ways, on every "model"
+rank; the k and v projections of a kv head that the ranks sharing it
+each run, where the kv heads do not split 16 ways), its memory
+``analyze()``'s; a ``not_ported`` row a mesh for each other architecture
+and for each ported one's ``decode_32k`` cell. In this process, under
+the dry run's fake process group: the production meshes' shapes, a
+wrong world refused, the two-dim ``("pod", "data")`` group; and the fake
+group's count of the smoke train cell on each 4-rank mesh against a real
+``gloo`` run of the same step (``tests/_torch_train_mesh_worker``): the
+FLOPs and every collective's calls and bytes.
 """
 
 import json
@@ -58,28 +61,71 @@ def records(tmp_path_factory):
     return [json.loads(line) for line in out.read_text().splitlines()]
 
 
-def ok_record(records, shape, mesh):
-    got = [r for r in records if r["arch"] == ARCH and r["shape"] == shape
+#: the architectures the dense and vlm families added
+NEW_ARCHS = ["olmo-1b", "codeqwen1.5-7b", "internlm2-1.8b", "deepseek-67b",
+             "internvl2-76b"]
+NEW_CELLS = [(a, s, m) for a in NEW_ARCHS for s, m in CELLS]
+#: the "model" ranks of the production meshes
+MODEL = 16
+
+
+def ok_record(records, shape, mesh, arch=ARCH):
+    got = [r for r in records if r["arch"] == arch and r["shape"] == shape
            and r["mesh"] == mesh]
     assert len(got) == 1 and got[0]["status"] == "ok", got
     return got[0]
 
 
-def hand_flops(cfg, shape) -> tuple[int, int]:
+def attn_pairs(S_all: int, causal: bool, q_chunk: int = 1024) -> int:
+    """(query, key) pairs the attention scores: the whole square in one
+    block; past it, each query block ``[lo, hi)`` against every key, or
+    causally against its first ``hi`` (``attention._sdpa``)."""
+    if S_all <= q_chunk:
+        return S_all * S_all
+    return sum((min(lo + q_chunk, S_all) - lo)
+               * (min(lo + q_chunk, S_all) if causal else S_all)
+               for lo in range(0, S_all, q_chunk))
+
+
+def hand_flops(cfg, shape, kv_heads=None, vocab=None) -> tuple[int, int]:
     """The products of the unsharded cell (``tests/test_torch_cells.py``'s
-    count), and of its unembedding alone."""
-    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.kv_heads, \
-        cfg.resolved_head_dim
+    and ``tests/test_torch_lm_dense.py``'s counts), ``kv_heads`` k and v
+    heads projected and a ``vocab``-wide unembedding (the config's by
+    default); and of its unembedding alone."""
+    d, h, hd = cfg.d_model, cfg.n_heads, cfg.resolved_head_dim
+    kv = kv_heads or cfg.kv_heads
     b, s, f = shape.global_batch, shape.seq_len, cfg.d_ff
-    T = b * s
+    S_all = s + (cfg.n_image_tokens if cfg.family == "vlm" else 0)
+    T = b * S_all
     down = 2 * T * f * d
+    n_in = 2 if cfg.activation == "silu" else 1
+    causal = cfg.causal and not cfg.is_encoder
     layer = (2 * T * d * (h + 2 * kv) * hd + 2 * T * h * hd * d
-             + 2 * 2 * b * s * s * h * hd + 2 * T * d * f + down)
-    unembed = 2 * T * d * cfg.vocab
+             + 2 * 2 * b * attn_pairs(S_all, causal) * h * hd
+             + n_in * 2 * T * d * f + down)
+    unembed = 2 * b * s * d * (vocab or cfg.vocab)
     total = cfg.n_layers * layer + unembed
     if shape.kind == "train":
-        return 3 * total + cfg.n_layers * (layer - down), 3 * unembed
+        chunked = (vocab or cfg.vocab) >= 8192 and s > 1024 and s % 1024 == 0
+        n = 4 if chunked else 3
+        return (3 * total + cfg.n_layers * (layer - down)
+                + (unembed if chunked else 0), n * unembed)
     return total, unembed
+
+
+def repeated_flops(cfg, shape) -> int:
+    """The hand count with what the "model" ranks repeat: a vocab 16 does
+    not divide unembedded whole on every rank, and kv heads 16 does not
+    divide projected by every rank for its query heads (one kv head a
+    rank for the published configs: ``attention.kv_heads_of_rank``)."""
+    kv, vocab = cfg.kv_heads, cfg.vocab
+    if kv % MODEL:
+        group = cfg.n_heads // kv
+        n = cfg.n_heads // MODEL
+        kv = MODEL * max(n // group, 1)
+    if vocab % MODEL:
+        vocab = MODEL * vocab
+    return hand_flops(cfg, shape, kv, vocab)[0]
 
 
 @pytest.mark.parametrize("shape,mesh", CELLS)
@@ -114,6 +160,53 @@ def test_memory_is_analyze(records, shape, mesh):
     assert ok_record(records, shape, mesh)["per_device_peak_mem_gb"] == want
 
 
+@pytest.mark.parametrize("arch,shape,mesh", NEW_CELLS)
+def test_dense_and_vlm_records_have_the_reference_keys(records, arch, shape,
+                                                       mesh):
+    rec = ok_record(records, shape, mesh, arch)
+    assert set(rec) == REF_KEYS
+    assert rec["chips"] == dryrun.MESH_CHIPS[mesh] and rec["unrolled"]
+    cfg = configs.get_config(arch).replace(n_layers=DEPTH)
+    assert rec["n_params"] == common.spec_param_count(lm.Model(cfg).spec())
+
+
+@pytest.mark.parametrize("arch,shape,mesh", NEW_CELLS)
+def test_dense_and_vlm_flops_are_the_causal_hand_count_plus_repeats(
+        records, arch, shape, mesh):
+    """Causal attention counted by query block (the VLM's 256 image
+    positions ahead of the text, a ragged last block), the chunked loss's
+    recompute at train_4k, and the k and v projections that the ranks
+    sharing a kv head each run (internlm2: 8 kv heads, deepseek and
+    internvl2: 8, over 16 "model" ranks)."""
+    cfg = configs.get_config(arch).replace(n_layers=DEPTH)
+    sh = configs.SHAPES[shape]
+    want = repeated_flops(cfg, sh)
+    rec = ok_record(records, shape, mesh, arch)
+    assert rec["hlo_gflops"] * 1e9 == pytest.approx(want, rel=1e-12)
+    assert (want > hand_flops(cfg, sh)[0]) == bool(cfg.kv_heads % MODEL)
+
+
+@pytest.mark.parametrize("arch,shape,mesh", NEW_CELLS)
+def test_dense_and_vlm_memory_is_analyze(records, arch, shape, mesh):
+    cfg = configs.get_config(arch).replace(n_layers=DEPTH)
+    m = ({"data": 16, "model": 16} if mesh == "single"
+         else {"pod": 2, "data": 16, "model": 16})
+    want = memory_model.analyze(cfg, configs.SHAPES[shape], m).total_gb
+    assert ok_record(records, shape, mesh, arch)[
+        "per_device_peak_mem_gb"] == want
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_decode_cells_are_not_ported_rows(records, arch):
+    rows = [r for r in records if r["arch"] == arch
+            and r["shape"] == "decode_32k"]
+    assert sorted(r["mesh"] for r in rows) == ["multi", "single"]
+    for r in rows:
+        assert r["status"] == "not_ported"
+        assert r["reason"] == "ROADMAP.md §1 item 4(b): the decode cell"
+    assert arch in configs.ARCH_IDS
+
+
 @pytest.mark.parametrize("arch", sorted(dryrun.NOT_PORTED))
 def test_other_archs_are_not_ported_rows(records, arch):
     rows = [r for r in records if r["arch"] == arch]
@@ -127,9 +220,12 @@ def test_other_archs_are_not_ported_rows(records, arch):
 def test_no_failures_and_the_architectures_are_the_reference(records):
     from repro import configs as jconfigs
     assert dryrun.ARCH_IDS == jconfigs.ARCH_IDS
-    assert set(dryrun.NOT_PORTED) == set(dryrun.ARCH_IDS) - {ARCH}
+    assert set(dryrun.NOT_PORTED) == set(dryrun.ARCH_IDS) - set(
+        configs.ARCH_IDS)
     assert not [r for r in records if r["status"] == "fail"]
-    assert len(records) == 4 + 2 * len(dryrun.NOT_PORTED)
+    assert sum(r["status"] == "ok" for r in records) == 24
+    assert sum(r["status"] == "not_ported" for r in records) == 18
+    assert len(records) == 42
 
 
 @pytest.mark.parametrize("multi", [False, True])

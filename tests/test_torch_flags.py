@@ -295,9 +295,10 @@ def test_model_forward_pins_its_products(caller_flags, dtype):
     x = torch.rand((1, 4, cfg.d_model),
                    generator=torch.Generator().manual_seed(3)).to(
         model.compute_dtype)
-    out = call_pinned(lambda: model.forward(weights["backbone"], x),
-                      detector=True)
+    out = call_pinned(lambda: model.forward(
+        weights["backbone"], lm.Batch(None, None, x)), detector=True)
     assert out.shape == (1, 4, cfg.vocab)
     with pytest.raises(RuntimeError):
-        model.forward(weights["backbone"], x[..., :-1])   # wrong width
+        model.forward(weights["backbone"],
+                      lm.Batch(None, None, x[..., :-1]))   # wrong width
     assert flags() == CALLER

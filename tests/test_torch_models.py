@@ -10,6 +10,7 @@ bf16 ``BF16_RTOL`` for one rounding step (the norms, RoPE: one bf16 ulp is
 in another order feed attention's near-one-hot softmax."""
 
 import dataclasses
+import re
 
 import jax
 import jax.numpy as jnp
@@ -70,24 +71,38 @@ def rtol_of(dtype: str) -> float:
 # configs
 # ---------------------------------------------------------------------------
 
+@pytest.mark.parametrize("arch", configs.ARCH_IDS)
 @pytest.mark.parametrize("which", ["get_config", "get_smoke"])
-def test_configs_equal_the_reference(which):
-    got = getattr(configs, which)("hubert-xlarge")
-    want = getattr(jconfigs, which)("hubert-xlarge")
+def test_configs_equal_the_reference(which, arch):
+    got = getattr(configs, which)(arch)
+    want = getattr(jconfigs, which)(arch)
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
     assert got.resolved_head_dim == want.resolved_head_dim
 
 
+def test_ported_archs_are_the_reference_order():
+    assert configs.ARCH_IDS == [a for a in jconfigs.ARCH_IDS
+                                if a in configs.ARCH_IDS]
+
+
 def test_unported_arch_names_the_roadmap_item():
-    assert "olmo-1b" in jconfigs.ARCH_IDS
+    assert "zamba2-1.2b" in jconfigs.ARCH_IDS
     with pytest.raises(ValueError, match="item 4"):
-        configs.get_config("olmo-1b")
+        configs.get_config("zamba2-1.2b")
 
 
 def test_model_refuses_unported_families():
-    with pytest.raises(ValueError, match="item 4"):
-        lm.Model(configs.get_smoke("hubert-xlarge").replace(family="dense",
+    with pytest.raises(ValueError, match=re.escape("item 4(d)")):
+        lm.Model(configs.get_smoke("hubert-xlarge").replace(family="hybrid",
                                                             embeds_in=False))
+
+
+@pytest.mark.parametrize("family,item", [("ssm", "4(e)"), ("moe", "4(c)")])
+def test_model_names_each_family_s_roadmap_item(family, item):
+    with pytest.raises(ValueError, match=re.escape(f"item {item}")):
+        lm.Model(configs.get_smoke("olmo-1b").replace(family=family))
+    with pytest.raises(ValueError, match=re.escape("item 4(c)")):
+        lm.Model(configs.get_smoke("olmo-1b").replace(n_experts=8, top_k=2))
 
 
 # ---------------------------------------------------------------------------
@@ -253,7 +268,8 @@ def test_model_forward(smoke_params, dtype):
     want, _ = jmodel.forward(smoke_params["backbone"], jlm.Batch(
         tokens=None, labels=jnp.zeros((2, 12), jnp.int32),
         embeds=jnp.asarray(emb)))
-    got = lm.Model(cfg).forward(tree["backbone"], torch.from_numpy(emb))
+    got = lm.Model(cfg).forward(tree["backbone"], lm.Batch(
+        None, None, torch.from_numpy(emb)))
     assert got.dtype == DTYPES[dtype][1]
     assert_close(got, want, F32_RTOL if dtype == "float32"
                  else BF16_NET_RTOL)
@@ -266,7 +282,8 @@ def test_model_forward_with_listed_layers(smoke_params):
         jax.tree.map(np.asarray, smoke_params), device="cpu")["backbone"]
     listed = dict(tree, layers=[lm.layer_params(tree["layers"], i)
                                 for i in range(cfg.n_layers)])
-    emb = torch.from_numpy(rng_normal(41, (1, 6, cfg.d_model)))
+    emb = lm.Batch(None, None,
+                   torch.from_numpy(rng_normal(41, (1, 6, cfg.d_model))))
     stacked = lm.Model(cfg).forward(tree, emb)
     assert torch.equal(lm.Model(cfg.replace(scan_layers=False)).forward(
         listed, emb), stacked)

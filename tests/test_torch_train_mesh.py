@@ -3,7 +3,12 @@
 4 ranks, each spawned once per module
 (``tests/_torch_train_mesh_worker.py``), every rank running each mesh
 shape of its world: (1, 1); (1, 2), (2, 1); (2, 2), (1, 4), (4, 1) and a
-("pod", "data", "model") (2, 1, 2).
+("pod", "data", "model") (2, 1, 2). The cases: the smoke hubert-xlarge
+(float32, remat "full" in bf16, the chunked vocab-8192 loss); the smoke
+internlm2-1.8b on (1, 4), whose 4 query heads split while its 2 kv heads
+stay whole (each rank one query head of a group of two); the smoke
+olmo-1b (parameter-free norms, MHA) and internvl2-76b (the image prefix)
+on (2, 2) and (4, 1); each also on (1, 1).
 
 Every rank cuts its blocks from one whole mid-run state (numpy arrays:
 weights at ``WEIGHT_STD``, as in ``tests/test_torch_cells.py``, moments
@@ -16,8 +21,10 @@ every replicated value bitwise the same on every rank, and two steps
 from one state bitwise the same; the (1, 1) mesh bitwise the unsharded
 step; the batch's layout on each mesh (on (4, 1) the batch of 2 runs
 whole on every data rank, and the result is still the batch's);
-the sharded detector's forward bitwise through the differentiable
-collectives and through their forward arithmetic alone.
+the vocab-parallel token embedding bitwise the unsharded one on every
+mesh and rank, in float32 and bf16; the sharded detector's forward
+bitwise through the differentiable collectives and through their
+forward arithmetic alone.
 
 Tolerances, float32: the loss within ``LOSS_RTOL``, each gradient and
 each leaf after AdamW within ``GRAD_RTOL`` of its largest |entry| (the
@@ -99,25 +106,31 @@ def case_payload(case, seed):
             a.shape).astype(np.float32), arrays),
         nu=common.tree_map(lambda a: 1e-4 * rng.random(a.shape).astype(
             np.float32), arrays))
-    return dict(params=arrays, state=state,
-                labels=rng.integers(-1, cfg.vocab, (b, s)).astype(np.int32),
-                embeds=rng.standard_normal((b, s, cfg.d_model)).astype(
-                    np.float32))
+    labels = rng.integers(-1, cfg.vocab, (b, s)).astype(np.int32)
+    if cfg.embeds_in:
+        return dict(params=arrays, state=state, labels=labels,
+                    embeds=rng.standard_normal((b, s, cfg.d_model)).astype(
+                        np.float32))
+    return dict(params=arrays, state=state, labels=labels,
+                tokens=rng.integers(0, cfg.vocab, (b, s)).astype(np.int32),
+                embeds=rng.standard_normal(
+                    (b, cfg.n_image_tokens, cfg.d_model)).astype(np.float32)
+                if cfg.family == "vlm" else None)
 
 
 def reference(case, p):
     """The reference's jitted train step from the same state (loss,
     parameters, moments), its gradients (float32 cases) and its prefill
     logits, as numpy leaves."""
-    jcfg = jconfigs.get_smoke(TW.ARCH).replace(**TW.CASES[case][0])
+    jcfg = jconfigs.get_smoke(TW.arch(case)).replace(**TW.CASES[case][0])
     mesh = jax.sharding.AbstractMesh((1, 1), ("data", "model"))
     params = jax.tree.map(jnp.asarray, p["params"])
     state = joptim.AdamWState(
         step=jnp.int32(MID_RUN_STEP),
         mu=jax.tree.map(jnp.asarray, p["state"].mu),
         nu=jax.tree.map(jnp.asarray, p["state"].nu))
-    batch = jlm.Batch(tokens=None, labels=jnp.asarray(p["labels"]),
-                      embeds=jnp.asarray(p["embeds"]))
+    batch = jlm.Batch(*(None if p.get(k) is None else jnp.asarray(p[k])
+                        for k in ("tokens", "labels", "embeds")))
     shape = jconfigs.SMOKE_SHAPE
     new_p, new_s, loss = jax.jit(jsteps.build_train_cell(
         jcfg, shape, mesh).step_fn)(params, state, batch)
@@ -148,8 +161,9 @@ def runs(tmp_path_factory):
         size=(TW.DETECT_BATCH, *TW.HW)).astype(np.float32)
     out = {"ref": {c: TW.run_case(c, payload, None) for c in TW.CASES},
            "jax": {c: reference(c, payload[c]) for c in TW.CASES}}
-    work = [("case", c, ()) for c in TW.CASES] + [("cascade", "cascade",
-                                                    ())]
+    work = ([("case", c, ()) for c in TW.CASES]
+            + [("embed", c, ()) for c in TW.CASE_ARCH]
+            + [("cascade", "cascade", ())])
     # the worlds run at once, each in its own processes
     with ThreadPoolExecutor(len(TW.WORLDS)) as pool:
         futures = [pool.submit(
@@ -249,8 +263,21 @@ def test_the_batch_layout(runs, mesh, case):
     assert runs[mesh][0][("case", case)]["batch_spec"] == (want, None)
 
 
-@pytest.mark.parametrize("mesh", [TW.mesh_key(m) for ms in TW.WORLDS.values()
-                                  for m in ms])
+MESH_KEYS = [TW.mesh_key(m) for ms in TW.WORLDS.values() for m in ms]
+
+
+@pytest.mark.parametrize("mesh", MESH_KEYS)
+@pytest.mark.parametrize("case", list(TW.CASE_ARCH))
+def test_the_sharded_embedding_is_bitwise_the_unsharded_one(runs, mesh,
+                                                            case):
+    """The vocab-parallel lookup on every mesh, float32 and bf16: bitwise
+    the unsharded one on every rank (one nonzero row a token, folded)."""
+    for got in runs[mesh]:
+        for dt, (same, rows) in got[("embed", case)].items():
+            assert same, (dt, rows.shape)
+
+
+@pytest.mark.parametrize("mesh", MESH_KEYS)
 def test_the_sharded_cascade_keeps_its_bits(runs, mesh):
     """The detector's sharded forward through the collectives autograd
     differentiates is bitwise their forward arithmetic alone."""
