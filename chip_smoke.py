@@ -5,6 +5,8 @@
     python3 chip_smoke.py --only mesh    # the build and the mesh phase
     python3 chip_smoke.py --only cells   # the cells phase alone
     python3 chip_smoke.py --only lm      # the LM phase alone
+    python3 chip_smoke.py --only decode  # the decode phase alone
+    python3 chip_smoke.py --only mesh_decode  # the sharded decode cell
 
 from the root of a checkout, on a machine with one CUDA card (built for
 sm_90a: an H100; with ``--only mesh``, every card of the host joins the
@@ -111,7 +113,17 @@ mesh phase's NCCL world). It
    (weights at std 0.02) in float32 and bf16 the step, its gradients and
    the prefill against the unsharded ones on the rank's card (the cells
    phase's card-vs-CPU bounds; the parameters after AdamW within 1e-5);
-   ``nvidia-smi topo -m`` is printed once;
+   and ``internlm2-1.8b``'s decode cell (``decode_32k``'s cache cut to
+   batch 8, filled from a generator on each rank's card) on every mesh,
+   and on the (1, world) mesh also with the cache along the sequence
+   (``{"act_kv_heads": None}``, the production meshes' split): the
+   digests of the next tokens and of the gathered logits the same on
+   every rank, (1, 1) bitwise the unsharded step (its written cache rows
+   too), ms a step unsharded and sharded in turns, the collectives of a
+   step, the peak beside ``analyze()``, and at 2 layers in float32 the
+   logits within 1e-5 of the unsharded step's (``--only mesh_decode``
+   runs this decode cell alone); ``nvidia-smi topo -m`` is printed
+   once;
 10. serves the gated cascade (paper §V-E): the closed-loop float32
    ``FleetService`` (8 slots, 8 ticks, HP at 12 bits) feeds its HP drains
    to a ``CascadeService`` over the full-width ``hubert-xlarge`` detector
@@ -149,11 +161,11 @@ mesh phase's NCCL world). It
    repro_torch.launch.dryrun --all``, a subprocess on the host's CPU, no
    card, started before the kernels' build): the sharded train and
    prefill cells of the six ported architectures counted on the 16x16
-   and 2x16x16 meshes, 24 ``ok`` records, their FLOPs the hand count
-   plus what the "model" ranks repeat (hubert-xlarge's unembedding; the
-   k and v projections of the kv heads 16 ranks do not divide), their
-   memory ``analyze()``'s, 18 ``not_ported`` rows (the four
-   architectures still to port, each decoder's ``decode_32k``);
+   and 2x16x16 meshes and the decoders' ``decode_32k`` cells, 34 ``ok``
+   records, their FLOPs the hand count plus what the "model" ranks
+   repeat (hubert-xlarge's unembedding; the k and v projections of the
+   kv heads 16 ranks do not divide), their memory ``analyze()``'s, 8
+   ``not_ported`` rows (the four architectures still to port);
 12. runs the dense and vlm families (``lm`` phase) at full width (bf16,
    remat "full", weights from ``Model.init`` on seeded generators):
    ``internlm2-1.8b`` (24 layers, 16 heads over 8 kv heads, vocab
@@ -166,7 +178,21 @@ mesh phase's NCCL world). It
    norms hold no parameters); ``internvl2-76b`` at 2 of its 80 layers, a
    prefill of 32,768 tokens behind 256 image embeddings, its text logits
    bitwise run to run and moved by another image prefix;
-13. drives the training path (paper Fig. 5a) at the same width: samples
+13. runs the decode cell (``decode`` phase) of ``internlm2-1.8b`` at full
+   width and depth against ``decode_32k``'s cache of 32,768 positions,
+   its batch cut from 128 to 8 (the bf16 cache 412 GB -> 25.8 GB): 64
+   tokens primed one at a time, their logits within 5% of the largest
+   |logit| of ``Model.forward``'s on the same tokens (weights at std
+   0.02; the difference at ``Model.init``'s weights recorded); the card
+   against the CPU at 2 layers in float32 (within 1e-4 of the largest
+   |logit|); two greedy runs bitwise the same tokens and cache digests;
+   ms a step at the cache's last index, timed under
+   ``torch.cuda.set_sync_debug_mode("error")``, tokens/s, one step
+   profiled, the allocator's peak beside ``analyze()`` and the bytes
+   bound; ``olmo-1b``'s step at the same batch and cache; and
+   ``python -m repro_torch.launch.decode`` in a subprocess, its tokens
+   ``greedy_decode``'s on the same seeds;
+14. drives the training path (paper Fig. 5a) at the same width: samples
    balanced fragments from 256 synthetic training frames and 128 held-out
    frames (``sensing.fragments``), trains the Fragment model on the
    permutation base (``train_fragment_model``, 20 epochs), scores the
@@ -183,7 +209,7 @@ mesh phase's NCCL world). It
    both encoders the same way at ragged shapes (N, K and D off the tiles,
    K steps that straddle generator rows) for each nonlinearity, and
    reports their tiles, blocks and waves;
-14. drives the int-datapath path (``benchmarks/int_datapath.py``'s
+15. drives the int-datapath path (``benchmarks/int_datapath.py``'s
    claims): the float32 kernel, the live int8 kernel and the expanded-slab
    kernel (the int scorer's retired layout, ``csrc/int_expanded.cu``, on
    the int8 tensor cores) race on one ADC capture at the reference's shape
@@ -208,7 +234,7 @@ mesh phase's NCCL world). It
    equal to the same gate's on the CPU wherever the deciding score sits
    more than 2.5e-4 from ``t_score``, its frames/s, duty cycle and the
    detector FLOPs it saves;
-15. runs Table I and Fig. 16's model comparison (``baselines`` phase):
+16. runs Table I and Fig. 16's model comparison (``baselines`` phase):
    ``benchmarks/common.py``'s noisy 4-bit data made with
    ``sensing.synthetic`` (training noise 0.20; held-out noise 0.30 with
    3% impulse spikes), balanced fragments, at the paper's operating point
@@ -225,7 +251,7 @@ mesh phase's NCCL world). It
    then times, per frame of a 32-frame chunk, the float32 HDC scorer
    against MLP2 on all 25 windows (beside the paper's 2.4x) and
    ``encode_frames`` with and without reuse;
-16. prints one JSON line per phase, a ``kernels`` line, and last
+17. prints one JSON line per phase, a ``kernels`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises: the script exits non-zero and prints no result.
@@ -278,6 +304,7 @@ from repro_torch.kernels import int_expanded as ie  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
 from repro_torch.launch.cascade import CascadeService  # noqa: E402
 from repro_torch.launch.serve import FleetService  # noqa: E402
+from repro_torch.models import attention  # noqa: E402
 from repro_torch.models import common as model_common  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.sensing import (adc, baselines, fleet,  # noqa: E402
@@ -1656,13 +1683,14 @@ def mesh_shapes(world: int) -> list[tuple[int, int]]:
                            if world % d == 0]
 
 
-def mesh_rank(rank: int, world: int, root: str) -> None:
+def mesh_rank(rank: int, world: int, root: str, what: str = "all") -> None:
     """One rank of the NCCL world: its own card, the payload the parent
     wrote, every mesh shape of ``mesh_shapes``; each run checked bitwise
     against the parent's unsharded run, and the sharded cascade
-    (:func:`mesh_cascade`) against the parent's unsharded one. Writes its
-    records to ``root/rank<r>.json``; any failed check raises (a non-zero
-    exit)."""
+    (:func:`mesh_cascade`) against the parent's unsharded one; then the
+    sharded cells and LM_ARCH's decode cell (:func:`mesh_decodes`). With
+    ``what`` "decode", the decode cell alone. Writes its records to
+    ``root/rank<r>.json``; any failed check raises (a non-zero exit)."""
     import datetime
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
@@ -1679,28 +1707,40 @@ def mesh_rank(rank: int, world: int, root: str) -> None:
             store=dist.FileStore(str(root / "store"), world), rank=rank,
             world_size=world, device_id=dev if cuda else None,
             timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
-        ref = torch.load(root / "payload.pt", map_location=dev,
-                         weights_only=False)
-        raw, labels_np = ref["raw"], ref["labels"]
-        plain = detector()
-        records = []
         meshes = [make_host_mesh(DEVICE) if shape == (1, world) else
                   init_device_mesh(DEVICE, shape,
                                    mesh_dim_names=("data", "model"))
                   for shape in mesh_shapes(world)]
-        for shape, mesh in zip(mesh_shapes(world), meshes):
-            rec = mesh_runs(mesh, shape, ref, raw, labels_np, root)
-            rec["cascade"] = mesh_cascade(mesh, shape, ref["cascade"], plain)
-            records.append(rec)
-        del plain
-        for arch, (key, _) in MESH_CELLS.items():
+        records = [dict(mesh=list(shape)) for shape in mesh_shapes(world)]
+        archs = [LM_ARCH] if what == "decode" else list(MESH_CELLS)
+        if what == "all":
+            ref = torch.load(root / "payload.pt", map_location=dev,
+                             weights_only=False)
+            raw, labels_np = ref["raw"], ref["labels"]
+            plain = detector()
+            for shape, mesh, rec in zip(mesh_shapes(world), meshes,
+                                        records):
+                rec.update(mesh_runs(mesh, shape, ref, raw, labels_np,
+                                     root))
+                rec["cascade"] = mesh_cascade(mesh, shape, ref["cascade"],
+                                              plain)
+            del plain
+        for arch in archs:
             torch.cuda.empty_cache()
             st = torch.load(root / f"cells-{arch}.pt", map_location=dev,
                             weights_only=False)
-            cells_ref = mesh_cells_reference(st, arch)
-            for shape, mesh, rec in zip(mesh_shapes(world), meshes, records):
-                rec[key] = mesh_cells(mesh, shape, st, cells_ref, arch)
-            del st, cells_ref
+            if what == "all":
+                key = MESH_CELLS[arch][0]
+                cells_ref = mesh_cells_reference(st, arch)
+                for shape, mesh, rec in zip(mesh_shapes(world), meshes,
+                                            records):
+                    rec[key] = mesh_cells(mesh, shape, st, cells_ref, arch)
+                del cells_ref
+            if arch == LM_ARCH:
+                for shape, mesh, rec in zip(mesh_shapes(world), meshes,
+                                            records):
+                    rec["decode_lm"] = mesh_decodes(mesh, shape, st, world)
+            del st
         (root / f"rank{rank}.json").write_text(json.dumps(records))
         dist.destroy_process_group()
     except BaseException:
@@ -2209,8 +2249,208 @@ def mesh_cells_check(mesh, shape, st, arch: str) -> dict:
     return out
 
 
+# the mesh phase's decode cell (LM_ARCH at full width, decode_32k's cache
+# cut to DECODE_BATCH, filled from a generator on each rank's card): the
+# default rules on every mesh and, on the (1, world) mesh, the cache along
+# the sequence (MESH_DECODE_RULES, the split of the production meshes);
+# at CELLS_CHECK_LAYERS in float32 against the unsharded step on a cache
+# of MESH_DECODE_CHECK[0] positions, index MESH_DECODE_CHECK[1] (every
+# rank past it holds a masked block), within MESH_DECODE_RTOL of the
+# largest |logit|
+MESH_DECODE_RULES = {"act_kv_heads": None}
+MESH_DECODE_CHECK, MESH_DECODE_RTOL = (1024, 700), 1e-5
+
+
+def mesh_decodes(mesh, shape, st, world: int) -> list[dict]:
+    """:func:`mesh_decode` on ``mesh`` under the default rules, and on the
+    (1, world) mesh under MESH_DECODE_RULES too."""
+    out = [mesh_decode(mesh, shape, st, "default", None)]
+    if tuple(shape) == (1, world):
+        out.append(mesh_decode(mesh, shape, st, "cache_seq",
+                               MESH_DECODE_RULES))
+    return out
+
+
+def decode_logits(model, params, state, db, cell, mesh, rules):
+    """``Model.decode_step``'s logits, whole: with ``mesh``, this rank's
+    blocks in (``cell``'s specs) and the vocab and batch blocks gathered."""
+    if mesh is None:
+        return model.decode_step(params, state, db)[0]
+    par = model_common.Parallel(mesh, rules)
+    cfg = model.cfg
+    logits, _ = model.decode_step(params, state, db, par,
+                                  cell.in_shardings[1].k)
+    vocab = par.group(model_common.unembed_spec(cfg.vocab, cfg.d_model)[
+        "kernel"], "vocab")
+    if vocab is not None:
+        logits = sharding.all_gather_cat(logits, vocab, dim=-1)
+    return sharding.whole_block(
+        logits, (cell.in_shardings[2].tokens[0], None, None), mesh)
+
+
+def mesh_decode(mesh, shape, st, rules_name: str, rules) -> dict:
+    """LM_ARCH's sharded decode cell on one mesh under ``rules`` (over the
+    default rules), in every rank: the unsharded step on the rank's card
+    from the whole state, then the sharded one from this rank's blocks of
+    it (on a (1, 1) mesh the whole tensors, passed as they are): the
+    digests of the next tokens and of the whole logits for the parent to
+    hold across ranks (on (1, 1) held bitwise the unsharded step's, the
+    written cache rows too); the collectives of a step; ms a step,
+    unsharded and sharded in turns (each step writes the same row again);
+    the allocator's peak beside ``analyze()`` on the mesh; at
+    CELLS_CHECK_LAYERS in float32 the logits against the unsharded
+    step's."""
+    cfg = configs.get_config(LM_ARCH)
+    what = (f"sharded {LM_ARCH} decode on a {shape} mesh ({rules_name} "
+            f"rules)")
+    one = tuple(shape) == (1, 1)
+    rules = dict(sharding.DEFAULT_RULES, **(rules or {}))
+    dshape = decode_shape()
+    idx = dshape.seq_len - 1
+    model = lm.Model(cfg)
+    cell = steps.build_cell(cfg, dshape, mesh, rules)
+    plain = steps.build_cell(cfg, dshape)
+    torch.cuda.empty_cache()
+    state = filled_state(model, DECODE_BATCH, dshape.seq_len, SEED + 34,
+                         DEVICE)
+    db = lm.DecodeBatch(
+        decode_tokens(cfg, (DECODE_BATCH, 1), SEED + 35, DEVICE),
+        torch.tensor(idx, dtype=torch.int32, device=DEVICE))
+    tokens, _ = plain.step_fn(st["params"], state, db)
+    want = dict(tokens=digest(tokens), logits=digest(decode_logits(
+        model, st["params"], state, db, None, None, None)))
+    rows = [digest(t[:, :, idx]) for t in state]
+    whole = (st["params"], state, db)
+    args = whole if one else steps.local_args(whole, cell.in_shardings, mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with sharding.count_collectives() as coll:
+        (tokens, local), first_ms = wall_ms(cell.step_fn, *args)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    tokens = sharding.whole_block(tokens, cell.out_shardings[0], mesh)
+    digests = dict(tokens=digest(tokens), logits=digest(decode_logits(
+        model, *args, cell, mesh, rules)))
+    if one:
+        check(digests == want and [digest(t[:, :, idx]) for t in local]
+              == rows, f"{what}: the (1, 1) step differs from the "
+              f"unsharded step")
+    turns = {}
+    for turn in ("unsharded", "sharded", "sharded_again", "unsharded_again"):
+        step, a = (plain.step_fn, whole) if turn.startswith("unsharded") \
+            else (cell.step_fn, args)
+        (tokens, _), turns[turn] = wall_ms(step, *a)
+    del args, whole, state, local, tokens
+    torch.cuda.empty_cache()
+    return dict(
+        arch=LM_ARCH, mesh=list(shape), rules=rules_name,
+        cache_spec=list(cell.in_shardings[1].k), batch=DECODE_BATCH,
+        cache=dshape.seq_len, index=idx, digests=digests,
+        bitwise_vs_unsharded=one or "not held (a mesh of several ranks)",
+        first_step_ms=first_ms, ms_per_step=turns,
+        collectives_per_step=dict(calls=coll.calls, bytes=coll.bytes),
+        peak_allocated_gb=peak_gb,
+        memory_model=memory_record(cfg, dshape, sharding.mesh_shape(mesh),
+                                   rules),
+        check=mesh_decode_check(mesh, shape, st, rules))
+
+
+def mesh_decode_check(mesh, shape, st, rules) -> dict:
+    """The sharded decode step at CELLS_CHECK_LAYERS in float32 (weights
+    at CELLS_WEIGHT_STD) against the unsharded one on this rank's card,
+    on a cache of MESH_DECODE_CHECK[0] positions at index
+    MESH_DECODE_CHECK[1]: the logits within MESH_DECODE_RTOL of the
+    largest |logit|."""
+    cfg = configs.get_config(LM_ARCH).replace(
+        n_layers=CELLS_CHECK_LAYERS, compute_dtype="float32")
+    model = lm.Model(cfg)
+    n, idx = MESH_DECODE_CHECK
+    dshape = decode_shape(seq=n)
+    cell = steps.build_cell(cfg, dshape, mesh, rules)
+    db = lm.DecodeBatch(
+        decode_tokens(cfg, (DECODE_BATCH, 1), SEED + 37, DEVICE),
+        torch.tensor(idx, dtype=torch.int32, device=DEVICE))
+    state = filled_state(model, DECODE_BATCH, n, SEED + 38, DEVICE)
+    want = decode_logits(model, st["check_params"], state, db, None, None,
+                         None)
+    got = decode_logits(model, *steps.local_args(
+        (st["check_params"], state, db), cell.in_shardings, mesh), cell,
+        mesh, rules)
+    r = dict(layers=cfg.n_layers, cache=n, index=idx,
+             logits_max_abs_diff=max_abs_diff(got, want),
+             max_abs_logit=max_abs(want), rtol=MESH_DECODE_RTOL)
+    check(r["logits_max_abs_diff"] <= MESH_DECODE_RTOL * r["max_abs_logit"],
+          f"sharded {LM_ARCH} decode on a {shape} mesh against the "
+          f"unsharded step at {CELLS_CHECK_LAYERS} layers, float32: {r}")
+    del state, want, got
+    torch.cuda.empty_cache()
+    return r
+
+
 def cpu_tree(tree):
     return model_common.tree_map(lambda a: a.cpu(), tree)
+
+
+def run_world(root, world: int, what: str):
+    """An NCCL world of ``world`` ranks (one a card, ``torch.
+    multiprocessing`` with ``spawn``) running :func:`mesh_rank` on
+    ``what``: every rank's records and the world's seconds. A rank that
+    fails or outlives MESH_TIMEOUT_S fails the phase."""
+    import torch.multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=mesh_rank, args=(r, world, str(root), what))
+             for r in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(max(MESH_TIMEOUT_S - (time.perf_counter() - t0), 0.0))
+    finally:
+        alive = [p for p in procs if p.is_alive()]
+        for p in alive:
+            p.terminate()
+            p.join(10)
+    world_s = time.perf_counter() - t0
+    for r, p in enumerate(procs):
+        err = root / f"rank{r}.err"
+        check(not alive and p.exitcode == 0 and not err.exists(),
+              f"mesh rank {r}: exit {p.exitcode}"
+              f"{' (timed out)' if alive else ''}\n"
+              f"{err.read_text() if err.exists() else ''}")
+    return [json.loads((root / f"rank{r}.json").read_text())
+            for r in range(world)], world_s
+
+
+def same_decodes(ranks, i: int) -> None:
+    """Every rank's decode records of mesh ``i``: the same token and
+    logit digests."""
+    for j, rec in enumerate(ranks[0][i]["decode_lm"]):
+        check(all(r[i]["decode_lm"][j]["digests"] == rec["digests"]
+                  for r in ranks[1:]),
+              f"sharded {LM_ARCH} decode on a {rec['mesh']} mesh "
+              f"({rec['rules']} rules): the tokens or logits differ "
+              f"between ranks")
+
+
+def mesh_decode_phase() -> dict:
+    """``--only mesh_decode``: the mesh phase's NCCL world over every card
+    of the host running LM_ARCH's sharded decode cell alone
+    (:func:`mesh_decodes`), from the payload of its full-width
+    parameters."""
+    t0 = time.perf_counter()
+    root = ROOT / "build" / "mesh"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    mesh_cells_payload(root, LM_ARCH)
+    world = torch.cuda.device_count()
+    ranks, world_s = run_world(root, world, "decode")
+    for i in range(len(ranks[0])):
+        same_decodes(ranks, i)
+    shutil.rmtree(root, ignore_errors=True)
+    out = dict(world=world, ranks=ranks, world_s=world_s,
+               phase_s=time.perf_counter() - t0)
+    emit({"mesh_decode": out})
+    return out
 
 
 def mesh_phase(base_model, cal, raw, labels):
@@ -2224,7 +2464,6 @@ def mesh_phase(base_model, cal, raw, labels):
     bitwise. A rank that fails or outlives MESH_TIMEOUT_S fails the phase.
     Returns the phase's record and the launches of the first rank's
     runs."""
-    import torch.multiprocessing as mp
     g = torch.Generator(device=DEVICE)
     g.manual_seed(SEED + 17)
     splits = split_checks(calibrated(base_model, *cal, "float32", 4), raw, g)
@@ -2249,33 +2488,12 @@ def mesh_phase(base_model, cal, raw, labels):
                 f"{(smi.stdout + smi.stderr).strip()}")
     print(topo, flush=True)
     world = torch.cuda.device_count()
-    ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=mesh_rank, args=(r, world, str(root)))
-             for r in range(world)]
-    t0 = time.perf_counter()
-    for p in procs:
-        p.start()
-    try:
-        for p in procs:
-            p.join(max(MESH_TIMEOUT_S - (time.perf_counter() - t0), 0.0))
-    finally:
-        alive = [p for p in procs if p.is_alive()]
-        for p in alive:
-            p.terminate()
-            p.join(10)
-    world_s = time.perf_counter() - t0
-    for r, p in enumerate(procs):
-        err = root / f"rank{r}.err"
-        check(not alive and p.exitcode == 0 and not err.exists(),
-              f"mesh rank {r}: exit {p.exitcode}"
-              f"{' (timed out)' if alive else ''}\n"
-              f"{err.read_text() if err.exists() else ''}")
-    ranks = [json.loads((root / f"rank{r}.json").read_text())
-             for r in range(world)]
+    ranks, world_s = run_world(root, world, "all")
     for i, rec in enumerate(ranks[0]):
         check(all(r[i]["cascade"]["logits"] == rec["cascade"]["logits"]
                   for r in ranks[1:]),
               f"sharded cascade on a {rec['mesh']} mesh: ranks differ")
+        same_decodes(ranks, i)
         for arch, (key, _) in MESH_CELLS.items():
             check(all(r[i][key]["loss"] == rec[key]["loss"]
                       and r[i][key]["digests"] == rec[key]["digests"]
@@ -2673,19 +2891,20 @@ def cells_counted(arch: str = CASCADE_ARCH) -> dict:
     return out
 
 
-def memory_record(cfg, shape, mesh) -> dict:
-    mb = memory_model.analyze(cfg, shape, mesh)
+def memory_record(cfg, shape, mesh, rules=None) -> dict:
+    mb = memory_model.analyze(cfg, shape, mesh, rules)
     return dict(dataclasses.asdict(mb), total_gb=mb.total_gb,
                 fits_h100=mb.fits_h100)
 
 
-def scaled_params(cfg, seed: int, device) -> dict:
-    """``cfg``'s parameters drawn on the CPU from ``seed``: normal leaves
-    at CELLS_WEIGHT_STD, norm scales ``1 + 0.1 N``, biases ``0.1 N``."""
-    g = torch.Generator().manual_seed(seed)
+def scaled_params(cfg, seed: int, device, draw_device="cpu") -> dict:
+    """``cfg``'s parameters drawn on ``draw_device`` (the CPU) from
+    ``seed``: normal leaves at CELLS_WEIGHT_STD, norm scales ``1 + 0.1
+    N``, biases ``0.1 N``."""
+    g = torch.Generator(device=draw_device).manual_seed(seed)
 
     def one(p):
-        x = torch.randn(p.shape, generator=g)
+        x = torch.randn(p.shape, generator=g, device=draw_device)
         x = (1 + 0.1 * x if p.init == "ones" else 0.1 * x
              if p.init == "zeros" else CELLS_WEIGHT_STD * x)
         return x.to(device)
@@ -3009,32 +3228,38 @@ def dryrun_stop(dry) -> None:
 
 
 def dryrun_records(proc, out, log) -> list[dict]:
-    """The dry run's records once its subprocess ends: exit 0; 24 ``ok``
+    """The dry run's records once its subprocess ends: exit 0; 34 ``ok``
     records (``train_4k`` and ``prefill_32k`` of each ported architecture
-    on the 16x16 and 2x16x16 meshes), their FLOPs at least the hand count
-    of the products and equal to it plus what the 16 "model" ranks repeat
-    (:func:`cell_matmul_flops`: hubert-xlarge's unembedding, a vocab of
-    504; the k and v projections of the kv heads 16 does not divide), their
-    memory ``analyze()``'s on the mesh; 18 ``not_ported`` rows (each
-    other architecture on each mesh, each ported decoder's
-    ``decode_32k``); no ``fail``. Each record printed."""
+    and ``decode_32k`` of each ported decoder on the 16x16 and 2x16x16
+    meshes), their FLOPs at least the hand count of the products and
+    equal to it plus what the 16 "model" ranks repeat
+    (:func:`cell_matmul_flops`, :func:`decode_matmul_flops`:
+    hubert-xlarge's unembedding, a vocab of 504; the k and v projections
+    of the kv heads 16 does not divide), their memory ``analyze()``'s on
+    the mesh; 8 ``not_ported`` rows (each other architecture on each
+    mesh); no ``fail``. Each record printed."""
     rc = proc.wait(timeout=DRYRUN_TIMEOUT_S)
     check(rc == 0, f"dry run: exit {rc}\n{log.read_text()[-3000:]}")
     records = [json.loads(line) for line in out.read_text().splitlines()]
     for r in records:
         emit({"dryrun": r})
     ok = [r for r in records if r["status"] == "ok"]
-    check(len(ok) == 24 and {r["arch"] for r in ok} == set(configs.ARCH_IDS),
+    check(len(ok) == 34 and {r["arch"] for r in ok} == set(configs.ARCH_IDS),
           f"dry run: the ok records {[(r['arch'], r['shape']) for r in ok]}")
-    check(sum(r["status"] == "not_ported" for r in records) == 18
+    check(sum(r["status"] == "not_ported" for r in records) == 8
           and len(records) == 42, "dry run: the not-ported rows")
     for r in ok:
         cfg = configs.get_config(r["arch"])
         shape = configs.SHAPES[r["shape"]]
         b, s = shape.global_batch, shape.seq_len
-        train = shape.kind == "train"
-        hand = cell_matmul_flops(cfg, b, s, train)["total"]
-        want = cell_matmul_flops(cfg, b, s, train, DRYRUN_MODEL)["total"]
+        if shape.kind == "decode":
+            hand = decode_matmul_flops(cfg, b, s)["total"]
+            want = decode_matmul_flops(cfg, b, s, DRYRUN_MODEL)["total"]
+        else:
+            train = shape.kind == "train"
+            hand = cell_matmul_flops(cfg, b, s, train)["total"]
+            want = cell_matmul_flops(cfg, b, s, train,
+                                     DRYRUN_MODEL)["total"]
         got = r["hlo_gflops"] * 1e9
         what = f"dry run {r['arch']} {r['shape']} {r['mesh']}"
         check(got >= hand and math.isclose(got, want, rel_tol=1e-12),
@@ -3120,6 +3345,293 @@ def lm_phase(card: str) -> dict:
     emit({"lm": {"card": card, LM_VLM: rec[LM_VLM]}})
     rec["phase_s"] = time.perf_counter() - t0
     emit({"lm_phase_s": rec["phase_s"]})
+    return rec
+
+
+# the decode phase (ROADMAP.md §1 item 4(b)): LM_ARCH at full width and
+# depth against decode_32k's cache of 32,768 positions, its batch cut 128
+# -> DECODE_BATCH (the bf16 cache 412 GB -> 25.8 GB); DECODE_PRIME tokens
+# primed one at a time and held against Model.forward within
+# DECODE_PREFILL_RTOL of the largest |logit| (bf16; weights at
+# CELLS_WEIGHT_STD, where a random model is well conditioned; the
+# difference at Model.init's weights recorded beside it, not held); the
+# card against the CPU at CELLS_CHECK_LAYERS in float32 (DECODE_CHECK:
+# batch, cache, tokens; with a float32 cache PR 26's float32 bound for a
+# leaf, of the largest |logit|, with the bf16 cache its bf16 bound);
+# greedy runs of DECODE_GREEDY (prompt, generated) tokens twice,
+# bitwise; DECODE_TIMED steps at the cache's last index under
+# set_sync_debug_mode("error") after DECODE_WARM; LM_OLMO's cache at the
+# same batch and length; the launcher (DECODE_LAUNCHER: batch, prompt,
+# generated) in a subprocess
+DECODE_BATCH, DECODE_PRIME, DECODE_PREFILL_RTOL = 8, 64, 5e-2
+DECODE_CHECK, DECODE_CPU_RTOL = (2, 256, 32), 1e-4
+DECODE_GREEDY, DECODE_TIMED, DECODE_WARM = (16, 16), 10, 2
+DECODE_LAUNCHER = (2, 8, 16)
+
+
+def decode_shape(batch: int = DECODE_BATCH, seq: int | None = None):
+    """decode_32k with its batch (and, for a check, its cache) cut."""
+    sh = configs.SHAPES["decode_32k"]
+    return dataclasses.replace(sh, global_batch=batch,
+                               seq_len=seq or sh.seq_len)
+
+
+def filled_state(model, batch: int, max_seq: int, seed: int, device):
+    """A decode state whose every position holds N(0, 1) bf16 keys and
+    values, drawn on ``device`` from ``seed``."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    return attention.KVCache(*(
+        torch.randn(t.shape, generator=g, device=device,
+                    dtype=torch.bfloat16)
+        for t in model.decode_state_spec(batch, max_seq)))
+
+
+def decode_tokens(cfg, shape, seed: int, device) -> torch.Tensor:
+    g = torch.Generator().manual_seed(seed)
+    return torch.randint(0, cfg.vocab, shape, generator=g,
+                         dtype=torch.int32).to(device)
+
+
+def primed_logits(model, params, tokens, max_seq: int, device,
+                  cache_dtype=torch.bfloat16):
+    """``tokens`` (b, n) fed one at a time into a zero cache of
+    ``max_seq`` positions (bf16, the model's, or ``cache_dtype``): the
+    ``(b, n, vocab)`` decode logits."""
+    state = attention.KVCache(*(
+        t.to(cache_dtype) for t in model.init_decode_state(
+            tokens.shape[0], max_seq, device=device)))
+    index = torch.arange(tokens.shape[1], dtype=torch.int32, device=device)
+    outs = []
+    for t in range(tokens.shape[1]):
+        logits, state = model.decode_step(params, state, lm.DecodeBatch(
+            tokens[:, t:t + 1], index[t]))
+        outs.append(logits)
+    del state
+    return torch.cat(outs, dim=1)
+
+
+def decode_vs_prefill(cfg, params) -> dict:
+    """DECODE_PRIME tokens primed into decode_32k's cut cache against
+    ``Model.forward`` on the same tokens: the largest difference and the
+    largest |logit|."""
+    model = lm.Model(cfg)
+    tokens = decode_tokens(cfg, (DECODE_BATCH, DECODE_PRIME), SEED + 31,
+                           DEVICE)
+    got = primed_logits(model, params, tokens, decode_shape().seq_len,
+                        DEVICE)
+    with torch.no_grad():
+        want = model.forward(params, lm.Batch(tokens, None))
+    out = dict(max_abs_diff=max_abs_diff(got, want),
+               max_abs_logit=max_abs(want))
+    del got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def decode_card_vs_cpu(arch: str) -> dict:
+    """``arch`` at CELLS_CHECK_LAYERS in float32 (weights at
+    CELLS_WEIGHT_STD, drawn on the CPU): DECODE_CHECK's tokens primed on
+    the card and on the CPU, the largest logit difference of the largest
+    |logit|. With the cache in float32 (the reference's own float32
+    parity setup) within DECODE_CPU_RTOL, PR 26's float32 bound; with
+    the model's bf16 cache, where a new k or v entry that the two devices
+    round to neighbouring bf16 values moves every later step, within PR
+    26's bf16 bound (CELLS_TOL)."""
+    cfg = configs.get_config(arch).replace(n_layers=CELLS_CHECK_LAYERS,
+                                           compute_dtype="float32")
+    model = lm.Model(cfg)
+    b, max_seq, n = DECODE_CHECK
+    cpu = scaled_params(cfg, SEED + 32, "cpu")
+    card = model_common.tree_map(lambda a: a.to(DEVICE), cpu)
+    tokens = decode_tokens(cfg, (b, n), SEED + 33, "cpu")
+    out = dict(layers=cfg.n_layers, batch=b, cache=max_seq, tokens=n)
+    for name, dt, rtol in (
+            ("float32_cache", torch.float32, DECODE_CPU_RTOL),
+            ("bf16_cache", torch.bfloat16, CELLS_TOL["bfloat16"][1])):
+        want = primed_logits(model, cpu, tokens, max_seq, "cpu", dt)
+        got = primed_logits(model, card, tokens.to(DEVICE), max_seq, DEVICE,
+                            dt)
+        r = dict(logits_rel_diff=max_abs_diff(got.cpu(), want)
+                 / max_abs(want), rtol=rtol)
+        check(r["logits_rel_diff"] <= rtol, f"decode: {arch} card vs CPU "
+              f"at {CELLS_CHECK_LAYERS} layers, float32, {name}: {r}")
+        out[name] = r
+    return out
+
+
+def decode_timed(cfg, params, batch: int = DECODE_BATCH) -> dict:
+    """The decode cell's step at decode_32k's cache cut to ``batch``,
+    filled from a generator, ``index`` its last position: DECODE_WARM
+    steps, then DECODE_TIMED between CUDA events under
+    ``set_sync_debug_mode("error")`` (a host sync raises), each step's
+    tokens bitwise the warm one's; one step profiled; the allocator's
+    peak beside ``analyze()`` on one device (mesh ``{}``); the bytes
+    bound (the cache and the bf16 weights once) and the FLOPs bound."""
+    shape = decode_shape(batch)
+    model = lm.Model(cfg)
+    cell = steps.build_cell(cfg, shape)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = filled_state(model, batch, shape.seq_len, SEED + 34, DEVICE)
+    db = lm.DecodeBatch(
+        decode_tokens(cfg, (batch, 1), SEED + 35, DEVICE),
+        torch.tensor(shape.seq_len - 1, dtype=torch.int32, device=DEVICE))
+    want = None
+    for _ in range(DECODE_WARM):
+        tokens, state = cell.step_fn(params, state, db)
+        want = fingerprint([tokens]) if want is None else want
+    check(fingerprint([tokens]) == want, f"decode: {cfg.arch_id}: two "
+          f"steps from one state differ")
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        start.record()
+        for _ in range(DECODE_TIMED):
+            tokens, state = cell.step_fn(params, state, db)
+        stop.record()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    stop.synchronize()
+    ms = start.elapsed_time(stop) / DECODE_TIMED
+    check(fingerprint([tokens]) == want, f"decode: {cfg.arch_id}: a timed "
+          f"step's tokens differ from the warm one's")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    prof = device_profile(lambda: cell.step_fn(params, state, db))
+    cache_bytes = sum(t.numel() * t.element_size() for t in state)
+    del state
+    torch.cuda.empty_cache()
+    n_params = model_common.count_params(params)
+    hand = decode_matmul_flops(cfg, batch, shape.seq_len)
+    return dict(
+        arch=cfg.arch_id, layers=cfg.n_layers, batch=batch,
+        cache=shape.seq_len, cut=f"decode_32k's batch 128 -> {batch}",
+        index=shape.seq_len - 1, ms_per_step=ms,
+        tokens_per_s=batch / (ms / 1e3), sync_free=True,
+        bitwise_run_to_run=True, cache_gb=cache_bytes / 1e9,
+        bf16_weights_gb=2 * n_params / 1e9,
+        bound_ms={"bytes_at_3.35TBs": (cache_bytes + 2 * n_params)
+                  / HBM_BYTES_S * 1e3,
+                  "bf16_at_989": hand["bf16"] / BF16_OPS_S * 1e3,
+                  "float32_at_67": hand["float32"] / F32_OPS_S * 1e3},
+        flops_hand=hand, peak_allocated_gb=peak_gb,
+        memory_model=memory_record(cfg, shape, {}), profile=prof)
+
+
+def decode_matmul_flops(cfg, b: int, s: int, model: int = 1) -> dict:
+    """Hand count of the decode step's products, one token a sequence:
+    the bf16 ones (per layer q, k, v, o and the MLP; the unembedding) and
+    the float32 ones (the scores and ``P·V`` over the whole cache). Over
+    ``model`` ranks of "model", what each rank repeats: where ``model``
+    does not divide the kv heads the cache splits along the sequence and
+    every rank projects every kv head's k and v; a vocab it does not
+    divide, whole on every rank."""
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.kv_heads, \
+        cfg.resolved_head_dim
+    n_in = 2 if cfg.activation == "silu" else 1
+    kv_proj = 2 * 2 * d * kv * hd * (model if kv % model else 1)
+    vocab = cfg.vocab * (model if cfg.vocab % model else 1)
+    low = b * (cfg.n_layers * (2 * d * h * hd + kv_proj + 2 * h * hd * d
+                               + (n_in + 1) * 2 * d * cfg.d_ff)
+               + 2 * d * vocab)
+    f32 = b * cfg.n_layers * 2 * 2 * h * s * hd
+    return {"bf16": low, "float32": f32, "total": low + f32}
+
+
+def greedy_run_to_run(cfg, params) -> dict:
+    """Two greedy runs (DECODE_GREEDY) into decode_32k's cut cache:
+    bitwise the same tokens and cache digests."""
+    from repro_torch.launch.decode import greedy_decode
+    model = lm.Model(cfg)
+    p, n = DECODE_GREEDY
+    prompts = decode_tokens(cfg, (DECODE_BATCH, p), SEED + 36, DEVICE)
+    runs = []
+    for _ in range(2):
+        state = model.init_decode_state(DECODE_BATCH, decode_shape().seq_len,
+                                        device=DEVICE)
+        toks = greedy_decode(model, params, prompts, n,
+                             decode_shape().seq_len, state=state)
+        runs.append((fingerprint([toks]), fingerprint(list(state))))
+        del state
+        torch.cuda.empty_cache()
+    check(runs[0] == runs[1], f"decode: {cfg.arch_id}: two greedy runs "
+          f"differ")
+    return dict(prompt=p, generated=n, tokens_digest=runs[0][0],
+                cache_digests=runs[0][1], bitwise=True)
+
+
+def decode_launcher(cfg) -> dict:
+    """``python -m repro_torch.launch.decode`` (full config, on the card)
+    in a subprocess: its tokens, ``greedy_decode``'s on the same seeds."""
+    from repro_torch.launch.decode import greedy_decode
+    b, p, n = DECODE_LAUNCHER
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.decode", "--arch",
+         cfg.arch_id, "--batch", str(b), "--prompt-len", str(p), "--gen",
+         str(n)], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=300)
+    wall_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"decode launcher: exit {proc.returncode}"
+          f"\n{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    got = json.loads(proc.stdout.strip().splitlines()[-1])["tokens"]
+    model = lm.Model(cfg)
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(0))
+    prompts = torch.randint(
+        0, cfg.vocab, (b, p), dtype=torch.int32, device=DEVICE,
+        generator=torch.Generator(device=DEVICE).manual_seed(1))
+    want = greedy_decode(model, params, prompts, n, max_seq=p + n).tolist()
+    del params
+    torch.cuda.empty_cache()
+    check(got == want, f"decode launcher: tokens {got} against "
+          f"greedy_decode's {want}")
+    return dict(args=[b, p, n], tokens_equal=True, wall_s=wall_s,
+                printed=proc.stdout.strip().splitlines()[0])
+
+
+def decode_phase(card: str) -> dict:
+    """The decode cell of the dense family on the card: LM_ARCH at full
+    width and depth (bf16, weights from ``Model.init`` on a seeded
+    generator) against decode_32k's cut cache: decode against prefill
+    (held at CELLS_WEIGHT_STD's weights, recorded at ``Model.init``'s),
+    the card against the CPU at CELLS_CHECK_LAYERS in float32, greedy run
+    to run, the timed steps; LM_OLMO's timed steps; the launcher. Every
+    record carries the card's name and power limit."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg = configs.get_config(LM_ARCH)
+    rec = {"card": card}
+    std = scaled_params(cfg, SEED + 30, DEVICE, draw_device=DEVICE)
+    r = decode_vs_prefill(cfg, std)
+    del std
+    r.update(rtol=DECODE_PREFILL_RTOL, weights=f"std {CELLS_WEIGHT_STD}",
+             tokens=[DECODE_BATCH, DECODE_PRIME])
+    check(r["max_abs_diff"] <= DECODE_PREFILL_RTOL * r["max_abs_logit"],
+          f"decode: {LM_ARCH} decode against prefill: {r}")
+    rec["vs_prefill"] = r
+    params = lm.Model(cfg).init(
+        torch.Generator(device=DEVICE).manual_seed(SEED + 25))
+    rec["vs_prefill_model_init"] = dict(
+        decode_vs_prefill(cfg, params), held="no (recorded)")
+    rec["greedy"] = greedy_run_to_run(cfg, params)
+    rec["timed"] = decode_timed(cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    emit({"decode": {"card": card, LM_ARCH: rec}})
+    rec["card_vs_cpu"] = decode_card_vs_cpu(LM_ARCH)
+    ocfg = configs.get_config(LM_OLMO)
+    params = lm.Model(ocfg).init(
+        torch.Generator(device=DEVICE).manual_seed(SEED + 26))
+    rec[LM_OLMO] = decode_timed(ocfg, params)
+    del params
+    torch.cuda.empty_cache()
+    rec["launcher"] = decode_launcher(cfg)
+    rec["phase_s"] = time.perf_counter() - t0
+    emit({"decode": {"card": card, "card_vs_cpu": rec["card_vs_cpu"],
+                     LM_OLMO: rec[LM_OLMO], "launcher": rec["launcher"],
+                     "phase_s": rec["phase_s"]}})
     return rec
 
 
@@ -4455,11 +4967,12 @@ def mesh_only(model, cal) -> int:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
-        "--only", choices=("mesh", "cells", "lm"),
+        "--only", choices=("mesh", "cells", "lm", "decode", "mesh_decode"),
         help="mesh: build the kernels and run the mesh phase alone (on a "
              "host with several cards: the NCCL world takes every card); "
-             "cells: the cells phase alone; lm: the LM phase alone (neither "
-             "runs any of the kernels)")
+             "cells, lm, decode: that phase alone; mesh_decode: the mesh "
+             "phase's sharded decode cell alone, in an NCCL world of every "
+             "card (none of these four runs any of the kernels)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4486,8 +4999,13 @@ def run_phases(args, smi: str, dry) -> int:
         cells_phase(smi, dry)
         ok_line()
         return 0
-    if args.only == "lm":
-        lm_phase(smi)
+    if args.only in ("lm", "decode", "mesh_decode"):
+        if args.only == "lm":
+            lm_phase(smi)
+        elif args.only == "decode":
+            decode_phase(smi)
+        else:
+            mesh_decode_phase()
         ok_line()
         return 0
 
@@ -4545,6 +5063,7 @@ def run_phases(args, smi: str, dry) -> int:
     emit({"cascade_phase_s": time.perf_counter() - t0})
     cells_phase(smi, dry)
     lm_phase(smi)
+    decode_phase(smi)
     train, train_launches, train_records = train_phase(g)
     emit({"train": train})
     for r in train_records:

@@ -1,10 +1,11 @@
 """Carry a HyperSense model's, a Fragment model's, a detector's, an LM's
-or a baseline's weights, or an AdamW state, across into the port.
+or a baseline's weights, an AdamW state or an LM's decode state (its KV
+cache) across into the port.
 
 The tests build a model in the JAX package and hand its arrays over as
 numpy (``np.asarray(jax_model.class_hvs)`` etc.), so that both packages
-compute with identical parameters, or take a step from the same mid-run
-state.
+compute with identical parameters, take a step from the same mid-run
+state, or decode from the same half-filled cache.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from repro_torch.core.encoding import NonLin
 from repro_torch.core.fragment_model import FragmentModel
 from repro_torch.core.hypersense import HyperSenseModel
 from repro_torch.models import common
+from repro_torch.models.attention import KVCache
 from repro_torch.models.lm import dtype_of
 from repro_torch.sensing.baselines import MLP, TinyConv
 from repro_torch.train.optim import AdamWState
@@ -107,6 +109,21 @@ def adamw_state_from_arrays(state, *,
     return AdamWState(step=t(np.asarray(state.step, np.int32)),
                       mu=common.tree_map(t, state.mu),
                       nu=common.tree_map(t, state.nu))
+
+
+def kv_cache_from_arrays(state, *,
+                         device: str | torch.device | None = None
+                         ) -> KVCache:
+    """The port's decode state from the reference's (``Model.
+    init_decode_state``'s stacked ``KVCache``, or one layer's) as numpy
+    arrays: its ``k`` and ``v`` leaves in bf16, the cache's dtype in both
+    packages, on ``device`` (``None`` -> CUDA, raising without it). A
+    bf16 leaf passes through float32 exactly; a float32 one is rounded
+    to bf16."""
+    dev = resolve_device(device)
+    return KVCache(*(torch.as_tensor(np.asarray(a, np.float32), device=dev
+                                     ).to(torch.bfloat16)
+                     for a in (state.k, state.v)))
 
 
 def baseline_from_arrays(tree, *, kind: str,

@@ -7,7 +7,8 @@ of every parameter's logical axes on the mesh), term by term:
 train:   params(fp32) + adam(mu,nu fp32) + grads(fp32, transient)
          + saved residuals (L x b_loc x s_shard x d, bf16, seq-parallel)
          + max transient (attention block scores / MoE buffers / loss chunk)
-decode:  params(bf16-equivalent) + decode state + small transients
+decode:  params(bf16-equivalent) + decode state (each cache leaf's
+         block under ``spec_for`` of its logical axes) + small transients
 prefill: params + live activations (one layer) + logits
 
 A mesh is a ``DeviceMesh`` with named dimensions or a ``{name: size}``
@@ -24,6 +25,7 @@ import math
 from dataclasses import dataclass, field
 
 from repro_torch.distributed import sharding
+from repro_torch.launch import steps
 from repro_torch.models import common, lm
 
 #: one H100's device memory, GB
@@ -125,18 +127,22 @@ def analyze(cfg, shape, mesh, rules=None) -> MemoryBreakdown:
 
     # inference: bf16-weights footprint
     params = p32 // 2
+    state_bytes = 0
     if shape.kind == "decode":
-        if cfg.is_encoder:
-            raise ValueError("encoder-only arch has no decode step")
-        raise NotImplementedError(
-            "the decode state (decode_state_spec) comes with the decode "
-            "cell, ROADMAP.md §1 item 4(b)")
-    transient = (2 * b_loc * s * d * 2
-                 + b_loc * max(cfg.n_heads // model_deg, 1)
-                 * min(1024, s) * s * 4)
-    v_loc = max(cfg.vocab // model_deg, 1) \
-        if cfg.vocab % model_deg == 0 else cfg.vocab
-    transient += b_loc * s * v_loc * 2     # output logits
+        st_spec = model.decode_state_spec(batch=b, max_seq=s)
+        for t, ax in zip(st_spec, steps._decode_state_axes(model)):
+            sh = sharding.spec_for(t.shape, ax, mesh, rules)
+            state_bytes += (math.prod(t.shape) * t.element_size()
+                            // _shards(mesh_axes, sh))
+        transient = b_loc * d * 4 * 8
+    else:  # prefill
+        transient = (2 * b_loc * s * d * 2
+                     + b_loc * max(cfg.n_heads // model_deg, 1)
+                     * min(1024, s) * s * 4)
+        v_loc = max(cfg.vocab // model_deg, 1) \
+            if cfg.vocab % model_deg == 0 else cfg.vocab
+        transient += b_loc * s * v_loc * 2     # output logits
     return MemoryBreakdown(
         params_gb=params / 1e9, opt_state_gb=0.0, grads_gb=0.0,
-        residuals_gb=0.0, transient_gb=transient / 1e9, state_gb=0.0)
+        residuals_gb=0.0, transient_gb=transient / 1e9,
+        state_gb=state_bytes / 1e9)

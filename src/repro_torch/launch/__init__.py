@@ -1,5 +1,8 @@
 """Launchers on PyTorch: the always-on fleet service
-(:mod:`repro_torch.launch.serve`), the detector, train and prefill cells
-(:mod:`repro_torch.launch.steps`), the gated cascade that feeds it the
-service's high-precision frames (:mod:`repro_torch.launch.cascade`) and
-the host's device mesh (:mod:`repro_torch.launch.mesh`)."""
+(:mod:`repro_torch.launch.serve`), the detector, train, prefill and
+decode cells (:mod:`repro_torch.launch.steps`), the gated cascade that
+feeds it the service's high-precision frames
+(:mod:`repro_torch.launch.cascade`), greedy decoding
+(:mod:`repro_torch.launch.decode`), the dry run
+(:mod:`repro_torch.launch.dryrun`) and the host's device mesh
+(:mod:`repro_torch.launch.mesh`)."""

@@ -26,10 +26,11 @@ is counted).
 
 The port keeps its own copy of the reference's ``ARCH_IDS``. An
 architecture whose family ``lm.Model`` does not take yet gets one
-``"not_ported"`` row a mesh, naming its ``ROADMAP.md`` item, and so does
-the ``decode_32k`` cell of a ported architecture that has one (the decode
-cell, item 4(b)); that is no failure. A cell that raises for any other
-reason is a ``"fail"`` row.
+``"not_ported"`` row a mesh, naming its ``ROADMAP.md`` item; that is no
+failure. The ``decode_32k`` cells of the ported decoders are counted
+like the others: one token against the 32,768-position cache, split by
+kv heads or, where "model" does not divide them, along the sequence. A
+cell that raises for any other reason is a ``"fail"`` row.
 
 Usage (on any host, no card):
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch hubert-xlarge \\
@@ -77,8 +78,6 @@ NOT_PORTED = {
     "grok-1-314b": "4(c): the mixture of experts",
     "xlstm-350m": "4(e): models/xlstm.py",
 }
-#: the ROADMAP.md item a ported architecture's decode cell waits for
-DECODE_NOT_PORTED = "4(b): the decode cell"
 MESH_CHIPS = {"single": 256, "multi": 512}
 
 
@@ -133,8 +132,6 @@ def run_cell(arch: str, shape_name: str | None, mesh_name: str,
     record to ``out_path``; an architecture the port does not run yet
     gives its ``"not_ported"`` row."""
     waits = NOT_PORTED.get(arch)
-    if waits is None and configs.SHAPES[shape_name].kind == "decode":
-        waits = DECODE_NOT_PORTED
     if waits is not None:
         rec = {"arch": arch, "shape": shape_name, "mesh": mesh_name,
                "status": "not_ported", "reason": f"ROADMAP.md §1 item {waits}"}
@@ -174,9 +171,8 @@ def _summary(rec: dict) -> None:
 
 def all_cells(mesh_names=("single", "multi")):
     """``(arch, shape name, mesh name)`` of every cell: each applicable
-    shape of a ported architecture on each mesh (its decode cell a
-    ``not_ported`` row); one ``(arch, None, mesh)`` a mesh for the
-    others."""
+    shape of a ported architecture on each mesh; one ``(arch, None,
+    mesh)`` a mesh for the others."""
     for arch in ARCH_IDS:
         if arch in NOT_PORTED:
             for mesh_name in mesh_names:

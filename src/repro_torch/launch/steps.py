@@ -1,5 +1,5 @@
-"""Step builders and input specs on PyTorch: the train and prefill cells
-and the detector cell of the gated cascade.
+"""Step builders and input specs on PyTorch: the train, prefill and decode
+cells and the detector cell of the gated cascade.
 
 The twin of ``repro.launch.steps``: ``input_specs(cfg, shape)`` gives
 meta-tensor stand-ins for every input of a cell's step (no allocation);
@@ -10,15 +10,20 @@ without a mesh) and its abstract arguments. Cells:
 
 * train — the full step: the loss, its gradients, the AdamW update;
 * prefill — the logits over the whole sequence;
+* decode — one token against a pre-filled KV cache (``serve_step(params,
+  state, batch) -> (next tokens, state)``, the argmax of the last
+  logits, the state written in place as the reference donates it);
 * detector — a fixed batch of frames through an embeds-in backbone, the
   gated cascade's downstream step (``build_detector_cell``, with its
   ``mesh=``, ``init_detector_params``).
 
 With a mesh (a named ``DeviceMesh``; every rank builds the cell and runs
-every step together) the train and prefill steps take this rank's
-blocks, those ``in_shardings`` describes, and return the blocks
-``out_shardings`` describes: the forward written out over the mesh
-(:class:`~repro_torch.models.common.Parallel`), the loss vocab-parallel
+every step together) the train, prefill and decode steps take this
+rank's blocks, those ``in_shardings`` describes, and return the blocks
+``out_shardings`` describes (the decode cell's cache split by kv heads,
+or along the sequence where "model" does not divide them, its next
+tokens the argmax of the vocab blocks gathered): the forward written
+out over the mesh (:class:`~repro_torch.models.common.Parallel`), the loss vocab-parallel
 and folded over the batch's group, the gradients through collectives
 that autograd differentiates (:mod:`repro_torch.distributed.sharding`),
 the clip's norm folded over each leaf's groups, AdamW on the blocks.
@@ -27,8 +32,7 @@ rank's arguments and :func:`whole_args` puts blocks back together. A
 cell built with a ``{name: size}`` mapping carries its spec trees for
 counting; its step needs a ``DeviceMesh``. A token batch is cut over
 the batch's mesh dims like an embeds-in one, and so is the VLM's image
-prefix. The decode cell comes with the LM zoo (``ROADMAP.md`` §1 item
-4(b)).
+prefix.
 """
 
 from __future__ import annotations
@@ -40,8 +44,8 @@ import torch
 from repro_torch import pin_detector_matmul
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.distributed import sharding
-from repro_torch.models import common, lm
-from repro_torch.models.lm import Batch
+from repro_torch.models import attention, common, lm
+from repro_torch.models.lm import Batch, DecodeBatch
 from repro_torch.train import optim
 
 
@@ -265,31 +269,85 @@ def build_prefill_cell(cfg: ModelConfig, shape: ShapeConfig, mesh=None,
     )
 
 
-def _no_decode(cfg: ModelConfig):
-    if cfg.is_encoder:
-        raise ValueError("encoder-only arch has no decode step")
-    raise NotImplementedError(f"{cfg.arch_id}: the decode cell comes with "
-                              f"the LM zoo, ROADMAP.md §1 item 4(b)")
+def _decode_state_axes(model: lm.Model) -> attention.KVCache:
+    """The logical axes of ``decode_state_spec``'s leaves (the leading
+    layer dim's included)."""
+    lm.check_decodes(model.cfg)
+    ax = attention.cache_axes()
+    return attention.KVCache(("layers", *ax.k), ("layers", *ax.v))
+
+
+def _decode_batch_specs(shape: ShapeConfig) -> DecodeBatch:
+    return DecodeBatch(tokens=_meta((shape.global_batch, 1), torch.int32),
+                       index=_meta((), torch.int32))
+
+
+def build_decode_cell(cfg: ModelConfig, shape: ShapeConfig, mesh=None,
+                      rules=None) -> Cell:
+    """``serve_step(params, state, batch) -> (next tokens (b,) int32,
+    state)``: ``Model.decode_step``, then the argmax of the last logits;
+    the state (``decode_state_spec`` at the shape's batch and sequence)
+    written in place. With a mesh, each rank's blocks in and out, the
+    vocab blocks of the logits gathered before the argmax, so every rank
+    of the vocab's group picks the same tokens."""
+    model = lm.Model(cfg)
+    b = shape.global_batch
+    st_abs = model.decode_state_spec(batch=b, max_seq=shape.seq_len)
+    in_sh = out_sh = par = st_sh = None
+    if mesh is not None:
+        rules = rules or sharding.current_rules()
+        par = common.Parallel(mesh, rules)
+        st_sh = attention.KVCache(*(
+            sharding.logical_sharding(t.shape, ax, mesh, rules)
+            for t, ax in zip(st_abs, _decode_state_axes(model))))
+        db_sh = DecodeBatch(
+            tokens=sharding.logical_sharding((b, 1), ("act_batch", None),
+                                             mesh, rules),
+            index=())
+        tok_sh = sharding.logical_sharding((b,), ("act_batch",), mesh,
+                                           rules)
+        in_sh = (model.param_specs(mesh, rules), st_sh, db_sh)
+        out_sh = (tok_sh, st_sh)
+
+    def serve_step(params, state, batch):
+        logits, state = model.decode_step(
+            params, state, batch, par, None if st_sh is None else st_sh.k)
+        last = logits[:, -1, :]
+        vocab_group = None if par is None else par.group(
+            common.unembed_spec(cfg.vocab, cfg.d_model)["kernel"], "vocab")
+        if vocab_group is not None:
+            last = sharding.all_gather_cat(last, vocab_group, dim=-1)
+        return torch.argmax(last, dim=-1).to(torch.int32), state
+
+    return Cell(
+        step_fn=serve_step,
+        in_shardings=in_sh,
+        out_shardings=out_sh,
+        abstract_args=(model.abstract_params(), st_abs,
+                       _decode_batch_specs(shape)),
+        donate_argnums=(1,),
+    )
 
 
 def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh=None,
                rules=None) -> Cell:
-    if shape.kind == "decode":
-        _no_decode(cfg)
     builder = {"train": build_train_cell,
-               "prefill": build_prefill_cell}[shape.kind]
+               "prefill": build_prefill_cell,
+               "decode": build_decode_cell}[shape.kind]
     return builder(cfg, shape, mesh, rules)
 
 
 def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> tuple:
     """Meta-tensor stand-ins for every step input (no allocation)."""
-    if shape.kind == "decode":
-        _no_decode(cfg)
     model = lm.Model(cfg)
     p_abs = model.abstract_params()
     if shape.kind == "train":
         return (p_abs, _abstract_opt_state(p_abs), _batch_specs(cfg, shape))
-    return (p_abs, _batch_specs(cfg, shape))
+    if shape.kind == "prefill":
+        return (p_abs, _batch_specs(cfg, shape))
+    return (p_abs, model.decode_state_spec(batch=shape.global_batch,
+                                           max_seq=shape.seq_len),
+            _decode_batch_specs(shape))
 
 
 class DetectorCell(NamedTuple):

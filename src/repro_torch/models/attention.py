@@ -25,8 +25,26 @@ folded there and whole on every rank. A rank's query heads must fill
 whole groups or lie in one group; any other placement is refused. Ranks
 that share a kv head repeat its projection.
 
-``KVCache`` and ``decode_step`` come with the decode cell
-(``ROADMAP.md`` §1 item 4(b)).
+The decode step (:func:`decode_step`, the twin of the reference's) runs
+one token against a :class:`KVCache`, bf16 whatever the compute dtype,
+``(b, max_s, kv, hd)`` a leaf: the new k and v written at ``index`` in
+place (the reference's ``dynamic_update_slice`` under donation), from a
+0-d device tensor with no host sync, and the attention over all
+``max_s`` positions under the ``k_positions <= index`` mask, with the
+softmax decomposed (:func:`_decode_attend`: the maximum, the exp-sum and
+``P·V`` kept apart until one division), so that a cache split along the
+sequence folds the same three terms. Sharded (``par`` and the cache's
+``spec_for`` entry of :func:`cache_axes`), the cache holds this rank's
+kv heads where "model" divides them, and the step is ``full``'s tensor
+parallelism; where it does not (``"cache_seq"``), it holds a block of
+the sequence for every kv head: q is gathered over the heads' group, k
+and v of the new token made whole, the rank whose block holds ``index``
+writes them (a clamped local index and a ``torch.where`` on the old row),
+every head attends over the block, the maxima are taken over the
+sequence's group (:func:`~repro_torch.distributed.sharding.max_over`)
+and the exp-sums and ``P·V`` folded there in rank order, then ``wo`` is
+row-parallel over this rank's heads and folded. Every rank gets the same
+bits, and a one-rank mesh the unsharded step's.
 """
 
 from __future__ import annotations
@@ -87,6 +105,18 @@ def _project_qkv(params: dict, x: torch.Tensor, cfg: AttnConfig,
     return q, k, v
 
 
+def _scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """float32 ``q·k / sqrt(head_dim)``: (b, sq, h, hd) x (b, sk, kv, hd)
+    -> (b, kv, group, sq, sk), the query heads grouped by the kv head they
+    read."""
+    b, sq, h, hd = q.shape
+    kv = k.shape[2]
+    qg = q.reshape(b, sq, kv, h // kv, hd)
+    scores = torch.einsum("bqkgh,bskh->bkgqs", qg.to(torch.float32),
+                          k.to(torch.float32))
+    return common.true_divide(scores, math.sqrt(hd))
+
+
 def _sdpa_block(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 cfg: AttnConfig, q_positions: torch.Tensor,
                 k_positions: torch.Tensor,
@@ -96,12 +126,8 @@ def _sdpa_block(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, sq, h, hd = q.shape
     kv = k.shape[2]
     group = h // kv
-    qg = q.reshape(b, sq, kv, group, hd)
-    scores = torch.einsum("bqkgh,bskh->bkgqs", qg.to(torch.float32),
-                          k.to(torch.float32))
-    scores = common.true_divide(scores, math.sqrt(hd))
     sk = k.shape[1]
-    scores = scores.reshape(b, h, sq, sk)
+    scores = _scores(q, k).reshape(b, h, sq, sk)
     neg = torch.finfo(torch.float32).min
     if cfg.causal:
         causal = q_positions[:, None] >= k_positions[None, :]   # (sq, sk)
@@ -188,3 +214,146 @@ def full(params: dict, x: torch.Tensor, cfg: AttnConfig,
     out = out.reshape(b, s, h * hd) @ params["wo"].to(x.dtype).reshape(
         h * hd, d)
     return out if group is None else sharding.fold_partials(out, group)
+
+
+class KVCache(NamedTuple):
+    """Decode-time cache: the keys and values of the positions so far."""
+    k: torch.Tensor     # (b, max_s, kv, hd)
+    v: torch.Tensor     # (b, max_s, kv, hd)
+
+
+def cache_spec(cfg: AttnConfig, batch: int, max_seq: int,
+               dtype: torch.dtype = torch.bfloat16) -> KVCache:
+    """The cache as meta tensors (the twin of the reference's
+    ``ShapeDtypeStruct`` pair)."""
+    shape = (batch, max_seq, cfg.kv_heads, cfg.head_dim)
+    return KVCache(torch.empty(shape, dtype=dtype, device="meta"),
+                   torch.empty(shape, dtype=dtype, device="meta"))
+
+
+def cache_axes() -> KVCache:
+    """The cache's logical axes. ``"cache_seq"`` (not ``"act_seq"``): where
+    the kv heads do not divide "model", ``spec_for`` gives "model" to the
+    sequence instead (``"act_kv_heads"`` outranks it)."""
+    ax = ("act_batch", "cache_seq", "act_kv_heads", None)
+    return KVCache(ax, ax)
+
+
+def init_cache(cfg: AttnConfig, batch: int, max_seq: int,
+               dtype: torch.dtype = torch.bfloat16,
+               device: torch.device | str | None = None) -> KVCache:
+    shape = (batch, max_seq, cfg.kv_heads, cfg.head_dim)
+    return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device))
+
+
+def _write(cache: torch.Tensor, new: torch.Tensor, index: torch.Tensor,
+           lo: int) -> None:
+    """``new`` (b, 1, kv, hd) into ``cache``, a block of the sequence that
+    starts at position ``lo``, at the global position ``index`` (0-d), in
+    place: the row is written where the block holds it and rewritten with
+    its old value elsewhere (a clamped local index, so no host sync)."""
+    at = index.reshape(1).to(torch.int64) - lo
+    here = (at >= 0) & (at < cache.shape[1])
+    at = at.clamp(0, cache.shape[1] - 1)
+    row = torch.where(here, new.to(cache.dtype), cache.index_select(1, at))
+    cache.index_copy_(1, at, row)
+
+
+def _decode_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   index: torch.Tensor, lo: int, seq_group=None
+                   ) -> torch.Tensor:
+    """One query position (b, 1, n, hd) against the cache block ``k``, ``v``
+    (b, s, kv, hd) of positions ``[lo, lo + s)``, the keys past ``index``
+    masked: float32 scores, their maximum ``m``, ``e = exp(s - m)``, its
+    sum ``z`` and ``P·V = e·v``, then ``P·V / z`` in ``q``'s dtype. Over
+    ``seq_group`` (the blocks of the sequence) ``m`` is every rank's
+    maximum and ``z`` and ``P·V`` are folded in rank order."""
+    b, _, n, hd = q.shape
+    s, kv = k.shape[1], k.shape[2]
+    scores = _scores(q, k)                                  # (b, kv, g, 1, s)
+    pos = torch.arange(lo, lo + s, device=q.device)
+    scores = torch.where(pos <= index, scores,
+                         torch.finfo(torch.float32).min)
+    m = scores.amax(dim=-1, keepdim=True)
+    if seq_group is not None:
+        m = sharding.max_over(m, seq_group)
+    e = torch.exp(scores - m)
+    z = e.sum(dim=-1)                                       # (b, kv, g, 1)
+    pv = torch.einsum("bkgqs,bskh->bqkgh", e, v.to(torch.float32))
+    if seq_group is not None:
+        z = sharding.fold_partials(z, seq_group)
+        pv = sharding.fold_partials(pv, seq_group)
+    z = z.reshape(b, n)[:, None, :, None]
+    return (pv.reshape(b, 1, n, hd) / z).to(q.dtype)
+
+
+def _heads_block(t: torch.Tensor, have, axes, lo: int, hi: int,
+                 par: common.Parallel) -> torch.Tensor:
+    """Heads ``[lo, hi)`` (dim 2), the block the spec entry ``axes`` gives
+    this rank (all heads for None), of ``t``, which holds the block the
+    entry ``have`` gives it: ``t`` itself where the entries agree, else a
+    slice of ``t`` made whole (gathered over ``have``'s group in rank
+    order)."""
+    if have == axes:
+        return t
+    if have is not None:
+        t = sharding.all_gather_cat(t, sharding.axis_group(par.mesh, have),
+                                    dim=2)
+    return t[:, :, lo:hi]
+
+
+def decode_step(params: dict, x: torch.Tensor, cache: KVCache,
+                index: torch.Tensor, cfg: AttnConfig,
+                par: common.Parallel | None = None,
+                cache_spec: tuple | None = None
+                ) -> tuple[torch.Tensor, KVCache]:
+    """One-token decode: ``x`` (b, 1, d); ``cache`` holds ``index`` valid
+    positions (``index`` a 0-d int tensor on ``x``'s device) and takes the
+    new token's k and v at ``index``, in place. Returns ``(out (b, 1, d),
+    cache)``.
+
+    With ``par``, ``params`` are this rank's blocks, ``cache`` is this
+    rank's block of the whole cache under ``cache_spec`` (its
+    :func:`~repro_torch.distributed.sharding.spec_for` entry of
+    :func:`cache_axes`), and ``out`` is the whole, the same on every rank
+    of the heads' group."""
+    b = x.shape[0]
+    h, kv = cfg.n_heads, cfg.kv_heads
+    g = h // kv
+    seq_group = heads_group = None
+    c_lo, c_hi, lo = 0, kv, 0
+    if par is not None:
+        decl = spec(cfg)
+        q_axes = par.spec(decl["wq"])[1]
+        k_axes = par.spec(decl["wk"])[1]
+        _, seq_axes, c_axes, _ = cache_spec
+        params = dict(params, **{k: par.gather(params[k], decl[k])
+                                 for k in ("wq", "wk", "wv", "wo")})
+        if c_axes is not None:
+            c_lo, c_hi = sharding.local_range(
+                kv, sharding.axis_group(par.mesh, c_axes))
+        if seq_axes is not None:
+            seq_group = sharding.axis_group(par.mesh, seq_axes)
+            lo = dist.get_rank(seq_group) * cache.k.shape[1]
+        if q_axes is not None:
+            heads_group = sharding.axis_group(par.mesh, q_axes)
+    q, k_new, v_new = _project_qkv(params, x, cfg, index.reshape(1))
+    if par is not None:
+        # the query heads the cache's kv heads serve, and those kv heads
+        q = _heads_block(q, q_axes, c_axes, c_lo * g, c_hi * g, par)
+        k_new, v_new = (_heads_block(t, k_axes, c_axes, c_lo, c_hi, par)
+                        for t in (k_new, v_new))
+    _write(cache.k, k_new, index, lo)
+    _write(cache.v, v_new, index, lo)
+    out = _decode_attend(q, cache.k, cache.v, index, lo, seq_group)
+    if par is not None:
+        # the row-parallel wo takes this rank's heads
+        q_lo, q_hi = (0, h) if heads_group is None else \
+            sharding.local_range(h, heads_group)
+        out = _heads_block(out, c_axes, q_axes, q_lo, q_hi, par)
+    d = params["wo"].shape[-1]
+    out = out.reshape(b, 1, -1) @ params["wo"].to(x.dtype).reshape(-1, d)
+    out = out if heads_group is None else sharding.fold_partials(
+        out, heads_group)
+    return out, cache

@@ -24,8 +24,16 @@ list, as in the reference; the stack runs as a Python loop over the
 layers, each layer under ``remat`` when a backward pass will need it
 (``"full"``: a per-layer ``torch.utils.checkpoint``). A stacked tree is
 unbound once a pass, so the backward pass of its views is one ``stack``
-a leaf. Experts, the hybrid and xLSTM families, ``"dots"`` remat and the
-decode step come with the LM zoo (``ROADMAP.md`` §1 item 4(b)-(e)).
+a leaf. The decode step (``decode_state_spec``, ``init_decode_state``,
+``decode_step`` and :class:`DecodeBatch`) runs one token for the whole
+stack against a stacked bf16 :class:`~repro_torch.models.attention.
+KVCache` of ``(n_layers, b, max_s, kv, hd)`` leaves, written in place;
+sharded, each rank holds its block of it under the
+:func:`~repro_torch.models.attention.cache_axes` spec, and the logits are
+this rank's block of the vocab, as ``forward``'s. The VLM decodes tokens
+alone, as the reference does. Experts, the hybrid and xLSTM families
+and ``"dots"`` remat come with the LM zoo (``ROADMAP.md`` §1 items
+4(c)-(e)).
 """
 
 from __future__ import annotations
@@ -35,7 +43,7 @@ from typing import Any, Callable, NamedTuple
 import torch
 import torch.utils.checkpoint
 
-from repro_torch import pin_detector_matmul
+from repro_torch import pin_detector_matmul, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import sharding
 from repro_torch.models import attention, common, mlp
@@ -80,6 +88,33 @@ def _tf_layer(params: dict, x: torch.Tensor, cfg: ModelConfig,
     x = x + attention.full(params["attn"], a, _attn_cfg(cfg), par=par)
     m = common.apply_norm(x, params.get("mlp_norm"), cfg.norm)
     return x + mlp.apply(params["mlp"], m, _mlp_cfg(cfg), par=par)
+
+
+def _tf_layer_decode(params: dict, x: torch.Tensor,
+                     cache: attention.KVCache, index: torch.Tensor,
+                     cfg: ModelConfig, par: common.Parallel | None = None,
+                     cache_spec: tuple | None = None
+                     ) -> tuple[torch.Tensor, attention.KVCache]:
+    a = common.apply_norm(x, params.get("attn_norm"), cfg.norm)
+    attn_out, cache = attention.decode_step(params["attn"], a, cache, index,
+                                            _attn_cfg(cfg), par, cache_spec)
+    x = x + attn_out
+    m = common.apply_norm(x, params.get("mlp_norm"), cfg.norm)
+    return x + mlp.apply(params["mlp"], m, _mlp_cfg(cfg), par=par), cache
+
+
+def check_decodes(cfg: ModelConfig) -> None:
+    """Raise unless ``cfg`` has a decode step the port runs: the encoder
+    has none (``ValueError``, as the reference); the families the port's
+    Model does not take yet name their ROADMAP.md item."""
+    if cfg.is_encoder:
+        raise ValueError("encoder-only arch has no decode step")
+    if cfg.family not in ("dense", "vlm") or cfg.n_experts:
+        item = "4(c)" if cfg.n_experts else UNPORTED_FAMILIES.get(
+            cfg.family, "4")
+        raise NotImplementedError(
+            f"{cfg.arch_id}: the {cfg.family} family's decode state comes "
+            f"with the LM zoo, ROADMAP.md §1 item {item}")
 
 
 def layer_params(layers, i: int) -> dict:
@@ -135,6 +170,13 @@ class Batch(NamedTuple):
     tokens: torch.Tensor | None
     labels: torch.Tensor | None
     embeds: torch.Tensor | None = None
+
+
+class DecodeBatch(NamedTuple):
+    """One decode step's inputs: ``tokens`` ``(b, 1)`` int32; ``index`` the
+    0-d int32 cache length (the new token's position), on the device."""
+    tokens: torch.Tensor
+    index: torch.Tensor
 
 
 class Model:
@@ -315,3 +357,60 @@ class Model:
                 nll = sharding.fold_partials(nll, batch_group)
                 cnt = sharding.fold_partials(cnt, batch_group)
             return nll / torch.clamp(cnt, min=1.0)
+
+    # ----- decode -----
+
+    def decode_state_spec(self, batch: int, max_seq: int
+                          ) -> attention.KVCache:
+        """The decode state as meta tensors: one bf16 cache a layer,
+        stacked, ``(n_layers, batch, max_seq, kv, head_dim)`` a leaf."""
+        check_decodes(self.cfg)
+        one = attention.cache_spec(_attn_cfg(self.cfg), batch, max_seq)
+        return attention.KVCache(*(
+            torch.empty((self.cfg.n_layers, *t.shape), dtype=t.dtype,
+                        device="meta") for t in one))
+
+    def init_decode_state(self, batch: int, max_seq: int,
+                          device: str | torch.device | None = None
+                          ) -> attention.KVCache:
+        """The decode state, zeros on ``device`` (``None`` -> CUDA, raising
+        without it)."""
+        dev = resolve_device(device)
+        return attention.KVCache(*(
+            torch.zeros(t.shape, dtype=t.dtype, device=dev)
+            for t in self.decode_state_spec(batch, max_seq)))
+
+    def decode_step(self, params: dict, state: attention.KVCache,
+                    batch: DecodeBatch, par: common.Parallel | None = None,
+                    state_spec: tuple | None = None
+                    ) -> tuple[torch.Tensor, attention.KVCache]:
+        """One token for the whole stack: ``(logits (b, 1, vocab) in the
+        compute dtype, state)``, the state written in place at
+        ``batch.index`` (the reference's ``decode_step`` under
+        ``donate_argnums=(1,)``). No host sync: the index stays on the
+        device. The products run in
+        :func:`~repro_torch.pin_detector_matmul`'s scope, with no
+        autograd.
+
+        With ``par``, ``params`` are this rank's blocks, ``state`` its
+        block of the whole state under ``state_spec`` (the spec of each
+        leaf, the leading layer dim's included; a block's shape cannot
+        say how it was cut), ``batch.tokens`` its block of the batch, and
+        the logits its block of the vocab, as :meth:`forward`'s."""
+        check_decodes(self.cfg)
+        if par is not None and state_spec is None:
+            raise ValueError("a sharded decode step needs the state's spec")
+        cfg = self.cfg
+        layer_spec = None if par is None else tuple(state_spec[1:])
+        with torch.no_grad(), pin_detector_matmul():
+            h = common.embed(params["embed"], batch.tokens,
+                             self.compute_dtype, par, cfg.vocab, cfg.d_model)
+            for i, p in enumerate(unbind_layers(params["layers"],
+                                                cfg.n_layers)):
+                h, _ = _tf_layer_decode(
+                    p, h, attention.KVCache(state.k[i], state.v[i]),
+                    batch.index, cfg, par, layer_spec)
+            h = common.apply_norm(h, params.get("final_norm"), cfg.norm)
+            logits = common.unembed(params["unembed"], h,
+                                    self.compute_dtype, par, cfg.vocab)
+        return logits, state

@@ -108,3 +108,16 @@ def partition_sum(x: torch.Tensor) -> torch.Tensor:
     for p in parts[1:]:
         out = out + p
     return out
+
+
+def within_one_bf16_ulp(got, want) -> bool:
+    """Each entry of ``got`` within one bf16 ulp (of the larger magnitude
+    of the two) of ``want``'s: the bound for bf16 values rounded from
+    float32 sums that two packages add in another order. Tensors or
+    arrays."""
+    got, want = (np.asarray(x.to(torch.float32) if isinstance(
+        x, torch.Tensor) else x, np.float32) for x in (got, want))
+    mag = np.maximum(np.abs(got), np.abs(want))
+    ulp = np.exp2(np.floor(np.log2(np.maximum(
+        mag, np.finfo(np.float32).tiny))) - 7)
+    return bool(np.all(np.abs(got - want) <= ulp))

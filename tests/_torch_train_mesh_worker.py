@@ -2,8 +2,9 @@
 ``tests/test_torch_dryrun.py`` holds the dry run's against), and the
 ranks that run them.
 
-Each scenario is a train or prefill cell of the port on the CPU, a
-function of its case and a mesh: the test process runs it with
+Each scenario is a train and prefill cell, or a decode cell
+(``DECODE``), of the port on the CPU, a function of its case and a
+mesh: the test process runs it with
 ``mesh=None`` (the unsharded port), and every rank of a ``gloo`` world
 spawned by ``_torch_mesh_worker.spawn`` runs it on each mesh shape of
 its world (``WORLDS``). The whole state comes in the payload (numpy
@@ -36,7 +37,22 @@ CASES = {
     "internlm2": ({}, (2, 64)),
     "olmo": ({}, (2, 64)),
     "internvl2": ({}, (2, 64)),
+    "internlm2-decode": ({}, (2, 32)),
+    "internlm2-seq": ({}, (2, 32)),
+    "olmo-decode": ({}, (2, 32)),
 }
+#: the decode cases: (architecture, the cache's valid positions, the
+#: rules over the default rules). (b, s) above is the batch and the
+#: cache's length. The
+#: smoke internlm2's 2 kv heads split over "model" on (1, 2) and (2, 2),
+#: and along the sequence ("cache_seq") on (1, 4); with "act_kv_heads"
+#: unmapped the cache splits along the sequence on every mesh while the
+#: weights' kv heads still split (its k and v gathered), as internlm2's on
+#: four cards; OLMo's 4 kv heads split over "model"
+DECODE = {"internlm2-decode": ("internlm2-1.8b", 13, None),
+          "internlm2-seq": ("internlm2-1.8b", 13, {"act_kv_heads": None}),
+          "olmo-decode": ("olmo-1b", 20, None)}
+TRAIN_CASES = [c for c in CASES if c not in DECODE]
 #: the architecture of each case that is not hubert-xlarge's: internlm2's
 #: 4 heads over 2 kv heads, which (1, 4) splits while it leaves the kv
 #: heads whole (each rank one query head of a group of two); OLMo's
@@ -54,7 +70,10 @@ WORLDS = {1: [(1, 1)], 2: [(1, 2), (2, 1)],
 CASE_MESHES = {"chunked": [(1, 1), (1, 2), (2, 2)],
                "internlm2": [(1, 1), (1, 4)],
                "olmo": [(1, 1), (2, 2), (4, 1)],
-               "internvl2": [(1, 1), (2, 2), (4, 1)]}
+               "internvl2": [(1, 1), (2, 2), (4, 1)],
+               "internlm2-decode": [(1, 1), (1, 2), (2, 2), (1, 4)],
+               "internlm2-seq": [(1, 1), (1, 2), (1, 4)],
+               "olmo-decode": [(1, 1), (2, 2), (4, 1)]}
 #: the detector the cascade's bits are held on: frames, patch, batch
 HW, PATCH, DETECT_BATCH = (16, 16), 8, 2
 
@@ -64,7 +83,15 @@ def mesh_key(shape) -> str:
 
 
 def arch(case: str) -> str:
+    if case in DECODE:
+        return DECODE[case][0]
     return CASE_ARCH.get(case, ARCH)
+
+
+def decode_rules(case: str) -> dict:
+    """The decode case's rules, over the default rules."""
+    from repro_torch.distributed import sharding
+    return dict(sharding.DEFAULT_RULES, **(DECODE[case][2] or {}))
 
 
 def config(case: str):
@@ -78,6 +105,72 @@ def shapes(case: str):
     b, s = CASES[case][1]
     return (ShapeConfig(f"{case}_train", s, b, "train"),
             ShapeConfig(f"{case}_prefill", s, b, "prefill"))
+
+
+def decode_shape(case: str):
+    from repro_torch.configs import ShapeConfig
+    b, s = CASES[case][1]
+    return ShapeConfig(f"{case}", s, b, "decode")
+
+
+def decode_args(case: str, payload: dict):
+    """``(params, state, batch)`` of the decode case on the CPU: the
+    parameters, the half-filled bf16 cache and the tokens of the payload,
+    the index ``DECODE[case][1]``."""
+    from repro_torch.convert import (kv_cache_from_arrays,
+                                     lm_params_from_arrays)
+    from repro_torch.models import lm
+    p = payload[case]
+    params = lm_params_from_arrays(p["params"], cfg=config(case),
+                                   device="cpu")
+    state = kv_cache_from_arrays(p["cache"], device="cpu")
+    index = torch.tensor(DECODE[case][1], dtype=torch.int32)
+    return params, state, lm.DecodeBatch(torch.from_numpy(p["tokens"]),
+                                         index)
+
+
+def run_decode(case: str, payload: dict, mesh) -> dict:
+    """The case's decode cell (twice, each from the whole state) and its
+    logits (``Model.decode_step``), on ``mesh`` (this rank's blocks) or
+    unsharded: the next tokens, the logits and the cache after the step,
+    whole, as numpy, and the cache's spec."""
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import steps
+    from repro_torch.models import common, lm
+    cfg = config(case)
+    rules = None if mesh is None else decode_rules(case)
+    cell = steps.build_decode_cell(cfg, decode_shape(case), mesh, rules)
+    model = lm.Model(cfg)
+    outs = []
+    for _ in range(2):
+        args = decode_args(case, payload)
+        if mesh is not None:
+            args = steps.local_args(args, cell.in_shardings, mesh)
+        out = cell.step_fn(*args)
+        if mesh is not None:
+            out = steps.whole_args(out, cell.out_shardings, mesh)
+        outs.append(out)
+    run_to_run = all(torch.equal(a, b) for a, b in zip(
+        common.leaves(list(outs[0])), common.leaves(list(outs[1]))))
+    args = decode_args(case, payload)
+    if mesh is None:
+        logits, _ = model.decode_step(*args)
+    else:
+        st_sh = cell.in_shardings[1]
+        par = common.Parallel(mesh, rules)
+        logits, _ = model.decode_step(
+            *steps.local_args(args, cell.in_shardings, mesh), par, st_sh.k)
+        vocab = par.group(common.unembed_spec(cfg.vocab, cfg.d_model)[
+            "kernel"], "vocab")
+        if vocab is not None:
+            logits = sharding.all_gather_cat(logits, vocab, dim=-1)
+        logits = sharding.whole_block(
+            logits, (cell.in_shardings[2].tokens[0], None, None), mesh)
+    tokens, state = outs[0]
+    return dict(tokens=tokens.numpy(), logits=logits.numpy(),
+                k=state.k.to(torch.float32).numpy(),
+                v=state.v.to(torch.float32).numpy(), run_to_run=run_to_run,
+                cache_spec=None if mesh is None else cell.in_shardings[1].k)
 
 
 def whole_state(case: str, payload: dict):
@@ -140,15 +233,21 @@ def run_case(case: str, payload: dict, mesh) -> dict:
 
 
 def count_case(case: str, payload: dict, mesh) -> dict:
-    """What this rank's train step does on ``mesh``: its products'
-    FLOPs (``FlopCounterMode``) and its collectives' calls and bytes
-    (``count_collectives``), the backward pass's included."""
+    """What this rank's train step (a decode case's decode step) does on
+    ``mesh``: its products' FLOPs (``FlopCounterMode``) and its
+    collectives' calls and bytes (``count_collectives``), the backward
+    pass's included."""
     from torch.utils.flop_counter import FlopCounterMode
     from repro_torch.distributed import sharding
     from repro_torch.launch import steps
-    cell = steps.build_cell(config(case), shapes(case)[0], mesh)
-    args = steps.local_args(whole_state(case, payload), cell.in_shardings,
-                            mesh)
+    if case in DECODE:
+        cell = steps.build_cell(config(case), decode_shape(case), mesh,
+                                decode_rules(case))
+        whole = decode_args(case, payload)
+    else:
+        cell = steps.build_cell(config(case), shapes(case)[0], mesh)
+        whole = whole_state(case, payload)
+    args = steps.local_args(whole, cell.in_shardings, mesh)
     with sharding.count_collectives() as coll, \
             FlopCounterMode(display=False) as fc:
         cell.step_fn(*args)
@@ -211,10 +310,12 @@ def cascade_bits(payload: dict, mesh) -> dict:
 
 
 def run(kind: str, name: str, payload: dict, mesh):
-    """A work item: ``("case", case)``, ``("count", case)``, ``("embed",
-    case)`` or ``("cascade", name)``."""
+    """A work item: ``("case", case)``, ``("decode", case)``, ``("count",
+    case)``, ``("embed", case)`` or ``("cascade", name)``."""
     if kind == "case":
         return run_case(name, payload, mesh)
+    if kind == "decode":
+        return run_decode(name, payload, mesh)
     if kind == "count":
         return count_case(name, payload, mesh)
     if kind == "embed":
@@ -243,7 +344,7 @@ def _rank_main(rank: int, world: int, shape: tuple, work: list,
             results[mesh_key(mshape)] = {
                 (kind, name): run(kind, name, payload, mesh)
                 for kind, name, _ in work
-                if kind != "case"
+                if kind not in ("case", "decode")
                 or mshape in CASE_MESHES.get(name, [mshape])}
         with open(os.path.join(root, f"rank{rank}.pkl"), "wb") as fh:
             pickle.dump(results, fh)

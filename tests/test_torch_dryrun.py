@@ -5,18 +5,22 @@ production meshes (``launch.mesh.make_production_mesh``), on the CPU.
 cells cut to ``DEPTH`` layers (``--override``; the full depth is counted
 by ``chip_smoke.py``'s cells phase): one ``ok`` record for each
 ``train_4k`` and ``prefill_32k`` cell of each ported architecture on
-each production mesh, with the reference's record keys, its FLOPs the
-hand count of the products plus what the ranks repeat (hubert-xlarge's
-unembedding, whose vocab of 504 does not split 16 ways, on every "model"
-rank; the k and v projections of a kv head that the ranks sharing it
-each run, where the kv heads do not split 16 ways), its memory
-``analyze()``'s; a ``not_ported`` row a mesh for each other architecture
-and for each ported one's ``decode_32k`` cell. In this process, under
-the dry run's fake process group: the production meshes' shapes, a
-wrong world refused, the two-dim ``("pod", "data")`` group; and the fake
-group's count of the smoke train cell on each 4-rank mesh against a real
-``gloo`` run of the same step (``tests/_torch_train_mesh_worker``): the
-FLOPs and every collective's calls and bytes.
+each production mesh, and for each decoder's ``decode_32k`` cell, with
+the reference's record keys, its FLOPs the hand count of the products
+plus what the ranks repeat (hubert-xlarge's unembedding, whose vocab of
+504 does not split 16 ways, on every "model" rank; the k and v
+projections of a kv head that the ranks sharing it each run, where the
+kv heads do not split 16 ways: in the decode cell, whose cache then
+splits along the sequence, every rank projects all of them), its memory
+``analyze()``'s; a ``not_ported`` row a mesh for each other
+architecture. In this process, under the dry run's fake process group:
+the production meshes' shapes, a wrong world refused, the two-dim
+``("pod", "data")`` group; and the fake group's count of the smoke train
+cell and of the smoke decode cells (by kv heads, along the sequence, and
+along the sequence with the weights' kv heads split) on each 4-rank mesh
+against a real ``gloo`` run of the same step
+(``tests/_torch_train_mesh_worker``): the FLOPs and every collective's
+calls and bytes.
 """
 
 import json
@@ -35,7 +39,7 @@ from repro.distributed import roofline as jroofline
 from repro_torch import configs
 from repro_torch.distributed import memory_model, sharding
 from repro_torch.launch import dryrun, mesh as tmesh
-from repro_torch.models import common, lm
+from repro_torch.models import attention, common, lm
 from repro_torch.train import optim
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -196,15 +200,69 @@ def test_dense_and_vlm_memory_is_analyze(records, arch, shape, mesh):
         "per_device_peak_mem_gb"] == want
 
 
-@pytest.mark.parametrize("arch", NEW_ARCHS)
-def test_decode_cells_are_not_ported_rows(records, arch):
-    rows = [r for r in records if r["arch"] == arch
-            and r["shape"] == "decode_32k"]
-    assert sorted(r["mesh"] for r in rows) == ["multi", "single"]
-    for r in rows:
-        assert r["status"] == "not_ported"
-        assert r["reason"] == "ROADMAP.md §1 item 4(b): the decode cell"
-    assert arch in configs.ARCH_IDS
+DECODE_CELLS = [(a, m) for a in NEW_ARCHS for m in ("single", "multi")]
+
+
+def decode_flops(cfg, shape, model: int = 1) -> int:
+    """The decode cell's products, one token a sequence: per layer q, k, v
+    and o, the scores and ``P·V`` over the whole cache, the MLP; the
+    unembedding. Over ``model`` "model" ranks, what they repeat: where
+    they do not divide the kv heads the cache splits along the sequence
+    and every rank projects every kv head's k and v (its query heads'
+    attention over its block repeats nothing); a vocab they do not divide
+    is unembedded whole by every rank."""
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.kv_heads, \
+        cfg.resolved_head_dim
+    b, s, f = shape.global_batch, shape.seq_len, cfg.d_ff
+    n_in = 2 if cfg.activation == "silu" else 1
+    kv_proj = 2 * 2 * d * kv * hd
+    layer = (2 * d * h * hd + kv_proj + 2 * h * hd * d + 2 * 2 * h * s * hd
+             + n_in * 2 * d * f + 2 * f * d)
+    if kv % model:
+        layer += (model - 1) * kv_proj
+    vocab = cfg.vocab * (model if cfg.vocab % model else 1)
+    return b * (cfg.n_layers * layer + 2 * d * vocab)
+
+
+@pytest.mark.parametrize("arch,mesh", DECODE_CELLS)
+def test_decode_records_have_the_reference_keys(records, arch, mesh):
+    rec = ok_record(records, "decode_32k", mesh, arch)
+    assert set(rec) == REF_KEYS
+    assert rec["chips"] == dryrun.MESH_CHIPS[mesh] and rec["unrolled"]
+    cfg = configs.get_config(arch).replace(n_layers=DEPTH)
+    assert rec["n_params"] == common.spec_param_count(lm.Model(cfg).spec())
+    assert rec["model_gflops"] * 1e9 == 2.0 * rec["n_params"] * 128
+
+
+@pytest.mark.parametrize("arch,mesh", DECODE_CELLS)
+def test_decode_flops_are_the_hand_count_plus_repeats(records, arch, mesh):
+    """One token of 128 sequences against a 32,768-position cache: the
+    cache splits by kv heads for OLMo (16) and CodeQwen (32), along the
+    sequence for internlm2, deepseek and internvl2 (8 kv heads over 16
+    "model" ranks), whose ranks each project all 8 kv heads."""
+    cfg = configs.get_config(arch).replace(n_layers=DEPTH)
+    sh = configs.SHAPES["decode_32k"]
+    want = decode_flops(cfg, sh, MODEL)
+    rec = ok_record(records, "decode_32k", mesh, arch)
+    assert rec["hlo_gflops"] * 1e9 == pytest.approx(want, rel=1e-12)
+    assert (want > decode_flops(cfg, sh)) == bool(cfg.kv_heads % MODEL)
+
+
+@pytest.mark.parametrize("arch,mesh", DECODE_CELLS)
+def test_decode_memory_is_analyze(records, arch, mesh):
+    """``analyze()``'s, its state the cache's block a device: 1/16 of the
+    batch on "data" (1/32 on ("pod", "data")) and 1/16 of the kv heads or
+    of the sequence on "model"."""
+    cfg = configs.get_config(arch).replace(n_layers=DEPTH)
+    m = ({"data": 16, "model": 16} if mesh == "single"
+         else {"pod": 2, "data": 16, "model": 16})
+    sh = configs.SHAPES["decode_32k"]
+    mb = memory_model.analyze(cfg, sh, m)
+    assert ok_record(records, "decode_32k", mesh, arch)[
+        "per_device_peak_mem_gb"] == mb.total_gb
+    whole = (2 * DEPTH * sh.global_batch * sh.seq_len * cfg.kv_heads
+             * cfg.resolved_head_dim * 2)
+    assert mb.state_gb == whole / (16 if mesh == "single" else 32) / 16 / 1e9
 
 
 @pytest.mark.parametrize("arch", sorted(dryrun.NOT_PORTED))
@@ -223,8 +281,8 @@ def test_no_failures_and_the_architectures_are_the_reference(records):
     assert set(dryrun.NOT_PORTED) == set(dryrun.ARCH_IDS) - set(
         configs.ARCH_IDS)
     assert not [r for r in records if r["status"] == "fail"]
-    assert sum(r["status"] == "ok" for r in records) == 24
-    assert sum(r["status"] == "not_ported" for r in records) == 18
+    assert sum(r["status"] == "ok" for r in records) == 34
+    assert sum(r["status"] == "not_ported" for r in records) == 8
     assert len(records) == 42
 
 
@@ -269,13 +327,17 @@ def test_the_fake_world_refuses_a_process_with_a_group():
 
 @pytest.fixture(scope="module")
 def real_counts(tmp_path_factory):
-    """Every 4-rank mesh's smoke train step in a real ``gloo`` world:
-    each rank's FLOPs and collectives."""
-    cfg = TW.config("smoke")
+    """Every 4-rank mesh's smoke train step and decode steps in a real
+    ``gloo`` world: each rank's FLOPs and collectives, by case."""
     rng = np.random.default_rng(3)
-    params = common.tree_map(
-        lambda p: rng.standard_normal(p.shape).astype(np.float32),
-        lm.Model(cfg).spec(), lambda x: isinstance(x, common.P))
+
+    def np_params(cfg):
+        return common.tree_map(
+            lambda p: rng.standard_normal(p.shape).astype(np.float32),
+            lm.Model(cfg).spec(), lambda x: isinstance(x, common.P))
+
+    cfg = TW.config("smoke")
+    params = np_params(cfg)
     b, s = TW.CASES["smoke"][1]
     payload = {"smoke": dict(
         params=params, state=optim.AdamWState(
@@ -283,10 +345,21 @@ def real_counts(tmp_path_factory):
             nu=common.tree_map(np.zeros_like, params)),
         labels=rng.integers(-1, cfg.vocab, (b, s)).astype(np.int32),
         embeds=rng.standard_normal((b, s, cfg.d_model)).astype(np.float32))}
-    ranks = W.spawn((1, 4), [("count", "smoke", ())], payload,
+    for case in TW.DECODE:
+        cfg = TW.config(case)
+        b, s = TW.CASES[case][1]
+        shape = tuple(lm.Model(cfg).decode_state_spec(b, s).k.shape)
+        payload[case] = dict(
+            params=np_params(cfg), tokens=rng.integers(
+                0, cfg.vocab, (b, 1)).astype(np.int32),
+            cache=attention.KVCache(*(rng.standard_normal(shape).astype(
+                np.float32) for _ in range(2))))
+    cases = ["smoke", *TW.DECODE]
+    ranks = W.spawn((1, 4), [("count", c, ()) for c in cases], payload,
                     str(tmp_path_factory.mktemp("count")),
                     timeout=SPAWN_TIMEOUT, target=TW._rank_main)
-    return {k: [r[k][("count", "smoke")] for r in ranks] for k in ranks[0]}
+    return {(k, c): [r[k][("count", c)] for r in ranks]
+            for k in ranks[0] for c in cases}
 
 
 @pytest.mark.parametrize("shape", TW.WORLDS[4])
@@ -294,7 +367,7 @@ def test_the_fake_count_equals_a_real_run(real_counts, shape):
     """The dry run's count of the smoke cell (meta tensors, a fake group
     of 4) against rank 0 of a real ``gloo`` world: FLOPs (the record's are
     every rank's), and each collective's calls and bytes (per rank)."""
-    real = real_counts[TW.mesh_key(shape)]
+    real = real_counts[(TW.mesh_key(shape), "smoke")]
     assert all(r == real[0] for r in real[1:])
     names = ("data", "model") if len(shape) == 2 else ("pod", "data",
                                                        "model")
@@ -308,3 +381,25 @@ def test_the_fake_count_equals_a_real_run(real_counts, shape):
     assert coll.bytes == real[0]["bytes"]
     assert rec["coll_breakdown"] == {k: v / 1e9 for k, v in
                                      real[0]["bytes"].items()}
+
+
+@pytest.mark.parametrize("case", list(TW.DECODE))
+@pytest.mark.parametrize("shape", TW.WORLDS[4])
+def test_the_fake_decode_count_equals_a_real_run(real_counts, shape, case):
+    """The dry run's count of a smoke decode cell (its rules merged over
+    the default rules) against rank 0 of a real ``gloo`` world: every
+    rank's FLOPs the same, and rank 0's equal to the count; each
+    collective's calls and bytes."""
+    real = real_counts[(TW.mesh_key(shape), case)]
+    names = ("data", "model") if len(shape) == 2 else ("pod", "data",
+                                                       "model")
+    with dryrun.fake_world(4):
+        mesh = init_device_mesh("cpu", shape, mesh_dim_names=names)
+        with sharding.count_collectives() as coll:
+            rec = dryrun.count_cell(TW.config(case), TW.decode_shape(case),
+                                    mesh, TW.mesh_key(shape),
+                                    TW.DECODE[case][2])
+    assert all(r["flops"] == real[0]["flops"] for r in real[1:])
+    assert rec["hlo_gflops"] == real[0]["flops"] * 4 / 1e9
+    assert coll.calls == real[0]["calls"]
+    assert coll.bytes == real[0]["bytes"]

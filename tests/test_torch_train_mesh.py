@@ -26,6 +26,20 @@ mesh and rank, in float32 and bf16; the sharded detector's forward
 bitwise through the differentiable collectives and through their
 forward arithmetic alone.
 
+The decode cell (``DECODE`` of the worker) in the same worlds: the smoke
+internlm2-1.8b with its 2 kv heads split over "model" on (1, 2) and
+(2, 2) and its cache split along the sequence ("cache_seq") on (1, 4),
+and again with "act_kv_heads" unmapped (the cache along the sequence on
+every mesh, the weights' kv heads split on (1, 2)); the smoke olmo-1b on
+(2, 2) and (4, 1); each on (1, 1). One step from a half-filled bf16
+cache (numpy, the same for every side), twice: the next tokens equal to
+the unsharded port's and the reference's jitted ``decode_step``'s, the
+logits within ``GRAD_RTOL`` of their largest |logit|, the cache after
+the step within one bf16 ulp of both (the new k and v rounded from
+float32 sums in another order); every rank bitwise the same, run to
+run, and (1, 1) bitwise the unsharded step; the cache's spec the split
+named.
+
 Tolerances, float32: the loss within ``LOSS_RTOL``, each gradient and
 each leaf after AdamW within ``GRAD_RTOL`` of its largest |entry| (the
 packages and the meshes sum in other orders). bf16 (``BF16_TOL``): the
@@ -47,11 +61,13 @@ import torch
 
 import _torch_mesh_worker as W
 import _torch_train_mesh_worker as TW
+from _torch_parity import within_one_bf16_ulp
 from repro import configs as jconfigs
 from repro.launch import steps as jsteps
+from repro.models import attention as jattention
 from repro.models import lm as jlm
 from repro.train import optim as joptim
-from repro_torch.models import common, lm
+from repro_torch.models import attention, common, lm
 from repro_torch.train import optim
 
 jax.config.update("jax_platform_name", "cpu")
@@ -68,7 +84,9 @@ SPAWN_TIMEOUT = 240.0
 BATCH_SPEC = {"1x1": "data", "1x2": "data", "2x1": "data", "2x2": "data",
               "1x4": "data", "4x1": None, "2x1x2": ("pod", "data")}
 RUNS = [(TW.mesh_key(m), c) for ms in TW.WORLDS.values() for m in ms
-        for c in TW.CASES if m in TW.CASE_MESHES.get(c, [m])]
+        for c in TW.TRAIN_CASES if m in TW.CASE_MESHES.get(c, [m])]
+DECODE_RUNS = [(TW.mesh_key(m), c) for ms in TW.WORLDS.values() for m in ms
+               for c in TW.DECODE if m in TW.CASE_MESHES[c]]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -150,18 +168,62 @@ def reference(case, p):
     return out
 
 
+def decode_payload(case, seed):
+    """The decode case's parameters, its half-filled cache (bf16 values,
+    positions from the index on zero) and its tokens, as numpy."""
+    cfg = TW.config(case)
+    model = lm.Model(cfg)
+    arrays = np_params(model.spec(), seed)
+    rng = np.random.default_rng(seed + 1)
+    b, _ = TW.CASES[case][1]
+    index = TW.DECODE[case][1]
+
+    def cache():
+        x = rng.standard_normal(tuple(model.decode_state_spec(
+            b, TW.CASES[case][1][1]).k.shape)).astype(np.float32)
+        x[:, :, index:] = 0
+        return torch.from_numpy(x).to(torch.bfloat16).to(
+            torch.float32).numpy()
+    return dict(params=arrays, cache=attention.KVCache(cache(), cache()),
+                tokens=rng.integers(0, cfg.vocab, (b, 1)).astype(np.int32))
+
+
+def reference_decode(case, p):
+    """The reference's jitted ``decode_step`` from the same cache: the
+    next tokens, the logits and the cache after the step, as numpy."""
+    jcfg = jconfigs.get_smoke(TW.arch(case)).replace(**TW.CASES[case][0])
+    state = jattention.KVCache(*(jnp.asarray(a, jnp.bfloat16)
+                                 for a in p["cache"]))
+    logits, state = jax.jit(jlm.build(jcfg).decode_step)(
+        jax.tree.map(jnp.asarray, p["params"]), state,
+        jlm.DecodeBatch(jnp.asarray(p["tokens"]),
+                        jnp.int32(TW.DECODE[case][1])))
+    logits = np.asarray(logits, np.float32)
+    return dict(tokens=logits[:, -1].argmax(-1), logits=logits,
+                k=np.asarray(state.k, np.float32),
+                v=np.asarray(state.v, np.float32))
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """Every case unsharded (``"ref"``) and through the reference
     (``"jax"``), and every world's ranks (``{mesh key: {(kind, name):
     result}}`` a rank)."""
     payload = {c: case_payload(c, 20 + 5 * i)
-               for i, c in enumerate(TW.CASES)}
+               for i, c in enumerate(TW.TRAIN_CASES)}
+    payload.update({c: decode_payload(c, 60 + 5 * i)
+                    for i, c in enumerate(TW.DECODE)})
     payload["frames"] = np.random.default_rng(6).normal(
         size=(TW.DETECT_BATCH, *TW.HW)).astype(np.float32)
-    out = {"ref": {c: TW.run_case(c, payload, None) for c in TW.CASES},
-           "jax": {c: reference(c, payload[c]) for c in TW.CASES}}
-    work = ([("case", c, ()) for c in TW.CASES]
+    out = {"ref": {c: TW.run_case(c, payload, None)
+                   for c in TW.TRAIN_CASES},
+           "jax": {c: reference(c, payload[c]) for c in TW.TRAIN_CASES}}
+    out["ref"].update({c: TW.run_decode(c, payload, None)
+                       for c in TW.DECODE})
+    out["jax"].update({c: reference_decode(c, payload[c])
+                       for c in TW.DECODE})
+    work = ([("case", c, ()) for c in TW.TRAIN_CASES]
+            + [("decode", c, ()) for c in TW.DECODE]
             + [("embed", c, ()) for c in TW.CASE_ARCH]
             + [("cascade", "cascade", ())])
     # the worlds run at once, each in its own processes
@@ -229,7 +291,7 @@ def test_replicated_values_bitwise_on_every_rank(runs, mesh, case):
                 np.testing.assert_array_equal(g, w, err_msg=f"{rank} {key}")
 
 
-@pytest.mark.parametrize("case", list(TW.CASES))
+@pytest.mark.parametrize("case", TW.TRAIN_CASES)
 def test_one_rank_mesh_is_bitwise_the_unsharded_step(runs, case):
     got, want = runs["1x1"][0][("case", case)], runs["ref"][case]
     assert got["loss"] == want["loss"] and got["step"] == want["step"]
@@ -284,3 +346,56 @@ def test_the_sharded_cascade_keeps_its_bits(runs, mesh):
     for got in runs[mesh]:
         got = got[("cascade", "cascade")]
         np.testing.assert_array_equal(got["autograd"], got["plain"])
+
+
+#: the cache's spec (its batch, sequence and kv-head entries) each decode
+#: case takes on each mesh
+DECODE_SPEC = {
+    ("internlm2-decode", "1x1"): ("data", None, "model"),
+    ("internlm2-decode", "1x2"): ("data", None, "model"),
+    ("internlm2-decode", "2x2"): ("data", None, "model"),
+    ("internlm2-decode", "1x4"): ("data", "model", None),
+    ("internlm2-seq", "1x1"): ("data", "model", None),
+    ("internlm2-seq", "1x2"): ("data", "model", None),
+    ("internlm2-seq", "1x4"): ("data", "model", None),
+    ("olmo-decode", "1x1"): ("data", None, "model"),
+    ("olmo-decode", "2x2"): ("data", None, "model"),
+    ("olmo-decode", "4x1"): (None, None, "model"),
+}
+
+
+@pytest.mark.parametrize("mesh,case", DECODE_RUNS)
+def test_decode_against_the_unsharded_port_and_the_reference(runs, mesh,
+                                                             case):
+    """Rank 0's gathered decode step: the next tokens equal, the logits
+    within GRAD_RTOL of the largest |logit|, the cache within one bf16
+    ulp, against the unsharded port and the reference; the cache's
+    spec."""
+    got = runs[mesh][0][("decode", case)]
+    for want in (runs["ref"][case], runs["jax"][case]):
+        np.testing.assert_array_equal(got["tokens"], want["tokens"])
+        assert rel(got["logits"], want["logits"]) <= GRAD_RTOL
+        for key in ("k", "v"):
+            assert within_one_bf16_ulp(got[key], want[key]), key
+    assert got["cache_spec"] == (None, *DECODE_SPEC[(case, mesh)], None)
+
+
+@pytest.mark.parametrize("mesh,case", DECODE_RUNS)
+def test_decode_bitwise_on_every_rank(runs, mesh, case):
+    """The gathered tokens, logits and cache: the same bits on every rank,
+    and two steps from one state the same bits."""
+    first = runs[mesh][0][("decode", case)]
+    for rank, got in enumerate(runs[mesh]):
+        got = got[("decode", case)]
+        assert got["run_to_run"], rank
+        for key in ("tokens", "logits", "k", "v"):
+            np.testing.assert_array_equal(got[key], first[key],
+                                          err_msg=f"{rank} {key}")
+
+
+@pytest.mark.parametrize("case", list(TW.DECODE))
+def test_decode_one_rank_mesh_is_bitwise_the_unsharded_step(runs, case):
+    """(1, 1), by kv heads or (``internlm2-seq``) along the sequence."""
+    got, want = runs["1x1"][0][("decode", case)], runs["ref"][case]
+    for key in ("tokens", "logits", "k", "v"):
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
