@@ -7,6 +7,7 @@
     python3 chip_smoke.py --only lm      # the LM phase alone
     python3 chip_smoke.py --only decode  # the decode phase alone
     python3 chip_smoke.py --only mesh_decode  # the sharded decode cell
+    python3 chip_smoke.py --only moe     # the mixture-of-experts phase
 
 from the root of a checkout, on a machine with one CUDA card (built for
 sm_90a: an H100; with ``--only mesh``, every card of the host joins the
@@ -159,13 +160,15 @@ mesh phase's NCCL world). It
    perturbation; takes 10 AdamW steps at a constant 1e-4 on a fixed
    batch, the loss falling; and reads the dry run (``python -m
    repro_torch.launch.dryrun --all``, a subprocess on the host's CPU, no
-   card, started before the kernels' build): the sharded train and
-   prefill cells of the six ported architectures counted on the 16x16
-   and 2x16x16 meshes and the decoders' ``decode_32k`` cells, 34 ``ok``
-   records, their FLOPs the hand count plus what the "model" ranks
-   repeat (hubert-xlarge's unembedding; the k and v projections of the
-   kv heads 16 ranks do not divide), their memory ``analyze()``'s, 8
-   ``not_ported`` rows (the four architectures still to port);
+   card, started before the kernels' build; one process a cell, the
+   architectures' cells in parallel chains): the sharded train and
+   prefill cells of the eight ported architectures counted on the 16x16
+   and 2x16x16 meshes and the decoders' ``decode_32k`` cells, 46 ``ok``
+   records, their FLOPs the hand count plus what the ranks repeat
+   (hubert-xlarge's unembedding; the k and v projections of the kv
+   heads 16 ranks do not divide; every data rank's routing and experts
+   over the whole gathered batch), their memory ``analyze()``'s, 4
+   ``not_ported`` rows (the two architectures still to port);
 12. runs the dense and vlm families (``lm`` phase) at full width (bf16,
    remat "full", weights from ``Model.init`` on seeded generators):
    ``internlm2-1.8b`` (24 layers, 16 heads over 8 kv heads, vocab
@@ -192,7 +195,23 @@ mesh phase's NCCL world). It
    bound; ``olmo-1b``'s step at the same batch and cache; and
    ``python -m repro_torch.launch.decode`` in a subprocess, its tokens
    ``greedy_decode``'s on the same seeds;
-14. drives the training path (paper Fig. 5a) at the same width: samples
+14. runs the mixture of experts (``moe`` phase): ``qwen3-moe-235b-a22b``
+   sharded in an NCCL world of every card (one card: the (1, 1) prefill
+   and decode cell bitwise the unsharded ones; four: the train step at
+   4096 tokens x 4 and the prefill on (1, 4), (2, 2) and (4, 1), every
+   rank's digests equal, the meshes' losses within 1e-2 and logits
+   within 5% of one another), then at full width and 2 of its 94 layers
+   (128 experts top-8, bf16, ``Model.init``'s weights): the
+   32,768-token prefill (capacity 2560) bitwise run to run, its drop
+   share, ms and TFLOP/s beside the hand count, the peak beside
+   ``analyze()``; 10 decode steps at ``decode_32k``'s cache cut to batch
+   8, sync-free, beside the bytes bound; two greedy runs bitwise; decode
+   against the prefill at the no-drop capacity (float32, held within 5%;
+   bf16 recorded, with the tokens whose experts differ); the card
+   against the CPU at 2 layers in float32 (expert ids equal outside the
+   routing margin, logits within 1e-4); ``grok-1-314b`` at 1 of 64
+   layers, its prefill (capacity 10,240) and timed decode steps;
+15. drives the training path (paper Fig. 5a) at the same width: samples
    balanced fragments from 256 synthetic training frames and 128 held-out
    frames (``sensing.fragments``), trains the Fragment model on the
    permutation base (``train_fragment_model``, 20 epochs), scores the
@@ -209,7 +228,7 @@ mesh phase's NCCL world). It
    both encoders the same way at ragged shapes (N, K and D off the tiles,
    K steps that straddle generator rows) for each nonlinearity, and
    reports their tiles, blocks and waves;
-15. drives the int-datapath path (``benchmarks/int_datapath.py``'s
+16. drives the int-datapath path (``benchmarks/int_datapath.py``'s
    claims): the float32 kernel, the live int8 kernel and the expanded-slab
    kernel (the int scorer's retired layout, ``csrc/int_expanded.cu``, on
    the int8 tensor cores) race on one ADC capture at the reference's shape
@@ -234,7 +253,7 @@ mesh phase's NCCL world). It
    equal to the same gate's on the CPU wherever the deciding score sits
    more than 2.5e-4 from ``t_score``, its frames/s, duty cycle and the
    detector FLOPs it saves;
-16. runs Table I and Fig. 16's model comparison (``baselines`` phase):
+17. runs Table I and Fig. 16's model comparison (``baselines`` phase):
    ``benchmarks/common.py``'s noisy 4-bit data made with
    ``sensing.synthetic`` (training noise 0.20; held-out noise 0.30 with
    3% impulse spikes), balanced fragments, at the paper's operating point
@@ -251,7 +270,7 @@ mesh phase's NCCL world). It
    then times, per frame of a 32-frame chunk, the float32 HDC scorer
    against MLP2 on all 25 windows (beside the paper's 2.4x) and
    ``encode_frames`` with and without reuse;
-17. prints one JSON line per phase, a ``kernels`` line, and last
+18. prints one JSON line per phase, a ``kernels`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises: the script exits non-zero and prints no result.
@@ -268,6 +287,7 @@ import json
 import math
 import os
 import pathlib
+import shlex
 import shutil
 import statistics
 import subprocess
@@ -1689,7 +1709,8 @@ def mesh_rank(rank: int, world: int, root: str, what: str = "all") -> None:
     against the parent's unsharded run, and the sharded cascade
     (:func:`mesh_cascade`) against the parent's unsharded one; then the
     sharded cells and LM_ARCH's decode cell (:func:`mesh_decodes`). With
-    ``what`` "decode", the decode cell alone. Writes its records to
+    ``what`` "decode", the decode cell alone; with "moe", the sharded
+    mixture of experts alone (:func:`mesh_moe`). Writes its records to
     ``root/rank<r>.json``; any failed check raises (a non-zero exit)."""
     import datetime
     import torch.distributed as dist
@@ -1712,7 +1733,11 @@ def mesh_rank(rank: int, world: int, root: str, what: str = "all") -> None:
                                    mesh_dim_names=("data", "model"))
                   for shape in mesh_shapes(world)]
         records = [dict(mesh=list(shape)) for shape in mesh_shapes(world)]
-        archs = [LM_ARCH] if what == "decode" else list(MESH_CELLS)
+        if what == "moe":
+            for shape, mesh, rec in zip(mesh_shapes(world), meshes,
+                                        records):
+                rec["moe"] = mesh_moe(mesh, shape, world, root)
+        archs = {"decode": [LM_ARCH], "moe": []}.get(what, list(MESH_CELLS))
         if what == "all":
             ref = torch.load(root / "payload.pt", map_location=dev,
                              weights_only=False)
@@ -2206,8 +2231,9 @@ def mesh_cells_check(mesh, shape, st, arch: str) -> dict:
         args = steps.local_args(whole, cell.in_shardings, mesh)
         new_p, new_s, loss = cell.step_fn(*args)
         p_sh, opt_sh, _ = cell.out_shardings
-        _, grads = steps.loss_and_grads(lm.Model(c), args[0], args[2],
-                                        model_common.Parallel(mesh))
+        _, grads = steps.loss_and_grads(
+            lm.Model(c), args[0], args[2], model_common.Parallel(
+                mesh, None, cut_shape("train_4k").global_batch))
         r = dict(
             loss_rel_diff=abs(float(loss) - float(w_loss))
             / abs(float(w_loss)),
@@ -2276,7 +2302,7 @@ def decode_logits(model, params, state, db, cell, mesh, rules):
     blocks in (``cell``'s specs) and the vocab and batch blocks gathered."""
     if mesh is None:
         return model.decode_step(params, state, db)[0]
-    par = model_common.Parallel(mesh, rules)
+    par = model_common.Parallel(mesh, rules, DECODE_BATCH)
     cfg = model.cfg
     logits, _ = model.decode_step(params, state, db, par,
                                   cell.in_shardings[1].k)
@@ -2815,24 +2841,53 @@ def attn_pairs(S_all: int, causal: bool, q_chunk: int = 1024) -> int:
                for lo in range(0, S_all, q_chunk))
 
 
+def moe_capacity(cfg, n: int) -> int:
+    """``mlp._capacity``: the buffer rows an expert keeps of ``n`` routed
+    tokens."""
+    return max(int(n * cfg.top_k * cfg.capacity_factor / cfg.n_experts),
+               cfg.top_k)
+
+
+def moe_matmul_flops(cfg, n: int, model: int = 1, data: int = 1
+                     ) -> dict:
+    """One mixture-of-experts layer's products over ``n`` routed tokens:
+    the float32 router ``(n, d) x (d, E)`` and the bf16 experts, three
+    products over ``E * C`` buffer rows at the capacity ``C`` of ``n``
+    tokens. Over ``data`` ranks of the batch's dims and ``model`` of
+    "model", what the ranks repeat: each data rank routes the whole
+    gathered batch and runs its experts over every routed token; a router
+    ``model`` does not split (fewer experts than ranks) runs whole on
+    every rank."""
+    if not cfg.n_experts:
+        return {"bf16": 0, "float32": 0}
+    e, d = cfg.n_experts, cfg.d_model
+    router = data * (1 if e % model == 0 else model)
+    return {"bf16": data * 3 * 2 * e * moe_capacity(cfg, n) * d * cfg.d_ff,
+            "float32": router * 2 * n * d * e}
+
+
 def cell_matmul_flops(cfg, b: int, s: int, train: bool,
-                      model: int = 1) -> dict:
+                      model: int = 1, data: int = 1) -> dict:
     """Hand count of a cell's products, split into the bf16 ones (the
-    projections, the MLP, the unembedding) and the float32 ones (the
-    scores and ``P·V``). Forward: per layer q, k, v, o, the MLP (SwiGLU:
-    three products) over every position (the VLM's image prefix too),
-    the scores and ``P·V`` over :func:`attn_pairs`; the unembedding over
-    the ``s`` text positions. Train: the forward, the backward (two
-    products a product: every layer's input takes a gradient, since the
-    norms' weights or the embedding table do), with ``"full"`` remat
-    each layer's recompute, which stops before ``w_down``
-    (``torch.utils.checkpoint``'s early stop: the backward pass saved
-    that product's inputs), and the chunked loss's recompute of the
+    projections, the MLP or the experts, the unembedding) and the
+    float32 ones (the scores and ``P·V``; the router). Forward: per layer
+    q, k, v, o, the MLP (SwiGLU: three products) over every position
+    (the VLM's image prefix too) or the mixture of experts
+    (:func:`moe_matmul_flops`), the scores and ``P·V`` over
+    :func:`attn_pairs`; the unembedding over the ``s`` text positions.
+    Train: the forward, the backward (two products a product: every
+    layer's input takes a gradient, since the norms' weights or the
+    embedding table do), with ``"full"`` remat each layer's recompute,
+    which stops before ``w_down`` (``torch.utils.checkpoint``'s early
+    stop: the backward pass saved that product's inputs; a layer with
+    experts is recomputed whole, as its weighting reads the slot outputs
+    after ``w_down``), and the chunked loss's recompute of the
     unembedding (a vocab of 8192 or more over more than 1024 positions
     that 1024 divides). Over ``model`` ranks of "model", what each rank
     repeats: kv heads ``model`` does not divide, one a rank
     (``attention.kv_heads_of_rank`` for the published configs), and a
-    vocab it does not divide, whole on every rank."""
+    vocab it does not divide, whole on every rank; over ``data`` ranks,
+    the experts' repeats (:func:`moe_matmul_flops`)."""
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.kv_heads, \
         cfg.resolved_head_dim
     vocab = cfg.vocab
@@ -2844,11 +2899,13 @@ def cell_matmul_flops(cfg, b: int, s: int, train: bool,
                  and not cfg.embeds_in else 0)
     f, T = cfg.d_ff, b * S_all
     n_in = 2 if cfg.activation == "silu" else 1
-    down = 2 * T * f * d
-    proj = (2 * T * d * (h + 2 * kv) * hd + 2 * T * h * hd * d
-            + n_in * 2 * T * d * f)
+    moe = moe_matmul_flops(cfg, T, model, data)
+    down = 0 if cfg.n_experts else 2 * T * f * d
+    proj = (2 * T * d * (h + 2 * kv) * hd + (moe["bf16"] if cfg.n_experts
+                                             else n_in * 2 * T * d * f)
+            + 2 * T * h * hd * d)
     attn = 2 * 2 * b * attn_pairs(S_all, cfg.causal and not cfg.is_encoder
-                                  ) * h * hd
+                                  ) * h * hd + moe["float32"]
     unembed = 2 * b * s * d * vocab
     L = cfg.n_layers
     low = L * (proj + down) + unembed
@@ -3199,67 +3256,126 @@ def prefill_cell_run(cfg, params, image_seed: int | None = None) -> dict:
                 memory_model=memory_record(cfg, shape, CELLS_MESHES[0]))
 
 
-# seconds the dry run's subprocess may take once its records are wanted
-# (its 24 cells take about five minutes of one host core)
+# seconds the dry run's subprocesses may take once its records are wanted
+# (its 50 cells take about nine minutes of one host core, the longest
+# architecture's, qwen3-moe's 94 layers, about three)
 DRYRUN_TIMEOUT_S = 600
 
 
+class DryRun:
+    """The dry run's cells (``dryrun.all_cells()``, what ``--all``
+    counts), one ``python -m repro_torch.launch.dryrun --arch --shape
+    --mesh`` process a cell with its own ``--out``, the cells of one
+    architecture in turn and the architectures in parallel (a shell
+    chain each, at ``nice`` 10 beside the card's phases), on the host's
+    CPU (it runs no card). ``wait`` merges the records in ``ARCH_IDS``
+    order into ``out``, as ``--all`` writes them; ``log`` holds every
+    process's output."""
+
+    def __init__(self, root: pathlib.Path):
+        from repro_torch.launch import dryrun
+        self.root, self.out = root, root / "dryrun.jsonl"
+        self.log = root / "dryrun.log"
+        shutil.rmtree(root / "dryrun", ignore_errors=True)
+        (root / "dryrun").mkdir(parents=True)
+        self.out.unlink(missing_ok=True)
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        chains: dict[str, list[str]] = {}
+        self.files = []
+        for i, (arch, shape, mesh) in enumerate(dryrun.all_cells()):
+            f = root / "dryrun" / f"{i:03d}.jsonl"
+            self.files.append(f)
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                   "--arch", arch, "--mesh", mesh, "--out", str(f)]
+            if shape is not None:
+                cmd += ["--shape", shape]
+            chains.setdefault(arch, []).append(shlex.join(cmd))
+        self.procs = []
+        for arch, cmds in chains.items():
+            fh = open(root / "dryrun" / f"{arch}.log", "w")
+            self.procs.append((arch, fh, subprocess.Popen(
+                ["nice", "-n", "10", "sh", "-c", " && ".join(cmds)],
+                cwd=ROOT, env=env, stdout=fh, stderr=subprocess.STDOUT)))
+
+    def wait(self, timeout: float) -> int:
+        """The chains' worst exit code, once every one has ended (or
+        ``timeout`` seconds have passed: a chain still running raises);
+        the records merged, the logs joined."""
+        t0 = time.perf_counter()
+        rc = 0
+        for _, fh, p in self.procs:
+            rc = max(rc, p.wait(max(timeout - (time.perf_counter() - t0),
+                                    1.0)))
+            fh.close()
+        self.log.write_text("".join(
+            (self.root / "dryrun" / f"{a}.log").read_text()
+            for a, _, _ in self.procs))
+        self.out.write_text("".join(f.read_text() for f in self.files
+                                    if f.exists()))
+        return rc
+
+    def poll(self):
+        return None if any(p.poll() is None for _, _, p in self.procs) \
+            else 0
+
+    def kill(self) -> None:
+        for _, fh, p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            fh.close()
+
+
 def dryrun_start():
-    """``python -m repro_torch.launch.dryrun --all`` started in a
-    subprocess on the host's CPU (it runs no card), its records to
-    ``build/dryrun.jsonl``: ``(process, records path, log path)``."""
-    out = ROOT / "build" / "dryrun.jsonl"
-    log = ROOT / "build" / "dryrun.log"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    out.unlink(missing_ok=True)
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    with open(log, "w") as fh:
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
-             "--out", str(out)], cwd=ROOT, env=env, stdout=fh,
-            stderr=subprocess.STDOUT)
-    return proc, out, log
+    """The dry run (:class:`DryRun`) started on the host's CPU, its
+    records to ``build/dryrun.jsonl``: ``(runner, records path, log
+    path)``."""
+    run = DryRun(ROOT / "build")
+    return run, run.out, run.log
 
 
 def dryrun_stop(dry) -> None:
     if dry is not None and dry[0].poll() is None:
         dry[0].kill()
-        dry[0].wait()
 
 
 def dryrun_records(proc, out, log) -> list[dict]:
-    """The dry run's records once its subprocess ends: exit 0; 34 ``ok``
+    """The dry run's records once its processes end: exit 0; 46 ``ok``
     records (``train_4k`` and ``prefill_32k`` of each ported architecture
     and ``decode_32k`` of each ported decoder on the 16x16 and 2x16x16
     meshes), their FLOPs at least the hand count of the products and
-    equal to it plus what the 16 "model" ranks repeat
-    (:func:`cell_matmul_flops`, :func:`decode_matmul_flops`:
-    hubert-xlarge's unembedding, a vocab of 504; the k and v projections
-    of the kv heads 16 does not divide), their memory ``analyze()``'s on
-    the mesh; 8 ``not_ported`` rows (each other architecture on each
-    mesh); no ``fail``. Each record printed."""
+    equal to it plus what the ranks repeat (:func:`cell_matmul_flops`,
+    :func:`decode_matmul_flops`: over the 16 "model" ranks
+    hubert-xlarge's unembedding, a vocab of 504, and the k and v
+    projections of the kv heads 16 does not divide; over the 16 or 32
+    data ranks, the routing and the experts of the whole gathered
+    batch), their memory ``analyze()``'s on the mesh; 4 ``not_ported``
+    rows (each other architecture on each mesh); no ``fail``. Each record
+    printed."""
     rc = proc.wait(timeout=DRYRUN_TIMEOUT_S)
     check(rc == 0, f"dry run: exit {rc}\n{log.read_text()[-3000:]}")
     records = [json.loads(line) for line in out.read_text().splitlines()]
     for r in records:
         emit({"dryrun": r})
     ok = [r for r in records if r["status"] == "ok"]
-    check(len(ok) == 34 and {r["arch"] for r in ok} == set(configs.ARCH_IDS),
+    check(len(ok) == 46 and {r["arch"] for r in ok} == set(configs.ARCH_IDS),
           f"dry run: the ok records {[(r['arch'], r['shape']) for r in ok]}")
-    check(sum(r["status"] == "not_ported" for r in records) == 8
-          and len(records) == 42, "dry run: the not-ported rows")
+    check(sum(r["status"] == "not_ported" for r in records) == 4
+          and len(records) == 50, "dry run: the not-ported rows")
     for r in ok:
         cfg = configs.get_config(r["arch"])
         shape = configs.SHAPES[r["shape"]]
         b, s = shape.global_batch, shape.seq_len
+        data = 16 if r["mesh"] == "single" else 32
         if shape.kind == "decode":
             hand = decode_matmul_flops(cfg, b, s)["total"]
-            want = decode_matmul_flops(cfg, b, s, DRYRUN_MODEL)["total"]
+            want = decode_matmul_flops(cfg, b, s, DRYRUN_MODEL,
+                                       data)["total"]
         else:
             train = shape.kind == "train"
             hand = cell_matmul_flops(cfg, b, s, train)["total"]
-            want = cell_matmul_flops(cfg, b, s, train,
-                                     DRYRUN_MODEL)["total"]
+            want = cell_matmul_flops(cfg, b, s, train, DRYRUN_MODEL,
+                                     data)["total"]
         got = r["hlo_gflops"] * 1e9
         what = f"dry run {r['arch']} {r['shape']} {r['mesh']}"
         check(got >= hand and math.isclose(got, want, rel_tol=1e-12),
@@ -3519,23 +3635,28 @@ def decode_timed(cfg, params, batch: int = DECODE_BATCH) -> dict:
         memory_model=memory_record(cfg, shape, {}), profile=prof)
 
 
-def decode_matmul_flops(cfg, b: int, s: int, model: int = 1) -> dict:
+def decode_matmul_flops(cfg, b: int, s: int, model: int = 1,
+                        data: int = 1) -> dict:
     """Hand count of the decode step's products, one token a sequence:
-    the bf16 ones (per layer q, k, v, o and the MLP; the unembedding) and
-    the float32 ones (the scores and ``P·V`` over the whole cache). Over
-    ``model`` ranks of "model", what each rank repeats: where ``model``
-    does not divide the kv heads the cache splits along the sequence and
-    every rank projects every kv head's k and v; a vocab it does not
-    divide, whole on every rank."""
+    the bf16 ones (per layer q, k, v, o and the MLP or the experts at the
+    capacity of the ``b`` tokens, :func:`moe_matmul_flops`; the
+    unembedding) and the float32 ones (the scores and ``P·V`` over the
+    whole cache; the router). Over ``model`` ranks of "model", what each
+    rank repeats: where ``model`` does not divide the kv heads the cache
+    splits along the sequence and every rank projects every kv head's k
+    and v; a vocab it does not divide, whole on every rank; over
+    ``data`` ranks, the experts' repeats."""
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.kv_heads, \
         cfg.resolved_head_dim
     n_in = 2 if cfg.activation == "silu" else 1
     kv_proj = 2 * 2 * d * kv * hd * (model if kv % model else 1)
     vocab = cfg.vocab * (model if cfg.vocab % model else 1)
-    low = b * (cfg.n_layers * (2 * d * h * hd + kv_proj + 2 * h * hd * d
-                               + (n_in + 1) * 2 * d * cfg.d_ff)
-               + 2 * d * vocab)
-    f32 = b * cfg.n_layers * 2 * 2 * h * s * hd
+    moe = moe_matmul_flops(cfg, b, model, data)
+    ffn = 0 if cfg.n_experts else b * (n_in + 1) * 2 * d * cfg.d_ff
+    low = (cfg.n_layers * (b * (2 * d * h * hd + kv_proj + 2 * h * hd * d)
+                           + ffn + moe["bf16"])
+           + b * 2 * d * vocab)
+    f32 = cfg.n_layers * (b * 2 * 2 * h * s * hd + moe["float32"])
     return {"bf16": low, "float32": f32, "total": low + f32}
 
 
@@ -3632,6 +3753,429 @@ def decode_phase(card: str) -> dict:
     emit({"decode": {"card": card, "card_vs_cpu": rec["card_vs_cpu"],
                      LM_OLMO: rec[LM_OLMO], "launcher": rec["launcher"],
                      "phase_s": rec["phase_s"]}})
+    return rec
+
+
+# the mixture of experts (ROADMAP.md §1 item 4(c)): MOE_ARCH at full width,
+# MOE_LAYERS of its 94 layers (a full-width layer's float32 weights are
+# 9.95 GB; a one-layer train step, ~60 GB of state before activations,
+# does not fit one card, so training runs sharded on four cards, each
+# rank a quarter), bf16 compute, weights from Model.init on a seeded
+# generator: prefill_32k's 32,768 tokens (batch 32 -> 1, capacity 2560)
+# bitwise run to run with its slots' drop share; decode_32k's cache cut to
+# DECODE_BATCH, DECODE_TIMED sync-free steps; greedy run to run; decode
+# against the prefill at the no-drop capacity (capacity_factor = E / k)
+# and CELLS_WEIGHT_STD's weights within DECODE_PREFILL_RTOL; the card
+# against the CPU at CELLS_CHECK_LAYERS in float32 on MOE_CPU_TOKENS (the
+# expert ids equal wherever the CPU's routing margin exceeds MOE_MARGIN,
+# the logits within DECODE_CPU_RTOL; a flip inside the margin reported);
+# MOE_GROK at full width and MOE_GROK_LAYERS layer (prefill, capacity
+# 10,240; timed decode steps); and MOE_ARCH sharded over every card
+# (mesh_moe)
+MOE_ARCH, MOE_GROK = "qwen3-moe-235b-a22b", "grok-1-314b"
+MOE_LAYERS, MOE_GROK_LAYERS = 2, 1
+MOE_CPU_TOKENS, MOE_MARGIN = (1, 64), 1e-6
+# prefill logits positions each rank of a mesh of several keeps, for the
+# meshes to be held against one another
+MOE_MESH_SLICE = 64
+
+
+def routing_records(fn, *args):
+    """``fn(*args)`` with every routing the port's ``mlp.route`` makes
+    recorded: ``(its output, [Routing, ...])``."""
+    from repro_torch.models import mlp
+    route, seen = mlp.route, []
+
+    def recorded(logits, cfg):
+        r = route(logits, cfg)
+        seen.append(r)
+        return r
+    mlp.route = recorded
+    try:
+        out = fn(*args)
+    finally:
+        mlp.route = route
+    return out, seen
+
+
+def drop_shares(routes) -> list[float]:
+    """Each routing's share of (token, slot) pairs past the capacity."""
+    return [1.0 - float(r.keep.to(torch.float32).mean()) for r in routes]
+
+
+def moe_prefill_run(cfg, params) -> dict:
+    """The full-width prefill cell at prefill_32k's sequence,
+    CELLS_PREFILL_BATCH sequence: finite logits of the right shape, twice
+    bitwise (their :func:`digest`), the second run timed; each layer's
+    capacity and drop share; ms, tokens/s and TFLOP/s against the hand
+    count; the allocator's peak beside ``analyze()``."""
+    shape = dataclasses.replace(configs.SHAPES["prefill_32k"],
+                                global_batch=CELLS_PREFILL_BATCH)
+    b, s = shape.global_batch, shape.seq_len
+    cell = steps.build_cell(cfg, shape)
+    batch = cell_batch(cfg, b, s, SEED + 41, DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        got, routes = routing_records(cell.step_fn, params, batch)
+        check(tuple(got.shape) == (b, s, cfg.vocab)
+              and bool(torch.isfinite(got).all()),
+              f"moe: {cfg.arch_id} prefill logits {tuple(got.shape)} or not "
+              f"finite")
+        want = digest(got)
+        del got
+        again, ms = timed_run(cell.step_fn, params, batch)
+        check(digest(again) == want, f"moe: {cfg.arch_id}: two prefills of "
+              f"one batch differ")
+        del again
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    hand = cell_matmul_flops(cfg, b, s, False)
+    torch.cuda.empty_cache()
+    return dict(
+        arch=cfg.arch_id, layers=cfg.n_layers, batch=b, seq=s,
+        cut=f"prefill_32k's batch 32 -> {b}; {cfg.n_layers} layers",
+        capacity=routes[0].capacity, drop_share=drop_shares(routes),
+        bitwise_run_to_run=True, ms=ms, tokens_per_s=b * s / (ms / 1e3),
+        flops_hand=hand, tflops_per_s=hand["total"] / (ms / 1e3) / 1e12,
+        bound_ms={"bf16_at_989": hand["bf16"] / BF16_OPS_S * 1e3,
+                  "float32_at_67": hand["float32"] / F32_OPS_S * 1e3},
+        peak_allocated_gb=peak_gb,
+        memory_model=memory_record(cfg, shape, CELLS_MESHES[0]))
+
+
+def moe_vs_prefill(cfg) -> dict:
+    """DECODE_PRIME tokens primed one at a time into decode_32k's cut cache
+    against ``Model.forward`` on the same tokens, at the no-drop capacity
+    (``capacity_factor = E / k``: nothing drops in either), weights at
+    CELLS_WEIGHT_STD: in float32 with a float32 cache within
+    DECODE_PREFILL_RTOL of the largest |logit| (held); in the config's
+    bf16 with its bf16 cache (recorded: there the two paths' rounding
+    moves router logits across the near ties of a token's 8th and 9th
+    experts); in each, the tokens a layer whose experts differ between
+    the two paths. Beside them, the share of slots the config's capacity
+    drops in the prefill of those tokens and in one decode step."""
+    free = cfg.replace(capacity_factor=cfg.n_experts / cfg.top_k)
+    k, L = cfg.top_k, cfg.n_layers
+    tokens = decode_tokens(cfg, (DECODE_BATCH, DECODE_PRIME), SEED + 31,
+                           DEVICE)
+    out = dict(weights=f"std {CELLS_WEIGHT_STD}", rtol=DECODE_PREFILL_RTOL,
+               tokens=[DECODE_BATCH, DECODE_PRIME],
+               capacity_factor=free.capacity_factor)
+    for dt, cache_dt in (("float32", torch.float32),
+                         ("bfloat16", torch.bfloat16)):
+        c = free.replace(compute_dtype=dt)
+        model = lm.Model(c)
+        params = scaled_params(c, SEED + 30, DEVICE, draw_device=DEVICE)
+        got, dec = routing_records(primed_logits, model, params, tokens,
+                                   decode_shape().seq_len, DEVICE, cache_dt)
+        with torch.no_grad():
+            want, pre = routing_records(model.forward, params,
+                                        lm.Batch(tokens, None))
+        differ = []
+        for layer in range(L):
+            p_e = pre[layer].gate_e.view(DECODE_BATCH, DECODE_PRIME, k)
+            d_e = torch.stack([dec[t * L + layer].gate_e
+                               for t in range(DECODE_PRIME)], dim=1)
+            differ.append(int((torch.sort(p_e, -1).values
+                               != torch.sort(d_e, -1).values).any(-1).sum()))
+        out[dt] = dict(max_abs_diff=max_abs_diff(got, want),
+                       max_abs_logit=max_abs(want), cache=str(cache_dt),
+                       tokens_whose_experts_differ_by_layer=differ,
+                       held=dt == "float32")
+        del got, want, params
+        torch.cuda.empty_cache()
+    r = out["float32"]
+    check(r["max_abs_diff"] <= DECODE_PREFILL_RTOL * r["max_abs_logit"],
+          f"moe: {cfg.arch_id} decode against prefill at the no-drop "
+          f"capacity, float32: {out}")
+    model = lm.Model(cfg)
+    params = scaled_params(cfg, SEED + 30, DEVICE, draw_device=DEVICE)
+    with torch.no_grad():
+        _, routes = routing_records(model.forward, params,
+                                    lm.Batch(tokens, None))
+        state = model.init_decode_state(DECODE_BATCH, DECODE_PRIME,
+                                        device=DEVICE)
+        _, droutes = routing_records(
+            model.decode_step, params, state, lm.DecodeBatch(
+                tokens[:, :1], torch.zeros((), dtype=torch.int32,
+                                           device=DEVICE)))
+    del params, state
+    torch.cuda.empty_cache()
+    out["drop_share_at_config"] = dict(
+        capacity_factor=cfg.capacity_factor, prefill=drop_shares(routes),
+        decode=drop_shares(droutes))
+    return out
+
+
+def routing_margins(r) -> torch.Tensor:
+    """Each token's least gap among its k + 1 largest probabilities."""
+    top = torch.sort(r.probs, dim=-1, descending=True).values[
+        :, :r.gate_e.shape[1] + 1]
+    return (top[:, :-1] - top[:, 1:]).amin(-1)
+
+
+def moe_card_vs_cpu(arch: str) -> dict:
+    """``arch`` at CELLS_CHECK_LAYERS in float32, weights at
+    CELLS_WEIGHT_STD drawn on the card and copied to the CPU,
+    ``Model.forward`` on MOE_CPU_TOKENS on both: every layer's expert ids
+    equal wherever the CPU's routing margin exceeds MOE_MARGIN (a token
+    whose experts differ inside it is reported with its margin); the
+    logits within DECODE_CPU_RTOL of the largest |logit| where no token's
+    experts differ."""
+    cfg = configs.get_config(arch).replace(n_layers=CELLS_CHECK_LAYERS,
+                                           compute_dtype="float32")
+    model = lm.Model(cfg)
+    card = scaled_params(cfg, SEED + 42, DEVICE, draw_device=DEVICE)
+    cpu = cpu_tree(card)
+    tokens = decode_tokens(cfg, MOE_CPU_TOKENS, SEED + 43, "cpu")
+    with torch.no_grad():
+        want, r_cpu = routing_records(model.forward, cpu,
+                                      lm.Batch(tokens, None))
+        got, r_card = routing_records(model.forward, card,
+                                      lm.Batch(tokens.to(DEVICE), None))
+    del card, cpu
+    torch.cuda.empty_cache()
+    flips, least = [], []
+    for layer, (a, c) in enumerate(zip(r_cpu, r_card)):
+        margin = routing_margins(a)
+        least.append(float(margin.min()))
+        differ = (a.gate_e != c.gate_e.cpu()).any(-1)
+        for t in torch.arange(len(differ))[differ].tolist():
+            flips.append(dict(layer=layer, token=t,
+                              margin=float(margin[t])))
+    check(all(f["margin"] <= MOE_MARGIN for f in flips),
+          f"moe: {arch} card vs CPU: the experts of a token differ outside "
+          f"the routing margin {MOE_MARGIN}: {flips}")
+    rel = max_abs_diff(got.cpu(), want) / max_abs(want)
+    out = dict(layers=cfg.n_layers, tokens=list(MOE_CPU_TOKENS),
+               weights=f"std {CELLS_WEIGHT_STD}", margin_bound=MOE_MARGIN,
+               least_margin_by_layer=least, flips=flips,
+               expert_ids_equal=not flips, logits_rel_diff=rel,
+               rtol=DECODE_CPU_RTOL)
+    if not flips:
+        check(rel <= DECODE_CPU_RTOL, f"moe: {arch} card vs CPU at "
+              f"{CELLS_CHECK_LAYERS} layers, float32: {out}")
+    return out
+
+
+def mesh_moe(mesh, shape, world: int, root) -> dict:
+    """MOE_ARCH at full width and MOE_LAYERS sharded on one mesh, in every
+    rank, the weights drawn whole on the rank's card from the moe phase's
+    seed and cut to this rank's blocks (on a (1, 1) mesh passed as they
+    are): the prefill at prefill_32k's cut (the digest of its gathered
+    logits for the parent to hold across ranks; on (1, 1) bitwise the
+    unsharded prefill; on a mesh of several ranks, rank 0 keeps its first
+    MOE_MESH_SLICE positions in ``root`` for the meshes to be held
+    against one another); on (1, 1) the decode cell (bitwise the
+    unsharded step's tokens and logits); on a mesh of several ranks the
+    train step at train_4k's cut from a fresh AdamW state (a warm step,
+    its collectives counted, and a second one from the same state,
+    bitwise; the loss and the digests of the gathered parameters and
+    moments); ms of each, the allocator's peak beside ``analyze()``."""
+    cfg = configs.get_config(MOE_ARCH).replace(n_layers=MOE_LAYERS)
+    model = lm.Model(cfg)
+    one = tuple(shape) == (1, 1)
+    what = f"sharded {MOE_ARCH} on a {shape} mesh"
+    torch.cuda.empty_cache()
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(
+        SEED + 40))
+    rec = dict(arch=MOE_ARCH, mesh=list(shape), layers=cfg.n_layers)
+    prefill = cut_shape("prefill_32k")
+    batch = cell_batch(cfg, prefill.global_batch, prefill.seq_len,
+                       SEED + 41, DEVICE)
+    if one:
+        with torch.no_grad():
+            want, rec["unsharded_prefill_ms"] = wall_ms(
+                steps.build_cell(cfg, prefill).step_fn, params, batch)
+        want = digest(want)
+        torch.cuda.empty_cache()
+        local = params
+    else:
+        local = model_common.local_params(params, model.param_specs(mesh),
+                                          mesh)
+        del params
+        torch.cuda.empty_cache()
+    pcell = steps.build_cell(cfg, prefill, mesh)
+    pbatch = batch if one else steps.local_args(
+        batch, pcell.in_shardings[1], mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        logits, rec["prefill_ms"] = wall_ms(pcell.step_fn, local, pbatch)
+        logits = sharding.whole_block(logits, pcell.out_shardings, mesh)
+    rec["prefill_peak_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    rec["prefill_digest"] = digest(logits)
+    check(bool(torch.isfinite(logits).all()), f"{what}: prefill logits")
+    if one:
+        check(rec["prefill_digest"] == want, f"{what}: the (1, 1) prefill "
+              f"differs from the unsharded one")
+    elif torch.distributed.get_rank() == 0:
+        torch.save(logits[:, :MOE_MESH_SLICE].float().cpu(),
+                   pathlib.Path(root) / f"moe-{'x'.join(map(str, shape))}.pt")
+    del logits, batch, pbatch
+    torch.cuda.empty_cache()
+    if one:
+        rec["decode"] = mesh_moe_decode(model, local, mesh, what)
+    else:
+        rec["train"] = mesh_moe_train(model, local, mesh, what)
+    rec.update(bitwise_vs_unsharded=one or "not held (a mesh of several "
+               "ranks; the meshes are held against one another)")
+    del local
+    torch.cuda.empty_cache()
+    return rec
+
+
+def mesh_moe_decode(model, params, mesh, what: str) -> dict:
+    """The (1, 1) decode cell against the unsharded one on one state: the
+    next tokens' and the whole logits' digests equal; ms of each."""
+    cfg = model.cfg
+    dshape = decode_shape()
+    rules = dict(sharding.DEFAULT_RULES)
+    cell = steps.build_cell(cfg, dshape, mesh, rules)
+    plain = steps.build_cell(cfg, dshape)
+    state = filled_state(model, DECODE_BATCH, dshape.seq_len, SEED + 34,
+                         DEVICE)
+    db = lm.DecodeBatch(
+        decode_tokens(cfg, (DECODE_BATCH, 1), SEED + 35, DEVICE),
+        torch.tensor(dshape.seq_len - 1, dtype=torch.int32, device=DEVICE))
+    (tokens, _), plain_ms = wall_ms(plain.step_fn, params, state, db)
+    want = dict(tokens=digest(tokens), logits=digest(decode_logits(
+        model, params, state, db, None, None, None)))
+    (tokens, _), ms = wall_ms(cell.step_fn, params, state, db)
+    got = dict(tokens=digest(tokens), logits=digest(decode_logits(
+        model, params, state, db, cell, mesh, rules)))
+    check(got == want, f"{what}: the (1, 1) decode step differs from the "
+          f"unsharded step")
+    del state
+    torch.cuda.empty_cache()
+    return dict(batch=DECODE_BATCH, cache=dshape.seq_len, digests=got,
+                ms=ms, unsharded_ms=plain_ms)
+
+
+def mesh_moe_train(model, params, mesh, what: str) -> dict:
+    """The sharded train step at train_4k's cut on this rank's blocks
+    from a fresh AdamW state: a warm step (collectives counted, the peak
+    beside ``analyze()`` on the mesh), then a second one from the same
+    state, bitwise (:func:`fingerprint`); the loss and the digests of the
+    gathered parameters and moments."""
+    cfg = model.cfg
+    train = cut_shape("train_4k")
+    cell = steps.build_cell(cfg, train, mesh)
+    state = steps.make_optimizer(cfg).init(params)
+    batch = steps.local_args(cell_batch(cfg, train.global_batch,
+                                        train.seq_len, SEED + 22, DEVICE),
+                             cell.in_shardings[2], mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before_gb = torch.cuda.memory_allocated() / 1e9
+    with sharding.count_collectives() as coll:
+        warm, first_ms = wall_ms(cell.step_fn, params, state, batch)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    loss = float(warm[2])
+    check(math.isfinite(loss), f"{what}: loss {loss}")
+    p_sh, opt_sh, _ = cell.out_shardings
+    want = fingerprint(list(warm))
+    digests = dict(params=whole_digests(warm[0], p_sh, mesh),
+                   mu=whole_digests(warm[1].mu, opt_sh.mu, mesh),
+                   nu=whole_digests(warm[1].nu, opt_sh.nu, mesh))
+    del warm
+    torch.cuda.empty_cache()
+    out, ms = wall_ms(cell.step_fn, params, state, batch)
+    check(fingerprint(list(out)) == want,
+          f"{what}: two train steps from one state differ")
+    del out, state
+    torch.cuda.empty_cache()
+    return dict(tokens=[train.global_batch, train.seq_len], loss=loss,
+                digests=digests, run_to_run_bitwise=True,
+                first_step_ms=first_ms, ms=ms,
+                collectives_per_step=dict(calls=coll.calls,
+                                          bytes=coll.bytes),
+                allocated_before_gb=before_gb, peak_allocated_gb=peak_gb,
+                memory_model=memory_record(cfg, train,
+                                           sharding.mesh_shape(mesh)))
+
+
+def moe_world() -> dict:
+    """MOE_ARCH sharded (:func:`mesh_moe`) in an NCCL world of every card
+    of the host (:func:`run_world`): every rank's digests and losses the
+    same on each mesh; on several meshes, their losses within CELLS_TOL's
+    bf16 loss bound of the first mesh's and their prefill logits' first
+    MOE_MESH_SLICE positions within CASCADE_BF16_RTOL of its largest
+    |logit|."""
+    root = ROOT / "build" / "moe_mesh"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    world = torch.cuda.device_count()
+    ranks, world_s = run_world(root, world, "moe")
+    def held(rec):
+        return (rec["prefill_digest"], rec.get("decode", {}).get("digests"),
+                rec.get("train", {}).get("loss"),
+                rec.get("train", {}).get("digests"))
+    for i, rec in enumerate(ranks[0]):
+        check(all(held(r[i]["moe"]) == held(rec["moe"]) for r in ranks[1:]),
+              f"sharded {MOE_ARCH} on a {rec['mesh']} mesh: the prefill "
+              f"logits, the decode step, the loss or the gathered "
+              f"parameters or moments differ between ranks")
+    across = "one mesh"
+    if len(ranks[0]) > 1:
+        first = ranks[0][0]["moe"]
+        key0 = "x".join(map(str, first["mesh"]))
+        ref = torch.load(root / f"moe-{key0}.pt")
+        across = {}
+        for rec in ranks[0][1:]:
+            key = "x".join(map(str, rec["moe"]["mesh"]))
+            got = torch.load(root / f"moe-{key}.pt")
+            r = dict(loss_rel_diff=abs(rec["moe"]["train"]["loss"]
+                                       - first["train"]["loss"])
+                     / abs(first["train"]["loss"]),
+                     logits_rel_diff=max_abs_diff(got, ref) / max_abs(ref))
+            check(r["loss_rel_diff"] <= CELLS_TOL["bfloat16"][0]
+                  and r["logits_rel_diff"] <= CASCADE_BF16_RTOL,
+                  f"sharded {MOE_ARCH}: the {key} mesh against the {key0} "
+                  f"one: {r}")
+            across[f"{key}_vs_{key0}"] = r
+    shutil.rmtree(root, ignore_errors=True)
+    return dict(world=world, ranks=ranks, meshes_agree=across,
+                world_s=world_s)
+
+
+def moe_phase(card: str) -> dict:
+    """The mixture of experts on the card: MOE_ARCH sharded over every
+    card (:func:`moe_world`, first, while this process holds nothing on
+    the card); MOE_ARCH at full width and MOE_LAYERS layers: the prefill,
+    the timed decode steps, greedy run to run, decode against prefill at
+    the no-drop capacity, the card against the CPU; MOE_GROK at full
+    width and MOE_GROK_LAYERS layer: the prefill and the timed decode
+    steps. Every record carries the card's name and power limit; the
+    phase's wall seconds are printed."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rec = {"card": card, "mesh": moe_world()}
+    emit({"moe": {"card": card, "mesh": rec["mesh"]}})
+    cfg = configs.get_config(MOE_ARCH).replace(n_layers=MOE_LAYERS)
+    params = lm.Model(cfg).init(
+        torch.Generator(device=DEVICE).manual_seed(SEED + 40))
+    r = dict(cut=f"{MOE_LAYERS} of 94 layers",
+             prefill=moe_prefill_run(cfg, params))
+    r["timed"] = decode_timed(cfg, params)
+    r["greedy"] = greedy_run_to_run(cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    r["vs_prefill"] = moe_vs_prefill(cfg)
+    r["card_vs_cpu"] = moe_card_vs_cpu(MOE_ARCH)
+    rec[MOE_ARCH] = r
+    emit({"moe": {"card": card, MOE_ARCH: r}})
+    gcfg = configs.get_config(MOE_GROK).replace(n_layers=MOE_GROK_LAYERS)
+    params = lm.Model(gcfg).init(
+        torch.Generator(device=DEVICE).manual_seed(SEED + 44))
+    rec[MOE_GROK] = dict(cut=f"{MOE_GROK_LAYERS} of 64 layers",
+                         prefill=moe_prefill_run(gcfg, params),
+                         timed=decode_timed(gcfg, params))
+    del params
+    torch.cuda.empty_cache()
+    rec["phase_s"] = time.perf_counter() - t0
+    emit({"moe": {"card": card, MOE_GROK: rec[MOE_GROK],
+                  "phase_s": rec["phase_s"]}})
     return rec
 
 
@@ -4967,12 +5511,14 @@ def mesh_only(model, cal) -> int:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
-        "--only", choices=("mesh", "cells", "lm", "decode", "mesh_decode"),
+        "--only", choices=("mesh", "cells", "lm", "decode", "mesh_decode",
+                           "moe"),
         help="mesh: build the kernels and run the mesh phase alone (on a "
              "host with several cards: the NCCL world takes every card); "
-             "cells, lm, decode: that phase alone; mesh_decode: the mesh "
+             "cells, lm, decode, moe: that phase alone (moe's sharded runs "
+             "in an NCCL world of every card); mesh_decode: the mesh "
              "phase's sharded decode cell alone, in an NCCL world of every "
-             "card (none of these four runs any of the kernels)")
+             "card (none of these five runs any of the kernels)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4999,11 +5545,13 @@ def run_phases(args, smi: str, dry) -> int:
         cells_phase(smi, dry)
         ok_line()
         return 0
-    if args.only in ("lm", "decode", "mesh_decode"):
+    if args.only in ("lm", "decode", "mesh_decode", "moe"):
         if args.only == "lm":
             lm_phase(smi)
         elif args.only == "decode":
             decode_phase(smi)
+        elif args.only == "moe":
+            moe_phase(smi)
         else:
             mesh_decode_phase()
         ok_line()
@@ -5064,6 +5612,7 @@ def run_phases(args, smi: str, dry) -> int:
     cells_phase(smi, dry)
     lm_phase(smi)
     decode_phase(smi)
+    moe_phase(smi)
     train, train_launches, train_records = train_phase(g)
     emit({"train": train})
     for r in train_records:

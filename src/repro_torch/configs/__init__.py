@@ -3,9 +3,9 @@
 Each module defines ``config()`` (the exact numbers) and ``smoke()`` (a
 reduced config of the same family for CPU tests), as in
 ``repro.configs``. The port has the architectures its ported models run,
-in the reference's order: the encoder and the dense and vlm families;
-the MoE, hybrid and xLSTM ones come with the LM zoo (``ROADMAP.md`` §1
-items 4(c)-(e)).
+in the reference's order: the mixture of experts, the encoder and the
+dense and vlm families; the hybrid and xLSTM ones come with the LM zoo
+(``ROADMAP.md`` §1 items 4(d)-(e)).
 """
 
 from __future__ import annotations
@@ -17,6 +17,8 @@ from repro_torch.configs.base import (SHAPES, SKIP_REASONS,  # noqa: F401
                                       applicable_shapes)
 
 ARCH_IDS = [
+    "qwen3-moe-235b-a22b",
+    "grok-1-314b",
     "hubert-xlarge",
     "olmo-1b",
     "codeqwen1.5-7b",

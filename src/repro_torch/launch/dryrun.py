@@ -74,8 +74,6 @@ ARCH_IDS = [
 #: yet waits for
 NOT_PORTED = {
     "zamba2-1.2b": "4(d): models/ssm.py and the hybrid family",
-    "qwen3-moe-235b-a22b": "4(c): the mixture of experts",
-    "grok-1-314b": "4(c): the mixture of experts",
     "xlstm-350m": "4(e): models/xlstm.py",
 }
 MESH_CHIPS = {"single": 256, "multi": 512}

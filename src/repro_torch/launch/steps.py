@@ -230,7 +230,7 @@ def build_train_cell(cfg: ModelConfig, shape: ShapeConfig, mesh=None,
         # the rules resolved once, so the step reads the blocks the spec
         # trees describe, whatever use_mesh scope it runs in
         rules = rules or sharding.current_rules()
-        par = common.Parallel(mesh, rules)
+        par = common.Parallel(mesh, rules, shape.global_batch)
         p_sh = model.param_specs(mesh, rules)
         opt_sh = optim.AdamWState(step=(), mu=p_sh, nu=p_sh)
         in_sh = (p_sh, opt_sh, _batch_shardings(cfg, shape, mesh, rules))
@@ -250,7 +250,7 @@ def build_prefill_cell(cfg: ModelConfig, shape: ShapeConfig, mesh=None,
     in_sh = out_sh = par = None
     if mesh is not None:
         rules = rules or sharding.current_rules()
-        par = common.Parallel(mesh, rules)
+        par = common.Parallel(mesh, rules, shape.global_batch)
         out_shape = (shape.global_batch, shape.seq_len, cfg.vocab)
         in_sh = (model.param_specs(mesh, rules),
                  _batch_shardings(cfg, shape, mesh, rules))
@@ -271,7 +271,8 @@ def build_prefill_cell(cfg: ModelConfig, shape: ShapeConfig, mesh=None,
 
 def _decode_state_axes(model: lm.Model) -> attention.KVCache:
     """The logical axes of ``decode_state_spec``'s leaves (the leading
-    layer dim's included)."""
+    layer dim's included): the KV cache of the dense, moe and vlm
+    families."""
     lm.check_decodes(model.cfg)
     ax = attention.cache_axes()
     return attention.KVCache(("layers", *ax.k), ("layers", *ax.v))
@@ -296,7 +297,7 @@ def build_decode_cell(cfg: ModelConfig, shape: ShapeConfig, mesh=None,
     in_sh = out_sh = par = st_sh = None
     if mesh is not None:
         rules = rules or sharding.current_rules()
-        par = common.Parallel(mesh, rules)
+        par = common.Parallel(mesh, rules, shape.global_batch)
         st_sh = attention.KVCache(*(
             sharding.logical_sharding(t.shape, ax, mesh, rules)
             for t, ax in zip(st_abs, _decode_state_axes(model))))

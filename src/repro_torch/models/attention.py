@@ -23,7 +23,9 @@ ceil(q_hi / group))``, from the whole ``wk`` and ``wv``; those enter the
 heads' group first, so their gradient (each rank's a part of it) is
 folded there and whole on every rank. A rank's query heads must fill
 whole groups or lie in one group; any other placement is refused. Ranks
-that share a kv head repeat its projection.
+that share a kv head repeat its projection. The QK-norm scales are whole
+on every rank, which normalises its heads alone: they enter the heads'
+group, so their gradients are folded there.
 
 The decode step (:func:`decode_step`, the twin of the reference's) runs
 one token against a :class:`KVCache`, bf16 whatever the compute dtype,
@@ -199,6 +201,12 @@ def full(params: dict, x: torch.Tensor, cfg: AttnConfig,
                              f"query heads do not: {par.spec(decl['wq'])}")
         kv_whole = group is not None and kv_group is None
         x = par.enter(x, decl["wq"], "heads")
+        if group is not None and cfg.qk_norm:
+            # the QK-norm scales are whole on every rank, each of which
+            # normalises its heads alone: their gradients are folded
+            params = dict(params, **{k: common.tree_map(
+                lambda w: sharding.enter_group(w, group), params[k])
+                for k in ("q_norm", "k_norm")})
         if kv_whole:
             kv_lo, kv_hi = kv_heads_of_rank(cfg, group)
             params = dict(params, **{k: sharding.enter_group(params[k], group)

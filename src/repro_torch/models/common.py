@@ -140,9 +140,12 @@ class Parallel(NamedTuple):
     blocks (:func:`local_params`); each is declared by a :class:`P` whose
     logical axes say how it was cut, by ``rules`` (None: the current
     rules, :data:`~repro_torch.distributed.sharding.DEFAULT_RULES`
-    outside a ``use_mesh`` scope)."""
+    outside a ``use_mesh`` scope). ``batch``: the whole batch's sequences,
+    of which the inputs are this rank's block (what the mixture of
+    experts routes together needs it; None elsewhere will do)."""
     mesh: Any
     rules: dict | None = None
+    batch: int | None = None
 
     def spec(self, p: P) -> tuple:
         return sharding.spec_for(p.shape, p.axes, self.mesh, self.rules)
@@ -170,6 +173,18 @@ class Parallel(NamedTuple):
         split runs whole on each of their ranks), or None."""
         axes, _ = sharding.mesh_extent("act_batch", self.mesh, self.rules)
         return sharding.axis_group(self.mesh, axes) if axes else None
+
+    def token_group(self):
+        """The group of the mesh dims that split a batch of ``batch``
+        sequences (its ``"act_batch"`` entry), or None where they leave
+        it whole: the ranks whose tokens together are the batch."""
+        if self.batch is None:
+            raise ValueError("the mixture of experts routes the whole "
+                             "batch: Parallel needs its size (batch=)")
+        axes = sharding.spec_for((self.batch,), ("act_batch",), self.mesh,
+                                 self.rules)[0]
+        return None if axes is None else sharding.axis_group(self.mesh,
+                                                             axes)
 
     def gather(self, w: torch.Tensor, p: P) -> torch.Tensor:
         """``w``, this rank's block of ``p``, with its ``"embed"`` dim whole

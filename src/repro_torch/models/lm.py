@@ -1,17 +1,20 @@
 """The LM model facade on PyTorch, for the transformer families the port
 runs. The twin of ``repro.models.lm``'s ``Model`` (``spec``, ``init``,
 ``abstract_params``, ``forward``, ``loss``) and ``Batch`` for the
-``encoder``, ``dense`` and ``vlm`` families without experts: the inputs
-(the encoder's embeddings; the dense family's token embeddings; the
-VLM's image embeddings ahead of its token embeddings), the pre-norm
-transformer stack, the final norm, the unembedding, and the masked NLL
-over it. The VLM's logits and loss cover its text positions alone.
+``encoder``, ``dense``, ``moe`` and ``vlm`` families: the inputs (the
+encoder's embeddings; the token embeddings; the VLM's image embeddings
+ahead of its token embeddings), the pre-norm transformer stack (its
+feed-forward block the dense MLP, or the mixture of experts where the
+config has experts), the final norm, the unembedding, and the masked NLL
+over it, plus the experts' auxiliary loss summed over the layers. The
+VLM's logits and loss cover its text positions alone.
 
 Sharded (``par``, a :class:`~repro_torch.models.common.Parallel` over
 the blocks of :meth:`Model.param_specs`), the forward is written out:
 the token embedding vocab-parallel over ``"model"`` and folded,
 attention and MLP tensor-parallel over ``"model"`` with their row-parallel
-partials folded, every ``"embed"`` dim (FSDP over ``"data"``) gathered
+partials folded, the experts split over ``"model"`` by expert (or by
+``d_ff``) behind one gather of the batch's token matrix, every ``"embed"`` dim (FSDP over ``"data"``) gathered
 right before its use, the unembedding this rank's vocab block; norms and
 the residual stream replicated. ``Model.loss`` takes the same ``par``
 (the vocab-parallel logsumexp), and autograd differentiates the
@@ -31,9 +34,9 @@ KVCache` of ``(n_layers, b, max_s, kv, hd)`` leaves, written in place;
 sharded, each rank holds its block of it under the
 :func:`~repro_torch.models.attention.cache_axes` spec, and the logits are
 this rank's block of the vocab, as ``forward``'s. The VLM decodes tokens
-alone, as the reference does. Experts, the hybrid and xLSTM families
-and ``"dots"`` remat come with the LM zoo (``ROADMAP.md`` §1 items
-4(c)-(e)).
+alone, as the reference does. The hybrid and xLSTM families and
+``"dots"`` remat come with the LM zoo (``ROADMAP.md`` §1 items
+4(d)-(e)).
 """
 
 from __future__ import annotations
@@ -48,10 +51,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import sharding
 from repro_torch.models import attention, common, mlp
 
-PORTED_FAMILIES = ("dense", "encoder", "vlm")
+PORTED_FAMILIES = ("dense", "encoder", "moe", "vlm")
 #: the ROADMAP.md item each family the port's Model does not take yet
 #: waits for
-UNPORTED_FAMILIES = {"moe": "4(c)", "hybrid": "4(d)", "ssm": "4(e)"}
+UNPORTED_FAMILIES = {"hybrid": "4(d)", "ssm": "4(e)"}
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -72,22 +75,39 @@ def _mlp_cfg(cfg: ModelConfig) -> mlp.MLPConfig:
                          gated=cfg.activation == "silu")
 
 
+def _moe_cfg(cfg: ModelConfig) -> mlp.MoEConfig:
+    return mlp.MoEConfig(d_model=cfg.d_model, d_ff=cfg.d_ff,
+                         n_experts=cfg.n_experts, top_k=cfg.top_k,
+                         capacity_factor=cfg.capacity_factor,
+                         activation=cfg.activation,
+                         dispatch_int8=cfg.moe_dispatch_int8)
+
+
 def _tf_layer_spec(cfg: ModelConfig) -> dict:
-    return {
+    s = {
         "attn_norm": common.norm_spec(cfg.d_model, cfg.norm),
         "attn": attention.spec(_attn_cfg(cfg)),
         "mlp_norm": common.norm_spec(cfg.d_model, cfg.norm),
-        "mlp": mlp.spec(_mlp_cfg(cfg)),
     }
+    if cfg.n_experts:
+        s["moe"] = mlp.moe_spec(_moe_cfg(cfg))
+    else:
+        s["mlp"] = mlp.spec(_mlp_cfg(cfg))
+    return s
 
 
 def _tf_layer(params: dict, x: torch.Tensor, cfg: ModelConfig,
-              par: common.Parallel | None = None) -> torch.Tensor:
-    """Pre-norm transformer block."""
+              par: common.Parallel | None = None
+              ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Pre-norm transformer block: ``(x, the experts' auxiliary loss)``,
+    None for the auxiliary loss of a block without experts."""
     a = common.apply_norm(x, params.get("attn_norm"), cfg.norm)
     x = x + attention.full(params["attn"], a, _attn_cfg(cfg), par=par)
     m = common.apply_norm(x, params.get("mlp_norm"), cfg.norm)
-    return x + mlp.apply(params["mlp"], m, _mlp_cfg(cfg), par=par)
+    if cfg.n_experts:
+        out, aux = mlp.moe_apply(params["moe"], m, _moe_cfg(cfg), par)
+        return x + out, aux
+    return x + mlp.apply(params["mlp"], m, _mlp_cfg(cfg), par=par), None
 
 
 def _tf_layer_decode(params: dict, x: torch.Tensor,
@@ -100,6 +120,9 @@ def _tf_layer_decode(params: dict, x: torch.Tensor,
                                             _attn_cfg(cfg), par, cache_spec)
     x = x + attn_out
     m = common.apply_norm(x, params.get("mlp_norm"), cfg.norm)
+    if cfg.n_experts:
+        out, _ = mlp.moe_apply(params["moe"], m, _moe_cfg(cfg), par)
+        return x + out, cache
     return x + mlp.apply(params["mlp"], m, _mlp_cfg(cfg), par=par), cache
 
 
@@ -109,9 +132,8 @@ def check_decodes(cfg: ModelConfig) -> None:
     Model does not take yet name their ROADMAP.md item."""
     if cfg.is_encoder:
         raise ValueError("encoder-only arch has no decode step")
-    if cfg.family not in ("dense", "vlm") or cfg.n_experts:
-        item = "4(c)" if cfg.n_experts else UNPORTED_FAMILIES.get(
-            cfg.family, "4")
+    if cfg.family not in ("dense", "moe", "vlm"):
+        item = UNPORTED_FAMILIES.get(cfg.family, "4")
         raise NotImplementedError(
             f"{cfg.arch_id}: the {cfg.family} family's decode state comes "
             f"with the LM zoo, ROADMAP.md §1 item {item}")
@@ -181,14 +203,12 @@ class DecodeBatch(NamedTuple):
 
 class Model:
     def __init__(self, cfg: ModelConfig):
-        if cfg.family not in PORTED_FAMILIES or cfg.n_experts:
-            item = "4(c)" if cfg.n_experts else UNPORTED_FAMILIES.get(
-                cfg.family, "4")
+        if cfg.family not in PORTED_FAMILIES:
+            item = UNPORTED_FAMILIES.get(cfg.family, "4")
             raise ValueError(
                 f"{cfg.arch_id}: the port's Model runs the {PORTED_FAMILIES} "
-                f"families without experts; family {cfg.family!r}"
-                f"{' with experts' if cfg.n_experts else ''} comes with the "
-                f"LM zoo, ROADMAP.md §1 item {item}")
+                f"families; family {cfg.family!r} comes with the LM zoo, "
+                f"ROADMAP.md §1 item {item}")
         self.cfg = cfg
         self.compute_dtype = dtype_of(cfg.compute_dtype)
 
@@ -243,24 +263,32 @@ class Model:
         return h
 
     def _trunk(self, params: dict, batch: Batch,
-               par: common.Parallel | None = None) -> torch.Tensor:
+               par: common.Parallel | None = None
+               ) -> tuple[torch.Tensor, torch.Tensor | None]:
         """Inputs -> layer stack -> final norm: the hidden states, the text
-        positions alone (the VLM's image prefix cut after the stack)."""
+        positions alone (the VLM's image prefix cut after the stack), and
+        the experts' auxiliary loss summed over the layers from a float32
+        zero (None without experts)."""
         cfg = self.cfg
         layer = _remat(lambda p, x: _tf_layer(p, x, cfg, par), cfg)
         h = self._inputs_to_h(params, batch, par)
+        aux = None
+        if cfg.n_experts:
+            aux = torch.zeros((), dtype=torch.float32, device=h.device)
         for p in unbind_layers(params["layers"], cfg.n_layers):
-            h = layer(p, h)
+            h, a = layer(p, h)
+            if a is not None:
+                aux = aux + a
         h = common.apply_norm(h, params.get("final_norm"), cfg.norm)
         n_img = self._image_tokens(batch)
-        return h[:, n_img:] if n_img else h
+        return (h[:, n_img:] if n_img else h), aux
 
     def forward(self, params: dict, batch: Batch,
                 par: common.Parallel | None = None) -> torch.Tensor:
         """``batch`` -> ``(b, s, vocab)`` logits in the compute dtype over
         its ``s`` text (or embeds-in) positions (the reference's
-        ``forward``; its MoE auxiliary loss is always 0 here and is not
-        returned). The VLM's image positions are cut before the
+        ``forward``, whose MoE auxiliary loss is not returned: ``loss``
+        adds it). The VLM's image positions are cut before the
         unembedding, which the reference runs over them and then drops.
         Its products run in :func:`~repro_torch.pin_detector_matmul`'s
         scope: float32 ones in full float32, bf16 ones reduced in float32,
@@ -270,7 +298,7 @@ class Model:
         this rank's block of the vocab (``par.group`` of the unembedding's
         ``"vocab"`` dim gathers them)."""
         with pin_detector_matmul():
-            h = self._trunk(params, batch, par)
+            h, _ = self._trunk(params, batch, par)
             return common.unembed(params["unembed"], h, self.compute_dtype,
                                   par, self.cfg.vocab)
 
@@ -290,8 +318,8 @@ class Model:
         vocab of 8192 or more over a sequence of more than ``_LOSS_CHUNK``
         that it divides, the logits are made one chunk of positions at a
         time, each chunk under a checkpoint, so the float32 logits never
-        live for the whole sequence. The MoE auxiliary term is 0 for the
-        ported families and is not added. The products run in
+        live for the whole sequence. The experts' auxiliary loss, summed
+        over the layers, is added to the quotient. The products run in
         :func:`~repro_torch.pin_detector_matmul`'s scope; a caller that
         runs the backward pass keeps it open across both, as
         :mod:`repro_torch.launch.steps`' train step does.
@@ -305,7 +333,9 @@ class Model:
         (``Parallel.batch_group``) before the division, so the loss is
         the whole batch's on every rank. A batch that group does not
         split runs whole on each of its ranks: both sums then count it
-        once a rank, and their ratio is the batch's loss."""
+        once a rank, and their ratio is the batch's loss. The auxiliary
+        loss is the whole batch's on every rank (its gradient this rank's
+        share: :func:`~repro_torch.models.mlp.moe_apply`)."""
         cfg = self.cfg
         unembed = params["unembed"]
         vocab_group, lo = None, 0
@@ -339,7 +369,7 @@ class Model:
             return ((logz - gold) * mask).sum(), mask.sum()
 
         with pin_detector_matmul():
-            h = self._trunk(params, batch, par)
+            h, aux = self._trunk(params, batch, par)
             labels = batch.labels
             s, ch = h.shape[1], self._LOSS_CHUNK
             if s <= ch or s % ch or cfg.vocab < 8192:
@@ -356,7 +386,8 @@ class Model:
             if batch_group is not None:
                 nll = sharding.fold_partials(nll, batch_group)
                 cnt = sharding.fold_partials(cnt, batch_group)
-            return nll / torch.clamp(cnt, min=1.0)
+            loss = nll / torch.clamp(cnt, min=1.0)
+            return loss if aux is None else loss + aux
 
     # ----- decode -----
 

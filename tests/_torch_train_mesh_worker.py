@@ -28,7 +28,9 @@ ARCH = "hubert-xlarge"
 #: CASE_ARCH names another), and (batch, seq): the smoke cell; remat
 #: "full" in bf16 (the collectives inside each layer's recompute); a vocab
 #: of 8192 over 2048 positions (the chunked loss, two checkpointed chunks,
-#: vocab-parallel in each); the dense and vlm families' token batches
+#: vocab-parallel in each); the dense, vlm and moe families' token
+#: batches (the smoke grok-1 with 3 experts, which "model" = 2 does not
+#: divide: each expert's d_ff splits instead, "expert_mlp")
 CASES = {
     "smoke": ({}, (2, 64)),
     "remat-bf16": ({"remat": "full", "compute_dtype": "bfloat16"}, (2, 64)),
@@ -37,9 +39,12 @@ CASES = {
     "internlm2": ({}, (2, 64)),
     "olmo": ({}, (2, 64)),
     "internvl2": ({}, (2, 64)),
+    "qwen3-moe": ({}, (2, 64)),
+    "grok-mlp": ({"n_experts": 3}, (2, 64)),
     "internlm2-decode": ({}, (2, 32)),
     "internlm2-seq": ({}, (2, 32)),
     "olmo-decode": ({}, (2, 32)),
+    "qwen3-moe-decode": ({}, (2, 32)),
 }
 #: the decode cases: (architecture, the cache's valid positions, the
 #: rules over the default rules). (b, s) above is the batch and the
@@ -48,17 +53,23 @@ CASES = {
 #: and along the sequence ("cache_seq") on (1, 4); with "act_kv_heads"
 #: unmapped the cache splits along the sequence on every mesh while the
 #: weights' kv heads still split (its k and v gathered), as internlm2's on
-#: four cards; OLMo's 4 kv heads split over "model"
+#: four cards; OLMo's 4 kv heads split over "model"; the smoke
+#: qwen3-moe's 8 experts over "model" and its tokens gathered over "data"
 DECODE = {"internlm2-decode": ("internlm2-1.8b", 13, None),
           "internlm2-seq": ("internlm2-1.8b", 13, {"act_kv_heads": None}),
-          "olmo-decode": ("olmo-1b", 20, None)}
+          "olmo-decode": ("olmo-1b", 20, None),
+          "qwen3-moe-decode": ("qwen3-moe-235b-a22b", 13, None)}
 TRAIN_CASES = [c for c in CASES if c not in DECODE]
 #: the architecture of each case that is not hubert-xlarge's: internlm2's
 #: 4 heads over 2 kv heads, which (1, 4) splits while it leaves the kv
 #: heads whole (each rank one query head of a group of two); OLMo's
-#: parameter-free norms and MHA; the VLM's image prefix
+#: parameter-free norms and MHA; the VLM's image prefix; the mixture of
+#: experts (each layer's routing global, over the gathered batch)
 CASE_ARCH = {"internlm2": "internlm2-1.8b", "olmo": "olmo-1b",
-             "internvl2": "internvl2-76b"}
+             "internvl2": "internvl2-76b", "qwen3-moe": "qwen3-moe-235b-a22b",
+             "grok-mlp": "grok-1-314b"}
+#: the mixture-of-experts cases, whose routing margins are recorded
+MOE_CASES = ("qwen3-moe", "grok-mlp", "qwen3-moe-decode")
 #: the worlds, each spawned once, and the mesh shapes every rank of one
 #: runs: (4, 1) leaves the smoke batch of 2 whole on every data rank; the
 #: ("pod", "data", "model") (2, 1, 2) splits the batch and every "embed"
@@ -71,15 +82,50 @@ CASE_MESHES = {"chunked": [(1, 1), (1, 2), (2, 2)],
                "internlm2": [(1, 1), (1, 4)],
                "olmo": [(1, 1), (2, 2), (4, 1)],
                "internvl2": [(1, 1), (2, 2), (4, 1)],
+               "qwen3-moe": [(1, 1), (1, 2), (2, 1), (2, 2)],
+               "grok-mlp": [(1, 1), (1, 2), (2, 2)],
                "internlm2-decode": [(1, 1), (1, 2), (2, 2), (1, 4)],
                "internlm2-seq": [(1, 1), (1, 2), (1, 4)],
-               "olmo-decode": [(1, 1), (2, 2), (4, 1)]}
+               "olmo-decode": [(1, 1), (2, 2), (4, 1)],
+               "qwen3-moe-decode": [(1, 1), (1, 2), (2, 1), (2, 2)]}
 #: the detector the cascade's bits are held on: frames, patch, batch
 HW, PATCH, DETECT_BATCH = (16, 16), 8, 2
 
 
 def mesh_key(shape) -> str:
     return "x".join(map(str, shape))
+
+
+#: the least gap, among a token's k + 1 largest router probabilities,
+#: under which two packages (or two layouts) may order its experts
+#: differently: the precondition of every routing held equal
+ROUTING_MARGIN = 1e-6
+
+
+def routing_margin(probs: torch.Tensor, k: int) -> float:
+    """The least gap between neighbours among each token's ``k + 1``
+    largest probabilities (``k`` alone where there are no more experts)."""
+    top = torch.sort(probs.detach().to(torch.float32), dim=-1,
+                     descending=True).values[:, :k + 1]
+    return float((top[:, :-1] - top[:, 1:]).min())
+
+
+def record_margins(fn, *args):
+    """``fn(*args)`` with every routing of the port's ``mlp.route``
+    recorded: ``(its output, the least routing margin, inf for none)``."""
+    from repro_torch.models import mlp
+    route, seen = mlp.route, []
+
+    def recorded(logits, cfg):
+        seen.append(routing_margin(torch.softmax(logits.detach(), -1),
+                                   cfg.top_k))
+        return route(logits, cfg)
+    mlp.route = recorded
+    try:
+        out = fn(*args)
+    finally:
+        mlp.route = route
+    return out, min(seen, default=float("inf"))
 
 
 def arch(case: str) -> str:
@@ -153,11 +199,12 @@ def run_decode(case: str, payload: dict, mesh) -> dict:
     run_to_run = all(torch.equal(a, b) for a, b in zip(
         common.leaves(list(outs[0])), common.leaves(list(outs[1]))))
     args = decode_args(case, payload)
+    margin = float("inf")
     if mesh is None:
-        logits, _ = model.decode_step(*args)
+        (logits, _), margin = record_margins(model.decode_step, *args)
     else:
         st_sh = cell.in_shardings[1]
-        par = common.Parallel(mesh, rules)
+        par = common.Parallel(mesh, rules, CASES[case][1][0])
         logits, _ = model.decode_step(
             *steps.local_args(args, cell.in_shardings, mesh), par, st_sh.k)
         vocab = par.group(common.unembed_spec(cfg.vocab, cfg.d_model)[
@@ -167,7 +214,7 @@ def run_decode(case: str, payload: dict, mesh) -> dict:
         logits = sharding.whole_block(
             logits, (cell.in_shardings[2].tokens[0], None, None), mesh)
     tokens, state = outs[0]
-    return dict(tokens=tokens.numpy(), logits=logits.numpy(),
+    return dict(tokens=tokens.numpy(), logits=logits.numpy(), margin=margin,
                 k=state.k.to(torch.float32).numpy(),
                 v=state.v.to(torch.float32).numpy(), run_to_run=run_to_run,
                 cache_spec=None if mesh is None else cell.in_shardings[1].k)
@@ -210,12 +257,13 @@ def run_case(case: str, payload: dict, mesh) -> dict:
     if mesh is not None:
         args = steps.local_args(args, cell.in_shardings, mesh)
         pargs = steps.local_args(pargs, pcell.in_shardings, mesh)
-        par = common.Parallel(mesh)
+        par = common.Parallel(mesh, None, train.global_batch)
     out = cell.step_fn(*args)
     again = cell.step_fn(*args)
     run_to_run = all(torch.equal(a, b) for a, b in zip(
         common.leaves(list(out)), common.leaves(list(again))))
-    loss, grads = steps.loss_and_grads(lm.Model(cfg), args[0], args[2], par)
+    (loss, grads), margin = record_margins(
+        steps.loss_and_grads, lm.Model(cfg), args[0], args[2], par)
     with torch.no_grad():
         logits = pcell.step_fn(*pargs)
     if mesh is not None:
@@ -229,7 +277,8 @@ def run_case(case: str, payload: dict, mesh) -> dict:
         params=np_leaves(new_params), mu=np_leaves(new_state.mu),
         nu=np_leaves(new_state.nu), step=int(new_state.step),
         logits=logits.to(torch.float32).numpy(), run_to_run=run_to_run,
-        batch_spec=None if mesh is None else cell.in_shardings[2].labels)
+        batch_spec=None if mesh is None else cell.in_shardings[2].labels,
+        margin=margin)
 
 
 def count_case(case: str, payload: dict, mesh) -> dict:

@@ -350,7 +350,8 @@ def test_build_cell_equals_the_reference(arch, mesh):
 
 def test_the_encoder_and_the_other_families_raise():
     """The encoder has no decode step (``ValueError``, as the reference);
-    the MoE, hybrid and xLSTM families name their ROADMAP items."""
+    the hybrid and xLSTM families name their ROADMAP items; the dense,
+    MoE and VLM families decode."""
     cfg = configs.get_config("hubert-xlarge")
     sh = configs.SHAPES["decode_32k"]
     for fn in (steps.build_cell, steps.input_specs):
@@ -362,11 +363,12 @@ def test_the_encoder_and_the_other_families_raise():
         jsteps.input_specs(jconfigs.get_config("hubert-xlarge"),
                            jconfigs.SHAPES["decode_32k"])
     base = configs.get_smoke("internlm2-1.8b")
-    for family, kw, item in (("moe", {"n_experts": 4, "top_k": 2}, "4(c)"),
-                             ("hybrid", {}, "4(d)"), ("ssm", {}, "4(e)")):
+    for family, item in (("hybrid", "4(d)"), ("ssm", "4(e)")):
         with pytest.raises(NotImplementedError, match=re.escape(item)):
-            lm.check_decodes(base.replace(family=family, **kw))
+            lm.check_decodes(base.replace(family=family))
     lm.check_decodes(base)
+    lm.check_decodes(base.replace(family="moe", n_experts=4, top_k=2))
+    lm.check_decodes(configs.get_config("qwen3-moe-235b-a22b"))
 
 
 @pytest.mark.parametrize("rules", [None, {"act_kv_heads": None}])

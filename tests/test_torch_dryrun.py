@@ -12,7 +12,13 @@ plus what the ranks repeat (hubert-xlarge's unembedding, whose vocab of
 projections of a kv head that the ranks sharing it each run, where the
 kv heads do not split 16 ways: in the decode cell, whose cache then
 splits along the sequence, every rank projects all of them), its memory
-``analyze()``'s; a ``not_ported`` row a mesh for each other
+``analyze()``'s; the mixture of experts' ``train_4k``, ``prefill_32k``
+and ``decode_32k`` cells (``qwen3-moe-235b-a22b``, its 128 experts split
+over "model"; ``grok-1-314b``, whose 8 experts 16 does not divide, each
+expert's ``d_ff`` split instead), their FLOPs at least the hand count
+and equal to it plus what the ranks repeat (every "data" rank routes the
+whole batch and runs its experts over every routed token; grok's router,
+whole on every rank); a ``not_ported`` row a mesh for each other
 architecture. In this process, under the dry run's fake process group:
 the production meshes' shapes, a wrong world refused, the two-dim
 ``("pod", "data")`` group; and the fake group's count of the smoke train
@@ -115,6 +121,63 @@ def hand_flops(cfg, shape, kv_heads=None, vocab=None) -> tuple[int, int]:
         return (3 * total + cfg.n_layers * (layer - down)
                 + (unembed if chunked else 0), n * unembed)
     return total, unembed
+
+
+#: the mixture of experts
+MOE_ARCHS = ["qwen3-moe-235b-a22b", "grok-1-314b"]
+MOE_CELLS = [(a, s, m) for a in MOE_ARCHS
+             for s in ("train_4k", "prefill_32k", "decode_32k")
+             for m in ("single", "multi")]
+
+
+def capacity(n: int, cfg) -> int:
+    """``mlp._capacity``: the buffer rows an expert keeps of ``n`` routed
+    tokens."""
+    return max(int(n * cfg.top_k * cfg.capacity_factor / cfg.n_experts),
+               cfg.top_k)
+
+
+def moe_flops(cfg, shape, model: int = 1, data: int = 1) -> int:
+    """The products of a mixture-of-experts cell: per layer q, k, v and o,
+    the scores and ``P·V`` (causal, by query block; one token against the
+    whole cache in decode), the router over every token (float32, ``(d,
+    E)``) and the three expert products at the capacity of the batch's
+    tokens, ``E * C`` rows; the unembedding. Train: three times the
+    forward and, under remat "full", the whole layer again (its last saved
+    tensor is the slot outputs the weighting reads, after ``w_down``), and
+    the chunked loss's unembedding again. Over ``model`` "model" ranks and
+    ``data`` ranks of the batch's dims, what they repeat: kv heads and a
+    vocab ``model`` does not divide (as :func:`repeated_flops` and
+    :func:`decode_flops`), and every data rank's routing and experts over
+    the whole gathered batch; a router ``model`` does not split (its
+    experts fewer than the ranks) on every rank."""
+    d, h, hd = cfg.d_model, cfg.n_heads, cfg.resolved_head_dim
+    b, s, f, e = shape.global_batch, shape.seq_len, cfg.d_ff, cfg.n_experts
+    kv, vocab = cfg.kv_heads, cfg.vocab
+    if vocab % model:
+        vocab *= model
+    router = data * (1 if e % model == 0 else model)
+    if shape.kind == "decode":
+        kv *= model if kv % model else 1
+        c = capacity(b, cfg)
+        layer = (b * (2 * d * (h + 2 * kv) * hd + 2 * h * hd * d
+                      + 2 * 2 * h * s * hd)
+                 + router * 2 * b * d * e + data * 3 * 2 * e * c * d * f)
+        return cfg.n_layers * layer + b * 2 * d * vocab
+    if kv % model:
+        kv = model * max(h // model // (h // kv), 1)
+    t = b * s
+    c = capacity(t, cfg)
+    layer = (2 * t * d * (h + 2 * kv) * hd + 2 * t * h * hd * d
+             + 2 * 2 * b * attn_pairs(s, True) * h * hd
+             + router * 2 * t * d * e + data * 3 * 2 * e * c * d * f)
+    unembed = 2 * b * s * d * vocab
+    total = cfg.n_layers * layer + unembed
+    if shape.kind == "prefill":
+        return total
+    chunked = cfg.vocab >= 8192 and s > 1024 and s % 1024 == 0
+    return (3 * total + (cfg.n_layers * layer if cfg.remat == "full" else 0)
+            + (unembed if chunked else 0))
 
 
 def repeated_flops(cfg, shape) -> int:
@@ -265,6 +328,59 @@ def test_decode_memory_is_analyze(records, arch, mesh):
     assert mb.state_gb == whole / (16 if mesh == "single" else 32) / 16 / 1e9
 
 
+@pytest.mark.parametrize("arch,shape,mesh", MOE_CELLS)
+def test_moe_records_have_the_reference_keys(records, arch, shape, mesh):
+    rec = ok_record(records, shape, mesh, arch)
+    assert set(rec) == REF_KEYS
+    assert rec["chips"] == dryrun.MESH_CHIPS[mesh] and rec["unrolled"]
+    cfg = configs.get_config(arch).replace(n_layers=DEPTH)
+    assert rec["n_params"] == common.spec_param_count(lm.Model(cfg).spec())
+
+
+@pytest.mark.parametrize("arch,shape,mesh", MOE_CELLS)
+def test_moe_flops_are_the_hand_count_plus_repeats(records, arch, shape,
+                                                   mesh):
+    """At least the unsharded hand count, and equal to it with what the
+    ranks repeat: the batch (256, 32 and 128 sequences) splits over the 16
+    or 32 data ranks, each of which routes it whole."""
+    cfg = configs.get_config(arch).replace(n_layers=DEPTH)
+    sh = configs.SHAPES[shape]
+    data = 16 if mesh == "single" else 32
+    got = ok_record(records, shape, mesh, arch)["hlo_gflops"] * 1e9
+    assert got >= moe_flops(cfg, sh)
+    assert got == pytest.approx(moe_flops(cfg, sh, MODEL, data),
+                                rel=1e-12)
+
+
+@pytest.mark.parametrize("arch,shape,mesh", MOE_CELLS)
+def test_moe_memory_is_analyze(records, arch, shape, mesh):
+    cfg = configs.get_config(arch).replace(n_layers=DEPTH)
+    m = ({"data": 16, "model": 16} if mesh == "single"
+         else {"pod": 2, "data": 16, "model": 16})
+    want = memory_model.analyze(cfg, configs.SHAPES[shape], m).total_gb
+    assert ok_record(records, shape, mesh, arch)[
+        "per_device_peak_mem_gb"] == want
+
+
+@pytest.mark.parametrize("mesh", [{"data": 16, "model": 16},
+                                  {"pod": 2, "data": 16, "model": 16}])
+def test_moe_expert_splits_on_the_production_meshes(mesh):
+    """qwen3-moe's 128 experts split over the 16-wide "model"; grok-1's 8
+    do not divide it, so each expert's ``d_ff`` ("expert_mlp") splits
+    there instead, and its router is whole on every "model" rank."""
+    embed = "data" if len(mesh) == 2 else ("pod", "data")
+    qwen = lm.Model(configs.get_config("qwen3-moe-235b-a22b")).param_specs(
+        mesh)["layers"]["moe"]
+    assert qwen["w_gate"] == (None, "model", embed, None)
+    assert qwen["w_down"] == (None, "model", None, embed)
+    assert qwen["router"] == (None, embed, "model")
+    grok = lm.Model(configs.get_config("grok-1-314b")).param_specs(
+        mesh)["layers"]["moe"]
+    assert grok["w_gate"] == grok["w_up"] == (None, None, embed, "model")
+    assert grok["w_down"] == (None, None, "model", embed)
+    assert grok["router"] == (None, embed, None)
+
+
 @pytest.mark.parametrize("arch", sorted(dryrun.NOT_PORTED))
 def test_other_archs_are_not_ported_rows(records, arch):
     rows = [r for r in records if r["arch"] == arch]
@@ -281,9 +397,9 @@ def test_no_failures_and_the_architectures_are_the_reference(records):
     assert set(dryrun.NOT_PORTED) == set(dryrun.ARCH_IDS) - set(
         configs.ARCH_IDS)
     assert not [r for r in records if r["status"] == "fail"]
-    assert sum(r["status"] == "ok" for r in records) == 34
-    assert sum(r["status"] == "not_ported" for r in records) == 8
-    assert len(records) == 42
+    assert sum(r["status"] == "ok" for r in records) == 46
+    assert sum(r["status"] == "not_ported" for r in records) == 4
+    assert len(records) == 50
 
 
 @pytest.mark.parametrize("multi", [False, True])

@@ -97,12 +97,26 @@ def test_model_refuses_unported_families():
                                                             embeds_in=False))
 
 
-@pytest.mark.parametrize("family,item", [("ssm", "4(e)"), ("moe", "4(c)")])
+@pytest.mark.parametrize("family,item", [("ssm", "4(e)"), ("hybrid", "4(d)")])
 def test_model_names_each_family_s_roadmap_item(family, item):
     with pytest.raises(ValueError, match=re.escape(f"item {item}")):
         lm.Model(configs.get_smoke("olmo-1b").replace(family=family))
-    with pytest.raises(ValueError, match=re.escape("item 4(c)")):
-        lm.Model(configs.get_smoke("olmo-1b").replace(n_experts=8, top_k=2))
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "grok-1-314b"])
+def test_model_takes_the_moe_family(arch):
+    """The mixture of experts: its layers hold a ``moe`` subtree (router
+    and the stacked experts) in place of the MLP; a dense config given
+    experts takes it too, as the reference's layer does."""
+    cfg = configs.get_smoke(arch)
+    spec = lm.Model(cfg).spec()["layers"]
+    assert "mlp" not in spec and sorted(spec["moe"]) == [
+        "router", "w_down", "w_gate", "w_up"]
+    assert spec["moe"]["w_gate"].shape == (cfg.n_layers, cfg.n_experts,
+                                           cfg.d_model, cfg.d_ff)
+    olmo = lm.Model(configs.get_smoke("olmo-1b").replace(n_experts=8,
+                                                          top_k=2))
+    assert "moe" in olmo.spec()["layers"]
 
 
 # ---------------------------------------------------------------------------
