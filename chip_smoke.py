@@ -8,6 +8,8 @@
     python3 chip_smoke.py --only decode  # the decode phase alone
     python3 chip_smoke.py --only mesh_decode  # the sharded decode cell
     python3 chip_smoke.py --only moe     # the mixture-of-experts phase
+    python3 chip_smoke.py --only hybrid  # the hybrid (zamba2) phase
+    python3 chip_smoke.py --only hybrid_mesh  # its sharded runs alone
 
 from the root of a checkout, on a machine with one CUDA card (built for
 sm_90a: an H100; with ``--only mesh``, every card of the host joins the
@@ -162,13 +164,15 @@ mesh phase's NCCL world). It
    repro_torch.launch.dryrun --all``, a subprocess on the host's CPU, no
    card, started before the kernels' build; one process a cell, the
    architectures' cells in parallel chains): the sharded train and
-   prefill cells of the eight ported architectures counted on the 16x16
-   and 2x16x16 meshes and the decoders' ``decode_32k`` cells, 46 ``ok``
-   records, their FLOPs the hand count plus what the ranks repeat
-   (hubert-xlarge's unembedding; the k and v projections of the kv
-   heads 16 ranks do not divide; every data rank's routing and experts
-   over the whole gathered batch), their memory ``analyze()``'s, 4
-   ``not_ported`` rows (the two architectures still to port);
+   prefill cells of the nine ported architectures counted on the 16x16
+   and 2x16x16 meshes, the decoders' ``decode_32k`` cells and the
+   hybrid's ``long_500k``, 54 ``ok`` records, their FLOPs the hand count
+   plus what the ranks repeat (hubert-xlarge's unembedding; the k and v
+   projections of the kv heads 16 ranks do not divide; every data rank's
+   routing and experts over the whole gathered batch; the hybrid's
+   ``C·B`` and ``h0 @ emb_proj`` on every "model" rank and long_500k's
+   one sequence on every data rank), their memory ``analyze()``'s, 2
+   ``not_ported`` rows (xlstm-350m, the architecture still to port);
 12. runs the dense and vlm families (``lm`` phase) at full width (bf16,
    remat "full", weights from ``Model.init`` on seeded generators):
    ``internlm2-1.8b`` (24 layers, 16 heads over 8 kv heads, vocab
@@ -211,7 +215,30 @@ mesh phase's NCCL world). It
    against the CPU at 2 layers in float32 (expert ids equal outside the
    routing margin, logits within 1e-4); ``grok-1-314b`` at 1 of 64
    layers, its prefill (capacity 10,240) and timed decode steps;
-15. drives the training path (paper Fig. 5a) at the same width: samples
+15. runs the hybrid (``hybrid`` phase): ``zamba2-1.2b`` at full width
+   and 12 of its 38 layers (two groups, two shared-block calls) sharded
+   in an NCCL world of every card (one card: the (1, 1) train step,
+   prefill and decode step bitwise the unsharded ones; four: (1, 4),
+   (2, 2) and (4, 1), every rank's digests equal, the losses within
+   1e-2 and the prefill logits within 5% of the (1, 4) mesh's); its
+   train and prefill cells counted on meta tensors at full batch, the
+   FLOPs the hand count (the Mamba layers' projections and SSD products
+   by chunk, the six shared-block calls with ``emb_proj``, the
+   unembedding, the recompute), ``analyze()`` on one card and the
+   production meshes; at full width and depth (38 Mamba-2 layers, bf16,
+   remat "full", ``Model.init``'s weights) the train step at 4096
+   tokens x 4 bitwise run to run, also under deterministic algorithms,
+   the 32,768-token prefill bitwise ``Model.forward``, each with ms,
+   tokens/s, TFLOP/s and the peak beside ``analyze()``; the card
+   against the CPU at 6 layers (one shared-block call) in float32 and
+   bf16 (loss, every gradient, the logits); sync-free timed decode steps
+   at ``decode_32k``'s state cut to batch 8 and at ``long_500k`` uncut
+   (524,288 positions, a 25.8 GB bf16 cache) beside their bytes bounds;
+   two greedy runs bitwise; decode against ``Model.forward`` in float32
+   with float32 states within 1e-4 of the largest |logit| (the bf16
+   states' difference recorded); the decode card against the CPU at 6
+   layers; the phase's seconds;
+16. drives the training path (paper Fig. 5a) at the same width: samples
    balanced fragments from 256 synthetic training frames and 128 held-out
    frames (``sensing.fragments``), trains the Fragment model on the
    permutation base (``train_fragment_model``, 20 epochs), scores the
@@ -228,7 +255,7 @@ mesh phase's NCCL world). It
    both encoders the same way at ragged shapes (N, K and D off the tiles,
    K steps that straddle generator rows) for each nonlinearity, and
    reports their tiles, blocks and waves;
-16. drives the int-datapath path (``benchmarks/int_datapath.py``'s
+17. drives the int-datapath path (``benchmarks/int_datapath.py``'s
    claims): the float32 kernel, the live int8 kernel and the expanded-slab
    kernel (the int scorer's retired layout, ``csrc/int_expanded.cu``, on
    the int8 tensor cores) race on one ADC capture at the reference's shape
@@ -253,7 +280,7 @@ mesh phase's NCCL world). It
    equal to the same gate's on the CPU wherever the deciding score sits
    more than 2.5e-4 from ``t_score``, its frames/s, duty cycle and the
    detector FLOPs it saves;
-17. runs Table I and Fig. 16's model comparison (``baselines`` phase):
+18. runs Table I and Fig. 16's model comparison (``baselines`` phase):
    ``benchmarks/common.py``'s noisy 4-bit data made with
    ``sensing.synthetic`` (training noise 0.20; held-out noise 0.30 with
    3% impulse spikes), balanced fragments, at the paper's operating point
@@ -270,7 +297,7 @@ mesh phase's NCCL world). It
    then times, per frame of a 32-frame chunk, the float32 HDC scorer
    against MLP2 on all 25 windows (beside the paper's 2.4x) and
    ``encode_frames`` with and without reuse;
-18. prints one JSON line per phase, a ``kernels`` line, and last
+19. prints one JSON line per phase, a ``kernels`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises: the script exits non-zero and prints no result.
@@ -1710,7 +1737,8 @@ def mesh_rank(rank: int, world: int, root: str, what: str = "all") -> None:
     (:func:`mesh_cascade`) against the parent's unsharded one; then the
     sharded cells and LM_ARCH's decode cell (:func:`mesh_decodes`). With
     ``what`` "decode", the decode cell alone; with "moe", the sharded
-    mixture of experts alone (:func:`mesh_moe`). Writes its records to
+    mixture of experts alone (:func:`mesh_moe`); with "hybrid", the
+    sharded hybrid alone (:func:`mesh_hybrid`). Writes its records to
     ``root/rank<r>.json``; any failed check raises (a non-zero exit)."""
     import datetime
     import torch.distributed as dist
@@ -1737,7 +1765,12 @@ def mesh_rank(rank: int, world: int, root: str, what: str = "all") -> None:
             for shape, mesh, rec in zip(mesh_shapes(world), meshes,
                                         records):
                 rec["moe"] = mesh_moe(mesh, shape, world, root)
-        archs = {"decode": [LM_ARCH], "moe": []}.get(what, list(MESH_CELLS))
+        if what == "hybrid":
+            for shape, mesh, rec in zip(mesh_shapes(world), meshes,
+                                        records):
+                rec["hybrid"] = mesh_hybrid(mesh, shape, world, root)
+        archs = {"decode": [LM_ARCH], "moe": [], "hybrid": []}.get(
+            what, list(MESH_CELLS))
         if what == "all":
             ref = torch.load(root / "payload.pt", map_location=dev,
                              weights_only=False)
@@ -2305,7 +2338,7 @@ def decode_logits(model, params, state, db, cell, mesh, rules):
     par = model_common.Parallel(mesh, rules, DECODE_BATCH)
     cfg = model.cfg
     logits, _ = model.decode_step(params, state, db, par,
-                                  cell.in_shardings[1].k)
+                                  cell.in_shardings[1])
     vocab = par.group(model_common.unembed_spec(cfg.vocab, cfg.d_model)[
         "kernel"], "vocab")
     if vocab is not None:
@@ -2887,7 +2920,11 @@ def cell_matmul_flops(cfg, b: int, s: int, train: bool,
     repeats: kv heads ``model`` does not divide, one a rank
     (``attention.kv_heads_of_rank`` for the published configs), and a
     vocab it does not divide, whole on every rank; over ``data`` ranks,
-    the experts' repeats (:func:`moe_matmul_flops`)."""
+    the experts' repeats (:func:`moe_matmul_flops`). The hybrid's:
+    :func:`hybrid_matmul_flops`."""
+    if cfg.family == "hybrid":
+        return hybrid_matmul_flops(cfg, b, s, "train" if train else
+                                   "prefill", model, data)
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.kv_heads, \
         cfg.resolved_head_dim
     vocab = cfg.vocab
@@ -2917,6 +2954,62 @@ def cell_matmul_flops(cfg, b: int, s: int, train: bool,
                + (unembed if chunked else 0))
         f32 = 3 * f32 + (L * attn if remat else 0)
     return {"bf16": low, "float32": f32, "total": low + f32}
+
+
+def hybrid_matmul_flops(cfg, b: int, s: int, kind: str, model: int = 1,
+                        data: int = 1) -> dict:
+    """Hand count of a hybrid cell's products (``kind`` train, prefill or
+    decode), split as :func:`cell_matmul_flops` splits them. Per Mamba
+    layer the bf16 in and out projections and, in train and prefill, the
+    float32 SSD products by chunk of ``q = min(ssm_chunk, s)`` (``C·B``
+    of each group, its heads' ``L * C·B`` against x, the chunk states
+    and the off-diagonal term), in decode the state against C; per
+    shared-block call ``h0 @ emb_proj``, q, k, v, o and the SwiGLU MLP
+    in bf16, the causal scores and ``P·V`` in float32 (one token against
+    the whole cache in decode); the unembedding. Train: three times the
+    forward, and under remat "full" each layer again but for its last
+    product (``out_proj``; the shared block's ``w_down``), and the
+    chunked loss's unembedding again. Over ``model`` "model" ranks, what
+    they repeat: ``C·B`` of the one group and ``h0 @ emb_proj`` on every
+    rank, a vocab they do not divide; over ``data`` ranks of the batch's
+    dims, a batch they do not split (long_500k's one sequence), whole on
+    every one."""
+    d, di, n, p = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_head_dim
+    hs, h, kv = cfg.ssm_heads, cfg.n_heads, cfg.kv_heads
+    hd, f, L = cfg.resolved_head_dim, cfg.d_ff, cfg.n_layers
+    dproj = 2 * di + 2 * n + hs
+    calls = len(range(cfg.shared_attn_every - 1, L, cfg.shared_attn_every)
+                ) if cfg.shared_attn_every else 0
+    vocab = cfg.vocab * (model if cfg.vocab % model else 1)
+    rep = data if b % data else 1
+    if kind == "decode":
+        low = (L * b * (2 * d * dproj + 2 * di * d)
+               + calls * b * (model * 2 * d * d + 2 * d * (h + 2 * kv) * hd
+                              + 2 * h * hd * d + 3 * 2 * d * f)
+               + b * 2 * d * vocab)
+        f32 = L * b * 2 * hs * p * n + calls * b * 2 * 2 * h * s * hd
+    else:
+        q = min(cfg.ssm_chunk, s)
+        c, t = s // q, b * s
+        out_proj, w_down = 2 * t * di * d, 2 * t * f * d
+        m_low = 2 * t * d * dproj + out_proj
+        m_f32 = (model * 2 * b * c * q * q * n + 2 * b * c * hs * q * q * p
+                 + 2 * 2 * t * hs * p * n)
+        s_low = (model * 2 * t * d * d + 2 * t * d * (h + 2 * kv) * hd
+                 + 2 * t * h * hd * d + 2 * 2 * t * d * f + w_down)
+        s_f32 = 2 * 2 * b * attn_pairs(s, True) * h * hd
+        unembed = 2 * t * d * vocab
+        low = L * m_low + calls * s_low + unembed
+        f32 = L * m_f32 + calls * s_f32
+        if kind == "train":
+            remat = cfg.remat == "full"
+            chunked = cfg.vocab >= 8192 and s > 1024 and s % 1024 == 0
+            low = (3 * low + (L * (m_low - out_proj) + calls * (s_low - w_down)
+                              if remat else 0)
+                   + (unembed if chunked else 0))
+            f32 = 3 * f32 + (L * m_f32 + calls * s_f32 if remat else 0)
+    return {"bf16": rep * low, "float32": rep * f32,
+            "total": rep * (low + f32)}
 
 
 def counted_flops(fn, *args) -> int:
@@ -3257,7 +3350,7 @@ def prefill_cell_run(cfg, params, image_seed: int | None = None) -> dict:
 
 
 # seconds the dry run's subprocesses may take once its records are wanted
-# (its 50 cells take about nine minutes of one host core, the longest
+# (its 56 cells take about eleven minutes of one host core, the longest
 # architecture's, qwen3-moe's 94 layers, about three)
 DRYRUN_TIMEOUT_S = 600
 
@@ -3340,28 +3433,29 @@ def dryrun_stop(dry) -> None:
 
 
 def dryrun_records(proc, out, log) -> list[dict]:
-    """The dry run's records once its processes end: exit 0; 46 ``ok``
-    records (``train_4k`` and ``prefill_32k`` of each ported architecture
-    and ``decode_32k`` of each ported decoder on the 16x16 and 2x16x16
-    meshes), their FLOPs at least the hand count of the products and
-    equal to it plus what the ranks repeat (:func:`cell_matmul_flops`,
-    :func:`decode_matmul_flops`: over the 16 "model" ranks
-    hubert-xlarge's unembedding, a vocab of 504, and the k and v
-    projections of the kv heads 16 does not divide; over the 16 or 32
-    data ranks, the routing and the experts of the whole gathered
-    batch), their memory ``analyze()``'s on the mesh; 4 ``not_ported``
-    rows (each other architecture on each mesh); no ``fail``. Each record
-    printed."""
+    """The dry run's records once its processes end: exit 0; 54 ``ok``
+    records (``train_4k`` and ``prefill_32k`` of each ported architecture,
+    ``decode_32k`` of each ported decoder and the hybrid's ``long_500k``
+    on the 16x16 and 2x16x16 meshes), their FLOPs at least the hand count
+    of the products and equal to it plus what the ranks repeat
+    (:func:`cell_matmul_flops`, :func:`decode_matmul_flops`: over the 16
+    "model" ranks hubert-xlarge's unembedding, a vocab of 504, the k and
+    v projections of the kv heads 16 does not divide, and the hybrid's
+    ``C·B`` and ``h0 @ emb_proj``; over the 16 or 32 data ranks, the
+    routing and the experts of the whole gathered batch, and long_500k's
+    one sequence), their memory ``analyze()``'s on the mesh; 2
+    ``not_ported`` rows (xlstm-350m on each mesh); no ``fail``. Each
+    record printed."""
     rc = proc.wait(timeout=DRYRUN_TIMEOUT_S)
     check(rc == 0, f"dry run: exit {rc}\n{log.read_text()[-3000:]}")
     records = [json.loads(line) for line in out.read_text().splitlines()]
     for r in records:
         emit({"dryrun": r})
     ok = [r for r in records if r["status"] == "ok"]
-    check(len(ok) == 46 and {r["arch"] for r in ok} == set(configs.ARCH_IDS),
+    check(len(ok) == 54 and {r["arch"] for r in ok} == set(configs.ARCH_IDS),
           f"dry run: the ok records {[(r['arch'], r['shape']) for r in ok]}")
-    check(sum(r["status"] == "not_ported" for r in records) == 4
-          and len(records) == 50, "dry run: the not-ported rows")
+    check(sum(r["status"] == "not_ported" for r in records) == 2
+          and len(records) == 56, "dry run: the not-ported rows")
     for r in ok:
         cfg = configs.get_config(r["arch"])
         shape = configs.SHAPES[r["shape"]]
@@ -3494,12 +3588,13 @@ def decode_shape(batch: int = DECODE_BATCH, seq: int | None = None):
 
 def filled_state(model, batch: int, max_seq: int, seed: int, device):
     """A decode state whose every position holds N(0, 1) bf16 keys and
-    values, drawn on ``device`` from ``seed``."""
+    values (the hybrid's: N(0, 1) float32 SSM states and bf16
+    convolution buffers besides), drawn on ``device`` from ``seed``."""
     g = torch.Generator(device=device).manual_seed(seed)
-    return attention.KVCache(*(
-        torch.randn(t.shape, generator=g, device=device,
-                    dtype=torch.bfloat16)
-        for t in model.decode_state_spec(batch, max_seq)))
+    return lm.map_state(
+        lambda t: torch.randn(t.shape, generator=g, device=device,
+                              dtype=t.dtype),
+        model.decode_state_spec(batch, max_seq))
 
 
 def decode_tokens(cfg, shape, seed: int, device) -> torch.Tensor:
@@ -3511,11 +3606,12 @@ def decode_tokens(cfg, shape, seed: int, device) -> torch.Tensor:
 def primed_logits(model, params, tokens, max_seq: int, device,
                   cache_dtype=torch.bfloat16):
     """``tokens`` (b, n) fed one at a time into a zero cache of
-    ``max_seq`` positions (bf16, the model's, or ``cache_dtype``): the
+    ``max_seq`` positions (bf16, the model's, or ``cache_dtype``; the
+    hybrid's convolution buffers too, its SSM states float32): the
     ``(b, n, vocab)`` decode logits."""
-    state = attention.KVCache(*(
-        t.to(cache_dtype) for t in model.init_decode_state(
-            tokens.shape[0], max_seq, device=device)))
+    state = lm.map_state(
+        lambda t: t.to(cache_dtype) if t.dtype == torch.bfloat16 else t,
+        model.init_decode_state(tokens.shape[0], max_seq, device=device))
     index = torch.arange(tokens.shape[1], dtype=torch.int32, device=device)
     outs = []
     for t in range(tokens.shape[1]):
@@ -3544,8 +3640,9 @@ def decode_vs_prefill(cfg, params) -> dict:
     return out
 
 
-def decode_card_vs_cpu(arch: str) -> dict:
-    """``arch`` at CELLS_CHECK_LAYERS in float32 (weights at
+def decode_card_vs_cpu(arch: str, layers: int = CELLS_CHECK_LAYERS
+                       ) -> dict:
+    """``arch`` at ``layers`` in float32 (weights at
     CELLS_WEIGHT_STD, drawn on the CPU): DECODE_CHECK's tokens primed on
     the card and on the CPU, the largest logit difference of the largest
     |logit|. With the cache in float32 (the reference's own float32
@@ -3553,7 +3650,7 @@ def decode_card_vs_cpu(arch: str) -> dict:
     the model's bf16 cache, where a new k or v entry that the two devices
     round to neighbouring bf16 values moves every later step, within PR
     26's bf16 bound (CELLS_TOL)."""
-    cfg = configs.get_config(arch).replace(n_layers=CELLS_CHECK_LAYERS,
+    cfg = configs.get_config(arch).replace(n_layers=layers,
                                            compute_dtype="float32")
     model = lm.Model(cfg)
     b, max_seq, n = DECODE_CHECK
@@ -3570,20 +3667,25 @@ def decode_card_vs_cpu(arch: str) -> dict:
         r = dict(logits_rel_diff=max_abs_diff(got.cpu(), want)
                  / max_abs(want), rtol=rtol)
         check(r["logits_rel_diff"] <= rtol, f"decode: {arch} card vs CPU "
-              f"at {CELLS_CHECK_LAYERS} layers, float32, {name}: {r}")
+              f"at {layers} layers, float32, {name}: {r}")
         out[name] = r
     return out
 
 
-def decode_timed(cfg, params, batch: int = DECODE_BATCH) -> dict:
-    """The decode cell's step at decode_32k's cache cut to ``batch``,
-    filled from a generator, ``index`` its last position: DECODE_WARM
+def decode_timed(cfg, params, batch: int = DECODE_BATCH,
+                 shape=None) -> dict:
+    """The decode cell's step at decode_32k's cache cut to ``batch`` (or
+    at ``shape``), filled from a generator, ``index`` its last position
+    (the hybrid's SSM states and buffers filled too): DECODE_WARM
     steps, then DECODE_TIMED between CUDA events under
     ``set_sync_debug_mode("error")`` (a host sync raises), each step's
-    tokens bitwise the warm one's; one step profiled; the allocator's
+    tokens bitwise the warm one's (the hybrid's recurrent states, which a
+    step advances, copied back from a snapshot before each step, on the
+    device: 38 x 3.2 MB a sequence); one step profiled; the allocator's
     peak beside ``analyze()`` on one device (mesh ``{}``); the bytes
-    bound (the cache and the bf16 weights once) and the FLOPs bound."""
-    shape = decode_shape(batch)
+    bound (the state and the bf16 weights once) and the FLOPs bound."""
+    shape = shape or decode_shape(batch)
+    batch = shape.global_batch
     model = lm.Model(cfg)
     cell = steps.build_cell(cfg, shape)
     torch.cuda.synchronize()
@@ -3592,9 +3694,16 @@ def decode_timed(cfg, params, batch: int = DECODE_BATCH) -> dict:
     db = lm.DecodeBatch(
         decode_tokens(cfg, (batch, 1), SEED + 35, DEVICE),
         torch.tensor(shape.seq_len - 1, dtype=torch.int32, device=DEVICE))
+    recurrent = [(t, t.clone()) for t in model_common.leaves(
+        state["mamba"] if isinstance(state, dict) else [])]
+
+    def step():
+        for t, t0 in recurrent:
+            t.copy_(t0)
+        return cell.step_fn(params, state, db)
     want = None
     for _ in range(DECODE_WARM):
-        tokens, state = cell.step_fn(params, state, db)
+        tokens, _ = step()
         want = fingerprint([tokens]) if want is None else want
     check(fingerprint([tokens]) == want, f"decode: {cfg.arch_id}: two "
           f"steps from one state differ")
@@ -3605,7 +3714,7 @@ def decode_timed(cfg, params, batch: int = DECODE_BATCH) -> dict:
     try:
         start.record()
         for _ in range(DECODE_TIMED):
-            tokens, state = cell.step_fn(params, state, db)
+            tokens, _ = step()
         stop.record()
     finally:
         torch.cuda.set_sync_debug_mode("default")
@@ -3614,15 +3723,20 @@ def decode_timed(cfg, params, batch: int = DECODE_BATCH) -> dict:
     check(fingerprint([tokens]) == want, f"decode: {cfg.arch_id}: a timed "
           f"step's tokens differ from the warm one's")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    prof = device_profile(lambda: cell.step_fn(params, state, db))
-    cache_bytes = sum(t.numel() * t.element_size() for t in state)
+    prof = device_profile(step)
+    del recurrent
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for t in model_common.leaves(state))
     del state
     torch.cuda.empty_cache()
     n_params = model_common.count_params(params)
     hand = decode_matmul_flops(cfg, batch, shape.seq_len)
     return dict(
         arch=cfg.arch_id, layers=cfg.n_layers, batch=batch,
-        cache=shape.seq_len, cut=f"decode_32k's batch 128 -> {batch}",
+        cache=shape.seq_len, cut=(
+            f"{shape.name}'s batch {configs.SHAPES[shape.name].global_batch}"
+            f" -> {batch}" if batch != configs.SHAPES[shape.name].global_batch
+            else f"{shape.name} uncut"),
         index=shape.seq_len - 1, ms_per_step=ms,
         tokens_per_s=batch / (ms / 1e3), sync_free=True,
         bitwise_run_to_run=True, cache_gb=cache_bytes / 1e9,
@@ -3645,7 +3759,10 @@ def decode_matmul_flops(cfg, b: int, s: int, model: int = 1,
     rank repeats: where ``model`` does not divide the kv heads the cache
     splits along the sequence and every rank projects every kv head's k
     and v; a vocab it does not divide, whole on every rank; over
-    ``data`` ranks, the experts' repeats."""
+    ``data`` ranks, the experts' repeats. The hybrid's:
+    :func:`hybrid_matmul_flops`."""
+    if cfg.family == "hybrid":
+        return hybrid_matmul_flops(cfg, b, s, "decode", model, data)
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.kv_heads, \
         cfg.resolved_head_dim
     n_in = 2 if cfg.activation == "silu" else 1
@@ -3673,7 +3790,7 @@ def greedy_run_to_run(cfg, params) -> dict:
                                         device=DEVICE)
         toks = greedy_decode(model, params, prompts, n,
                              decode_shape().seq_len, state=state)
-        runs.append((fingerprint([toks]), fingerprint(list(state))))
+        runs.append((fingerprint([toks]), fingerprint(state)))
         del state
         torch.cuda.empty_cache()
     check(runs[0] == runs[1], f"decode: {cfg.arch_id}: two greedy runs "
@@ -4179,6 +4296,503 @@ def moe_phase(card: str) -> dict:
     return rec
 
 
+# the hybrid (ROADMAP.md §1 item 4(d)): HYBRID_ARCH at full width and
+# depth (38 Mamba-2 layers, the shared attention + MLP block after every
+# 6th), bf16 compute, remat "full", weights from Model.init on a seeded
+# generator: the train step at train_4k's sequence (batch 256 ->
+# CELLS_TRAIN_BATCH), bitwise run to run, also under deterministic
+# algorithms; the prefill at prefill_32k's (batch 32 ->
+# CELLS_PREFILL_BATCH), bitwise Model.forward; the card against the CPU
+# at HYBRID_CHECK_LAYERS (one group and one shared-block call; the
+# cells' CELLS_CHECK_LAYERS would stop before the first block) on
+# HYBRID_CHECK_TOKENS (two SSD chunks), weights at CELLS_WEIGHT_STD,
+# float32 and bf16 within CELLS_TOL; decode_32k's state cut to
+# DECODE_BATCH and long_500k's uncut, DECODE_TIMED sync-free steps each;
+# greedy run to run; decode against Model.forward over DECODE_PRIME
+# tokens in float32 with float32 buffers and caches at CELLS_WEIGHT_STD
+# within DECODE_CPU_RTOL (the bf16 buffers' difference recorded); the
+# decode card against the CPU at HYBRID_CHECK_LAYERS; and HYBRID_ARCH at
+# HYBRID_MESH_LAYERS (two groups, two shared-block calls) sharded over
+# every card (hybrid_world)
+HYBRID_ARCH = "zamba2-1.2b"
+HYBRID_CHECK_LAYERS, HYBRID_CHECK_TOKENS = 6, (1, 512)
+HYBRID_MESH_LAYERS = 12
+
+
+def hybrid_train_run(cfg, params) -> dict:
+    """The full-width train cell at train_4k's sequence, CELLS_TRAIN_BATCH
+    sequences: a warm step, then CELLS_TIMED timed steps from the same
+    state, each bitwise the warm one (:func:`fingerprint`), and one more
+    under ``torch.use_deterministic_algorithms(True)`` (``warn_only``; an
+    op flagged fails), bitwise too; one step profiled; ms, tokens/s and
+    TFLOP/s against the hand count (:func:`hybrid_matmul_flops`), the
+    allocator's peak beside ``analyze()``."""
+    shape = cut_shape("train_4k")
+    b, s = shape.global_batch, shape.seq_len
+    step = steps.build_cell(cfg, shape).step_fn
+    state = steps.make_optimizer(cfg).init(params)
+    batch = cell_batch(cfg, b, s, SEED + 22, DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before_gb = torch.cuda.memory_allocated() / 1e9
+    warm, first_ms = timed_run(step, params, state, batch)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    loss = float(warm[2])
+    check(math.isfinite(loss), f"hybrid: {cfg.arch_id} train loss {loss}")
+    want = fingerprint(list(warm))
+    del warm
+    ms = []
+    for _ in range(CELLS_TIMED):
+        out, t = timed_run(step, params, state, batch)
+        ms.append(t)
+        check(fingerprint(list(out)) == want, f"hybrid: {cfg.arch_id}: two "
+              f"train steps from one state differ")
+        del out
+    before = torch.are_deterministic_algorithms_enabled()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            same = fingerprint(list(step(params, state, batch))) == want
+        finally:
+            torch.use_deterministic_algorithms(before)
+    flagged = sorted({str(w.message)[:160] for w in seen
+                      if "deterministic implementation" in str(w.message)})
+    check(not flagged and same, f"hybrid: {cfg.arch_id}: under "
+          f"deterministic algorithms the step differs or flags {flagged}")
+    prof = device_profile(lambda: step(params, state, batch))
+    hand = hybrid_matmul_flops(cfg, b, s, "train")
+    step_ms = statistics.median(ms)
+    return dict(
+        arch=cfg.arch_id, layers=cfg.n_layers, batch=b, seq=s,
+        cut=f"train_4k's batch 256 -> {b}", loss=loss,
+        first_step_ms=first_ms, ms_per_step=ms, median_ms=step_ms,
+        tokens_per_s=b * s / (step_ms / 1e3), flops_hand=hand,
+        tflops_per_s=hand["total"] / (step_ms / 1e3) / 1e12,
+        bound_ms={"bf16_at_989": hand["bf16"] / BF16_OPS_S * 1e3,
+                  "float32_at_67": hand["float32"] / F32_OPS_S * 1e3},
+        bitwise_run_to_run=True, deterministic_algorithms=dict(
+            bitwise=True, nondeterministic_ops=flagged),
+        allocated_before_gb=before_gb, peak_allocated_gb=peak_gb,
+        memory_model=memory_record(cfg, shape, CELLS_MESHES[0]),
+        profile=prof)
+
+
+def hybrid_check_inputs(dt: str):
+    """HYBRID_ARCH at HYBRID_CHECK_LAYERS in ``dt``: its config, and its
+    weights at CELLS_WEIGHT_STD and its HYBRID_CHECK_TOKENS batch, both
+    drawn on the CPU from seeds (the same in every process)."""
+    cfg = configs.get_config(HYBRID_ARCH).replace(
+        n_layers=HYBRID_CHECK_LAYERS, compute_dtype=dt)
+    return (cfg, scaled_params(cfg, SEED + 53, "cpu"),
+            cell_batch(cfg, *HYBRID_CHECK_TOKENS, SEED + 54, "cpu"))
+
+
+def hybrid_cpu_side(path: str) -> str:
+    """The CPU side of :func:`hybrid_card_vs_cpu`, for a subprocess on the
+    host's CPU (it runs no card): in each of CELLS_TOL's dtypes the loss,
+    the gradients and the prefill logits of :func:`hybrid_check_inputs`,
+    saved to ``path``, on half the host's cores."""
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))
+    out = {}
+    for dt in CELLS_TOL:
+        cfg, params, batch = hybrid_check_inputs(dt)
+        model = lm.Model(cfg)
+        loss, grads = steps.loss_and_grads(model, params, batch)
+        with torch.no_grad():
+            logits = model.forward(params, batch)
+        out[dt] = dict(loss=loss, grads=grads, logits=logits)
+    torch.save(out, path)
+    return path
+
+
+def hybrid_card_vs_cpu(cpu: dict) -> dict:
+    """HYBRID_ARCH at HYBRID_CHECK_LAYERS (one group of Mamba layers and
+    one shared-block call), weights at CELLS_WEIGHT_STD drawn on the CPU,
+    on HYBRID_CHECK_TOKENS, in float32 and bf16 (remat "full"):
+    ``loss_and_grads`` and the prefill logits on the card against
+    ``cpu``, :func:`hybrid_cpu_side`'s record of the same on the CPU; the
+    loss within CELLS_TOL's loss bound (relative) and each gradient leaf
+    and the logits within its gradient bound of their largest
+    |entry|."""
+    out = {}
+    for dt, (loss_tol, grad_tol) in CELLS_TOL.items():
+        cfg, params, batch = hybrid_check_inputs(dt)
+        model = lm.Model(cfg)
+        card = model_common.tree_map(lambda a: a.to(DEVICE), params)
+        batch = batch_to(batch, DEVICE)
+        loss, grads = steps.loss_and_grads(model, card, batch)
+        with torch.no_grad():
+            got = model.forward(card, batch).cpu()
+        want = cpu[dt]
+        r = dict(layers=cfg.n_layers, tokens=list(HYBRID_CHECK_TOKENS),
+                 loss=float(want["loss"]),
+                 loss_rel_diff=abs(float(loss) - float(want["loss"]))
+                 / abs(float(want["loss"])),
+                 grad_rel_diff=leaf_errs(grads, want["grads"]),
+                 logits_rel_diff=max_abs_diff(got, want["logits"])
+                 / max_abs(want["logits"]),
+                 loss_rtol=loss_tol, grad_rtol=grad_tol)
+        check(r["loss_rel_diff"] <= loss_tol and r["grad_rel_diff"] <=
+              grad_tol and r["logits_rel_diff"] <= grad_tol,
+              f"hybrid: card vs CPU {dt} at {cfg.n_layers} layers: {r}")
+        out[dt] = r
+        del card, grads, got
+        torch.cuda.empty_cache()
+    return out
+
+
+def hybrid_vs_prefill() -> dict:
+    """DECODE_PRIME tokens of DECODE_BATCH sequences primed one at a time
+    against ``Model.forward`` on them, HYBRID_ARCH at full width and depth
+    in float32, weights at CELLS_WEIGHT_STD: with float32 buffers and
+    caches within DECODE_CPU_RTOL of the largest |logit| (held); with
+    the model's bf16 ones, which round even the current token's ``xBC``
+    before the convolution, recorded."""
+    cfg = configs.get_config(HYBRID_ARCH).replace(compute_dtype="float32")
+    model = lm.Model(cfg)
+    params = scaled_params(cfg, SEED + 55, DEVICE, draw_device=DEVICE)
+    tokens = decode_tokens(cfg, (DECODE_BATCH, DECODE_PRIME), SEED + 56,
+                           DEVICE)
+    with torch.no_grad():
+        want = model.forward(params, lm.Batch(tokens, None))
+    out = dict(weights=f"std {CELLS_WEIGHT_STD}", compute="float32",
+               tokens=[DECODE_BATCH, DECODE_PRIME], rtol=DECODE_CPU_RTOL,
+               max_abs_logit=max_abs(want))
+    for name, dt in (("float32_states", torch.float32),
+                     ("bf16_states", torch.bfloat16)):
+        got = primed_logits(model, params, tokens, DECODE_PRIME, DEVICE, dt)
+        out[name] = dict(max_abs_diff=max_abs_diff(got, want),
+                         held=dt == torch.float32)
+        del got
+    check(out["float32_states"]["max_abs_diff"]
+          <= DECODE_CPU_RTOL * out["max_abs_logit"],
+          f"hybrid: decode against prefill with float32 states: {out}")
+    del params, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def hybrid_decode(cfg, params) -> dict:
+    """The decode cell at decode_32k's state cut to DECODE_BATCH and at
+    long_500k's uncut (:func:`decode_timed`: sync-free timed steps beside
+    the bytes bound, the peak beside ``analyze()``), and two greedy runs
+    bitwise (:func:`greedy_run_to_run`)."""
+    out = dict(decode_32k=decode_timed(cfg, params))
+    torch.cuda.empty_cache()
+    out["long_500k"] = decode_timed(cfg, params,
+                                    shape=configs.SHAPES["long_500k"])
+    torch.cuda.empty_cache()
+    out["greedy"] = greedy_run_to_run(cfg, params)
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_hybrid(mesh, shape, world: int, root) -> dict:
+    """HYBRID_ARCH at full width and HYBRID_MESH_LAYERS sharded on one
+    mesh, in every rank, the weights drawn whole on the rank's card from
+    a seed at CELLS_WEIGHT_STD (at ``Model.init``'s scale the random
+    hybrid's bf16 logits lie 50% of the largest |logit| off its float32
+    ones at the smoke width, so no two layouts could be held to 5%; at
+    0.02, 1.3%) and cut to this rank's blocks (on a (1, 1) mesh passed as
+    they are): the train step at train_4k's cut from a fresh AdamW state (its
+    collectives counted; the loss and the digests of the gathered
+    parameters and moments; a second step from the same state bitwise),
+    the prefill at prefill_32k's cut (the digest of its gathered logits;
+    on a mesh of several ranks rank 0 keeps its first MOE_MESH_SLICE
+    positions in ``root``) and the decode step at decode_32k's cut (the
+    digests of the next tokens and of the whole logits). On (1, 1) each
+    is held bitwise the unsharded cell's on the same card. ms of each,
+    the peaks beside ``analyze()``."""
+    cfg = configs.get_config(HYBRID_ARCH).replace(
+        n_layers=HYBRID_MESH_LAYERS)
+    model = lm.Model(cfg)
+    one = tuple(shape) == (1, 1)
+    what = f"sharded {HYBRID_ARCH} on a {shape} mesh"
+    torch.cuda.empty_cache()
+    params = scaled_params(cfg, SEED + 57, DEVICE, draw_device=DEVICE)
+    train, prefill, dshape = (cut_shape("train_4k"),
+                              cut_shape("prefill_32k"), decode_shape())
+    tbatch = cell_batch(cfg, train.global_batch, train.seq_len, SEED + 22,
+                        DEVICE)
+    pbatch = cell_batch(cfg, prefill.global_batch, prefill.seq_len,
+                        SEED + 23, DEVICE)
+    db = lm.DecodeBatch(
+        decode_tokens(cfg, (DECODE_BATCH, 1), SEED + 35, DEVICE),
+        torch.tensor(dshape.seq_len - 1, dtype=torch.int32, device=DEVICE))
+    rec = dict(arch=HYBRID_ARCH, mesh=list(shape), layers=cfg.n_layers)
+    want = {}
+    if one:
+        out, rec["unsharded_train_ms"] = wall_ms(
+            steps.build_cell(cfg, train).step_fn, params,
+            steps.make_optimizer(cfg).init(params), tbatch)
+        want["train"] = fingerprint(list(out))
+        del out
+        with torch.no_grad():
+            logits, rec["unsharded_prefill_ms"] = wall_ms(
+                steps.build_cell(cfg, prefill).step_fn, params, pbatch)
+        want["prefill"] = digest(logits)
+        del logits
+        want["decode"], rec["unsharded_decode_ms"] = hybrid_decode_digests(
+            model, params, db, None, None)
+        torch.cuda.empty_cache()
+        local = params
+    else:
+        local = model_common.local_params(params, model.param_specs(mesh),
+                                          mesh)
+        del params
+        torch.cuda.empty_cache()
+
+    # the train step
+    cell = steps.build_cell(cfg, train, mesh)
+    ostate = steps.make_optimizer(cfg).init(local)
+    b = tbatch if one else steps.local_args(tbatch, cell.in_shardings[2],
+                                            mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with sharding.count_collectives() as coll:
+        out, first_ms = wall_ms(cell.step_fn, local, ostate, b)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    loss = float(out[2])
+    check(math.isfinite(loss), f"{what}: loss {loss}")
+    got = fingerprint(list(out))
+    if one:
+        check(got == want["train"], f"{what}: the (1, 1) train step "
+              f"differs from the unsharded one")
+    p_sh, opt_sh, _ = cell.out_shardings
+    digests = dict(params=whole_digests(out[0], p_sh, mesh),
+                   mu=whole_digests(out[1].mu, opt_sh.mu, mesh),
+                   nu=whole_digests(out[1].nu, opt_sh.nu, mesh))
+    del out
+    torch.cuda.empty_cache()
+    again, ms = wall_ms(cell.step_fn, local, ostate, b)
+    check(fingerprint(list(again)) == got,
+          f"{what}: two train steps from one state differ")
+    del again, ostate, b
+    torch.cuda.empty_cache()
+    rec["train"] = dict(
+        tokens=[train.global_batch, train.seq_len], loss=loss,
+        digests=digests, run_to_run_bitwise=True, first_step_ms=first_ms,
+        ms=ms, collectives_per_step=dict(calls=coll.calls, bytes=coll.bytes),
+        peak_allocated_gb=peak_gb,
+        memory_model=memory_record(cfg, train, sharding.mesh_shape(mesh)))
+
+    # the prefill
+    pcell = steps.build_cell(cfg, prefill, mesh)
+    pb = pbatch if one else steps.local_args(pbatch, pcell.in_shardings[1],
+                                             mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        logits, rec["prefill_ms"] = wall_ms(pcell.step_fn, local, pb)
+        logits = sharding.whole_block(logits, pcell.out_shardings, mesh)
+    rec["prefill_peak_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    rec["prefill_digest"] = digest(logits)
+    check(bool(torch.isfinite(logits).all()), f"{what}: prefill logits")
+    if one:
+        check(rec["prefill_digest"] == want["prefill"], f"{what}: the "
+              f"(1, 1) prefill differs from the unsharded one")
+    elif torch.distributed.get_rank() == 0:
+        torch.save(logits[:, :MOE_MESH_SLICE].float().cpu(), pathlib.Path(
+            root) / f"hybrid-{'x'.join(map(str, shape))}.pt")
+    del logits, pb
+    torch.cuda.empty_cache()
+
+    # the decode step
+    rec["decode_digests"], rec["decode_ms"] = hybrid_decode_digests(
+        model, local, db, mesh, steps.build_cell(
+            cfg, dshape, mesh, dict(sharding.DEFAULT_RULES)))
+    if one:
+        check(rec["decode_digests"] == want["decode"], f"{what}: the "
+              f"(1, 1) decode step differs from the unsharded one")
+    del local
+    torch.cuda.empty_cache()
+    rec.update(bitwise_vs_unsharded=one or "not held (a mesh of several "
+               "ranks; the meshes are held against one another)")
+    return rec
+
+
+def hybrid_decode_digests(model, params, db, mesh, cell):
+    """The decode step at decode_32k's cut from a filled state (unsharded
+    with ``mesh`` None, else ``cell``'s on this rank's blocks of it, and
+    ``params`` this rank's blocks), and
+    its logits from a state filled again (the step writes the recurrent
+    state in place): the digests of the next tokens and of the whole
+    logits, and the step's ms."""
+    cfg, dshape = model.cfg, decode_shape()
+
+    def whole():
+        return filled_state(model, DECODE_BATCH, dshape.seq_len, SEED + 34,
+                            DEVICE)
+    if mesh is None:
+        (tokens, _), ms = wall_ms(steps.build_cell(cfg, dshape).step_fn,
+                                  params, whole(), db)
+        logits = decode_logits(model, params, whole(), db, None, None, None)
+        return dict(tokens=digest(tokens), logits=digest(logits)), ms
+    rules = dict(sharding.DEFAULT_RULES)
+    _, st_sh, db_sh = cell.in_shardings
+    ldb = steps.local_args(db, db_sh, mesh)
+    (tokens, _), ms = wall_ms(cell.step_fn, params, steps.local_args(
+        whole(), st_sh, mesh), ldb)
+    tokens = sharding.whole_block(tokens, cell.out_shardings[0], mesh)
+    logits = decode_logits(model, params, steps.local_args(
+        whole(), st_sh, mesh), ldb, cell, mesh, rules)
+    return dict(tokens=digest(tokens), logits=digest(logits)), ms
+
+
+def hybrid_world() -> dict:
+    """HYBRID_ARCH sharded (:func:`mesh_hybrid`) in an NCCL world of every
+    card of the host (:func:`run_world`): every rank's digests and losses
+    the same on each mesh; on several meshes, their losses within
+    CELLS_TOL's bf16 loss bound of the first mesh's ((1, world)) and
+    their prefill logits' first MOE_MESH_SLICE positions within
+    CASCADE_BF16_RTOL of its largest |logit|."""
+    root = ROOT / "build" / "hybrid_mesh"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    world = torch.cuda.device_count()
+    ranks, world_s = run_world(root, world, "hybrid")
+
+    def held(rec):
+        return (rec["prefill_digest"], rec["decode_digests"],
+                rec["train"]["loss"], rec["train"]["digests"])
+    for i, rec in enumerate(ranks[0]):
+        check(all(held(r[i]["hybrid"]) == held(rec["hybrid"])
+                  for r in ranks[1:]),
+              f"sharded {HYBRID_ARCH} on a {rec['mesh']} mesh: the train "
+              f"step, the prefill or the decode step differ between ranks")
+    across = "one mesh"
+    if len(ranks[0]) > 1:
+        first = ranks[0][0]["hybrid"]
+        key0 = "x".join(map(str, first["mesh"]))
+        ref = torch.load(root / f"hybrid-{key0}.pt")
+        across = {}
+        for rec in ranks[0][1:]:
+            key = "x".join(map(str, rec["hybrid"]["mesh"]))
+            got = torch.load(root / f"hybrid-{key}.pt")
+            r = dict(loss_rel_diff=abs(rec["hybrid"]["train"]["loss"]
+                                       - first["train"]["loss"])
+                     / abs(first["train"]["loss"]),
+                     logits_rel_diff=max_abs_diff(got, ref) / max_abs(ref))
+            check(r["loss_rel_diff"] <= CELLS_TOL["bfloat16"][0]
+                  and r["logits_rel_diff"] <= CASCADE_BF16_RTOL,
+                  f"sharded {HYBRID_ARCH}: the {key} mesh against the "
+                  f"{key0} one: {r}")
+            across[f"{key}_vs_{key0}"] = r
+    shutil.rmtree(root, ignore_errors=True)
+    return dict(world=world, ranks=ranks, meshes_agree=across,
+                world_s=world_s)
+
+
+def host_start(call: str):
+    """``chip_smoke.<call>`` in a subprocess on the host's CPU (the call
+    runs no card), beside the card's work; the JSON of its result is read
+    by :func:`host_wait`."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    code = f"import json, chip_smoke; print(json.dumps(chip_smoke.{call}))"
+    return subprocess.Popen([sys.executable, "-c", code], cwd=ROOT, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def host_wait(proc, what: str):
+    """The result of :func:`host_start`'s process once it ends (exit 0:
+    its checks passed)."""
+    out, err = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+    check(proc.returncode == 0, f"{what}: exit {proc.returncode}\n"
+          f"{err[-3000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def host_stop(*procs) -> None:
+    for proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def hybrid_phase(card: str) -> dict:
+    """The hybrid on the card: HYBRID_ARCH sharded over every card
+    (:func:`hybrid_world`, first, while this process holds nothing on the
+    card); at full width and depth the train step, the prefill, the
+    decode steps at decode_32k's cut and long_500k uncut, greedy run to
+    run, decode against prefill, the card against the CPU at
+    HYBRID_CHECK_LAYERS. Two subprocesses on the host's CPU
+    (:func:`host_start`) run beside the sharded world and the train step,
+    both device-bound, and are waited for before the prefill and the
+    decode steps are timed: the CPU side of the card-vs-CPU check
+    (:func:`hybrid_cpu_side`), and the train and prefill cells counted on
+    meta tensors at full batch (:func:`cells_counted`: FLOPs equal to
+    the hand count, ``analyze()`` on one card and the production meshes;
+    and for the decode shapes). Every record carries the card's name and
+    power limit; the phase's wall seconds, and each part's, are
+    printed."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    part_s = {}
+    cpu_path = ROOT / "build" / "hybrid_cpu.pt"
+    cpu_path.parent.mkdir(parents=True, exist_ok=True)
+    counting = host_start(f"cells_counted({HYBRID_ARCH!r})")
+    cpu_side = host_start(f"hybrid_cpu_side({str(cpu_path)!r})")
+    try:
+        rec = {"card": card, "mesh": hybrid_world()}
+        part_s["mesh"] = time.perf_counter() - t0
+        emit({"hybrid": {"card": card, "mesh": rec["mesh"]}})
+        cfg = configs.get_config(HYBRID_ARCH)
+        params = lm.Model(cfg).init(
+            torch.Generator(device=DEVICE).manual_seed(SEED + 50))
+        t = time.perf_counter()
+        rec["train"] = hybrid_train_run(cfg, params)
+        torch.cuda.empty_cache()
+        part_s["train"] = time.perf_counter() - t
+        t = time.perf_counter()
+        cpu = torch.load(host_wait(cpu_side, "hybrid: the CPU side of card "
+                                   "vs CPU"), weights_only=False)
+        cpu_path.unlink()
+        rec["counted"] = host_wait(counting, f"{HYBRID_ARCH}'s cells "
+                                   f"counted")
+        part_s["host_wait"] = time.perf_counter() - t
+    finally:
+        host_stop(counting, cpu_side)
+    for name, r in rec["counted"].items():
+        check(r["flops"] == r["flops_hand"]["total"], f"{HYBRID_ARCH} "
+              f"{name} counts {r['flops']} FLOPs, hand count "
+              f"{r['flops_hand']}")
+    rec["counted"]["memory_decode"] = {
+        name: {"x".join(map(str, m.values())): memory_record(
+            cfg, configs.SHAPES[name], m) for m in CELLS_MESHES}
+        for name in ("decode_32k", "long_500k")}
+    t = time.perf_counter()
+    rec["prefill"] = prefill_cell_run(cfg, params)
+    rec["prefill"]["tokens_per_s"] = (
+        CELLS_PREFILL_BATCH * configs.SHAPES["prefill_32k"].seq_len
+        / (rec["prefill"]["ms"] / 1e3))
+    torch.cuda.empty_cache()
+    part_s["prefill"] = time.perf_counter() - t
+    emit({"hybrid": {"card": card, "train": rec["train"],
+                     "prefill": rec["prefill"]}})
+    t = time.perf_counter()
+    rec["decode"] = hybrid_decode(cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    part_s["decode"] = time.perf_counter() - t
+    emit({"hybrid": {"card": card, "decode": rec["decode"]}})
+    for name, fn in (("vs_prefill", hybrid_vs_prefill),
+                     ("card_vs_cpu", lambda: hybrid_card_vs_cpu(cpu)),
+                     ("decode_card_vs_cpu", lambda: decode_card_vs_cpu(
+                         HYBRID_ARCH, HYBRID_CHECK_LAYERS))):
+        t = time.perf_counter()
+        rec[name] = fn()
+        part_s[name] = time.perf_counter() - t
+    rec["phase_s"] = time.perf_counter() - t0
+    emit({"hybrid": {"card": card, "counted": rec["counted"],
+                     "vs_prefill": rec["vs_prefill"],
+                     "card_vs_cpu": rec["card_vs_cpu"],
+                     "decode_card_vs_cpu": rec["decode_card_vs_cpu"],
+                     "part_s": part_s, "phase_s": rec["phase_s"]}})
+    return rec
+
+
 def device_profile(fn, top: int = 6) -> dict:
     """``fn`` once under ``torch.profiler``: the device busy share of its
     wall time and the device time of its top kernels. The profiler's own
@@ -4196,16 +4810,20 @@ def device_profile(fn, top: int = 6) -> dict:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     # device events only: an operator's row repeats the time of the
-    # kernels it launched
-    rows = sorted(((e.key, e.self_device_time_total)
-                   for e in prof.key_averages()
-                   if e.device_type != torch.autograd.DeviceType.CPU
-                   and e.self_device_time_total > 0), key=lambda kv: -kv[1])
+    # kernels it launched; kernels whose names share their first 80
+    # characters are summed under them
+    by_name: dict[str, float] = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CPU \
+                and e.self_device_time_total > 0:
+            by_name[e.key[:80]] = (by_name.get(e.key[:80], 0.0)
+                                   + e.self_device_time_total)
+    rows = sorted(by_name.items(), key=lambda kv: -kv[1])
     device_us = sum(us for _, us in rows)
     return dict(wall_ms=wall_us / 1e3, device_ms=device_us / 1e3,
                 device_busy_share=(device_us / wall_us if device_us > 0
                                    else "not measured"),
-                top_kernels_ms={k[:80]: us / 1e3 for k, us in rows[:top]})
+                top_kernels_ms={k: us / 1e3 for k, us in rows[:top]})
 
 
 TRAIN_KERNELS = {"hdc_encode_perm": enc_perm, "hdc_encode": enc,
@@ -5512,13 +6130,14 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
         "--only", choices=("mesh", "cells", "lm", "decode", "mesh_decode",
-                           "moe"),
+                           "moe", "hybrid", "hybrid_mesh"),
         help="mesh: build the kernels and run the mesh phase alone (on a "
              "host with several cards: the NCCL world takes every card); "
-             "cells, lm, decode, moe: that phase alone (moe's sharded runs "
-             "in an NCCL world of every card); mesh_decode: the mesh "
-             "phase's sharded decode cell alone, in an NCCL world of every "
-             "card (none of these five runs any of the kernels)")
+             "cells, lm, decode, moe, hybrid: that phase alone (moe's and "
+             "hybrid's sharded runs in an NCCL world of every card); "
+             "mesh_decode, hybrid_mesh: the mesh phase's sharded decode "
+             "cell or the hybrid's sharded runs alone, in an NCCL world of "
+             "every card (none of these runs any of the kernels)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5545,13 +6164,20 @@ def run_phases(args, smi: str, dry) -> int:
         cells_phase(smi, dry)
         ok_line()
         return 0
-    if args.only in ("lm", "decode", "mesh_decode", "moe"):
+    if args.only in ("lm", "decode", "mesh_decode", "moe", "hybrid",
+                     "hybrid_mesh"):
         if args.only == "lm":
             lm_phase(smi)
         elif args.only == "decode":
             decode_phase(smi)
         elif args.only == "moe":
             moe_phase(smi)
+        elif args.only == "hybrid":
+            hybrid_phase(smi)
+        elif args.only == "hybrid_mesh":
+            t0 = time.perf_counter()
+            emit({"hybrid": {"card": smi, "mesh": hybrid_world(),
+                             "phase_s": time.perf_counter() - t0}})
         else:
             mesh_decode_phase()
         ok_line()
@@ -5613,6 +6239,7 @@ def run_phases(args, smi: str, dry) -> int:
     lm_phase(smi)
     decode_phase(smi)
     moe_phase(smi)
+    hybrid_phase(smi)
     train, train_launches, train_records = train_phase(g)
     emit({"train": train})
     for r in train_records:

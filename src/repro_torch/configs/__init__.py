@@ -3,9 +3,10 @@
 Each module defines ``config()`` (the exact numbers) and ``smoke()`` (a
 reduced config of the same family for CPU tests), as in
 ``repro.configs``. The port has the architectures its ported models run,
-in the reference's order: the mixture of experts, the encoder and the
-dense and vlm families; the hybrid and xLSTM ones come with the LM zoo
-(``ROADMAP.md`` §1 items 4(d)-(e)).
+in the reference's order: the hybrid (Mamba-2 with a shared attention
+block), the mixture of experts, the encoder and the dense and vlm
+families; the xLSTM one comes with the LM zoo (``ROADMAP.md`` §1 item
+4(e)).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from repro_torch.configs.base import (SHAPES, SKIP_REASONS,  # noqa: F401
                                       applicable_shapes)
 
 ARCH_IDS = [
+    "zamba2-1.2b",
     "qwen3-moe-235b-a22b",
     "grok-1-314b",
     "hubert-xlarge",

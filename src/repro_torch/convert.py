@@ -1,6 +1,6 @@
 """Carry a HyperSense model's, a Fragment model's, a detector's, an LM's
 or a baseline's weights, an AdamW state or an LM's decode state (its KV
-cache) across into the port.
+cache, or the hybrid's SSM states and KV caches) across into the port.
 
 The tests build a model in the JAX package and hand its arrays over as
 numpy (``np.asarray(jax_model.class_hvs)`` etc.), so that both packages
@@ -20,6 +20,7 @@ from repro_torch.core.hypersense import HyperSenseModel
 from repro_torch.models import common
 from repro_torch.models.attention import KVCache
 from repro_torch.models.lm import dtype_of
+from repro_torch.models.ssm import SSMState
 from repro_torch.sensing.baselines import MLP, TinyConv
 from repro_torch.train.optim import AdamWState
 
@@ -124,6 +125,29 @@ def kv_cache_from_arrays(state, *,
     return KVCache(*(torch.as_tensor(np.asarray(a, np.float32), device=dev
                                      ).to(torch.bfloat16)
                      for a in (state.k, state.v)))
+
+
+def hybrid_state_from_arrays(state, *,
+                             device: str | torch.device | None = None
+                             ) -> dict:
+    """The hybrid's decode state from the reference's (``Model.
+    init_decode_state``'s ``{"mamba": SSMState, "attn": KVCache}``) as
+    numpy arrays, on ``device`` (``None`` -> CUDA, raising without it):
+    the recurrent ``ssm`` leaf in float32, as in both packages; the
+    ``conv`` buffer and the ``k`` and ``v`` leaves in bf16
+    (:func:`kv_cache_from_arrays`: a bf16 leaf passes through float32
+    exactly, a float32 one is rounded)."""
+    dev = resolve_device(device)
+    mamba = state["mamba"]
+
+    def bf16(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev
+                               ).to(torch.bfloat16)
+    # a copy: the decode step writes the state in place
+    return {"mamba": SSMState(
+                torch.tensor(np.asarray(mamba.ssm, np.float32), device=dev),
+                bf16(mamba.conv)),
+            "attn": kv_cache_from_arrays(state["attn"], device=dev)}
 
 
 def baseline_from_arrays(tree, *, kind: str,

@@ -7,8 +7,9 @@ of every parameter's logical axes on the mesh), term by term:
 train:   params(fp32) + adam(mu,nu fp32) + grads(fp32, transient)
          + saved residuals (L x b_loc x s_shard x d, bf16, seq-parallel)
          + max transient (attention block scores / MoE buffers / loss chunk)
-decode:  params(bf16-equivalent) + decode state (each cache leaf's
-         block under ``spec_for`` of its logical axes) + small transients
+decode:  params(bf16-equivalent) + decode state (each leaf's block, the
+         KV caches' and the hybrid's SSM states', under ``spec_for`` of
+         its logical axes) + small transients
 prefill: params + live activations (one layer) + logits
 
 A mesh is a ``DeviceMesh`` with named dimensions or a ``{name: size}``
@@ -45,6 +46,12 @@ def _shards(mshape: dict, spec) -> int:
     for ax in flat:
         n *= mshape[ax]
     return n
+
+
+def _is_axes(x) -> bool:
+    """A leaf of a logical-axes tree: a tuple of names and Nones."""
+    return isinstance(x, tuple) and all(a is None or isinstance(a, str)
+                                        for a in x)
 
 
 def _tree_bytes_per_device(spec_tree, mesh, rules, bytes_per_el: int) -> int:
@@ -130,7 +137,10 @@ def analyze(cfg, shape, mesh, rules=None) -> MemoryBreakdown:
     state_bytes = 0
     if shape.kind == "decode":
         st_spec = model.decode_state_spec(batch=b, max_seq=s)
-        for t, ax in zip(st_spec, steps._decode_state_axes(model)):
+        axes: list = []
+        common.tree_map(axes.append, steps._decode_state_axes(model),
+                        _is_axes)
+        for t, ax in zip(common.leaves(st_spec), axes, strict=True):
             sh = sharding.spec_for(t.shape, ax, mesh, rules)
             state_bytes += (math.prod(t.shape) * t.element_size()
                             // _shards(mesh_axes, sh))

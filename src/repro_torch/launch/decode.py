@@ -24,16 +24,17 @@ import time
 import torch
 
 from repro_torch import configs, resolve_device
-from repro_torch.models import attention, lm
+from repro_torch.models import lm
 
 
 def greedy_decode(model: lm.Model, params: dict, prompts: torch.Tensor,
-                  gen: int, max_seq: int,
-                  state: attention.KVCache | None = None) -> torch.Tensor:
+                  gen: int, max_seq: int, state=None) -> torch.Tensor:
     """``prompts`` ``(b, p)`` int32 on the parameters' device -> ``(b, p +
     gen)`` int32: the prompt, then ``gen`` greedy tokens. ``state``: the
     decode state to fill, in place (by default zeros of ``max_seq``
-    positions)."""
+    positions): the transformer families' ``KVCache``, or the hybrid's
+    dict of SSM states and caches (``convert.hybrid_state_from_arrays``
+    makes one from the reference's)."""
     b, p = prompts.shape
     dev = prompts.device
     if state is None:

@@ -29,8 +29,10 @@ architecture whose family ``lm.Model`` does not take yet gets one
 ``"not_ported"`` row a mesh, naming its ``ROADMAP.md`` item; that is no
 failure. The ``decode_32k`` cells of the ported decoders are counted
 like the others: one token against the 32,768-position cache, split by
-kv heads or, where "model" does not divide them, along the sequence. A
-cell that raises for any other reason is a ``"fail"`` row.
+kv heads or, where "model" does not divide them, along the sequence;
+the hybrid's (zamba2's) Mamba states split by SSM heads, and its
+``long_500k`` cell (524,288 positions at batch 1) counted the same way.
+A cell that raises for any other reason is a ``"fail"`` row.
 
 Usage (on any host, no card):
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch hubert-xlarge \\
@@ -73,7 +75,6 @@ ARCH_IDS = [
 #: the ROADMAP.md item each architecture the port's Model does not take
 #: yet waits for
 NOT_PORTED = {
-    "zamba2-1.2b": "4(d): models/ssm.py and the hybrid family",
     "xlstm-350m": "4(e): models/xlstm.py",
 }
 MESH_CHIPS = {"single": 256, "multi": 512}

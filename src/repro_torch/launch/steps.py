@@ -10,9 +10,11 @@ without a mesh) and its abstract arguments. Cells:
 
 * train — the full step: the loss, its gradients, the AdamW update;
 * prefill — the logits over the whole sequence;
-* decode — one token against a pre-filled KV cache (``serve_step(params,
-  state, batch) -> (next tokens, state)``, the argmax of the last
-  logits, the state written in place as the reference donates it);
+* decode — one token against a pre-filled KV cache (the hybrid's:
+  its Mamba layers' SSM states and convolution buffers and its shared
+  block's caches) (``serve_step(params, state, batch) -> (next tokens,
+  state)``, the argmax of the last logits, the state written in place
+  as the reference donates it);
 * detector — a fixed batch of frames through an embeds-in backbone, the
   gated cascade's downstream step (``build_detector_cell``, with its
   ``mesh=``, ``init_detector_params``).
@@ -21,7 +23,8 @@ With a mesh (a named ``DeviceMesh``; every rank builds the cell and runs
 every step together) the train, prefill and decode steps take this
 rank's blocks, those ``in_shardings`` describes, and return the blocks
 ``out_shardings`` describes (the decode cell's cache split by kv heads,
-or along the sequence where "model" does not divide them, its next
+or along the sequence where "model" does not divide them, the hybrid's
+SSM states by SSM heads and its convolution buffers whole, its next
 tokens the argmax of the vocab blocks gathered): the forward written
 out over the mesh (:class:`~repro_torch.models.common.Parallel`), the loss vocab-parallel
 and folded over the batch's group, the gradients through collectives
@@ -44,7 +47,7 @@ import torch
 from repro_torch import pin_detector_matmul
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.distributed import sharding
-from repro_torch.models import attention, common, lm
+from repro_torch.models import attention, common, lm, ssm
 from repro_torch.models.lm import Batch, DecodeBatch
 from repro_torch.train import optim
 
@@ -269,13 +272,32 @@ def build_prefill_cell(cfg: ModelConfig, shape: ShapeConfig, mesh=None,
     )
 
 
-def _decode_state_axes(model: lm.Model) -> attention.KVCache:
+def _decode_state_axes(model: lm.Model) -> Any:
     """The logical axes of ``decode_state_spec``'s leaves (the leading
-    layer dim's included): the KV cache of the dense, moe and vlm
-    families."""
+    layer dim's included), in the same tree: the KV cache of the dense,
+    moe and vlm families; the hybrid's Mamba states and shared-block
+    caches."""
     lm.check_decodes(model.cfg)
     ax = attention.cache_axes()
-    return attention.KVCache(("layers", *ax.k), ("layers", *ax.v))
+    cache = attention.KVCache(("layers", *ax.k), ("layers", *ax.v))
+    if model.cfg.family != "hybrid":
+        return cache
+    sax = ssm.state_axes()
+    return {"mamba": ssm.SSMState(("layers", *sax.ssm),
+                                  ("layers", *sax.conv)),
+            "attn": cache}
+
+
+def _state_shardings(model: lm.Model, st_abs, mesh, rules):
+    """The spec of every leaf of the decode state ``st_abs`` on
+    ``mesh``, in its tree."""
+    def one(t, axes):
+        if isinstance(axes, dict):
+            return {k: one(t[k], axes[k]) for k in axes}
+        if isinstance(t, torch.Tensor):
+            return sharding.logical_sharding(t.shape, axes, mesh, rules)
+        return type(t)(*(one(a, b) for a, b in zip(t, axes)))
+    return one(st_abs, _decode_state_axes(model))
 
 
 def _decode_batch_specs(shape: ShapeConfig) -> DecodeBatch:
@@ -298,9 +320,7 @@ def build_decode_cell(cfg: ModelConfig, shape: ShapeConfig, mesh=None,
     if mesh is not None:
         rules = rules or sharding.current_rules()
         par = common.Parallel(mesh, rules, shape.global_batch)
-        st_sh = attention.KVCache(*(
-            sharding.logical_sharding(t.shape, ax, mesh, rules)
-            for t, ax in zip(st_abs, _decode_state_axes(model))))
+        st_sh = _state_shardings(model, st_abs, mesh, rules)
         db_sh = DecodeBatch(
             tokens=sharding.logical_sharding((b, 1), ("act_batch", None),
                                              mesh, rules),
@@ -311,8 +331,7 @@ def build_decode_cell(cfg: ModelConfig, shape: ShapeConfig, mesh=None,
         out_sh = (tok_sh, st_sh)
 
     def serve_step(params, state, batch):
-        logits, state = model.decode_step(
-            params, state, batch, par, None if st_sh is None else st_sh.k)
+        logits, state = model.decode_step(params, state, batch, par, st_sh)
         last = logits[:, -1, :]
         vocab_group = None if par is None else par.group(
             common.unembed_spec(cfg.vocab, cfg.d_model)["kernel"], "vocab")

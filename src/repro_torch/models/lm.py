@@ -1,20 +1,27 @@
-"""The LM model facade on PyTorch, for the transformer families the port
-runs. The twin of ``repro.models.lm``'s ``Model`` (``spec``, ``init``,
+"""The LM model facade on PyTorch, for the families the port runs. The
+twin of ``repro.models.lm``'s ``Model`` (``spec``, ``init``,
 ``abstract_params``, ``forward``, ``loss``) and ``Batch`` for the
-``encoder``, ``dense``, ``moe`` and ``vlm`` families: the inputs (the
-encoder's embeddings; the token embeddings; the VLM's image embeddings
-ahead of its token embeddings), the pre-norm transformer stack (its
-feed-forward block the dense MLP, or the mixture of experts where the
-config has experts), the final norm, the unembedding, and the masked NLL
-over it, plus the experts' auxiliary loss summed over the layers. The
-VLM's logits and loss cover its text positions alone.
+``encoder``, ``dense``, ``moe``, ``vlm`` and ``hybrid`` families: the
+inputs (the encoder's embeddings; the token embeddings; the VLM's image
+embeddings ahead of its token embeddings), the layer stack, the final
+norm, the unembedding, and the masked NLL over it, plus the experts'
+auxiliary loss summed over the layers. The transformer families stack
+pre-norm transformer blocks (their feed-forward block the dense MLP, or
+the mixture of experts where the config has experts). The hybrid
+(zamba2) stacks Mamba-2 layers (:mod:`repro_torch.models.ssm`, each
+``x + ssm.apply``) in groups of ``shared_attn_every``, each full group
+followed by the one shared attention + MLP block, fed ``x + h0 @
+emb_proj`` where ``h0`` is the stack's input; a partial last group has
+no shared block. The VLM's logits and loss cover its text positions
+alone.
 
 Sharded (``par``, a :class:`~repro_torch.models.common.Parallel` over
 the blocks of :meth:`Model.param_specs`), the forward is written out:
 the token embedding vocab-parallel over ``"model"`` and folded,
 attention and MLP tensor-parallel over ``"model"`` with their row-parallel
 partials folded, the experts split over ``"model"`` by expert (or by
-``d_ff``) behind one gather of the batch's token matrix, every ``"embed"`` dim (FSDP over ``"data"``) gathered
+``d_ff``) behind one gather of the batch's token matrix, the Mamba-2
+layers by SSM heads, every ``"embed"`` dim (FSDP over ``"data"``) gathered
 right before its use, the unembedding this rank's vocab block; norms and
 the residual stream replicated. ``Model.loss`` takes the same ``par``
 (the vocab-parallel logsumexp), and autograd differentiates the
@@ -24,19 +31,23 @@ residual, ``act_resid_seq``) and ``_opt_barrier`` constrain GSPMD and
 are dropped.
 Layers are stacked on a leading axis (``scan_layers=True``) or kept as a
 list, as in the reference; the stack runs as a Python loop over the
-layers, each layer under ``remat`` when a backward pass will need it
-(``"full"``: a per-layer ``torch.utils.checkpoint``). A stacked tree is
-unbound once a pass, so the backward pass of its views is one ``stack``
-a leaf. The decode step (``decode_state_spec``, ``init_decode_state``,
-``decode_step`` and :class:`DecodeBatch`) runs one token for the whole
-stack against a stacked bf16 :class:`~repro_torch.models.attention.
-KVCache` of ``(n_layers, b, max_s, kv, hd)`` leaves, written in place;
-sharded, each rank holds its block of it under the
-:func:`~repro_torch.models.attention.cache_axes` spec, and the logits are
+layers, each layer (and each call of the hybrid's shared block) under
+``remat`` when a backward pass will need it (``"full"``: a per-layer
+``torch.utils.checkpoint``). A stacked tree is unbound once a pass, so
+the backward pass of its views is one ``stack`` a leaf. The decode step
+(``decode_state_spec``, ``init_decode_state``, ``decode_step`` and
+:class:`DecodeBatch`) runs one token for the whole stack against its
+state, written in place: for the transformer families a stacked bf16
+:class:`~repro_torch.models.attention.KVCache` of ``(n_layers, b,
+max_s, kv, hd)`` leaves; for the hybrid a dict, ``{"mamba":
+SSMState(ssm (n_layers, b, h, p, n) float32, conv (n_layers, b, 3,
+conv_dim) bf16), "attn": KVCache((n_shared_calls, b, max_s, kv, hd)
+bf16)}``. Sharded, each rank holds its block of it under the
+:func:`~repro_torch.models.attention.cache_axes` and
+:func:`~repro_torch.models.ssm.state_axes` specs, and the logits are
 this rank's block of the vocab, as ``forward``'s. The VLM decodes tokens
-alone, as the reference does. The hybrid and xLSTM families and
-``"dots"`` remat come with the LM zoo (``ROADMAP.md`` §1 items
-4(d)-(e)).
+alone, as the reference does. The xLSTM family and ``"dots"`` remat
+come with the LM zoo (``ROADMAP.md`` §1 item 4(e)).
 """
 
 from __future__ import annotations
@@ -49,12 +60,14 @@ import torch.utils.checkpoint
 from repro_torch import pin_detector_matmul, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import sharding
-from repro_torch.models import attention, common, mlp
+from repro_torch.models import attention, common, mlp, ssm
 
-PORTED_FAMILIES = ("dense", "encoder", "moe", "vlm")
+PORTED_FAMILIES = ("dense", "encoder", "hybrid", "moe", "vlm")
 #: the ROADMAP.md item each family the port's Model does not take yet
 #: waits for
-UNPORTED_FAMILIES = {"hybrid": "4(d)", "ssm": "4(e)"}
+UNPORTED_FAMILIES = {"ssm": "4(e)"}
+#: the families whose decode step the port runs
+DECODE_FAMILIES = ("dense", "hybrid", "moe", "vlm")
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -81,6 +94,44 @@ def _moe_cfg(cfg: ModelConfig) -> mlp.MoEConfig:
                          capacity_factor=cfg.capacity_factor,
                          activation=cfg.activation,
                          dispatch_int8=cfg.moe_dispatch_int8)
+
+
+def _ssm_cfg(cfg: ModelConfig) -> ssm.SSMConfig:
+    return ssm.SSMConfig(
+        d_model=cfg.d_model, d_inner=cfg.d_inner, n_heads=cfg.ssm_heads,
+        head_dim=cfg.ssm_head_dim, d_state=cfg.ssm_state,
+        chunk=cfg.ssm_chunk)
+
+
+def _hybrid_positions(cfg: ModelConfig) -> list[int]:
+    """Mamba-layer indices after which the shared attn block runs."""
+    if not cfg.shared_attn_every:
+        return []
+    return list(range(cfg.shared_attn_every - 1, cfg.n_layers,
+                      cfg.shared_attn_every))
+
+
+def _shared_spec(cfg: ModelConfig) -> dict:
+    """The hybrid's shared attention + MLP block and its embedding
+    re-injection."""
+    return {
+        "attn_norm": common.norm_spec(cfg.d_model, cfg.norm),
+        "attn": attention.spec(_attn_cfg(cfg)),
+        "mlp_norm": common.norm_spec(cfg.d_model, cfg.norm),
+        "mlp": mlp.spec(_mlp_cfg(cfg)),
+        "emb_proj": common.P((cfg.d_model, cfg.d_model),
+                             ("embed", "embed")),
+    }
+
+
+def _injected(p: dict, x: torch.Tensor, h0: torch.Tensor, cfg: ModelConfig,
+              par: common.Parallel | None) -> torch.Tensor:
+    """``x + h0 @ emb_proj`` in ``x``'s dtype (``emb_proj``'s first dim
+    gathered under FSDP)."""
+    w = p["emb_proj"]
+    if par is not None:
+        w = par.gather(w, _shared_spec(cfg)["emb_proj"])
+    return x + h0 @ w.to(x.dtype)
 
 
 def _tf_layer_spec(cfg: ModelConfig) -> dict:
@@ -132,7 +183,7 @@ def check_decodes(cfg: ModelConfig) -> None:
     Model does not take yet name their ROADMAP.md item."""
     if cfg.is_encoder:
         raise ValueError("encoder-only arch has no decode step")
-    if cfg.family not in ("dense", "moe", "vlm"):
+    if cfg.family not in DECODE_FAMILIES:
         item = UNPORTED_FAMILIES.get(cfg.family, "4")
         raise NotImplementedError(
             f"{cfg.arch_id}: the {cfg.family} family's decode state comes "
@@ -157,6 +208,16 @@ def unbind_layers(layers, n_layers: int) -> list:
     return [common.tree_map(lambda c: c[i], cols,
                             lambda x: isinstance(x, tuple))
             for i in range(n_layers)]
+
+
+def map_state(fn: Callable, state):
+    """``fn`` at every tensor of a decode state (a ``KVCache``, or the
+    hybrid's dict of ``SSMState`` and ``KVCache``), the structure kept."""
+    if isinstance(state, dict):
+        return {k: map_state(fn, v) for k, v in state.items()}
+    if isinstance(state, tuple):
+        return type(state)(*(map_state(fn, t) for t in state))
+    return fn(state)
 
 
 def _remat(fn: Callable, cfg: ModelConfig) -> Callable:
@@ -214,12 +275,17 @@ class Model:
 
     def spec(self) -> dict:
         cfg = self.cfg
-        layer = _tf_layer_spec(cfg)
         s: dict[str, Any] = {}
         if not cfg.embeds_in:
             s["embed"] = common.embed_spec(cfg.vocab, cfg.d_model)
         s["final_norm"] = common.norm_spec(cfg.d_model, cfg.norm)
         s["unembed"] = common.unembed_spec(cfg.vocab, cfg.d_model)
+        if cfg.family == "hybrid":
+            s["layers"] = common.map_layers(ssm.spec(_ssm_cfg(cfg)),
+                                            cfg.n_layers)
+            s["shared_attn"] = _shared_spec(cfg)
+            return s
+        layer = _tf_layer_spec(cfg)
         s["layers"] = (common.map_layers(layer, cfg.n_layers)
                        if cfg.scan_layers
                        else [layer for _ in range(cfg.n_layers)])
@@ -270,18 +336,50 @@ class Model:
         the experts' auxiliary loss summed over the layers from a float32
         zero (None without experts)."""
         cfg = self.cfg
-        layer = _remat(lambda p, x: _tf_layer(p, x, cfg, par), cfg)
         h = self._inputs_to_h(params, batch, par)
         aux = None
-        if cfg.n_experts:
-            aux = torch.zeros((), dtype=torch.float32, device=h.device)
-        for p in unbind_layers(params["layers"], cfg.n_layers):
-            h, a = layer(p, h)
-            if a is not None:
-                aux = aux + a
+        if cfg.family == "hybrid":
+            h = self._hybrid_forward(params, h, par)
+        else:
+            layer = _remat(lambda p, x: _tf_layer(p, x, cfg, par), cfg)
+            if cfg.n_experts:
+                aux = torch.zeros((), dtype=torch.float32, device=h.device)
+            for p in unbind_layers(params["layers"], cfg.n_layers):
+                h, a = layer(p, h)
+                if a is not None:
+                    aux = aux + a
         h = common.apply_norm(h, params.get("final_norm"), cfg.norm)
         n_img = self._image_tokens(batch)
         return (h[:, n_img:] if n_img else h), aux
+
+    def _hybrid_forward(self, params: dict, h: torch.Tensor,
+                        par: common.Parallel | None) -> torch.Tensor:
+        """The Mamba layers in groups of ``shared_attn_every``, each full
+        group followed by the shared block fed ``x + h0 @ emb_proj``
+        (``h0`` the stack's input); each Mamba layer and each shared-block
+        call under ``remat``."""
+        cfg = self.cfg
+        scfg, acfg, mcfg = _ssm_cfg(cfg), _attn_cfg(cfg), _mlp_cfg(cfg)
+        h0 = h
+        mamba = _remat(lambda p, x: x + ssm.apply(p, x, scfg, par), cfg)
+
+        def shared_fn(p, x):
+            a = common.apply_norm(_injected(p, x, h0, cfg, par),
+                                  p["attn_norm"], cfg.norm)
+            x = x + attention.full(p["attn"], a, acfg, par=par)
+            m = common.apply_norm(x, p["mlp_norm"], cfg.norm)
+            return x + mlp.apply(p["mlp"], m, mcfg, par=par)
+
+        shared = _remat(shared_fn, cfg)
+        layers = unbind_layers(params["layers"], cfg.n_layers)
+        k = cfg.shared_attn_every or cfg.n_layers
+        for lo in range(0, cfg.n_layers, k):
+            hi = min(lo + k, cfg.n_layers)
+            for p in layers[lo:hi]:
+                h = mamba(p, h)
+            if hi - lo == k and cfg.shared_attn_every:
+                h = shared(params["shared_attn"], h)
+        return h
 
     def forward(self, params: dict, batch: Batch,
                 par: common.Parallel | None = None) -> torch.Tensor:
@@ -391,57 +489,112 @@ class Model:
 
     # ----- decode -----
 
-    def decode_state_spec(self, batch: int, max_seq: int
-                          ) -> attention.KVCache:
-        """The decode state as meta tensors: one bf16 cache a layer,
-        stacked, ``(n_layers, batch, max_seq, kv, head_dim)`` a leaf."""
-        check_decodes(self.cfg)
-        one = attention.cache_spec(_attn_cfg(self.cfg), batch, max_seq)
-        return attention.KVCache(*(
-            torch.empty((self.cfg.n_layers, *t.shape), dtype=t.dtype,
-                        device="meta") for t in one))
+    def decode_state_spec(self, batch: int, max_seq: int) -> Any:
+        """The decode state as meta tensors: for the transformer families
+        one bf16 cache a layer, stacked, ``(n_layers, batch, max_seq, kv,
+        head_dim)`` a leaf; for the hybrid ``{"mamba": SSMState, "attn":
+        KVCache}``, each Mamba layer's float32 recurrent state and bf16
+        convolution buffer and each shared-block call's bf16 cache,
+        stacked."""
+        cfg = self.cfg
+        check_decodes(cfg)
+
+        def stacked(n, t):
+            return torch.empty((n, *t.shape), dtype=t.dtype, device="meta")
+        one = attention.cache_spec(_attn_cfg(cfg), batch, max_seq)
+        if cfg.family != "hybrid":
+            return attention.KVCache(*(stacked(cfg.n_layers, t)
+                                       for t in one))
+        n_inv = len(_hybrid_positions(cfg))
+        return {"mamba": ssm.SSMState(*(
+                    stacked(cfg.n_layers, t)
+                    for t in ssm.state_spec(_ssm_cfg(cfg), batch))),
+                "attn": attention.KVCache(*(stacked(n_inv, t)
+                                            for t in one))}
 
     def init_decode_state(self, batch: int, max_seq: int,
-                          device: str | torch.device | None = None
-                          ) -> attention.KVCache:
+                          device: str | torch.device | None = None) -> Any:
         """The decode state, zeros on ``device`` (``None`` -> CUDA, raising
         without it)."""
         dev = resolve_device(device)
-        return attention.KVCache(*(
-            torch.zeros(t.shape, dtype=t.dtype, device=dev)
-            for t in self.decode_state_spec(batch, max_seq)))
+        return map_state(
+            lambda t: torch.zeros(t.shape, dtype=t.dtype, device=dev),
+            self.decode_state_spec(batch, max_seq))
 
-    def decode_step(self, params: dict, state: attention.KVCache,
-                    batch: DecodeBatch, par: common.Parallel | None = None,
-                    state_spec: tuple | None = None
-                    ) -> tuple[torch.Tensor, attention.KVCache]:
+    def decode_step(self, params: dict, state: Any, batch: DecodeBatch,
+                    par: common.Parallel | None = None,
+                    state_spec: Any = None) -> tuple[torch.Tensor, Any]:
         """One token for the whole stack: ``(logits (b, 1, vocab) in the
         compute dtype, state)``, the state written in place at
         ``batch.index`` (the reference's ``decode_step`` under
         ``donate_argnums=(1,)``). No host sync: the index stays on the
         device. The products run in
         :func:`~repro_torch.pin_detector_matmul`'s scope, with no
-        autograd.
+        autograd. The hybrid needs a shared block (``shared_attn_every``):
+        without one the reference's step fails, and so does this one
+        (``ValueError``).
 
         With ``par``, ``params`` are this rank's blocks, ``state`` its
-        block of the whole state under ``state_spec`` (the spec of each
-        leaf, the leading layer dim's included; a block's shape cannot
-        say how it was cut), ``batch.tokens`` its block of the batch, and
-        the logits its block of the vocab, as :meth:`forward`'s."""
+        block of the whole state under ``state_spec`` (the tree of each
+        leaf's spec, the leading layer dim's included; a block's shape
+        cannot say how it was cut), ``batch.tokens`` its block of the
+        batch, and the logits its block of the vocab, as
+        :meth:`forward`'s."""
         check_decodes(self.cfg)
         if par is not None and state_spec is None:
             raise ValueError("a sharded decode step needs the state's spec")
         cfg = self.cfg
-        layer_spec = None if par is None else tuple(state_spec[1:])
+        if cfg.family == "hybrid" and not _hybrid_positions(cfg):
+            raise ValueError(f"{cfg.arch_id}: the hybrid decode step needs "
+                             f"a shared block (shared_attn_every > 0)")
         with torch.no_grad(), pin_detector_matmul():
             h = common.embed(params["embed"], batch.tokens,
                              self.compute_dtype, par, cfg.vocab, cfg.d_model)
-            for i, p in enumerate(unbind_layers(params["layers"],
-                                                cfg.n_layers)):
-                h, _ = _tf_layer_decode(
-                    p, h, attention.KVCache(state.k[i], state.v[i]),
-                    batch.index, cfg, par, layer_spec)
+            if cfg.family == "hybrid":
+                h = self._hybrid_decode(params, h, state, batch.index, par,
+                                        state_spec)
+            else:
+                layer_spec = None if par is None else tuple(
+                    state_spec.k[1:])
+                for i, p in enumerate(unbind_layers(params["layers"],
+                                                    cfg.n_layers)):
+                    h, _ = _tf_layer_decode(
+                        p, h, attention.KVCache(state.k[i], state.v[i]),
+                        batch.index, cfg, par, layer_spec)
             h = common.apply_norm(h, params.get("final_norm"), cfg.norm)
             logits = common.unembed(params["unembed"], h,
                                     self.compute_dtype, par, cfg.vocab)
         return logits, state
+
+    def _hybrid_decode(self, params: dict, h: torch.Tensor, state: dict,
+                       index: torch.Tensor, par: common.Parallel | None,
+                       state_spec: dict | None) -> torch.Tensor:
+        """Each Mamba layer's step against its state, the shared block
+        after each full group against its call's cache, in place."""
+        cfg = self.cfg
+        scfg, acfg, mcfg = _ssm_cfg(cfg), _attn_cfg(cfg), _mlp_cfg(cfg)
+        m_spec = a_spec = None
+        if par is not None:
+            m_spec = ssm.SSMState(*(tuple(t[1:])
+                                    for t in state_spec["mamba"]))
+            a_spec = tuple(state_spec["attn"].k[1:])
+        shared_at = _hybrid_positions(cfg)
+        p = params["shared_attn"]
+        h0 = h
+        inv = 0
+        for i, lp in enumerate(unbind_layers(params["layers"],
+                                             cfg.n_layers)):
+            st = ssm.SSMState(state["mamba"].ssm[i], state["mamba"].conv[i])
+            h = h + ssm.decode_step(lp, h, st, scfg, par, m_spec)
+            if i in shared_at:
+                a = common.apply_norm(_injected(p, h, h0, cfg, par),
+                                      p["attn_norm"], cfg.norm)
+                cache = attention.KVCache(state["attn"].k[inv],
+                                          state["attn"].v[inv])
+                attn_out, _ = attention.decode_step(p["attn"], a, cache,
+                                                    index, acfg, par, a_spec)
+                h = h + attn_out
+                m = common.apply_norm(h, p["mlp_norm"], cfg.norm)
+                h = h + mlp.apply(p["mlp"], m, mcfg, par=par)
+                inv += 1
+        return h

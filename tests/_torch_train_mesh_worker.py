@@ -30,7 +30,12 @@ ARCH = "hubert-xlarge"
 #: of 8192 over 2048 positions (the chunked loss, two checkpointed chunks,
 #: vocab-parallel in each); the dense, vlm and moe families' token
 #: batches (the smoke grok-1 with 3 experts, which "model" = 2 does not
-#: divide: each expert's d_ff splits instead, "expert_mlp")
+#: divide: each expert's d_ff splits instead, "expert_mlp"); the hybrid's
+#: (the smoke zamba2: 8 SSM heads, an in_proj 280 wide and 144
+#: convolution channels, which split into blocks of 140 and 72 on two
+#: ranks while a rank's heads take 64 channels; four SSD chunks of 16),
+#: and at SSM state 7, whose in_proj (278 wide) and convolution (142
+#: channels) (1, 4) leaves whole while it splits the 8 heads
 CASES = {
     "smoke": ({}, (2, 64)),
     "remat-bf16": ({"remat": "full", "compute_dtype": "bfloat16"}, (2, 64)),
@@ -45,6 +50,9 @@ CASES = {
     "internlm2-seq": ({}, (2, 32)),
     "olmo-decode": ({}, (2, 32)),
     "qwen3-moe-decode": ({}, (2, 32)),
+    "zamba2": ({}, (2, 64)),
+    "zamba2-whole": ({"ssm_state": 7}, (2, 32)),
+    "zamba2-decode": ({}, (2, 32)),
 }
 #: the decode cases: (architecture, the cache's valid positions, the
 #: rules over the default rules). (b, s) above is the batch and the
@@ -54,11 +62,14 @@ CASES = {
 #: unmapped the cache splits along the sequence on every mesh while the
 #: weights' kv heads still split (its k and v gathered), as internlm2's on
 #: four cards; OLMo's 4 kv heads split over "model"; the smoke
-#: qwen3-moe's 8 experts over "model" and its tokens gathered over "data"
+#: qwen3-moe's 8 experts over "model" and its tokens gathered over "data";
+#: the smoke zamba2's SSM states by SSM heads, its convolution buffers
+#: whole, its two shared-block caches by kv heads
 DECODE = {"internlm2-decode": ("internlm2-1.8b", 13, None),
           "internlm2-seq": ("internlm2-1.8b", 13, {"act_kv_heads": None}),
           "olmo-decode": ("olmo-1b", 20, None),
-          "qwen3-moe-decode": ("qwen3-moe-235b-a22b", 13, None)}
+          "qwen3-moe-decode": ("qwen3-moe-235b-a22b", 13, None),
+          "zamba2-decode": ("zamba2-1.2b", 13, None)}
 TRAIN_CASES = [c for c in CASES if c not in DECODE]
 #: the architecture of each case that is not hubert-xlarge's: internlm2's
 #: 4 heads over 2 kv heads, which (1, 4) splits while it leaves the kv
@@ -67,7 +78,15 @@ TRAIN_CASES = [c for c in CASES if c not in DECODE]
 #: experts (each layer's routing global, over the gathered batch)
 CASE_ARCH = {"internlm2": "internlm2-1.8b", "olmo": "olmo-1b",
              "internvl2": "internvl2-76b", "qwen3-moe": "qwen3-moe-235b-a22b",
-             "grok-mlp": "grok-1-314b"}
+             "grok-mlp": "grok-1-314b", "zamba2": "zamba2-1.2b",
+             "zamba2-whole": "zamba2-1.2b"}
+#: the hybrid's cases: the random model is ill-conditioned at the other
+#: cases' weight scale (at std 0.2 the reference's own logits move by
+#: 1.3e-5 of the largest |logit| for a 1e-7 relative change of its
+#: weights, in float32), so its weights are drawn at this scale, as
+#: ``chip_smoke.py``'s CELLS_WEIGHT_STD
+HYBRID_CASES = ("zamba2", "zamba2-whole", "zamba2-decode")
+HYBRID_WEIGHT_STD = 0.02
 #: the mixture-of-experts cases, whose routing margins are recorded
 MOE_CASES = ("qwen3-moe", "grok-mlp", "qwen3-moe-decode")
 #: the worlds, each spawned once, and the mesh shapes every rank of one
@@ -87,7 +106,10 @@ CASE_MESHES = {"chunked": [(1, 1), (1, 2), (2, 2)],
                "internlm2-decode": [(1, 1), (1, 2), (2, 2), (1, 4)],
                "internlm2-seq": [(1, 1), (1, 2), (1, 4)],
                "olmo-decode": [(1, 1), (2, 2), (4, 1)],
-               "qwen3-moe-decode": [(1, 1), (1, 2), (2, 1), (2, 2)]}
+               "qwen3-moe-decode": [(1, 1), (1, 2), (2, 1), (2, 2)],
+               "zamba2": [(1, 1), (1, 2), (2, 2), (1, 4)],
+               "zamba2-whole": [(1, 1), (1, 4)],
+               "zamba2-decode": [(1, 1), (1, 2), (2, 2), (1, 4)]}
 #: the detector the cascade's bits are held on: frames, patch, batch
 HW, PATCH, DETECT_BATCH = (16, 16), 8, 2
 
@@ -161,24 +183,37 @@ def decode_shape(case: str):
 
 def decode_args(case: str, payload: dict):
     """``(params, state, batch)`` of the decode case on the CPU: the
-    parameters, the half-filled bf16 cache and the tokens of the payload,
-    the index ``DECODE[case][1]``."""
-    from repro_torch.convert import (kv_cache_from_arrays,
+    parameters, the half-filled bf16 cache (the hybrid's: its float32
+    SSM states, bf16 convolution buffers and caches) and the tokens of
+    the payload, the index ``DECODE[case][1]``."""
+    from repro_torch.convert import (hybrid_state_from_arrays,
+                                     kv_cache_from_arrays,
                                      lm_params_from_arrays)
     from repro_torch.models import lm
     p = payload[case]
     params = lm_params_from_arrays(p["params"], cfg=config(case),
                                    device="cpu")
-    state = kv_cache_from_arrays(p["cache"], device="cpu")
+    state = (hybrid_state_from_arrays if isinstance(p["cache"], dict)
+             else kv_cache_from_arrays)(p["cache"], device="cpu")
     index = torch.tensor(DECODE[case][1], dtype=torch.int32)
     return params, state, lm.DecodeBatch(torch.from_numpy(p["tokens"]),
                                          index)
 
 
+def state_arrays(state) -> dict:
+    """The decode state's leaves as float32 numpy: ``k`` and ``v``, and
+    the hybrid's ``ssm`` and ``conv``."""
+    cache = state["attn"] if isinstance(state, dict) else state
+    out = {"k": cache.k, "v": cache.v}
+    if isinstance(state, dict):
+        out.update(ssm=state["mamba"].ssm, conv=state["mamba"].conv)
+    return {k: t.to(torch.float32).numpy() for k, t in out.items()}
+
+
 def run_decode(case: str, payload: dict, mesh) -> dict:
     """The case's decode cell (twice, each from the whole state) and its
     logits (``Model.decode_step``), on ``mesh`` (this rank's blocks) or
-    unsharded: the next tokens, the logits and the cache after the step,
+    unsharded: the next tokens, the logits and the state after the step,
     whole, as numpy, and the cache's spec."""
     from repro_torch.distributed import sharding
     from repro_torch.launch import steps
@@ -206,7 +241,7 @@ def run_decode(case: str, payload: dict, mesh) -> dict:
         st_sh = cell.in_shardings[1]
         par = common.Parallel(mesh, rules, CASES[case][1][0])
         logits, _ = model.decode_step(
-            *steps.local_args(args, cell.in_shardings, mesh), par, st_sh.k)
+            *steps.local_args(args, cell.in_shardings, mesh), par, st_sh)
         vocab = par.group(common.unembed_spec(cfg.vocab, cfg.d_model)[
             "kernel"], "vocab")
         if vocab is not None:
@@ -214,10 +249,15 @@ def run_decode(case: str, payload: dict, mesh) -> dict:
         logits = sharding.whole_block(
             logits, (cell.in_shardings[2].tokens[0], None, None), mesh)
     tokens, state = outs[0]
+    cache_spec = None
+    if mesh is not None:
+        st_sh = cell.in_shardings[1]
+        cache_spec = (st_sh["attn"] if isinstance(st_sh, dict) else st_sh).k
     return dict(tokens=tokens.numpy(), logits=logits.numpy(), margin=margin,
-                k=state.k.to(torch.float32).numpy(),
-                v=state.v.to(torch.float32).numpy(), run_to_run=run_to_run,
-                cache_spec=None if mesh is None else cell.in_shardings[1].k)
+                run_to_run=run_to_run, cache_spec=cache_spec,
+                ssm_spec=None if mesh is None or not isinstance(
+                    st_sh, dict) else tuple(st_sh["mamba"]),
+                **state_arrays(state))
 
 
 def whole_state(case: str, payload: dict):

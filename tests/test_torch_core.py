@@ -268,7 +268,8 @@ def test_port_imports_no_jax_and_no_reference():
     names = {f.relative_to(ROOT).as_posix() for f in files}
     for module in ("kernels/int_expanded.py", "sensing/synthetic.py",
                    "core/gate.py", "configs/hypersense.py",
-                   "launch/cascade.py", "sensing/stream.py"):
+                   "launch/cascade.py", "sensing/stream.py",
+                   "models/ssm.py"):
         assert f"src/repro_torch/{module}" in names, module
     for f in files:
         for mod in _imported_modules(f):

@@ -18,9 +18,14 @@ over "model"; ``grok-1-314b``, whose 8 experts 16 does not divide, each
 expert's ``d_ff`` split instead), their FLOPs at least the hand count
 and equal to it plus what the ranks repeat (every "data" rank routes the
 whole batch and runs its experts over every routed token; grok's router,
-whole on every rank); a ``not_ported`` row a mesh for each other
-architecture. In this process, under the dry run's fake process group:
-the production meshes' shapes, a wrong world refused, the two-dim
+whole on every rank); the hybrid's (``zamba2-1.2b``'s) four cells,
+``long_500k`` among them (its batch of one whole on every data rank),
+their FLOPs the hand count of the Mamba layers' products (the SSD's by
+chunk) and the shared block's, plus what the ranks repeat (each "model"
+rank's ``C·B`` of the one group and its ``h0 @ emb_proj``, whole); a
+``not_ported`` row a mesh for each other architecture. In this
+process, under the dry run's fake process group: the production
+meshes' shapes, a wrong world refused, the two-dim
 ``("pod", "data")`` group; and the fake group's count of the smoke train
 cell and of the smoke decode cells (by kv heads, along the sequence, and
 along the sequence with the weights' kv heads split) on each 4-rank mesh
@@ -45,12 +50,17 @@ from repro.distributed import roofline as jroofline
 from repro_torch import configs
 from repro_torch.distributed import memory_model, sharding
 from repro_torch.launch import dryrun, mesh as tmesh
-from repro_torch.models import attention, common, lm
+from repro_torch.models import attention, common, lm, ssm
 from repro_torch.train import optim
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCH = "hubert-xlarge"
 DEPTH = 2
+#: the cells' cut: DEPTH layers, and the hybrid's shared block after every
+#: DEPTH of them (at its own cadence of 6 a 2-layer zamba2 would have
+#: none, and its decode step needs one; the other families read no
+#: ``shared_attn_every``)
+OVERRIDE = {"n_layers": DEPTH, "shared_attn_every": DEPTH}
 #: the reference's record keys (``repro.launch.dryrun.run_cell``)
 REF_KEYS = set(jroofline.Roofline("a", "s", "m", 1, 0.0, 0.0, 0.0).to_dict()
                ) | {"n_params", "lower_s", "compile_s", "status", "unrolled"}
@@ -65,7 +75,7 @@ def records(tmp_path_factory):
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
-         "--override", json.dumps({"n_layers": DEPTH}), "--out", str(out)],
+         "--override", json.dumps(OVERRIDE), "--out", str(out)],
         env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
     return [json.loads(line) for line in out.read_text().splitlines()]
@@ -397,9 +407,9 @@ def test_no_failures_and_the_architectures_are_the_reference(records):
     assert set(dryrun.NOT_PORTED) == set(dryrun.ARCH_IDS) - set(
         configs.ARCH_IDS)
     assert not [r for r in records if r["status"] == "fail"]
-    assert sum(r["status"] == "ok" for r in records) == 46
-    assert sum(r["status"] == "not_ported" for r in records) == 4
-    assert len(records) == 50
+    assert sum(r["status"] == "ok" for r in records) == 54
+    assert sum(r["status"] == "not_ported" for r in records) == 2
+    assert len(records) == 56
 
 
 @pytest.mark.parametrize("multi", [False, True])
@@ -461,15 +471,19 @@ def real_counts(tmp_path_factory):
             nu=common.tree_map(np.zeros_like, params)),
         labels=rng.integers(-1, cfg.vocab, (b, s)).astype(np.int32),
         embeds=rng.standard_normal((b, s, cfg.d_model)).astype(np.float32))}
+    def normal(t):
+        return rng.standard_normal(tuple(t.shape)).astype(np.float32)
     for case in TW.DECODE:
         cfg = TW.config(case)
         b, s = TW.CASES[case][1]
-        shape = tuple(lm.Model(cfg).decode_state_spec(b, s).k.shape)
+        spec = lm.Model(cfg).decode_state_spec(b, s)
+        cache = (attention.KVCache(*map(normal, spec))
+                 if cfg.family != "hybrid" else
+                 {"mamba": ssm.SSMState(*map(normal, spec["mamba"])),
+                  "attn": attention.KVCache(*map(normal, spec["attn"]))})
         payload[case] = dict(
             params=np_params(cfg), tokens=rng.integers(
-                0, cfg.vocab, (b, 1)).astype(np.int32),
-            cache=attention.KVCache(*(rng.standard_normal(shape).astype(
-                np.float32) for _ in range(2))))
+                0, cfg.vocab, (b, 1)).astype(np.int32), cache=cache)
     cases = ["smoke", *TW.DECODE]
     ranks = W.spawn((1, 4), [("count", c, ()) for c in cases], payload,
                     str(tmp_path_factory.mktemp("count")),
@@ -519,3 +533,94 @@ def test_the_fake_decode_count_equals_a_real_run(real_counts, shape, case):
     assert rec["hlo_gflops"] == real[0]["flops"] * 4 / 1e9
     assert coll.calls == real[0]["calls"]
     assert coll.bytes == real[0]["bytes"]
+
+
+# ---------------------------------------------------------------------------
+# the hybrid
+# ---------------------------------------------------------------------------
+
+HYBRID = "zamba2-1.2b"
+HYBRID_CELLS = [(sh, m) for sh in ("train_4k", "prefill_32k", "decode_32k",
+                                   "long_500k")
+                for m in ("single", "multi")]
+
+
+def hybrid_cfg():
+    return configs.get_config(HYBRID).replace(**OVERRIDE)
+
+
+def hybrid_flops(cfg, shape, model: int = 1, data: int = 1) -> int:
+    """The products of a hybrid cell: per Mamba layer the in and out
+    projections and, for train and prefill, the SSD's by chunk (``C·B``
+    of each group, its heads' ``L * C·B`` against x, the chunk states and
+    the off-diagonal term), for decode the state against C; per
+    shared-block call ``h0 @ emb_proj``, q, k, v, o, the causal scores and
+    ``P·V`` (one token against the whole cache in decode) and the SwiGLU
+    MLP; the unembedding. Train: three times the forward and, under remat
+    "full", each layer again but its last product (``out_proj``, the
+    shared block's ``w_down``), and the chunked loss's unembedding again.
+    Over ``model`` "model" ranks, what they repeat: ``C·B`` of the one
+    group and ``h0 @ emb_proj`` on every rank; over ``data`` ranks of the
+    batch's dims, a batch they do not split, whole on every one."""
+    d, di, n, p = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_head_dim
+    hs, h, kv = cfg.ssm_heads, cfg.n_heads, cfg.kv_heads
+    hd, f = cfg.resolved_head_dim, cfg.d_ff
+    b, s = shape.global_batch, shape.seq_len
+    dproj = 2 * di + 2 * n + hs
+    calls = len(range(cfg.shared_attn_every - 1, cfg.n_layers,
+                      cfg.shared_attn_every))
+    L, unembed = cfg.n_layers, 2 * b * d * cfg.vocab
+    rep_b = data if b % data else 1
+    if shape.kind == "decode":
+        mamba = b * (2 * d * dproj + 2 * hs * p * n + 2 * di * d)
+        shared = b * (model * 2 * d * d + 2 * d * (h + 2 * kv) * hd
+                      + 2 * h * hd * d + 2 * 2 * h * s * hd + 3 * 2 * d * f)
+        return rep_b * (L * mamba + calls * shared + unembed)
+    q = min(cfg.ssm_chunk, s)
+    c, t = s // q, b * s
+    out_proj, w_down = 2 * t * di * d, 2 * t * f * d
+    mamba = (2 * t * d * dproj + out_proj + model * 2 * b * c * q * q * n
+             + 2 * b * c * hs * q * q * p + 2 * 2 * t * hs * p * n)
+    shared = (model * 2 * t * d * d + 2 * t * d * (h + 2 * kv) * hd
+              + 2 * t * h * hd * d + 2 * 2 * b * attn_pairs(s, True) * h * hd
+              + 2 * 2 * t * d * f + w_down)
+    fwd = L * mamba + calls * shared + unembed * s
+    if shape.kind == "prefill":
+        return rep_b * fwd
+    chunked = cfg.vocab >= 8192 and s > 1024 and s % 1024 == 0
+    remat = (L * (mamba - out_proj) + calls * (shared - w_down)
+             if cfg.remat == "full" else 0)
+    return rep_b * (3 * fwd + remat + (unembed * s if chunked else 0))
+
+
+@pytest.mark.parametrize("shape,mesh", HYBRID_CELLS)
+def test_hybrid_records_have_the_reference_keys(records, shape, mesh):
+    rec = ok_record(records, shape, mesh, HYBRID)
+    assert set(rec) == REF_KEYS
+    assert rec["chips"] == dryrun.MESH_CHIPS[mesh] and rec["unrolled"]
+    assert rec["n_params"] == common.spec_param_count(
+        lm.Model(hybrid_cfg()).spec())
+
+
+@pytest.mark.parametrize("shape,mesh", HYBRID_CELLS)
+def test_hybrid_flops_are_the_hand_count_plus_repeats(records, shape, mesh):
+    """Its 64 SSM heads, 32 heads, 32 kv heads, d_ff and vocab all split
+    16 ways; every "model" rank repeats ``C·B`` and ``h0 @ emb_proj``;
+    long_500k's batch of one runs whole on each of the 16 or 32 data
+    ranks."""
+    cfg, sh = hybrid_cfg(), configs.SHAPES[shape]
+    data = 16 if mesh == "single" else 32
+    got = ok_record(records, shape, mesh, HYBRID)["hlo_gflops"] * 1e9
+    assert got > hybrid_flops(cfg, sh)
+    assert got == pytest.approx(hybrid_flops(cfg, sh, MODEL, data),
+                                rel=1e-12)
+
+
+@pytest.mark.parametrize("shape,mesh", HYBRID_CELLS)
+def test_hybrid_memory_is_analyze(records, shape, mesh):
+    m = ({"data": 16, "model": 16} if mesh == "single"
+         else {"pod": 2, "data": 16, "model": 16})
+    want = memory_model.analyze(hybrid_cfg(), configs.SHAPES[shape],
+                                m).total_gb
+    assert ok_record(records, shape, mesh, HYBRID)[
+        "per_device_peak_mem_gb"] == want

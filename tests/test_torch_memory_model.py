@@ -9,6 +9,9 @@ reference takes a ``jax.sharding.AbstractMesh``, the port a
 ``{name: size}`` mapping of the same shape. Both compute on Python
 integers, so every term must be equal, not close. ``fits_h100`` replaces
 the reference's ``fits_v5e``: the same total against 80 GB, not 16.
+The hybrid ``zamba2-1.2b``, full and smoke, at all four shapes (its
+decode states a dict of SSM states and caches) on one device, (1, 1),
+16x16 and 2x16x16.
 """
 
 import dataclasses
@@ -111,3 +114,39 @@ def test_decode_raises_as_the_reference():
         mm.analyze(cfg, configs.SHAPES["decode_32k"], tm)
     with pytest.raises(ValueError, match="no decode step"):
         jmm.analyze(jcfg, jconfigs.SHAPES["decode_32k"], jm)
+
+
+HYBRID = "zamba2-1.2b"
+HYBRID_MESHES = {"one": (), "1x1": (1, 1), "16x16": (16, 16),
+                 "2x16x16": (2, 16, 16)}
+
+
+@pytest.mark.parametrize("mesh", list(HYBRID_MESHES))
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k",
+                                   "long_500k"])
+@pytest.mark.parametrize("which", ["get_config", "get_smoke"])
+def test_hybrid_analyze_equals_the_reference(which, shape, mesh):
+    """zamba2 on every shape, the two decode shapes' states (the Mamba
+    layers' float32 SSM states split by heads, their bf16 convolution
+    buffers whole on "model", the shared block's caches by kv heads)
+    flattened from the dict in one order with their axes."""
+    jcfg = getattr(jconfigs, which)(HYBRID)
+    cfg = getattr(configs, which)(HYBRID)
+    dims = HYBRID_MESHES[mesh]
+    names = {0: (), 2: ("data", "model"), 3: ("pod", "data", "model")}[
+        len(dims)]
+    same_breakdown(mm.analyze(cfg, configs.SHAPES[shape],
+                              dict(zip(names, dims))),
+                   jmm.analyze(jcfg, jconfigs.SHAPES[shape],
+                               jax.sharding.AbstractMesh(dims, names)))
+
+
+def test_hybrid_long_500k_state():
+    """long_500k uncut on one card: the six shared-block calls' bf16
+    caches (25.77 GB) and 38 layers' SSM states and buffers."""
+    cfg = configs.get_config(HYBRID)
+    mb = mm.analyze(cfg, configs.SHAPES["long_500k"], {})
+    cache = 6 * 2 * 524288 * 32 * 64 * 2
+    ssm = 38 * (64 * 64 * 64 * 4 + 3 * (4096 + 2 * 64) * 2)
+    assert mb.state_gb == (cache + ssm) / 1e9
+    assert mb.fits_h100 and round(cache / 1e9, 2) == 25.77

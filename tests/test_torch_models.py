@@ -86,18 +86,18 @@ def test_ported_archs_are_the_reference_order():
 
 
 def test_unported_arch_names_the_roadmap_item():
-    assert "zamba2-1.2b" in jconfigs.ARCH_IDS
+    assert "xlstm-350m" in jconfigs.ARCH_IDS
     with pytest.raises(ValueError, match="item 4"):
-        configs.get_config("zamba2-1.2b")
+        configs.get_config("xlstm-350m")
 
 
 def test_model_refuses_unported_families():
-    with pytest.raises(ValueError, match=re.escape("item 4(d)")):
-        lm.Model(configs.get_smoke("hubert-xlarge").replace(family="hybrid",
+    with pytest.raises(ValueError, match=re.escape("item 4(e)")):
+        lm.Model(configs.get_smoke("hubert-xlarge").replace(family="ssm",
                                                             embeds_in=False))
 
 
-@pytest.mark.parametrize("family,item", [("ssm", "4(e)"), ("hybrid", "4(d)")])
+@pytest.mark.parametrize("family,item", [("ssm", "4(e)")])
 def test_model_names_each_family_s_roadmap_item(family, item):
     with pytest.raises(ValueError, match=re.escape(f"item {item}")):
         lm.Model(configs.get_smoke("olmo-1b").replace(family=family))

@@ -8,7 +8,12 @@ shape of its world: (1, 1); (1, 2), (2, 1); (2, 2), (1, 4), (4, 1) and a
 internlm2-1.8b on (1, 4), whose 4 query heads split while its 2 kv heads
 stay whole (each rank one query head of a group of two); the smoke
 olmo-1b (parameter-free norms, MHA) and internvl2-76b (the image prefix)
-on (2, 2) and (4, 1); each also on (1, 1).
+on (2, 2) and (4, 1); the smoke zamba2-1.2b (the hybrid, by SSM heads:
+its in_proj and convolution blocks, which are not one rank's heads,
+gathered and cut) on (1, 2), (2, 2) and (1, 4), and at SSM state 7 on
+(1, 4), where those blocks stay whole; each also on (1, 1). The hybrid's
+weights are drawn at ``TW.HYBRID_WEIGHT_STD`` (0.02), where the random
+model is well conditioned.
 
 Every rank cuts its blocks from one whole mid-run state (numpy arrays:
 weights at ``WEIGHT_STD``, as in ``tests/test_torch_cells.py``, moments
@@ -31,14 +36,18 @@ internlm2-1.8b with its 2 kv heads split over "model" on (1, 2) and
 (2, 2) and its cache split along the sequence ("cache_seq") on (1, 4),
 and again with "act_kv_heads" unmapped (the cache along the sequence on
 every mesh, the weights' kv heads split on (1, 2)); the smoke olmo-1b on
-(2, 2) and (4, 1); each on (1, 1). One step from a half-filled bf16
-cache (numpy, the same for every side), twice: the next tokens equal to
-the unsharded port's and the reference's jitted ``decode_step``'s, the
-logits within ``GRAD_RTOL`` of their largest |logit|, the cache after
-the step within one bf16 ulp of both (the new k and v rounded from
-float32 sums in another order); every rank bitwise the same, run to
-run, and (1, 1) bitwise the unsharded step; the cache's spec the split
-named.
+(2, 2) and (4, 1); the smoke zamba2 (its float32 SSM states by heads,
+its bf16 convolution buffers whole, its two shared-block caches by kv
+heads) on (1, 2), (2, 2) and (1, 4); each on (1, 1). One step from a
+half-filled bf16 cache (numpy, the same for every side; the hybrid's
+float32 SSM states and bf16 buffers N(0, 1)), twice: the next tokens
+equal to the unsharded port's and the reference's jitted
+``decode_step``'s, the logits within ``GRAD_RTOL`` of their largest
+|logit|, the cache (and the hybrid's buffers) after the step within one
+bf16 ulp of both (the new k and v rounded from float32 sums in another
+order), the hybrid's SSM states within ``GRAD_RTOL``; every rank
+bitwise the same, run to run, and (1, 1) bitwise the unsharded step;
+the cache's spec the split named.
 
 Tolerances, float32: the loss within ``LOSS_RTOL``, each gradient and
 each leaf after AdamW within ``GRAD_RTOL`` of its largest |entry| (the
@@ -66,8 +75,9 @@ from repro import configs as jconfigs
 from repro.launch import steps as jsteps
 from repro.models import attention as jattention
 from repro.models import lm as jlm
+from repro.models import ssm as jssm
 from repro.train import optim as joptim
-from repro_torch.models import attention, common, lm
+from repro_torch.models import attention, common, lm, ssm
 from repro_torch.train import optim
 
 jax.config.update("jax_platform_name", "cpu")
@@ -106,7 +116,7 @@ def _one_thread():
     torch.set_num_threads(before)
 
 
-def np_params(spec, seed):
+def np_params(spec, seed, std=WEIGHT_STD):
     rng = np.random.default_rng(seed)
 
     def one(p):
@@ -115,14 +125,18 @@ def np_params(spec, seed):
             return 1 + 0.1 * x
         if p.init == "zeros":
             return 0.1 * x
-        return WEIGHT_STD * x
+        return std * x
     return common.tree_map(one, spec, lambda x: isinstance(x, common.P))
+
+
+def weight_std(case) -> float:
+    return TW.HYBRID_WEIGHT_STD if case in TW.HYBRID_CASES else WEIGHT_STD
 
 
 def case_payload(case, seed):
     """The whole mid-run state and batch of ``case``, as numpy."""
     cfg = TW.config(case)
-    arrays = np_params(lm.Model(cfg).spec(), seed)
+    arrays = np_params(lm.Model(cfg).spec(), seed, weight_std(case))
     rng = np.random.default_rng(seed + 1)
     b, s = TW.CASES[case][1]
     state = optim.AdamWState(
@@ -177,38 +191,62 @@ def reference(case, p):
 
 def decode_payload(case, seed):
     """The decode case's parameters, its half-filled cache (bf16 values,
-    positions from the index on zero) and its tokens, as numpy."""
+    positions from the index on zero; the hybrid's besides: float32 SSM
+    states and bf16 convolution buffers, N(0, 1)) and its tokens, as
+    numpy."""
     cfg = TW.config(case)
     model = lm.Model(cfg)
-    arrays = np_params(model.spec(), seed)
+    arrays = np_params(model.spec(), seed, weight_std(case))
     rng = np.random.default_rng(seed + 1)
-    b, _ = TW.CASES[case][1]
+    b, s = TW.CASES[case][1]
     index = TW.DECODE[case][1]
+    spec = model.decode_state_spec(b, s)
 
-    def cache():
-        x = rng.standard_normal(tuple(model.decode_state_spec(
-            b, TW.CASES[case][1][1]).k.shape)).astype(np.float32)
-        x[:, :, index:] = 0
+    def bf16(x):
         return torch.from_numpy(x).to(torch.bfloat16).to(
             torch.float32).numpy()
-    return dict(params=arrays, cache=attention.KVCache(cache(), cache()),
+
+    def normal(t):
+        return rng.standard_normal(tuple(t.shape)).astype(np.float32)
+
+    def cache(t):
+        x = normal(t)
+        x[:, :, index:] = 0
+        return bf16(x)
+    if cfg.family == "hybrid":
+        state = {"mamba": ssm.SSMState(normal(spec["mamba"].ssm),
+                                       bf16(normal(spec["mamba"].conv))),
+                 "attn": attention.KVCache(*map(cache, spec["attn"]))}
+    else:
+        state = attention.KVCache(*map(cache, spec))
+    return dict(params=arrays, cache=state,
                 tokens=rng.integers(0, cfg.vocab, (b, 1)).astype(np.int32))
 
 
 def reference_decode(case, p):
-    """The reference's jitted ``decode_step`` from the same cache: the
-    next tokens, the logits and the cache after the step, as numpy."""
+    """The reference's jitted ``decode_step`` from the same state: the
+    next tokens, the logits and the state after the step, as numpy."""
     jcfg = jconfigs.get_smoke(TW.arch(case)).replace(**TW.CASES[case][0])
-    state = jattention.KVCache(*(jnp.asarray(a, jnp.bfloat16)
-                                 for a in p["cache"]))
+
+    def cache(c):
+        return jattention.KVCache(*(jnp.asarray(a, jnp.bfloat16) for a in c))
+    c = p["cache"]
+    state = cache(c) if not isinstance(c, dict) else {
+        "mamba": jssm.SSMState(jnp.asarray(c["mamba"].ssm),
+                               jnp.asarray(c["mamba"].conv, jnp.bfloat16)),
+        "attn": cache(c["attn"])}
     logits, state = jax.jit(jlm.build(jcfg).decode_step)(
         jax.tree.map(jnp.asarray, p["params"]), state,
         jlm.DecodeBatch(jnp.asarray(p["tokens"]),
                         jnp.int32(TW.DECODE[case][1])))
     logits = np.asarray(logits, np.float32)
-    return dict(tokens=logits[:, -1].argmax(-1), logits=logits,
-                k=np.asarray(state.k, np.float32),
-                v=np.asarray(state.v, np.float32))
+    out = dict(tokens=logits[:, -1].argmax(-1), logits=logits)
+    kv = state["attn"] if isinstance(state, dict) else state
+    out.update(k=np.asarray(kv.k, np.float32), v=np.asarray(kv.v, np.float32))
+    if isinstance(state, dict):
+        out.update(ssm=np.asarray(state["mamba"].ssm, np.float32),
+                   conv=np.asarray(state["mamba"].conv, np.float32))
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -375,34 +413,50 @@ DECODE_SPEC = {
     ("qwen3-moe-decode", "1x2"): ("data", None, "model"),
     ("qwen3-moe-decode", "2x1"): ("data", None, "model"),
     ("qwen3-moe-decode", "2x2"): ("data", None, "model"),
+    ("zamba2-decode", "1x1"): ("data", None, "model"),
+    ("zamba2-decode", "1x2"): ("data", None, "model"),
+    ("zamba2-decode", "2x2"): ("data", None, "model"),
+    ("zamba2-decode", "1x4"): ("data", None, "model"),
 }
+#: the state keys each decode case holds: the caches' k and v, and the
+#: hybrid's SSM states and convolution buffers
+STATE_KEYS = {c: ("k", "v", "ssm", "conv") if c in TW.HYBRID_CASES
+              else ("k", "v") for c in TW.DECODE}
 
 
 @pytest.mark.parametrize("mesh,case", DECODE_RUNS)
 def test_decode_against_the_unsharded_port_and_the_reference(runs, mesh,
                                                              case):
     """Rank 0's gathered decode step: the next tokens equal, the logits
-    within GRAD_RTOL of the largest |logit|, the cache within one bf16
-    ulp, against the unsharded port and the reference; the cache's
-    spec."""
+    within GRAD_RTOL of the largest |logit|, the caches and the hybrid's
+    convolution buffers within one bf16 ulp, its float32 SSM states
+    within GRAD_RTOL of their largest |entry|, against the unsharded
+    port and the reference; the cache's spec, and the hybrid's SSM
+    states split by heads over "model" and its buffers whole."""
     got = runs[mesh][0][("decode", case)]
     for want in (runs["ref"][case], runs["jax"][case]):
         np.testing.assert_array_equal(got["tokens"], want["tokens"])
         assert rel(got["logits"], want["logits"]) <= GRAD_RTOL
-        for key in ("k", "v"):
-            assert within_one_bf16_ulp(got[key], want[key]), key
+        for key in STATE_KEYS[case]:
+            if key == "ssm":
+                assert rel(got[key], want[key]) <= GRAD_RTOL
+            else:
+                assert within_one_bf16_ulp(got[key], want[key]), key
     assert got["cache_spec"] == (None, *DECODE_SPEC[(case, mesh)], None)
+    if case in TW.HYBRID_CASES:
+        assert got["ssm_spec"] == ((None, "data", "model", None, None),
+                                   (None, "data", None, None))
 
 
 @pytest.mark.parametrize("mesh,case", DECODE_RUNS)
 def test_decode_bitwise_on_every_rank(runs, mesh, case):
-    """The gathered tokens, logits and cache: the same bits on every rank,
-    and two steps from one state the same bits."""
+    """The gathered tokens, logits and state: the same bits on every
+    rank, and two steps from one state the same bits."""
     first = runs[mesh][0][("decode", case)]
     for rank, got in enumerate(runs[mesh]):
         got = got[("decode", case)]
         assert got["run_to_run"], rank
-        for key in ("tokens", "logits", "k", "v"):
+        for key in ("tokens", "logits", *STATE_KEYS[case]):
             np.testing.assert_array_equal(got[key], first[key],
                                           err_msg=f"{rank} {key}")
 
@@ -411,7 +465,7 @@ def test_decode_bitwise_on_every_rank(runs, mesh, case):
 def test_decode_one_rank_mesh_is_bitwise_the_unsharded_step(runs, case):
     """(1, 1), by kv heads or (``internlm2-seq``) along the sequence."""
     got, want = runs["1x1"][0][("decode", case)], runs["ref"][case]
-    for key in ("tokens", "logits", "k", "v"):
+    for key in ("tokens", "logits", *STATE_KEYS[case]):
         np.testing.assert_array_equal(got[key], want[key], err_msg=key)
 
 
