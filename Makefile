@@ -41,7 +41,8 @@ SHARD2_FILES = tests/test_arch_smoke.py tests/test_cells.py \
 	tests/test_torch_memory_model.py tests/test_torch_dryrun.py \
 	tests/test_torch_lm_dense.py tests/test_torch_decode.py \
 	tests/test_torch_moe.py tests/test_torch_lm_moe.py \
-	tests/test_torch_ssm.py tests/test_torch_lm_hybrid.py
+	tests/test_torch_ssm.py tests/test_torch_lm_hybrid.py \
+	tests/test_torch_xlstm.py tests/test_torch_lm_xlstm.py
 
 # PYTEST_EXTRA lets CI attach coverage flags (see .github/workflows/ci.yml);
 # plain local runs need no pytest-cov install.

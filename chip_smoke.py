@@ -10,6 +10,8 @@
     python3 chip_smoke.py --only moe     # the mixture-of-experts phase
     python3 chip_smoke.py --only hybrid  # the hybrid (zamba2) phase
     python3 chip_smoke.py --only hybrid_mesh  # its sharded runs alone
+    python3 chip_smoke.py --only xlstm   # the xLSTM phase
+    python3 chip_smoke.py --only xlstm_mesh  # its sharded runs alone
 
 from the root of a checkout, on a machine with one CUDA card (built for
 sm_90a: an H100; with ``--only mesh``, every card of the host joins the
@@ -104,8 +106,9 @@ mesh phase's NCCL world). It
    ``roofline()`` (printed), and ms a batch in turns against an
    unsharded cascade on the rank's card; then the sharded train and
    prefill cells at full ``hubert-xlarge`` and ``internlm2-1.8b`` width
-   (``train_4k``'s 4096 tokens x 4, ``prefill_32k``'s 32,768 x 1, the
-   cells phase's cuts) on every mesh, each rank fed its blocks of one
+   and 12 and 6 of their 48 and 24 layers (``train_4k``'s 4096 tokens x
+   4, ``prefill_32k``'s 32,768 x 1, the cells phase's cuts) on every
+   mesh, each rank fed its blocks of one
    whole state this process makes and hands over in
    ``build/mesh/cells-<arch>.pt``: a warm step (its collectives counted,
    the allocator's peak beside ``analyze()`` on the mesh), then the
@@ -116,8 +119,9 @@ mesh phase's NCCL world). It
    (weights at std 0.02) in float32 and bf16 the step, its gradients and
    the prefill against the unsharded ones on the rank's card (the cells
    phase's card-vs-CPU bounds; the parameters after AdamW within 1e-5);
-   and ``internlm2-1.8b``'s decode cell (``decode_32k``'s cache cut to
-   batch 8, filled from a generator on each rank's card) on every mesh,
+   and ``internlm2-1.8b``'s decode cell at those 6 layers
+   (``decode_32k``'s cache cut to batch 8, filled from a generator on
+   each rank's card) on every mesh,
    and on the (1, world) mesh also with the cache along the sequence
    (``{"act_kv_heads": None}``, the production meshes' split): the
    digests of the next tokens and of the gathered logits the same on
@@ -164,15 +168,15 @@ mesh phase's NCCL world). It
    repro_torch.launch.dryrun --all``, a subprocess on the host's CPU, no
    card, started before the kernels' build; one process a cell, the
    architectures' cells in parallel chains): the sharded train and
-   prefill cells of the nine ported architectures counted on the 16x16
-   and 2x16x16 meshes, the decoders' ``decode_32k`` cells and the
-   hybrid's ``long_500k``, 54 ``ok`` records, their FLOPs the hand count
-   plus what the ranks repeat (hubert-xlarge's unembedding; the k and v
-   projections of the kv heads 16 ranks do not divide; every data rank's
-   routing and experts over the whole gathered batch; the hybrid's
-   ``C·B`` and ``h0 @ emb_proj`` on every "model" rank and long_500k's
-   one sequence on every data rank), their memory ``analyze()``'s, 2
-   ``not_ported`` rows (xlstm-350m, the architecture still to port);
+   prefill cells of the ten architectures counted on the 16x16 and
+   2x16x16 meshes, the decoders' ``decode_32k`` cells and the hybrid's
+   and the xLSTM's ``long_500k``, 62 ``ok`` records, their FLOPs the hand
+   count plus what the ranks repeat (hubert-xlarge's unembedding; the k
+   and v projections of the kv heads 16 ranks do not divide; every data
+   rank's routing and experts over the whole gathered batch; the hybrid's
+   ``C·B`` and ``h0 @ emb_proj`` on every "model" rank, every xLSTM block
+   on every "model" rank, and long_500k's one sequence on every data
+   rank), their memory ``analyze()``'s, no ``not_ported`` row;
 12. runs the dense and vlm families (``lm`` phase) at full width (bf16,
    remat "full", weights from ``Model.init`` on seeded generators):
    ``internlm2-1.8b`` (24 layers, 16 heads over 8 kv heads, vocab
@@ -238,7 +242,31 @@ mesh phase's NCCL world). It
    with float32 states within 1e-4 of the largest |logit| (the bf16
    states' difference recorded); the decode card against the CPU at 6
    layers; the phase's seconds;
-16. drives the training path (paper Fig. 5a) at the same width: samples
+16. runs the xLSTM (``xlstm`` phase): ``xlstm-350m`` at full width and 8
+   of its 24 blocks (one sLSTM) sharded in an NCCL world of every card
+   (one card: the (1, 1) train step, prefill and decode step bitwise the
+   unsharded ones; four: (1, 4), (2, 2) and (4, 1), every rank's digests
+   equal, the losses within 1e-4 and the prefill logits within 2% of the
+   (1, 4) mesh's); its train and prefill cells counted on meta tensors at
+   full batch, the FLOPs the hand count (the mLSTM blocks' projections
+   and chunkwise products, the sLSTM scan's registered counts forward
+   and backward, the unembedding, the recompute), ``analyze()`` on one
+   card and the production meshes; at full width and depth (21 mLSTM and
+   3 sLSTM blocks, bf16, remat "full", ``Model.init``'s weights) the
+   train step at 4096 tokens x 4 bitwise run to run, also under
+   deterministic algorithms, the 32,768-token prefill bitwise
+   ``Model.forward``, each with ms, tokens/s, TFLOP/s, the bounds, the
+   sLSTM loop's share of the run (``ScanClock``) and the peak beside
+   ``analyze()``; one train step and one decode step profiled;
+   sync-free timed decode steps at ``decode_32k``'s full batch of 128
+   (11.3 GB of state) and at ``long_500k`` from reached states, bitwise
+   run to run, beside their bytes bounds; two greedy runs bitwise;
+   decode against ``Model.forward`` in float32 with float32 convolution
+   buffers within 1e-4 of the largest |logit| (the bf16 buffers'
+   difference recorded); the card against the CPU at 8 blocks in float32
+   (loss 1e-6, logits 1e-5, gradients 1e-4) and bf16 (5%); the decode
+   card against the CPU at 8 blocks; the launcher; the phase's seconds;
+17. drives the training path (paper Fig. 5a) at the same width: samples
    balanced fragments from 256 synthetic training frames and 128 held-out
    frames (``sensing.fragments``), trains the Fragment model on the
    permutation base (``train_fragment_model``, 20 epochs), scores the
@@ -255,7 +283,7 @@ mesh phase's NCCL world). It
    both encoders the same way at ragged shapes (N, K and D off the tiles,
    K steps that straddle generator rows) for each nonlinearity, and
    reports their tiles, blocks and waves;
-17. drives the int-datapath path (``benchmarks/int_datapath.py``'s
+18. drives the int-datapath path (``benchmarks/int_datapath.py``'s
    claims): the float32 kernel, the live int8 kernel and the expanded-slab
    kernel (the int scorer's retired layout, ``csrc/int_expanded.cu``, on
    the int8 tensor cores) race on one ADC capture at the reference's shape
@@ -280,7 +308,7 @@ mesh phase's NCCL world). It
    equal to the same gate's on the CPU wherever the deciding score sits
    more than 2.5e-4 from ``t_score``, its frames/s, duty cycle and the
    detector FLOPs it saves;
-18. runs Table I and Fig. 16's model comparison (``baselines`` phase):
+19. runs Table I and Fig. 16's model comparison (``baselines`` phase):
    ``benchmarks/common.py``'s noisy 4-bit data made with
    ``sensing.synthetic`` (training noise 0.20; held-out noise 0.30 with
    3% impulse spikes), balanced fragments, at the paper's operating point
@@ -297,7 +325,7 @@ mesh phase's NCCL world). It
    then times, per frame of a 32-frame chunk, the float32 HDC scorer
    against MLP2 on all 25 windows (beside the paper's 2.4x) and
    ``encode_frames`` with and without reuse;
-19. prints one JSON line per phase, a ``kernels`` line, and last
+20. prints one JSON line per phase, a ``kernels`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises: the script exits non-zero and prints no result.
@@ -354,6 +382,7 @@ from repro_torch.launch.serve import FleetService  # noqa: E402
 from repro_torch.models import attention  # noqa: E402
 from repro_torch.models import common as model_common  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
+from repro_torch.models import xlstm  # noqa: E402
 from repro_torch.sensing import (adc, baselines, fleet,  # noqa: E402
                                  fragments, stream, synthetic)
 from repro_torch.train import optim  # noqa: E402
@@ -1738,7 +1767,8 @@ def mesh_rank(rank: int, world: int, root: str, what: str = "all") -> None:
     sharded cells and LM_ARCH's decode cell (:func:`mesh_decodes`). With
     ``what`` "decode", the decode cell alone; with "moe", the sharded
     mixture of experts alone (:func:`mesh_moe`); with "hybrid", the
-    sharded hybrid alone (:func:`mesh_hybrid`). Writes its records to
+    sharded hybrid alone (:func:`mesh_hybrid`); with "xlstm", the sharded
+    xLSTM alone (:func:`mesh_xlstm`). Writes its records to
     ``root/rank<r>.json``; any failed check raises (a non-zero exit)."""
     import datetime
     import torch.distributed as dist
@@ -1769,7 +1799,12 @@ def mesh_rank(rank: int, world: int, root: str, what: str = "all") -> None:
             for shape, mesh, rec in zip(mesh_shapes(world), meshes,
                                         records):
                 rec["hybrid"] = mesh_hybrid(mesh, shape, world, root)
-        archs = {"decode": [LM_ARCH], "moe": [], "hybrid": []}.get(
+        if what == "xlstm":
+            for shape, mesh, rec in zip(mesh_shapes(world), meshes,
+                                        records):
+                rec["xlstm"] = mesh_xlstm(mesh, shape, world, root)
+        archs = {"decode": [LM_ARCH], "moe": [], "hybrid": [],
+                 "xlstm": []}.get(
             what, list(MESH_CELLS))
         if what == "all":
             ref = torch.load(root / "payload.pt", map_location=dev,
@@ -2071,12 +2106,13 @@ MESH_CELLS_PARAM_RTOL = 1e-5
 
 def mesh_cells_payload(root, arch: str) -> None:
     """The whole states every rank's sharded cells of ``arch`` start from,
-    written to ``root/cells-<arch>.pt``: the full-width parameters
-    (``Model.init`` on this card from the cells or LM phase's seed), the
+    written to ``root/cells-<arch>.pt``: the full-width parameters at
+    MESH_CELLS_LAYERS (``Model.init`` on this card from the cells or LM
+    phase's seed), the
     2-layer parameters at CELLS_WEIGHT_STD (one float32 tree for both
     compute dtypes), and the train and prefill batches (the cells phase's
     seeds)."""
-    cfg = configs.get_config(arch)
+    cfg = mesh_cells_cfg(arch)
     params = lm.Model(cfg).init(
         torch.Generator(device=DEVICE).manual_seed(MESH_CELLS[arch][1]))
     check_cfg = cfg.replace(n_layers=CELLS_CHECK_LAYERS)
@@ -2138,7 +2174,7 @@ def mesh_cells_reference(st, arch: str) -> dict:
     """In each rank, before its meshes: the whole optimizer state, and the
     unsharded full-width prefill's logits (their shape and
     :func:`digest`) and ms."""
-    cfg = configs.get_config(arch)
+    cfg = mesh_cells_cfg(arch)
     ref = dict(state=steps.make_optimizer(cfg).init(st["params"]))
     cell = steps.build_cell(cfg, cut_shape("prefill_32k"))
     with torch.no_grad():
@@ -2174,7 +2210,7 @@ def mesh_cells(mesh, shape, st, ref, arch: str) -> dict:
     ones here); at CELLS_CHECK_LAYERS in each compute dtype, the step,
     its gradients and the prefill against the unsharded ones
     (:func:`mesh_cells_check`)."""
-    cfg = configs.get_config(arch)
+    cfg = mesh_cells_cfg(arch)
     what = f"sharded {arch} cells on a {shape} mesh"
     one = tuple(shape) == (1, 1)
     torch.cuda.empty_cache()
@@ -2359,7 +2395,7 @@ def mesh_decode(mesh, shape, st, rules_name: str, rules) -> dict:
     the allocator's peak beside ``analyze()`` on the mesh; at
     CELLS_CHECK_LAYERS in float32 the logits against the unsharded
     step's."""
-    cfg = configs.get_config(LM_ARCH)
+    cfg = mesh_cells_cfg(LM_ARCH)
     what = (f"sharded {LM_ARCH} decode on a {shape} mesh ({rules_name} "
             f"rules)")
     one = tuple(shape) == (1, 1)
@@ -2857,10 +2893,19 @@ LM_ARCH, LM_OLMO, LM_VLM, LM_VLM_LAYERS = ("internlm2-1.8b", "olmo-1b",
                                            "internvl2-76b", 2)
 # the "model" ranks of the production meshes the dry run counts
 DRYRUN_MODEL = 16
-# the mesh phase's sharded cells (mesh_cells): each architecture's rank
-# record key and the seed of its full-width weights
+# the mesh phase's sharded cells (mesh_cells, mesh_decodes): each
+# architecture's rank record key and the seed of its full-width weights;
+# their depth, cut to MESH_CELLS_LAYERS of 48 and 24 layers to make room
+# for the xLSTM phase in the script's 1200 s (the cells and LM phases run
+# both at full depth; a layer of the stack repeats the same collectives)
 MESH_CELLS = {CASCADE_ARCH: ("cells", SEED + 15), LM_ARCH: ("cells_lm",
                                                             SEED + 25)}
+MESH_CELLS_LAYERS = {CASCADE_ARCH: 12, LM_ARCH: 6}
+
+
+def mesh_cells_cfg(arch: str):
+    """``arch`` at full width and its MESH_CELLS_LAYERS."""
+    return configs.get_config(arch).replace(n_layers=MESH_CELLS_LAYERS[arch])
 
 
 def attn_pairs(S_all: int, causal: bool, q_chunk: int = 1024) -> int:
@@ -2921,10 +2966,13 @@ def cell_matmul_flops(cfg, b: int, s: int, train: bool,
     (``attention.kv_heads_of_rank`` for the published configs), and a
     vocab it does not divide, whole on every rank; over ``data`` ranks,
     the experts' repeats (:func:`moe_matmul_flops`). The hybrid's:
-    :func:`hybrid_matmul_flops`."""
+    :func:`hybrid_matmul_flops`; the xLSTM's: :func:`xlstm_matmul_flops`."""
     if cfg.family == "hybrid":
         return hybrid_matmul_flops(cfg, b, s, "train" if train else
                                    "prefill", model, data)
+    if cfg.family == "ssm":
+        return xlstm_matmul_flops(cfg, b, s, "train" if train else
+                                  "prefill", model, data)
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.kv_heads, \
         cfg.resolved_head_dim
     vocab = cfg.vocab
@@ -3091,14 +3139,17 @@ def batch_to(batch: lm.Batch, device) -> lm.Batch:
     return lm.Batch(*(None if t is None else t.to(device) for t in batch))
 
 
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest |got - want| over the largest |want|, in float32 on the
+    CPU."""
+    want = want.float().cpu()
+    return float((got.float().cpu() - want).abs().max() / want.abs().max())
+
+
 def leaf_errs(got, want) -> float:
-    """Largest |got - want| over each leaf's largest |want|, over all
-    leaves."""
-    errs = [float((a.float().cpu() - b.float()).abs().max()
-                  / b.float().abs().max())
-            for a, b in zip(model_common.leaves(got),
-                            model_common.leaves(want))]
-    return max(errs)
+    """:func:`rel_err` of each leaf, the largest over all leaves."""
+    return max(rel_err(a, b) for a, b in zip(model_common.leaves(got),
+                                             model_common.leaves(want)))
 
 
 def same_bits(a, b) -> bool:
@@ -3433,29 +3484,28 @@ def dryrun_stop(dry) -> None:
 
 
 def dryrun_records(proc, out, log) -> list[dict]:
-    """The dry run's records once its processes end: exit 0; 54 ``ok``
-    records (``train_4k`` and ``prefill_32k`` of each ported architecture,
-    ``decode_32k`` of each ported decoder and the hybrid's ``long_500k``
-    on the 16x16 and 2x16x16 meshes), their FLOPs at least the hand count
-    of the products and equal to it plus what the ranks repeat
-    (:func:`cell_matmul_flops`, :func:`decode_matmul_flops`: over the 16
-    "model" ranks hubert-xlarge's unembedding, a vocab of 504, the k and
-    v projections of the kv heads 16 does not divide, and the hybrid's
-    ``C·B`` and ``h0 @ emb_proj``; over the 16 or 32 data ranks, the
-    routing and the experts of the whole gathered batch, and long_500k's
-    one sequence), their memory ``analyze()``'s on the mesh; 2
-    ``not_ported`` rows (xlstm-350m on each mesh); no ``fail``. Each
-    record printed."""
+    """The dry run's records once its processes end: exit 0; 62 ``ok``
+    records, one for every cell (``train_4k`` and ``prefill_32k`` of each
+    architecture, ``decode_32k`` of each decoder and the hybrid's and the
+    xLSTM's ``long_500k`` on the 16x16 and 2x16x16 meshes), their FLOPs
+    at least the hand count of the products and equal to it plus what the
+    ranks repeat (:func:`cell_matmul_flops`, :func:`decode_matmul_flops`:
+    over the 16 "model" ranks hubert-xlarge's unembedding, a vocab of 504,
+    the k and v projections of the kv heads 16 does not divide, the
+    hybrid's ``C·B`` and ``h0 @ emb_proj``, and every xLSTM block, whose 4
+    heads 16 does not divide; over the 16 or 32 data ranks, the routing
+    and the experts of the whole gathered batch, and long_500k's one
+    sequence), their memory ``analyze()``'s on the mesh; no
+    ``not_ported`` row, no ``fail``. Each record printed."""
     rc = proc.wait(timeout=DRYRUN_TIMEOUT_S)
     check(rc == 0, f"dry run: exit {rc}\n{log.read_text()[-3000:]}")
     records = [json.loads(line) for line in out.read_text().splitlines()]
     for r in records:
         emit({"dryrun": r})
     ok = [r for r in records if r["status"] == "ok"]
-    check(len(ok) == 54 and {r["arch"] for r in ok} == set(configs.ARCH_IDS),
+    check(len(ok) == 62 and {r["arch"] for r in ok} == set(configs.ARCH_IDS),
           f"dry run: the ok records {[(r['arch'], r['shape']) for r in ok]}")
-    check(sum(r["status"] == "not_ported" for r in records) == 2
-          and len(records) == 56, "dry run: the not-ported rows")
+    check(len(records) == 62, "dry run: a record that is not ok")
     for r in ok:
         cfg = configs.get_config(r["arch"])
         shape = configs.SHAPES[r["shape"]]
@@ -3760,9 +3810,11 @@ def decode_matmul_flops(cfg, b: int, s: int, model: int = 1,
     splits along the sequence and every rank projects every kv head's k
     and v; a vocab it does not divide, whole on every rank; over
     ``data`` ranks, the experts' repeats. The hybrid's:
-    :func:`hybrid_matmul_flops`."""
+    :func:`hybrid_matmul_flops`; the xLSTM's: :func:`xlstm_matmul_flops`."""
     if cfg.family == "hybrid":
         return hybrid_matmul_flops(cfg, b, s, "decode", model, data)
+    if cfg.family == "ssm":
+        return xlstm_matmul_flops(cfg, b, s, "decode", model, data)
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.kv_heads, \
         cfg.resolved_head_dim
     n_in = 2 if cfg.activation == "silu" else 1
@@ -4793,37 +4845,777 @@ def hybrid_phase(card: str) -> dict:
     return rec
 
 
+# the xLSTM (ROADMAP.md §1 item 4(e)): XLSTM_ARCH at full width and depth
+# (24 blocks: 21 mLSTM, 3 sLSTM; bf16, remat "full", Model.init's weights
+# on a seeded generator); the card against the CPU at XLSTM_CHECK_LAYERS
+# (one sLSTM block) on XLSTM_CHECK_TOKENS, weights at CELLS_WEIGHT_STD,
+# within XLSTM_CPU_TOL (loss relative; logits and each gradient leaf of
+# their largest |entry|: float32 logits at the gradients' bound, since the
+# check's own float32 error against float64 is 7.3e-6 of the largest
+# |logit| and a 1e-7 relative change of the weights moves them 8.1e-6,
+# measured on the CPU); decode states reached by XLSTM_REACH decode steps
+# from zeros; the prefill warmed up, and checked bitwise against
+# Model.forward, at XLSTM_WARM_SEQ; sharded over every card at
+# XLSTM_MESH_LAYERS, the meshes' losses and bf16 prefill logits held
+# within XLSTM_MESH_TOL of the first mesh's (the logits at the hybrid's
+# CASCADE_BF16_RTOL: (2, 2) lay 2.34% off (1, 4) on four H100s)
+XLSTM_ARCH = "xlstm-350m"
+XLSTM_CHECK_LAYERS, XLSTM_CHECK_TOKENS = 8, (1, 512)
+XLSTM_CPU_TOL = {"float32": {"loss": 1e-6, "logits": 1e-4, "grads": 1e-4},
+                 "bfloat16": {"loss": 5e-2, "logits": 5e-2, "grads": 5e-2}}
+XLSTM_REACH, XLSTM_MESH_LAYERS, XLSTM_WARM_SEQ = 4, 8, 4096
+XLSTM_MESH_TOL = {"loss": 1e-4, "logits": CASCADE_BF16_RTOL}
+
+
+def xlstm_matmul_flops(cfg, b: int, s: int, kind: str, model: int = 1,
+                       data: int = 1) -> dict:
+    """Hand count of an xLSTM cell's products (``kind`` train, prefill or
+    decode), split as :func:`cell_matmul_flops` splits them. Per mLSTM
+    block the bf16 ``w_up``, ``wq``, ``wk``, ``wv``, ``w_i``, ``w_f`` and
+    ``w_down``, and the float32 chunkwise form by chunk of ``q =
+    min(ssm_chunk, s)`` (``S_c = (ws k)^T v``, ``q k^T``, ``(qk s_intra)
+    v``, ``q C_prev``; in decode ``q C``); per sLSTM block the bf16 ``w``
+    and ``w_down`` and the float32 scan, ``2 b 4 h dh²`` a step (its
+    registered count); the bf16 unembedding. Train: three times the
+    forward, but the scan's backward pass, which runs the loop again and
+    takes ``r``'s gradient at every step and the hidden state's at every
+    step but the first (``4 s - 1`` steps in all); under remat "full"
+    every block again but its ``w_down``; the chunked loss's unembedding
+    again. Over ``model`` "model" ranks that do not divide the heads,
+    every block whole on each of them; a vocab they do not divide whole
+    on each; over ``data`` ranks, a batch they do not split whole on
+    each."""
+    d, h = cfg.d_model, cfg.n_heads
+    di = 2 * d
+    dh, dhs = di // h, d // h
+    kinds = lm._xlstm_kinds(cfg)
+    n_m, n_s = kinds.count("mlstm"), kinds.count("slstm")
+    rep_m = model if h % model else 1
+    rep = data if b % data else 1
+    vocab = cfg.vocab * (model if cfg.vocab % model else 1)
+    step = 2 * b * 4 * h * dhs * dhs
+    t = b if kind == "decode" else b * s
+    m_down, s_down = 2 * t * di * d, 2 * t * d * d
+    m_low = (2 * t * d * 2 * di + 3 * 2 * t * di * di + 2 * 2 * t * di * h
+             + m_down)
+    s_low = 2 * t * d * 4 * d + s_down
+    unembed = 2 * t * d * vocab
+    low = rep_m * (n_m * m_low + n_s * s_low) + unembed
+    if kind == "decode":
+        f32 = rep_m * (n_m * 2 * t * h * dh * dh + n_s * step)
+    else:
+        q = min(cfg.ssm_chunk, s)
+        m_f32 = 2 * 2 * t * h * dh * dh + 2 * 2 * t * h * q * dh
+        f32 = rep_m * (n_m * m_f32 + n_s * s * step)
+        if kind == "train":
+            remat = cfg.remat == "full"
+            chunked = cfg.vocab >= 8192 and s > 1024 and s % 1024 == 0
+            low = (rep_m * (3 * (n_m * m_low + n_s * s_low)
+                            + (n_m * (m_low - m_down) + n_s * (s_low - s_down)
+                               if remat else 0))
+                   + 3 * unembed + (unembed if chunked else 0))
+            f32 = rep_m * (3 * n_m * m_f32 + n_s * (4 * s - 1) * step
+                           + (n_m * m_f32 + n_s * s * step if remat else 0))
+    return {"bf16": rep * low, "float32": rep * f32,
+            "total": rep * (low + f32)}
+
+
+class ScanClock:
+    """The sLSTM loop's wall time inside a run: each call of
+    ``xlstm.scan_loop`` (the custom op's body) and of ``xlstm.scan_grads``
+    (its backward pass: the loop again and autograd's pass over it)
+    between synchronisations, on the host clock, while the scope is open
+    (a call inside a clocked call is not clocked again). The loop is
+    host-bound, so the dozen synchronisations a train step drain an
+    almost empty queue."""
+
+    def __enter__(self):
+        self.s, self.calls, self._depth = 0.0, 0, 0
+        self._fns = {name: getattr(xlstm, name)
+                     for name in ("scan_loop", "scan_grads")}
+
+        def clock(fn):
+            def clocked(*args):
+                if self._depth:
+                    return fn(*args)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                self._depth += 1
+                try:
+                    out = fn(*args)
+                finally:
+                    self._depth -= 1
+                torch.cuda.synchronize()
+                self.s += time.perf_counter() - t0
+                self.calls += 1
+                return out
+            return clocked
+        for name, fn in self._fns.items():
+            setattr(xlstm, name, clock(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._fns.items():
+            setattr(xlstm, name, fn)
+
+
+def scan_share(fn, *args) -> tuple:
+    """``fn(*args)`` with the sLSTM loop clocked (:class:`ScanClock`):
+    (its output, a record of the run's wall ms, the loop's ms, calls and
+    share)."""
+    with ScanClock() as clock:
+        out, ms = wall_ms(fn, *args)
+    return out, dict(run_ms=ms, slstm_loop_ms=clock.s * 1e3,
+                     slstm_loop_calls=clock.calls,
+                     slstm_loop_share=clock.s * 1e3 / ms)
+
+
 def device_profile(fn, top: int = 6) -> dict:
-    """``fn`` once under ``torch.profiler``: the device busy share of its
-    wall time and the device time of its top kernels. The profiler's own
-    overhead lengthens the wall time the share is taken of. A window's
-    first kernel went unrecorded on the H100, so each window opens with a
-    one-element fill before ``fn``."""
+    """``fn`` once under ``torch.profiler`` tracing the card, read from
+    the raw kernel events (``key_averages`` takes ~0.4 ms an event on
+    the host: minutes for the million launches of an xLSTM train step):
+    the device busy share of the wall time (the union of the kernels'
+    intervals), the kernels' summed ms, and the ms of the ``top`` kernel
+    names (kernels whose names share their first 80 characters summed
+    under them). The tracing lengthens the wall time the share is taken
+    of. A window's first kernel went unrecorded on the H100, so each
+    window opens with a one-element fill before ``fn``."""
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         torch.zeros(1, device=DEVICE)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    # device events only: an operator's row repeats the time of the
-    # kernels it launched; kernels whose names share their first 80
-    # characters are summed under them
-    by_name: dict[str, float] = {}
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CPU \
-                and e.self_device_time_total > 0:
-            by_name[e.key[:80]] = (by_name.get(e.key[:80], 0.0)
-                                   + e.self_device_time_total)
+    spans, by_name = [], {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        lo, dur = e.start_ns(), e.duration_ns()
+        if dur <= 0:
+            continue
+        spans.append((lo, lo + dur))
+        key = e.name()[:80]
+        by_name[key] = by_name.get(key, 0) + dur
+    spans.sort()
+    busy_ns, end = 0, None
+    for lo, hi in spans:
+        if end is None or lo > end:
+            busy_ns += hi - lo
+            end = hi
+        elif hi > end:
+            busy_ns += hi - end
+            end = hi
     rows = sorted(by_name.items(), key=lambda kv: -kv[1])
-    device_us = sum(us for _, us in rows)
-    return dict(wall_ms=wall_us / 1e3, device_ms=device_us / 1e3,
-                device_busy_share=(device_us / wall_us if device_us > 0
+    return dict(wall_ms=wall_us / 1e3, kernels=len(spans),
+                device_ms=sum(by_name.values()) / 1e6,
+                device_busy_ms=busy_ns / 1e6,
+                device_busy_share=(busy_ns / 1e3 / wall_us if spans
                                    else "not measured"),
-                top_kernels_ms={k: us / 1e3 for k, us in rows[:top]})
+                top_kernels_ms={k: ns / 1e6 for k, ns in rows[:top]})
+
+
+def xlstm_train_run(cfg, params) -> dict:
+    """The full-width train cell at train_4k's sequence, CELLS_TRAIN_BATCH
+    sequences: a warm step, then a timed one from the same state under
+    ``torch.use_deterministic_algorithms(True)`` (``warn_only``; an op
+    flagged fails) with the sLSTM loop clocked (:func:`scan_share`),
+    bitwise the warm one (:func:`fingerprint`); one step profiled
+    (:func:`device_profile`); ms, tokens/s and TFLOP/s against the
+    hand count (:func:`xlstm_matmul_flops`) and its bounds, the
+    allocator's peak beside ``analyze()``. (A step takes ~20 s: the
+    sLSTM loop, host-bound; so one timed step.)"""
+    shape = cut_shape("train_4k")
+    b, s = shape.global_batch, shape.seq_len
+    step = steps.build_cell(cfg, shape).step_fn
+    state = steps.make_optimizer(cfg).init(params)
+    batch = cell_batch(cfg, b, s, SEED + 62, DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before_gb = torch.cuda.memory_allocated() / 1e9
+    warm, first_ms = timed_run(step, params, state, batch)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    loss = float(warm[2])
+    check(math.isfinite(loss), f"xlstm: train loss {loss}")
+    want = fingerprint(list(warm))
+    del warm
+    before = torch.are_deterministic_algorithms_enabled()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            out, share = scan_share(step, params, state, batch)
+            same = fingerprint(list(out)) == want
+            del out
+        finally:
+            torch.use_deterministic_algorithms(before)
+    flagged = sorted({str(w.message)[:160] for w in seen
+                      if "deterministic implementation" in str(w.message)})
+    check(not flagged and same, f"xlstm: under deterministic algorithms "
+          f"the step differs from the warm one or flags {flagged}")
+    prof = device_profile(lambda: step(params, state, batch), top=10)
+    hand = xlstm_matmul_flops(cfg, b, s, "train")
+    step_ms = share["run_ms"]
+    return dict(
+        arch=cfg.arch_id, layers=cfg.n_layers, batch=b, seq=s,
+        cut=f"train_4k's batch 256 -> {b}", loss=loss,
+        first_step_ms=first_ms, ms=step_ms,
+        tokens_per_s=b * s / (step_ms / 1e3), flops_hand=hand,
+        tflops_per_s=hand["total"] / (step_ms / 1e3) / 1e12,
+        bound_ms={"bf16_at_989": hand["bf16"] / BF16_OPS_S * 1e3,
+                  "float32_at_67": hand["float32"] / F32_OPS_S * 1e3},
+        bitwise_run_to_run=True, deterministic_algorithms=dict(
+            bitwise=True, nondeterministic_ops=flagged),
+        slstm_loop=share, allocated_before_gb=before_gb,
+        peak_allocated_gb=peak_gb,
+        memory_model=memory_record(cfg, shape, CELLS_MESHES[0]),
+        profile=prof)
+
+
+def xlstm_prefill_run(cfg, params) -> dict:
+    """The full-width prefill cell at prefill_32k's sequence,
+    CELLS_PREFILL_BATCH sequence, warmed up at XLSTM_WARM_SEQ, where its
+    logits are bitwise ``Model.forward``'s on the same batch; then timed
+    once at the full sequence with the sLSTM loop clocked
+    (:func:`scan_share`): logits of the right shape, finite; ms, tokens/s
+    and TFLOP/s beside the hand count's bounds, the allocator's peak
+    beside ``analyze()``. (A prefill takes ~30 s, the sLSTM loop nearly
+    all of it: so one run at 32,768 tokens.)"""
+    shape = cut_shape("prefill_32k")
+    b, s = shape.global_batch, shape.seq_len
+    cell = steps.build_cell(cfg, shape)
+    model = lm.Model(cfg)
+    with torch.no_grad():
+        warm_batch = cell_batch(cfg, b, XLSTM_WARM_SEQ, SEED + 63, DEVICE)
+        warm, warm_ms = timed_run(cell.step_fn, params, warm_batch)
+        check(torch.equal(warm, model.forward(params, warm_batch)),
+              "xlstm: the prefill's logits differ from Model.forward's")
+        del warm
+        batch = cell_batch(cfg, b, s, SEED + 23, DEVICE)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        got, share = scan_share(cell.step_fn, params, batch)
+        step_ms = share["run_ms"]
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        check(tuple(got.shape) == (b, s, cfg.vocab)
+              and bool(torch.isfinite(got).all()), f"xlstm: prefill logits "
+              f"{tuple(got.shape)} or not finite")
+        del got
+    torch.cuda.empty_cache()
+    hand = xlstm_matmul_flops(cfg, b, s, "prefill")
+    return dict(arch=cfg.arch_id, layers=cfg.n_layers, batch=b, seq=s,
+                cut=f"prefill_32k's batch 32 -> {b}",
+                logits_shape=[b, s, cfg.vocab],
+                bitwise_vs_forward=f"at {XLSTM_WARM_SEQ} tokens",
+                warm_ms=warm_ms, ms=step_ms,
+                tokens_per_s=b * s / (step_ms / 1e3), flops_hand=hand,
+                tflops_per_s=hand["total"] / (step_ms / 1e3) / 1e12,
+                bound_ms={"bf16_at_989": hand["bf16"] / BF16_OPS_S * 1e3,
+                          "float32_at_67": hand["float32"] / F32_OPS_S
+                          * 1e3},
+                slstm_loop=share, peak_allocated_gb=peak_gb,
+                memory_model=memory_record(cfg, shape, CELLS_MESHES[0]))
+
+
+def reached_state(model, params, batch: int, seed: int):
+    """A decode state the recurrence reaches: XLSTM_REACH random tokens
+    decoded from zeros (``Model.decode_step``, in place), and the tokens
+    of the step after them."""
+    cfg = model.cfg
+    state = model.init_decode_state(batch, 1, device=DEVICE)
+    tokens = decode_tokens(cfg, (batch, XLSTM_REACH + 1), seed, DEVICE)
+    index = torch.arange(XLSTM_REACH + 1, dtype=torch.int32, device=DEVICE)
+    for t in range(XLSTM_REACH):
+        model.decode_step(params, state, lm.DecodeBatch(tokens[:, t:t + 1],
+                                                        index[t]))
+    return state, lm.DecodeBatch(tokens[:, -1:], index[-1])
+
+
+def xlstm_decode_timed(cfg, params, shape) -> dict:
+    """The decode cell's step at ``shape`` (decode_32k at its full batch,
+    long_500k) from a reached state (:func:`reached_state`; the state has
+    no positions, so the sequence only names the cell): DECODE_WARM
+    steps; from a snapshot of the state, DECODE_TIMED steps between CUDA
+    events under ``set_sync_debug_mode("error")`` (a host sync raises),
+    each step advancing the state; from the snapshot again the same steps
+    bitwise the same tokens and state; one step profiled; the
+    allocator's peak beside ``analyze()`` on one device; the bytes bound
+    (the state read and written once, the bf16 weights read once) and the
+    FLOPs bound."""
+    batch = shape.global_batch
+    model = lm.Model(cfg)
+    cell = steps.build_cell(cfg, shape)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, db = reached_state(model, params, batch, SEED + 64)
+    snap = lm.map_state(torch.clone, state)
+
+    def restore():
+        for t, t0 in zip(model_common.leaves(state),
+                         model_common.leaves(snap)):
+            t.copy_(t0)
+
+    def run():
+        return torch.stack([cell.step_fn(params, state, db)[0]
+                            for _ in range(DECODE_TIMED)])
+    for _ in range(DECODE_WARM):
+        cell.step_fn(params, state, db)
+    restore()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        start.record()
+        tokens = run()
+        stop.record()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    stop.synchronize()
+    ms = start.elapsed_time(stop) / DECODE_TIMED
+    want = fingerprint([tokens, *model_common.leaves(state)])
+    restore()
+    check(fingerprint([run(), *model_common.leaves(state)]) == want,
+          f"xlstm: {shape.name}: two runs of decode steps from one state "
+          f"differ")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    restore()
+    prof = device_profile(lambda: cell.step_fn(params, state, db), top=10)
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in model_common.leaves(state))
+    del state, snap
+    torch.cuda.empty_cache()
+    n_params = model_common.count_params(params)
+    hand = xlstm_matmul_flops(cfg, batch, shape.seq_len, "decode")
+    return dict(
+        arch=cfg.arch_id, layers=cfg.n_layers, batch=batch,
+        seq=shape.seq_len, cut=f"{shape.name} uncut",
+        state="reached: " + f"{XLSTM_REACH} decode steps from zeros",
+        ms_per_step=ms, tokens_per_s=batch / (ms / 1e3), sync_free=True,
+        bitwise_run_to_run=True, state_gb=state_bytes / 1e9,
+        bf16_weights_gb=2 * n_params / 1e9,
+        bound_ms={"bytes_at_3.35TBs": (2 * state_bytes + 2 * n_params)
+                  / HBM_BYTES_S * 1e3,
+                  "bf16_at_989": hand["bf16"] / BF16_OPS_S * 1e3,
+                  "float32_at_67": hand["float32"] / F32_OPS_S * 1e3},
+        flops_hand=hand, peak_allocated_gb=peak_gb,
+        memory_model=memory_record(cfg, shape, {}), profile=prof)
+
+
+def xlstm_check_inputs(dt: str):
+    """XLSTM_ARCH at XLSTM_CHECK_LAYERS in ``dt``: its config, and its
+    weights at CELLS_WEIGHT_STD and its XLSTM_CHECK_TOKENS batch, both
+    drawn on the CPU from seeds (the same in every process)."""
+    cfg = configs.get_config(XLSTM_ARCH).replace(
+        n_layers=XLSTM_CHECK_LAYERS, compute_dtype=dt)
+    return (cfg, scaled_params(cfg, SEED + 65, "cpu"),
+            cell_batch(cfg, *XLSTM_CHECK_TOKENS, SEED + 66, "cpu"))
+
+
+def xlstm_cpu_side(path: str) -> str:
+    """The CPU side of :func:`xlstm_card_vs_cpu`, for a subprocess on the
+    host's CPU (it runs no card): in each of XLSTM_CPU_TOL's dtypes the
+    loss, the gradients and the prefill logits of
+    :func:`xlstm_check_inputs`, saved to ``path``, on half the host's
+    cores."""
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))
+    out = {}
+    for dt in XLSTM_CPU_TOL:
+        cfg, params, batch = xlstm_check_inputs(dt)
+        model = lm.Model(cfg)
+        loss, grads = steps.loss_and_grads(model, params, batch)
+        with torch.no_grad():
+            logits = model.forward(params, batch)
+        out[dt] = dict(loss=loss, grads=grads, logits=logits)
+    torch.save(out, path)
+    return path
+
+
+def named_leaves(tree, path: str = "") -> list:
+    """``(path, tensor)`` of every leaf of nested dicts and lists, in
+    ``model_common.leaves``' order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in named_leaves(tree[k], f"{path}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, t in enumerate(tree)
+                for x in named_leaves(t, f"{path}/{i}")]
+    return [(path, tree)]
+
+
+def xlstm_card_vs_cpu(cpu: dict) -> dict:
+    """XLSTM_ARCH at XLSTM_CHECK_LAYERS (seven mLSTM blocks and one
+    sLSTM), weights at CELLS_WEIGHT_STD drawn on the CPU, on
+    XLSTM_CHECK_TOKENS, in float32 and bf16 (remat "full"):
+    ``loss_and_grads`` and the prefill logits on the card against
+    ``cpu``, :func:`xlstm_cpu_side`'s record of the same on the CPU,
+    within XLSTM_CPU_TOL. In bf16 each gradient leaf is held within the
+    larger of that bound and the CPU's own bf16 gradient's distance from
+    its float32 one: at this depth the random xLSTM's bf16 gradients lie
+    5-54% of a leaf's largest |entry| off its float32 ones (the sLSTM's
+    bias farthest; 22 of 24 leaves past 5%), so no two bf16 runs can be
+    held to 5% there, while a wrong formula would land far outside that
+    gap; the leaves past the bound are printed beside their gaps. Every
+    record is printed before the checks."""
+    out = {}
+    for dt, tol in XLSTM_CPU_TOL.items():
+        cfg, params, batch = xlstm_check_inputs(dt)
+        model = lm.Model(cfg)
+        card = model_common.tree_map(lambda a: a.to(DEVICE), params)
+        batch = batch_to(batch, DEVICE)
+        loss, grads = steps.loss_and_grads(model, card, batch)
+        with torch.no_grad():
+            got = model.forward(card, batch).cpu()
+        want = cpu[dt]
+        errs = [(name, rel_err(g, w)) for (name, g), w in zip(
+            named_leaves(grads), model_common.leaves(want["grads"]),
+            strict=True)]
+        gaps = ([rel_err(b, f) for b, f in zip(
+            model_common.leaves(want["grads"]),
+            model_common.leaves(cpu["float32"]["grads"]))]
+                if dt == "bfloat16" else [0.0] * len(errs))
+        r = dict(layers=cfg.n_layers, tokens=list(XLSTM_CHECK_TOKENS),
+                 loss=float(want["loss"]),
+                 loss_rel_diff=abs(float(loss) - float(want["loss"]))
+                 / abs(float(want["loss"])),
+                 grad_rel_diff=max(e for _, e in errs),
+                 grads_within_bound=all(e <= max(tol["grads"], gap) for
+                                        (_, e), gap in zip(errs, gaps)),
+                 grads_past_bound={name: dict(card_vs_cpu=e,
+                                              cpu_bf16_vs_float32=gap)
+                                   for (name, e), gap in zip(errs, gaps)
+                                   if e > tol["grads"]},
+                 logits_rel_diff=max_abs_diff(got, want["logits"])
+                 / max_abs(want["logits"]), rtol=tol)
+        out[dt] = r
+        del card, grads, got
+        torch.cuda.empty_cache()
+    emit({"xlstm": {"card_vs_cpu": out}})
+    for dt, r in out.items():
+        tol = r["rtol"]
+        check(r["loss_rel_diff"] <= tol["loss"] and r["grads_within_bound"]
+              and r["logits_rel_diff"] <= tol["logits"],
+              f"xlstm: card vs CPU {dt} at {r['layers']} layers: {r}")
+    return out
+
+
+def xlstm_vs_prefill() -> dict:
+    """DECODE_PRIME tokens of DECODE_BATCH sequences primed one at a time
+    against ``Model.forward`` on them, XLSTM_ARCH at full width and depth
+    in float32, weights at CELLS_WEIGHT_STD: with float32 convolution
+    buffers within DECODE_CPU_RTOL of the largest |logit| (held); with
+    the model's bf16 ones, which round the current token's ``x_m`` before
+    the convolution, recorded."""
+    cfg = configs.get_config(XLSTM_ARCH).replace(compute_dtype="float32")
+    model = lm.Model(cfg)
+    params = scaled_params(cfg, SEED + 67, DEVICE, draw_device=DEVICE)
+    tokens = decode_tokens(cfg, (DECODE_BATCH, DECODE_PRIME), SEED + 68,
+                           DEVICE)
+    with torch.no_grad():
+        want = model.forward(params, lm.Batch(tokens, None))
+    out = dict(weights=f"std {CELLS_WEIGHT_STD}", compute="float32",
+               tokens=[DECODE_BATCH, DECODE_PRIME], rtol=DECODE_CPU_RTOL,
+               max_abs_logit=max_abs(want))
+    for name, dt in (("float32_buffers", torch.float32),
+                     ("bf16_buffers", torch.bfloat16)):
+        got = primed_logits(model, params, tokens, DECODE_PRIME, DEVICE, dt)
+        out[name] = dict(max_abs_diff=max_abs_diff(got, want),
+                         held=dt == torch.float32)
+        del got
+    check(out["float32_buffers"]["max_abs_diff"]
+          <= DECODE_CPU_RTOL * out["max_abs_logit"],
+          f"xlstm: decode against prefill with float32 buffers: {out}")
+    del params, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def xlstm_decode(cfg, params) -> dict:
+    """The decode cell at decode_32k's full batch and at long_500k
+    (:func:`xlstm_decode_timed`), and two greedy runs bitwise
+    (:func:`greedy_run_to_run`)."""
+    out = {}
+    for name in ("decode_32k", "long_500k"):
+        out[name] = xlstm_decode_timed(cfg, params, configs.SHAPES[name])
+        torch.cuda.empty_cache()
+    out["greedy"] = greedy_run_to_run(cfg, params)
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_xlstm(mesh, shape, world: int, root) -> dict:
+    """XLSTM_ARCH at full width and XLSTM_MESH_LAYERS (one sLSTM block)
+    sharded on one mesh, in every rank, the weights drawn whole on the
+    rank's card from a seed at CELLS_WEIGHT_STD and cut to this rank's
+    blocks (on a (1, 1) mesh passed as they are): the train step at
+    train_4k's cut from a fresh AdamW state (its collectives counted; the
+    loss and the digests of the gathered parameters and moments), the
+    prefill at prefill_32k's cut
+    (the digest of its gathered logits; on a mesh of several ranks rank 0
+    keeps its first MOE_MESH_SLICE positions in ``root``) and the decode
+    step at decode_32k's full batch from a reached state (the digests of
+    the next tokens and of the whole logits). On (1, 1) each is held
+    bitwise the unsharded cell's on the same card. ms of each, the peaks
+    beside ``analyze()``."""
+    cfg = configs.get_config(XLSTM_ARCH).replace(
+        n_layers=XLSTM_MESH_LAYERS)
+    model = lm.Model(cfg)
+    one = tuple(shape) == (1, 1)
+    what = f"sharded {XLSTM_ARCH} on a {shape} mesh"
+    torch.cuda.empty_cache()
+    params = scaled_params(cfg, SEED + 69, DEVICE, draw_device=DEVICE)
+    train, prefill = cut_shape("train_4k"), cut_shape("prefill_32k")
+    dshape = configs.SHAPES["decode_32k"]
+    tbatch = cell_batch(cfg, train.global_batch, train.seq_len, SEED + 62,
+                        DEVICE)
+    pbatch = cell_batch(cfg, prefill.global_batch, prefill.seq_len,
+                        SEED + 23, DEVICE)
+    rec = dict(arch=XLSTM_ARCH, mesh=list(shape), layers=cfg.n_layers)
+    want = {}
+    if one:
+        out, rec["unsharded_train_ms"] = wall_ms(
+            steps.build_cell(cfg, train).step_fn, params,
+            steps.make_optimizer(cfg).init(params), tbatch)
+        want["train"] = fingerprint(list(out))
+        del out
+        with torch.no_grad():
+            logits, rec["unsharded_prefill_ms"] = wall_ms(
+                steps.build_cell(cfg, prefill).step_fn, params, pbatch)
+        want["prefill"] = digest(logits)
+        del logits
+        want["decode"], rec["unsharded_decode_ms"] = xlstm_decode_digests(
+            model, params, None, None)
+        torch.cuda.empty_cache()
+        local = params
+    else:
+        local = model_common.local_params(params, model.param_specs(mesh),
+                                          mesh)
+
+    # the train step
+    cell = steps.build_cell(cfg, train, mesh)
+    ostate = steps.make_optimizer(cfg).init(local)
+    b = tbatch if one else steps.local_args(tbatch, cell.in_shardings[2],
+                                            mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with sharding.count_collectives() as coll:
+        out, first_ms = wall_ms(cell.step_fn, local, ostate, b)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    loss = float(out[2])
+    check(math.isfinite(loss), f"{what}: loss {loss}")
+    got = fingerprint(list(out))
+    if one:
+        check(got == want["train"], f"{what}: the (1, 1) train step "
+              f"differs from the unsharded one")
+    p_sh, opt_sh, _ = cell.out_shardings
+    digests = dict(params=whole_digests(out[0], p_sh, mesh),
+                   mu=whole_digests(out[1].mu, opt_sh.mu, mesh),
+                   nu=whole_digests(out[1].nu, opt_sh.nu, mesh))
+    del out, ostate, b
+    torch.cuda.empty_cache()
+    rec["train"] = dict(
+        tokens=[train.global_batch, train.seq_len], loss=loss,
+        digests=digests, ms=first_ms,
+        collectives_per_step=dict(calls=coll.calls, bytes=coll.bytes),
+        peak_allocated_gb=peak_gb,
+        memory_model=memory_record(cfg, train, sharding.mesh_shape(mesh)))
+
+    # the prefill
+    pcell = steps.build_cell(cfg, prefill, mesh)
+    pb = pbatch if one else steps.local_args(pbatch, pcell.in_shardings[1],
+                                             mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        logits, rec["prefill_ms"] = wall_ms(pcell.step_fn, local, pb)
+        logits = sharding.whole_block(logits, pcell.out_shardings, mesh)
+    rec["prefill_peak_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    rec["prefill_digest"] = digest(logits)
+    check(bool(torch.isfinite(logits).all()), f"{what}: prefill logits")
+    if one:
+        check(rec["prefill_digest"] == want["prefill"], f"{what}: the "
+              f"(1, 1) prefill differs from the unsharded one")
+    elif torch.distributed.get_rank() == 0:
+        torch.save(logits[:, :MOE_MESH_SLICE].float().cpu(), pathlib.Path(
+            root) / f"xlstm-{'x'.join(map(str, shape))}.pt")
+    del logits, pb
+    torch.cuda.empty_cache()
+
+    # the decode step
+    rec["decode_digests"], rec["decode_ms"] = xlstm_decode_digests(
+        model, local, mesh, steps.build_cell(
+            cfg, dshape, mesh, dict(sharding.DEFAULT_RULES)),
+        params if not one else None)
+    if one:
+        check(rec["decode_digests"] == want["decode"], f"{what}: the "
+              f"(1, 1) decode step differs from the unsharded one")
+    del local, params
+    torch.cuda.empty_cache()
+    rec.update(bitwise_vs_unsharded=one or "not held (a mesh of several "
+               "ranks; the meshes are held against one another)")
+    return rec
+
+
+def xlstm_decode_digests(model, params, mesh, cell, whole_params=None):
+    """The decode step at decode_32k's full batch from a reached state
+    (:func:`reached_state`, made unsharded from the whole weights,
+    ``whole_params`` or ``params``; with ``mesh``, ``cell``'s step on
+    this rank's blocks of it, and ``params`` this rank's blocks), and its
+    logits from the state reached again: the digests of the next tokens,
+    of the whole logits and of the state after the step, and the step's
+    ms."""
+    dshape = configs.SHAPES["decode_32k"]
+    wparams = params if whole_params is None else whole_params
+
+    def reached():
+        return reached_state(model, wparams, dshape.global_batch,
+                             SEED + 70)
+    if mesh is None:
+        state, db = reached()
+        (tokens, state), ms = wall_ms(steps.build_cell(
+            model.cfg, dshape).step_fn, params, state, db)
+        states = fingerprint(state)
+        del state
+        state, db = reached()
+        logits = decode_logits(model, params, state, db, None, None, None)
+        return dict(tokens=digest(tokens), logits=digest(logits),
+                    state=states), ms
+    rules = dict(sharding.DEFAULT_RULES)
+    _, st_sh, db_sh = cell.in_shardings
+    state, db = reached()
+    ldb = steps.local_args(db, db_sh, mesh)
+    (tokens, local), ms = wall_ms(cell.step_fn, params, steps.local_args(
+        state, st_sh, mesh), ldb)
+    tokens = sharding.whole_block(tokens, cell.out_shardings[0], mesh)
+    states = fingerprint(steps.whole_args(local, st_sh, mesh))
+    del state, local
+    state, db = reached()
+    logits = decode_logits(model, params, steps.local_args(
+        state, st_sh, mesh), ldb, cell, mesh, rules)
+    return dict(tokens=digest(tokens), logits=digest(logits),
+                state=states), ms
+
+
+def xlstm_world() -> dict:
+    """XLSTM_ARCH sharded (:func:`mesh_xlstm`) in an NCCL world of every
+    card of the host (:func:`run_world`): every rank's digests and losses
+    the same on each mesh; on several meshes, their losses within
+    XLSTM_MESH_TOL's loss bound of the first mesh's ((1, world)) and
+    their prefill logits' first MOE_MESH_SLICE positions within its
+    logits bound of its largest |logit|."""
+    root = ROOT / "build" / "xlstm_mesh"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    world = torch.cuda.device_count()
+    ranks, world_s = run_world(root, world, "xlstm")
+
+    def held(rec):
+        return (rec["prefill_digest"], rec["decode_digests"],
+                rec["train"]["loss"], rec["train"]["digests"])
+    across = "one mesh"
+    if len(ranks[0]) > 1:
+        first = ranks[0][0]["xlstm"]
+        key0 = "x".join(map(str, first["mesh"]))
+        ref = torch.load(root / f"xlstm-{key0}.pt")
+        across = {}
+        for rec in ranks[0][1:]:
+            key = "x".join(map(str, rec["xlstm"]["mesh"]))
+            got = torch.load(root / f"xlstm-{key}.pt")
+            across[f"{key}_vs_{key0}"] = dict(
+                loss_rel_diff=abs(rec["xlstm"]["train"]["loss"]
+                                  - first["train"]["loss"])
+                / abs(first["train"]["loss"]),
+                logits_rel_diff=max_abs_diff(got, ref) / max_abs(ref),
+                tol=XLSTM_MESH_TOL)
+    shutil.rmtree(root, ignore_errors=True)
+    out = dict(world=world, ranks=ranks, meshes_agree=across,
+               world_s=world_s)
+    emit({"xlstm_world": out})
+    for i, rec in enumerate(ranks[0]):
+        check(all(held(r[i]["xlstm"]) == held(rec["xlstm"])
+                  for r in ranks[1:]),
+              f"sharded {XLSTM_ARCH} on a {rec['mesh']} mesh: the train "
+              f"step, the prefill or the decode step differ between ranks")
+    for key, r in (across.items() if isinstance(across, dict) else ()):
+        check(r["loss_rel_diff"] <= XLSTM_MESH_TOL["loss"]
+              and r["logits_rel_diff"] <= XLSTM_MESH_TOL["logits"],
+              f"sharded {XLSTM_ARCH}: the {key} mesh: {r}")
+    return out
+
+
+def xlstm_phase(card: str) -> dict:
+    """The xLSTM on the card: XLSTM_ARCH sharded over every card
+    (:func:`xlstm_world`, first, while this process holds nothing on the
+    card); at full width and depth the train step at train_4k's cut, the
+    prefill at prefill_32k's cut, the decode steps at decode_32k's full
+    batch and at long_500k, greedy run to run, decode against prefill,
+    the card against the CPU at XLSTM_CHECK_LAYERS, the decode card
+    against the CPU there. Two subprocesses on the host's
+    CPU (:func:`host_start`) run beside the sharded world and the train
+    step and are waited for before the prefill is timed: the CPU side of
+    the card-vs-CPU check (:func:`xlstm_cpu_side`), and the train and
+    prefill cells counted on meta tensors at full batch
+    (:func:`cells_counted`: FLOPs equal to the hand count, the sLSTM
+    scan's registered counts among them; ``analyze()`` on one card and
+    the production meshes; and for the decode shapes). Every record
+    carries the card's name and power limit, and is printed as its part
+    ends, with its seconds; the phase's wall seconds last."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    part_s = {}
+
+    def done(name: str, t: float, **recs) -> None:
+        part_s[name] = time.perf_counter() - t
+        emit({"xlstm": dict(card=card, part=name, part_s=part_s[name],
+                            **recs)})
+    cpu_path = ROOT / "build" / "xlstm_cpu.pt"
+    cpu_path.parent.mkdir(parents=True, exist_ok=True)
+    counting = host_start(f"cells_counted({XLSTM_ARCH!r})")
+    cpu_side = host_start(f"xlstm_cpu_side({str(cpu_path)!r})")
+    try:
+        rec = {"card": card, "mesh": xlstm_world()}
+        done("mesh", t0, mesh=rec["mesh"])
+        cfg = configs.get_config(XLSTM_ARCH)
+        params = lm.Model(cfg).init(
+            torch.Generator(device=DEVICE).manual_seed(SEED + 60))
+        t = time.perf_counter()
+        rec["train"] = xlstm_train_run(cfg, params)
+        torch.cuda.empty_cache()
+        done("train", t, train=rec["train"])
+        t = time.perf_counter()
+        cpu = torch.load(host_wait(cpu_side, "xlstm: the CPU side of card "
+                                   "vs CPU"), weights_only=False)
+        cpu_path.unlink()
+        rec["counted"] = host_wait(counting, f"{XLSTM_ARCH}'s cells counted")
+    finally:
+        host_stop(counting, cpu_side)
+    for name, r in rec["counted"].items():
+        check(r["flops"] == r["flops_hand"]["total"], f"{XLSTM_ARCH} "
+              f"{name} counts {r['flops']} FLOPs, hand count "
+              f"{r['flops_hand']}")
+    rec["counted"]["memory_decode"] = {
+        name: {"x".join(map(str, m.values())): memory_record(
+            cfg, configs.SHAPES[name], m) for m in CELLS_MESHES}
+        for name in ("decode_32k", "long_500k")}
+    done("host_wait", t, counted=rec["counted"])
+    for name, fn in (("prefill", lambda: xlstm_prefill_run(cfg, params)),
+                     ("decode", lambda: xlstm_decode(cfg, params)),
+                     ("vs_prefill", xlstm_vs_prefill),
+                     ("card_vs_cpu", lambda: xlstm_card_vs_cpu(cpu)),
+                     ("decode_card_vs_cpu", lambda: decode_card_vs_cpu(
+                         XLSTM_ARCH, XLSTM_CHECK_LAYERS))):
+        t = time.perf_counter()
+        rec[name] = fn()
+        if name == "decode":
+            del params
+        torch.cuda.empty_cache()
+        done(name, t, **{name: rec[name]})
+    rec["phase_s"] = time.perf_counter() - t0
+    emit({"xlstm": {"card": card, "part_s": part_s,
+                    "phase_s": rec["phase_s"]}})
+    return rec
 
 
 TRAIN_KERNELS = {"hdc_encode_perm": enc_perm, "hdc_encode": enc,
@@ -6130,14 +6922,16 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
         "--only", choices=("mesh", "cells", "lm", "decode", "mesh_decode",
-                           "moe", "hybrid", "hybrid_mesh"),
+                           "moe", "hybrid", "hybrid_mesh", "xlstm",
+                           "xlstm_mesh"),
         help="mesh: build the kernels and run the mesh phase alone (on a "
              "host with several cards: the NCCL world takes every card); "
-             "cells, lm, decode, moe, hybrid: that phase alone (moe's and "
-             "hybrid's sharded runs in an NCCL world of every card); "
-             "mesh_decode, hybrid_mesh: the mesh phase's sharded decode "
-             "cell or the hybrid's sharded runs alone, in an NCCL world of "
-             "every card (none of these runs any of the kernels)")
+             "cells, lm, decode, moe, hybrid, xlstm: that phase alone "
+             "(moe's, hybrid's and xlstm's sharded runs in an NCCL world of "
+             "every card); mesh_decode, hybrid_mesh, xlstm_mesh: the mesh "
+             "phase's sharded decode cell, the hybrid's or the xLSTM's "
+             "sharded runs alone, in an NCCL world of every card (none of "
+             "these runs any of the kernels)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6165,7 +6959,7 @@ def run_phases(args, smi: str, dry) -> int:
         ok_line()
         return 0
     if args.only in ("lm", "decode", "mesh_decode", "moe", "hybrid",
-                     "hybrid_mesh"):
+                     "hybrid_mesh", "xlstm", "xlstm_mesh"):
         if args.only == "lm":
             lm_phase(smi)
         elif args.only == "decode":
@@ -6178,6 +6972,12 @@ def run_phases(args, smi: str, dry) -> int:
             t0 = time.perf_counter()
             emit({"hybrid": {"card": smi, "mesh": hybrid_world(),
                              "phase_s": time.perf_counter() - t0}})
+        elif args.only == "xlstm":
+            xlstm_phase(smi)
+        elif args.only == "xlstm_mesh":
+            t0 = time.perf_counter()
+            emit({"xlstm": {"card": smi, "mesh": xlstm_world(),
+                            "phase_s": time.perf_counter() - t0}})
         else:
             mesh_decode_phase()
         ok_line()
@@ -6240,6 +7040,7 @@ def run_phases(args, smi: str, dry) -> int:
     decode_phase(smi)
     moe_phase(smi)
     hybrid_phase(smi)
+    xlstm_phase(smi)
     train, train_launches, train_records = train_phase(g)
     emit({"train": train})
     for r in train_records:

@@ -2,11 +2,9 @@
 
 Each module defines ``config()`` (the exact numbers) and ``smoke()`` (a
 reduced config of the same family for CPU tests), as in
-``repro.configs``. The port has the architectures its ported models run,
-in the reference's order: the hybrid (Mamba-2 with a shared attention
-block), the mixture of experts, the encoder and the dense and vlm
-families; the xLSTM one comes with the LM zoo (``ROADMAP.md`` §1 item
-4(e)).
+``repro.configs``, with the same architectures in the reference's order:
+the hybrid (Mamba-2 with a shared attention block), the mixture of
+experts, the encoder, the dense, ssm (xLSTM) and vlm families.
 """
 
 from __future__ import annotations
@@ -26,6 +24,7 @@ ARCH_IDS = [
     "codeqwen1.5-7b",
     "internlm2-1.8b",
     "deepseek-67b",
+    "xlstm-350m",
     "internvl2-76b",
 ]
 
@@ -36,9 +35,8 @@ PAPER_CONFIG_ID = "hypersense"
 
 def _module(arch_id: str):
     if arch_id not in ARCH_IDS:
-        raise ValueError(f"{arch_id!r} is not ported yet (the port has "
-                         f"{ARCH_IDS}); the other architectures come with "
-                         f"the LM zoo, ROADMAP.md §1 item 4")
+        raise ValueError(f"no config {arch_id!r}; the architectures are "
+                         f"{ARCH_IDS}")
     name = arch_id.replace("-", "_").replace(".", "_")
     return importlib.import_module(f"repro_torch.configs.{name}")
 

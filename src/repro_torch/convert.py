@@ -1,6 +1,7 @@
 """Carry a HyperSense model's, a Fragment model's, a detector's, an LM's
 or a baseline's weights, an AdamW state or an LM's decode state (its KV
-cache, or the hybrid's SSM states and KV caches) across into the port.
+cache, the hybrid's SSM states and KV caches, or the xLSTM's per-block
+states) across into the port.
 
 The tests build a model in the JAX package and hand its arrays over as
 numpy (``np.asarray(jax_model.class_hvs)`` etc.), so that both packages
@@ -21,6 +22,7 @@ from repro_torch.models import common
 from repro_torch.models.attention import KVCache
 from repro_torch.models.lm import dtype_of
 from repro_torch.models.ssm import SSMState
+from repro_torch.models.xlstm import MLSTMState, SLSTMState
 from repro_torch.sensing.baselines import MLP, TinyConv
 from repro_torch.train.optim import AdamWState
 
@@ -87,7 +89,8 @@ def lm_params_from_arrays(tree, *, cfg,
     reference's ``Model.init`` tree as numpy arrays (the same nesting and
     leaf names, layers stacked on a leading axis or listed; the token
     embedding's ``embed`` subtree; a parameter-free norm's empty
-    subtree, kept empty), each leaf in ``cfg.param_dtype`` on ``device``
+    subtree, kept empty; the xLSTM's ``{"mlstm", "slstm"}`` stacks), each
+    leaf in ``cfg.param_dtype`` on ``device``
     (``None`` -> CUDA, raising without it)."""
     dev = resolve_device(device)
     dt = dtype_of(cfg.param_dtype)
@@ -148,6 +151,32 @@ def hybrid_state_from_arrays(state, *,
                 torch.tensor(np.asarray(mamba.ssm, np.float32), device=dev),
                 bf16(mamba.conv)),
             "attn": kv_cache_from_arrays(state["attn"], device=dev)}
+
+
+def xlstm_state_from_arrays(state, *,
+                            conv_dtype: torch.dtype = torch.bfloat16,
+                            device: str | torch.device | None = None
+                            ) -> list:
+    """The xLSTM's decode state from the reference's (``Model.
+    init_decode_state``'s list of one ``MLSTMState`` or ``SLSTMState`` a
+    block) as numpy arrays, on ``device`` (``None`` -> CUDA, raising
+    without it): the mLSTM's C, n and m and the sLSTM's four leaves in
+    float32, copies (the decode step writes the state in place); the
+    mLSTM's convolution buffer in ``conv_dtype`` (bf16, the reference's
+    default: a bf16 leaf passes through float32 exactly, a float32 one
+    is rounded)."""
+    dev = resolve_device(device)
+
+    def f32(a):
+        return torch.tensor(np.asarray(a, np.float32), device=dev)
+    out: list = []
+    for st in state:
+        if hasattr(st, "C"):
+            out.append(MLSTMState(f32(st.C), f32(st.n), f32(st.m),
+                                  f32(st.conv).to(conv_dtype)))
+        else:
+            out.append(SLSTMState(*map(f32, st)))
+    return out
 
 
 def baseline_from_arrays(tree, *, kind: str,

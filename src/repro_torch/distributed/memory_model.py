@@ -8,8 +8,9 @@ train:   params(fp32) + adam(mu,nu fp32) + grads(fp32, transient)
          + saved residuals (L x b_loc x s_shard x d, bf16, seq-parallel)
          + max transient (attention block scores / MoE buffers / loss chunk)
 decode:  params(bf16-equivalent) + decode state (each leaf's block, the
-         KV caches' and the hybrid's SSM states', under ``spec_for`` of
-         its logical axes) + small transients
+         KV caches', the hybrid's SSM states' and the xLSTM's per-block
+         states', under ``spec_for`` of its logical axes) + small
+         transients
 prefill: params + live activations (one layer) + logits
 
 A mesh is a ``DeviceMesh`` with named dimensions or a ``{name: size}``

@@ -20,7 +20,8 @@ tensor dimension: a mesh dimension's name, a tuple of names, or None
 :func:`local_range`, :func:`local_block` (this rank's block of a whole
 tensor) and :func:`whole_block` (the blocks back together),
 :func:`all_gather_cat` (the blocks back together, in rank order),
-:func:`fold_partials` (the partial sums of a row-parallel product added
+:func:`gather_alike` (the same, for a computation every rank then runs
+alike), :func:`fold_partials` (the partial sums of a row-parallel product added
 in rank order, in float32), :func:`enter_group` (a replicated activation
 entering a column-parallel product) and :func:`max_over`;
 :func:`count_collectives` records the bytes they move. The detector's and
@@ -411,6 +412,18 @@ class _GatherCat(torch.autograd.Function):
         return _reduce_scatter(grad, ctx.group, ctx.dim), None, None
 
 
+class _GatherAlike(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim, ctx.n = group, dim, x.shape[dim]
+        return torch.cat(_gather(x, group), dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        lo = dist.get_rank(ctx.group) * ctx.n
+        return grad.narrow(ctx.dim, lo, ctx.n).contiguous(), None, None
+
+
 class _Fold(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -438,6 +451,16 @@ def all_gather_cat(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     sum of every rank's gradient (:func:`_reduce_scatter`): an FSDP
     weight's gradient, summed over the ranks that gathered it."""
     return _GatherCat.apply(x, group, dim)
+
+
+def gather_alike(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """Every rank's ``x`` of ``group`` concatenated along ``dim`` in
+    group-rank order, as :func:`all_gather_cat`, for a computation that
+    every rank of the group then runs alike on the whole (the same inputs,
+    the same products): each rank's gradient of the whole is then the
+    same, so the backward pass keeps this rank's block of it, with no
+    communication (a sum over the ranks would count it once a rank)."""
+    return _GatherAlike.apply(x, group, dim)
 
 
 def fold_partials(x: torch.Tensor, group) -> torch.Tensor:

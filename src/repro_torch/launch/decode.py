@@ -32,9 +32,10 @@ def greedy_decode(model: lm.Model, params: dict, prompts: torch.Tensor,
     """``prompts`` ``(b, p)`` int32 on the parameters' device -> ``(b, p +
     gen)`` int32: the prompt, then ``gen`` greedy tokens. ``state``: the
     decode state to fill, in place (by default zeros of ``max_seq``
-    positions): the transformer families' ``KVCache``, or the hybrid's
+    positions): the transformer families' ``KVCache``, the hybrid's
     dict of SSM states and caches (``convert.hybrid_state_from_arrays``
-    makes one from the reference's)."""
+    makes one from the reference's), or the xLSTM's list of per-block
+    states (``convert.xlstm_state_from_arrays``)."""
     b, p = prompts.shape
     dev = prompts.device
     if state is None:

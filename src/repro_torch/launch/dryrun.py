@@ -24,15 +24,14 @@ the reference's keys: ``Roofline.to_dict()``, ``n_params``, ``status``,
 counted run: nothing is compiled) and ``unrolled`` (True: every layer
 is counted).
 
-The port keeps its own copy of the reference's ``ARCH_IDS``. An
-architecture whose family ``lm.Model`` does not take yet gets one
-``"not_ported"`` row a mesh, naming its ``ROADMAP.md`` item; that is no
-failure. The ``decode_32k`` cells of the ported decoders are counted
-like the others: one token against the 32,768-position cache, split by
-kv heads or, where "model" does not divide them, along the sequence;
-the hybrid's (zamba2's) Mamba states split by SSM heads, and its
-``long_500k`` cell (524,288 positions at batch 1) counted the same way.
-A cell that raises for any other reason is a ``"fail"`` row.
+The port's ``configs.ARCH_IDS`` are the reference's, and every cell of
+every architecture is counted. The ``decode_32k`` cells are counted like
+the others: one token against the 32,768-position cache, split by kv
+heads or, where "model" does not divide them, along the sequence; the
+hybrid's (zamba2's) Mamba states split by SSM heads, the xLSTM's states
+by heads (xlstm-350m's 4, whole on a "model" of 16); the sub-quadratic
+families' ``long_500k`` cells (524,288 positions at batch 1) counted the
+same way. A cell that raises is a ``"fail"`` row.
 
 Usage (on any host, no card):
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch hubert-xlarge \\
@@ -59,24 +58,6 @@ from repro_torch.launch import steps
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import common, lm
 
-#: the reference's architectures (``repro.configs.ARCH_IDS``), in its order
-ARCH_IDS = [
-    "zamba2-1.2b",
-    "qwen3-moe-235b-a22b",
-    "grok-1-314b",
-    "hubert-xlarge",
-    "olmo-1b",
-    "codeqwen1.5-7b",
-    "internlm2-1.8b",
-    "deepseek-67b",
-    "xlstm-350m",
-    "internvl2-76b",
-]
-#: the ROADMAP.md item each architecture the port's Model does not take
-#: yet waits for
-NOT_PORTED = {
-    "xlstm-350m": "4(e): models/xlstm.py",
-}
 MESH_CHIPS = {"single": 256, "multi": 512}
 
 
@@ -128,23 +109,14 @@ def run_cell(arch: str, shape_name: str | None, mesh_name: str,
              rules: dict | None = None, out_path: str | None = None,
              verbose: bool = True, overrides: dict | None = None) -> dict:
     """Count one cell (``overrides``: ModelConfig fields) and append its
-    record to ``out_path``; an architecture the port does not run yet
-    gives its ``"not_ported"`` row."""
-    waits = NOT_PORTED.get(arch)
-    if waits is not None:
-        rec = {"arch": arch, "shape": shape_name, "mesh": mesh_name,
-               "status": "not_ported", "reason": f"ROADMAP.md §1 item {waits}"}
-        if verbose:
-            print(f"=== {arch} x {shape_name} x {mesh_name}: not ported "
-                  f"({rec['reason']}) ===")
-    else:
-        cfg = configs.get_config(arch).replace(**(overrides or {}))
-        shape = configs.SHAPES[shape_name]
-        with fake_world(MESH_CHIPS[mesh_name]):
-            mesh = make_production_mesh(multi_pod=mesh_name == "multi")
-            rec = count_cell(cfg, shape, mesh, mesh_name, rules)
-        if verbose:
-            _summary(rec)
+    record to ``out_path``."""
+    cfg = configs.get_config(arch).replace(**(overrides or {}))
+    shape = configs.SHAPES[shape_name]
+    with fake_world(MESH_CHIPS[mesh_name]):
+        mesh = make_production_mesh(multi_pod=mesh_name == "multi")
+        rec = count_cell(cfg, shape, mesh, mesh_name, rules)
+    if verbose:
+        _summary(rec)
     if out_path:
         with open(out_path, "a") as f:
             f.write(json.dumps(rec) + "\n")
@@ -170,13 +142,8 @@ def _summary(rec: dict) -> None:
 
 def all_cells(mesh_names=("single", "multi")):
     """``(arch, shape name, mesh name)`` of every cell: each applicable
-    shape of a ported architecture on each mesh; one ``(arch, None,
-    mesh)`` a mesh for the others."""
-    for arch in ARCH_IDS:
-        if arch in NOT_PORTED:
-            for mesh_name in mesh_names:
-                yield arch, None, mesh_name
-            continue
+    shape of each architecture on each mesh."""
+    for arch in configs.ARCH_IDS:
         for shape_name, sc in configs.applicable_shapes(
                 configs.get_config(arch)).items():
             if sc is None:

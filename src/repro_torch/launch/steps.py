@@ -12,7 +12,8 @@ without a mesh) and its abstract arguments. Cells:
 * prefill — the logits over the whole sequence;
 * decode — one token against a pre-filled KV cache (the hybrid's:
   its Mamba layers' SSM states and convolution buffers and its shared
-  block's caches) (``serve_step(params, state, batch) -> (next tokens,
+  block's caches; the xLSTM's: each block's recurrent state)
+  (``serve_step(params, state, batch) -> (next tokens,
   state)``, the argmax of the last logits, the state written in place
   as the reference donates it);
 * detector — a fixed batch of frames through an embeds-in backbone, the
@@ -24,7 +25,8 @@ every step together) the train, prefill and decode steps take this
 rank's blocks, those ``in_shardings`` describes, and return the blocks
 ``out_shardings`` describes (the decode cell's cache split by kv heads,
 or along the sequence where "model" does not divide them, the hybrid's
-SSM states by SSM heads and its convolution buffers whole, its next
+SSM states by SSM heads and its convolution buffers whole, the xLSTM's
+states by heads and its convolution buffers whole, its next
 tokens the argmax of the vocab blocks gathered): the forward written
 out over the mesh (:class:`~repro_torch.models.common.Parallel`), the loss vocab-parallel
 and folded over the batch's group, the gradients through collectives
@@ -47,7 +49,7 @@ import torch
 from repro_torch import pin_detector_matmul
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.distributed import sharding
-from repro_torch.models import attention, common, lm, ssm
+from repro_torch.models import attention, common, lm, ssm, xlstm
 from repro_torch.models.lm import Batch, DecodeBatch
 from repro_torch.train import optim
 
@@ -273,11 +275,15 @@ def build_prefill_cell(cfg: ModelConfig, shape: ShapeConfig, mesh=None,
 
 
 def _decode_state_axes(model: lm.Model) -> Any:
-    """The logical axes of ``decode_state_spec``'s leaves (the leading
-    layer dim's included), in the same tree: the KV cache of the dense,
+    """The logical axes of ``decode_state_spec``'s leaves (a stacked
+    state's leading layer dim included), in the same tree: the KV cache of the dense,
     moe and vlm families; the hybrid's Mamba states and shared-block
-    caches."""
+    caches; the xLSTM's list of per-block states."""
     lm.check_decodes(model.cfg)
+    if model.cfg.family == "ssm":
+        return [xlstm.slstm_state_axes() if kind == "slstm"
+                else xlstm.mlstm_state_axes()
+                for kind in lm._xlstm_kinds(model.cfg)]
     ax = attention.cache_axes()
     cache = attention.KVCache(("layers", *ax.k), ("layers", *ax.v))
     if model.cfg.family != "hybrid":
@@ -294,6 +300,8 @@ def _state_shardings(model: lm.Model, st_abs, mesh, rules):
     def one(t, axes):
         if isinstance(axes, dict):
             return {k: one(t[k], axes[k]) for k in axes}
+        if isinstance(axes, list):
+            return [one(a, b) for a, b in zip(t, axes, strict=True)]
         if isinstance(t, torch.Tensor):
             return sharding.logical_sharding(t.shape, axes, mesh, rules)
         return type(t)(*(one(a, b) for a, b in zip(t, axes)))

@@ -1,7 +1,7 @@
 """The LM model facade on PyTorch, for the families the port runs. The
 twin of ``repro.models.lm``'s ``Model`` (``spec``, ``init``,
 ``abstract_params``, ``forward``, ``loss``) and ``Batch`` for the
-``encoder``, ``dense``, ``moe``, ``vlm`` and ``hybrid`` families: the
+``encoder``, ``dense``, ``moe``, ``vlm``, ``hybrid`` and ``ssm`` families: the
 inputs (the encoder's embeddings; the token embeddings; the VLM's image
 embeddings ahead of its token embeddings), the layer stack, the final
 norm, the unembedding, and the masked NLL over it, plus the experts'
@@ -12,8 +12,10 @@ the mixture of experts where the config has experts). The hybrid
 ``x + ssm.apply``) in groups of ``shared_attn_every``, each full group
 followed by the one shared attention + MLP block, fed ``x + h0 @
 emb_proj`` where ``h0`` is the stack's input; a partial last group has
-no shared block. The VLM's logits and loss cover its text positions
-alone.
+no shared block. The xLSTM (``ssm``) stacks mLSTM blocks with an sLSTM
+block every ``slstm_every`` (:mod:`repro_torch.models.xlstm`, each with
+its residual inside), their parameters in two stacks, ``{"mlstm",
+"slstm"}``. The VLM's logits and loss cover its text positions alone.
 
 Sharded (``par``, a :class:`~repro_torch.models.common.Parallel` over
 the blocks of :meth:`Model.param_specs`), the forward is written out:
@@ -21,7 +23,7 @@ the token embedding vocab-parallel over ``"model"`` and folded,
 attention and MLP tensor-parallel over ``"model"`` with their row-parallel
 partials folded, the experts split over ``"model"`` by expert (or by
 ``d_ff``) behind one gather of the batch's token matrix, the Mamba-2
-layers by SSM heads, every ``"embed"`` dim (FSDP over ``"data"``) gathered
+layers and the xLSTM blocks by SSM heads, every ``"embed"`` dim (FSDP over ``"data"``) gathered
 right before its use, the unembedding this rank's vocab block; norms and
 the residual stream replicated. ``Model.loss`` takes the same ``par``
 (the vocab-parallel logsumexp), and autograd differentiates the
@@ -42,12 +44,15 @@ state, written in place: for the transformer families a stacked bf16
 max_s, kv, hd)`` leaves; for the hybrid a dict, ``{"mamba":
 SSMState(ssm (n_layers, b, h, p, n) float32, conv (n_layers, b, 3,
 conv_dim) bf16), "attn": KVCache((n_shared_calls, b, max_s, kv, hd)
-bf16)}``. Sharded, each rank holds its block of it under the
-:func:`~repro_torch.models.attention.cache_axes` and
-:func:`~repro_torch.models.ssm.state_axes` specs, and the logits are
-this rank's block of the vocab, as ``forward``'s. The VLM decodes tokens
-alone, as the reference does. The xLSTM family and ``"dots"`` remat
-come with the LM zoo (``ROADMAP.md`` §1 item 4(e)).
+bf16)}``; for the xLSTM a list of one state a block, in layer order
+(:class:`~repro_torch.models.xlstm.MLSTMState`: float32 C, n and m and a
+bf16 convolution buffer; :class:`~repro_torch.models.xlstm.SLSTMState`:
+four float32 leaves). Sharded, each rank holds its block of it under the
+:func:`~repro_torch.models.attention.cache_axes`,
+:func:`~repro_torch.models.ssm.state_axes` and the xLSTM's state axes,
+and the logits are this rank's block of the vocab, as ``forward``'s. The
+VLM decodes tokens alone, as the reference does. ``"dots"`` remat comes
+with the LM zoo (``ROADMAP.md`` §1 item 4).
 """
 
 from __future__ import annotations
@@ -60,14 +65,11 @@ import torch.utils.checkpoint
 from repro_torch import pin_detector_matmul, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import sharding
-from repro_torch.models import attention, common, mlp, ssm
+from repro_torch.models import attention, common, mlp, ssm, xlstm
 
-PORTED_FAMILIES = ("dense", "encoder", "hybrid", "moe", "vlm")
-#: the ROADMAP.md item each family the port's Model does not take yet
-#: waits for
-UNPORTED_FAMILIES = {"ssm": "4(e)"}
-#: the families whose decode step the port runs
-DECODE_FAMILIES = ("dense", "hybrid", "moe", "vlm")
+PORTED_FAMILIES = ("dense", "encoder", "hybrid", "moe", "ssm", "vlm")
+#: the families with a decode step
+DECODE_FAMILIES = ("dense", "hybrid", "moe", "ssm", "vlm")
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -101,6 +103,39 @@ def _ssm_cfg(cfg: ModelConfig) -> ssm.SSMConfig:
         d_model=cfg.d_model, d_inner=cfg.d_inner, n_heads=cfg.ssm_heads,
         head_dim=cfg.ssm_head_dim, d_state=cfg.ssm_state,
         chunk=cfg.ssm_chunk)
+
+
+def _xlstm_cfg(cfg: ModelConfig) -> xlstm.XLSTMConfig:
+    return xlstm.XLSTMConfig(d_model=cfg.d_model, n_heads=cfg.n_heads,
+                             chunk=cfg.ssm_chunk)
+
+
+def _xlstm_kinds(cfg: ModelConfig) -> list[str]:
+    """Each block's kind, in layer order: every ``slstm_every``-th an
+    sLSTM, the others mLSTM."""
+    if not cfg.slstm_every:
+        return ["mlstm"] * cfg.n_layers
+    return ["slstm" if (i + 1) % cfg.slstm_every == 0 else "mlstm"
+            for i in range(cfg.n_layers)]
+
+
+def _xlstm_segments(cfg: ModelConfig) -> list[tuple]:
+    """``[("m", lo, hi) | ("s", idx)]`` runs over the two stacks: each run
+    of consecutive mLSTM blocks (``[lo, hi)`` of the mLSTM stack), each
+    sLSTM block (``idx`` of its stack)."""
+    segs: list[tuple] = []
+    m_i = s_i = 0
+    for kind in _xlstm_kinds(cfg):
+        if kind == "slstm":
+            segs.append(("s", s_i))
+            s_i += 1
+        elif segs and segs[-1][0] == "m":
+            segs[-1] = ("m", segs[-1][1], m_i + 1)
+            m_i += 1
+        else:
+            segs.append(("m", m_i, m_i + 1))
+            m_i += 1
+    return segs
 
 
 def _hybrid_positions(cfg: ModelConfig) -> list[int]:
@@ -178,16 +213,12 @@ def _tf_layer_decode(params: dict, x: torch.Tensor,
 
 
 def check_decodes(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` has a decode step the port runs: the encoder
-    has none (``ValueError``, as the reference); the families the port's
-    Model does not take yet name their ROADMAP.md item."""
+    """Raise (``ValueError``) unless ``cfg`` has a decode step: the
+    encoder has none, as in the reference."""
     if cfg.is_encoder:
         raise ValueError("encoder-only arch has no decode step")
     if cfg.family not in DECODE_FAMILIES:
-        item = UNPORTED_FAMILIES.get(cfg.family, "4")
-        raise NotImplementedError(
-            f"{cfg.arch_id}: the {cfg.family} family's decode state comes "
-            f"with the LM zoo, ROADMAP.md §1 item {item}")
+        raise ValueError(f"{cfg.arch_id}: unknown family {cfg.family!r}")
 
 
 def layer_params(layers, i: int) -> dict:
@@ -211,10 +242,13 @@ def unbind_layers(layers, n_layers: int) -> list:
 
 
 def map_state(fn: Callable, state):
-    """``fn`` at every tensor of a decode state (a ``KVCache``, or the
-    hybrid's dict of ``SSMState`` and ``KVCache``), the structure kept."""
+    """``fn`` at every tensor of a decode state (a ``KVCache``, the
+    hybrid's dict of ``SSMState`` and ``KVCache``, or the xLSTM's list of
+    per-block states), the structure kept."""
     if isinstance(state, dict):
         return {k: map_state(fn, v) for k, v in state.items()}
+    if isinstance(state, list):
+        return [map_state(fn, t) for t in state]
     if isinstance(state, tuple):
         return type(state)(*(map_state(fn, t) for t in state))
     return fn(state)
@@ -265,11 +299,8 @@ class DecodeBatch(NamedTuple):
 class Model:
     def __init__(self, cfg: ModelConfig):
         if cfg.family not in PORTED_FAMILIES:
-            item = UNPORTED_FAMILIES.get(cfg.family, "4")
-            raise ValueError(
-                f"{cfg.arch_id}: the port's Model runs the {PORTED_FAMILIES} "
-                f"families; family {cfg.family!r} comes with the LM zoo, "
-                f"ROADMAP.md §1 item {item}")
+            raise ValueError(f"{cfg.arch_id}: unknown family "
+                             f"{cfg.family!r}")
         self.cfg = cfg
         self.compute_dtype = dtype_of(cfg.compute_dtype)
 
@@ -284,6 +315,14 @@ class Model:
             s["layers"] = common.map_layers(ssm.spec(_ssm_cfg(cfg)),
                                             cfg.n_layers)
             s["shared_attn"] = _shared_spec(cfg)
+            return s
+        if cfg.family == "ssm":
+            xc, kinds = _xlstm_cfg(cfg), _xlstm_kinds(cfg)
+            s["layers"] = {"mlstm": common.map_layers(
+                xlstm.mlstm_spec(xc), kinds.count("mlstm"))}
+            if "slstm" in kinds:
+                s["layers"]["slstm"] = common.map_layers(
+                    xlstm.slstm_spec(xc), kinds.count("slstm"))
             return s
         layer = _tf_layer_spec(cfg)
         s["layers"] = (common.map_layers(layer, cfg.n_layers)
@@ -340,6 +379,8 @@ class Model:
         aux = None
         if cfg.family == "hybrid":
             h = self._hybrid_forward(params, h, par)
+        elif cfg.family == "ssm":
+            h = self._xlstm_forward(params, h, par)
         else:
             layer = _remat(lambda p, x: _tf_layer(p, x, cfg, par), cfg)
             if cfg.n_experts:
@@ -379,6 +420,31 @@ class Model:
                 h = mamba(p, h)
             if hi - lo == k and cfg.shared_attn_every:
                 h = shared(params["shared_attn"], h)
+        return h
+
+    def _xlstm_layers(self, params: dict) -> tuple[list, list]:
+        """Each mLSTM and sLSTM block's tree, in stack order."""
+        kinds = _xlstm_kinds(self.cfg)
+        layers = params["layers"]
+        return (unbind_layers(layers["mlstm"], kinds.count("mlstm")),
+                unbind_layers(layers["slstm"], kinds.count("slstm"))
+                if "slstm" in layers else [])
+
+    def _xlstm_forward(self, params: dict, h: torch.Tensor,
+                       par: common.Parallel | None) -> torch.Tensor:
+        """The blocks in layer order, each under ``remat``."""
+        xc = _xlstm_cfg(self.cfg)
+        m_fn = _remat(lambda p, x: xlstm.mlstm_block(p, x, xc, par),
+                      self.cfg)
+        s_fn = _remat(lambda p, x: xlstm.slstm_block(p, x, xc,
+                                                     par=par)[0], self.cfg)
+        mlstm, slstm = self._xlstm_layers(params)
+        for seg in _xlstm_segments(self.cfg):
+            if seg[0] == "m":
+                for p in mlstm[seg[1]:seg[2]]:
+                    h = m_fn(p, h)
+            else:
+                h = s_fn(slstm[seg[1]], h)
         return h
 
     def forward(self, params: dict, batch: Batch,
@@ -495,9 +561,15 @@ class Model:
         head_dim)`` a leaf; for the hybrid ``{"mamba": SSMState, "attn":
         KVCache}``, each Mamba layer's float32 recurrent state and bf16
         convolution buffer and each shared-block call's bf16 cache,
-        stacked."""
+        stacked; for the xLSTM a list of each block's state, whatever
+        ``max_seq``."""
         cfg = self.cfg
         check_decodes(cfg)
+        if cfg.family == "ssm":
+            xc = _xlstm_cfg(cfg)
+            return [xlstm.slstm_state_spec(xc, batch) if kind == "slstm"
+                    else xlstm.mlstm_state_spec(xc, batch)
+                    for kind in _xlstm_kinds(cfg)]
 
         def stacked(n, t):
             return torch.empty((n, *t.shape), dtype=t.dtype, device="meta")
@@ -553,6 +625,8 @@ class Model:
             if cfg.family == "hybrid":
                 h = self._hybrid_decode(params, h, state, batch.index, par,
                                         state_spec)
+            elif cfg.family == "ssm":
+                h = self._xlstm_decode(params, h, state, par, state_spec)
             else:
                 layer_spec = None if par is None else tuple(
                     state_spec.k[1:])
@@ -597,4 +671,25 @@ class Model:
                 m = common.apply_norm(h, p["mlp_norm"], cfg.norm)
                 h = h + mlp.apply(p["mlp"], m, mcfg, par=par)
                 inv += 1
+        return h
+
+    def _xlstm_decode(self, params: dict, h: torch.Tensor, state: list,
+                      par: common.Parallel | None,
+                      state_spec: list | None) -> torch.Tensor:
+        """Each block's step against its state, in layer order, in
+        place."""
+        xc = _xlstm_cfg(self.cfg)
+        mlstm, slstm = self._xlstm_layers(params)
+        m_i = s_i = 0
+        for i, (kind, st) in enumerate(zip(_xlstm_kinds(self.cfg), state,
+                                           strict=True)):
+            spec = None if state_spec is None else state_spec[i]
+            if kind == "slstm":
+                h, _ = xlstm.slstm_block_step(slstm[s_i], h, st, xc, par,
+                                              spec)
+                s_i += 1
+            else:
+                h, _ = xlstm.mlstm_block_step(mlstm[m_i], h, st, xc, par,
+                                              spec)
+                m_i += 1
         return h

@@ -35,7 +35,10 @@ ARCH = "hubert-xlarge"
 #: convolution channels, which split into blocks of 140 and 72 on two
 #: ranks while a rank's heads take 64 channels; four SSD chunks of 16),
 #: and at SSM state 7, whose in_proj (278 wide) and convolution (142
-#: channels) (1, 4) leaves whole while it splits the 8 heads
+#: channels) (1, 4) leaves whole while it splits the 8 heads; the xLSTM's
+#: (the smoke xlstm-350m: 2 heads, which (1, 2) and (2, 2) split and (1,
+#: 4) leaves whole while its inner dims split, the production meshes'
+#: layout), in float32 and in bf16 under remat "full"
 CASES = {
     "smoke": ({}, (2, 64)),
     "remat-bf16": ({"remat": "full", "compute_dtype": "bfloat16"}, (2, 64)),
@@ -53,6 +56,10 @@ CASES = {
     "zamba2": ({}, (2, 64)),
     "zamba2-whole": ({"ssm_state": 7}, (2, 32)),
     "zamba2-decode": ({}, (2, 32)),
+    "xlstm": ({}, (2, 64)),
+    "xlstm-remat-bf16": ({"remat": "full", "compute_dtype": "bfloat16"},
+                         (2, 64)),
+    "xlstm-decode": ({}, (2, 32)),
 }
 #: the decode cases: (architecture, the cache's valid positions, the
 #: rules over the default rules). (b, s) above is the batch and the
@@ -64,12 +71,15 @@ CASES = {
 #: four cards; OLMo's 4 kv heads split over "model"; the smoke
 #: qwen3-moe's 8 experts over "model" and its tokens gathered over "data";
 #: the smoke zamba2's SSM states by SSM heads, its convolution buffers
-#: whole, its two shared-block caches by kv heads
+#: whole, its two shared-block caches by kv heads; the smoke xlstm-350m's
+#: per-block states by heads (whole on (1, 4)), its convolution buffers
+#: whole (the index is unread: the state has no positions)
 DECODE = {"internlm2-decode": ("internlm2-1.8b", 13, None),
           "internlm2-seq": ("internlm2-1.8b", 13, {"act_kv_heads": None}),
           "olmo-decode": ("olmo-1b", 20, None),
           "qwen3-moe-decode": ("qwen3-moe-235b-a22b", 13, None),
-          "zamba2-decode": ("zamba2-1.2b", 13, None)}
+          "zamba2-decode": ("zamba2-1.2b", 13, None),
+          "xlstm-decode": ("xlstm-350m", 13, None)}
 TRAIN_CASES = [c for c in CASES if c not in DECODE]
 #: the architecture of each case that is not hubert-xlarge's: internlm2's
 #: 4 heads over 2 kv heads, which (1, 4) splits while it leaves the kv
@@ -79,7 +89,8 @@ TRAIN_CASES = [c for c in CASES if c not in DECODE]
 CASE_ARCH = {"internlm2": "internlm2-1.8b", "olmo": "olmo-1b",
              "internvl2": "internvl2-76b", "qwen3-moe": "qwen3-moe-235b-a22b",
              "grok-mlp": "grok-1-314b", "zamba2": "zamba2-1.2b",
-             "zamba2-whole": "zamba2-1.2b"}
+             "zamba2-whole": "zamba2-1.2b", "xlstm": "xlstm-350m",
+             "xlstm-remat-bf16": "xlstm-350m"}
 #: the hybrid's cases: the random model is ill-conditioned at the other
 #: cases' weight scale (at std 0.2 the reference's own logits move by
 #: 1.3e-5 of the largest |logit| for a 1e-7 relative change of its
@@ -87,6 +98,10 @@ CASE_ARCH = {"internlm2": "internlm2-1.8b", "olmo": "olmo-1b",
 #: ``chip_smoke.py``'s CELLS_WEIGHT_STD
 HYBRID_CASES = ("zamba2", "zamba2-whole", "zamba2-decode")
 HYBRID_WEIGHT_STD = 0.02
+#: the xLSTM's cases, drawn at HYBRID_WEIGHT_STD too (at 0.2 the
+#: reference's own bf16 gradients lie up to 40% of a leaf's largest
+#: |entry| off its float32 ones); their decode states are reached ones
+XLSTM_CASES = ("xlstm", "xlstm-remat-bf16", "xlstm-decode")
 #: the mixture-of-experts cases, whose routing margins are recorded
 MOE_CASES = ("qwen3-moe", "grok-mlp", "qwen3-moe-decode")
 #: the worlds, each spawned once, and the mesh shapes every rank of one
@@ -109,7 +124,10 @@ CASE_MESHES = {"chunked": [(1, 1), (1, 2), (2, 2)],
                "qwen3-moe-decode": [(1, 1), (1, 2), (2, 1), (2, 2)],
                "zamba2": [(1, 1), (1, 2), (2, 2), (1, 4)],
                "zamba2-whole": [(1, 1), (1, 4)],
-               "zamba2-decode": [(1, 1), (1, 2), (2, 2), (1, 4)]}
+               "zamba2-decode": [(1, 1), (1, 2), (2, 2), (1, 4)],
+               "xlstm": [(1, 1), (1, 2), (2, 2), (1, 4)],
+               "xlstm-remat-bf16": [(1, 1), (1, 2), (2, 2), (1, 4)],
+               "xlstm-decode": [(1, 1), (1, 2), (2, 2), (1, 4)]}
 #: the detector the cascade's bits are held on: frames, patch, batch
 HW, PATCH, DETECT_BATCH = (16, 16), 8, 2
 
@@ -184,16 +202,19 @@ def decode_shape(case: str):
 def decode_args(case: str, payload: dict):
     """``(params, state, batch)`` of the decode case on the CPU: the
     parameters, the half-filled bf16 cache (the hybrid's: its float32
-    SSM states, bf16 convolution buffers and caches) and the tokens of
-    the payload, the index ``DECODE[case][1]``."""
+    SSM states, bf16 convolution buffers and caches; the xLSTM's list of
+    per-block states) and the tokens of the payload, the index
+    ``DECODE[case][1]``."""
     from repro_torch.convert import (hybrid_state_from_arrays,
                                      kv_cache_from_arrays,
-                                     lm_params_from_arrays)
+                                     lm_params_from_arrays,
+                                     xlstm_state_from_arrays)
     from repro_torch.models import lm
     p = payload[case]
     params = lm_params_from_arrays(p["params"], cfg=config(case),
                                    device="cpu")
     state = (hybrid_state_from_arrays if isinstance(p["cache"], dict)
+             else xlstm_state_from_arrays if isinstance(p["cache"], list)
              else kv_cache_from_arrays)(p["cache"], device="cpu")
     index = torch.tensor(DECODE[case][1], dtype=torch.int32)
     return params, state, lm.DecodeBatch(torch.from_numpy(p["tokens"]),
@@ -202,7 +223,12 @@ def decode_args(case: str, payload: dict):
 
 def state_arrays(state) -> dict:
     """The decode state's leaves as float32 numpy: ``k`` and ``v``, and
-    the hybrid's ``ssm`` and ``conv``."""
+    the hybrid's ``ssm`` and ``conv``; the xLSTM's each block's, keyed
+    ``"<block>.<leaf>"``."""
+    if isinstance(state, list):
+        return {f"{i}.{name}": t.to(torch.float32).numpy()
+                for i, st in enumerate(state)
+                for name, t in zip(st._fields, st)}
     cache = state["attn"] if isinstance(state, dict) else state
     out = {"k": cache.k, "v": cache.v}
     if isinstance(state, dict):
@@ -252,7 +278,9 @@ def run_decode(case: str, payload: dict, mesh) -> dict:
     cache_spec = None
     if mesh is not None:
         st_sh = cell.in_shardings[1]
-        cache_spec = (st_sh["attn"] if isinstance(st_sh, dict) else st_sh).k
+        cache_spec = (tuple(st_sh[0].C) if isinstance(st_sh, list) else
+                      (st_sh["attn"] if isinstance(st_sh, dict)
+                       else st_sh).k)
     return dict(tokens=tokens.numpy(), logits=logits.numpy(), margin=margin,
                 run_to_run=run_to_run, cache_spec=cache_spec,
                 ssm_spec=None if mesh is None or not isinstance(

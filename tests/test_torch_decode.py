@@ -349,9 +349,9 @@ def test_build_cell_equals_the_reference(arch, mesh):
 
 
 def test_the_encoder_and_the_other_families_raise():
-    """The encoder has no decode step (``ValueError``, as the reference);
-    the xLSTM family names its ROADMAP item; the dense, MoE, VLM and
-    hybrid families decode."""
+    """The encoder has no decode step (``ValueError``, as the reference),
+    nor an unknown family; the dense, MoE, VLM, hybrid and xLSTM families
+    decode."""
     cfg = configs.get_config("hubert-xlarge")
     sh = configs.SHAPES["decode_32k"]
     for fn in (steps.build_cell, steps.input_specs):
@@ -363,8 +363,10 @@ def test_the_encoder_and_the_other_families_raise():
         jsteps.input_specs(jconfigs.get_config("hubert-xlarge"),
                            jconfigs.SHAPES["decode_32k"])
     base = configs.get_smoke("internlm2-1.8b")
-    with pytest.raises(NotImplementedError, match=re.escape("4(e)")):
-        lm.check_decodes(base.replace(family="ssm"))
+    with pytest.raises(ValueError, match=re.escape("'rnn'")):
+        lm.check_decodes(base.replace(family="rnn"))
+    lm.check_decodes(base.replace(family="ssm"))
+    lm.check_decodes(configs.get_config("xlstm-350m"))
     lm.check_decodes(base)
     lm.check_decodes(configs.get_config("zamba2-1.2b"))
     lm.check_decodes(base.replace(family="moe", n_experts=4, top_k=2))

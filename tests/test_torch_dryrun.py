@@ -22,9 +22,13 @@ whole on every rank); the hybrid's (``zamba2-1.2b``'s) four cells,
 ``long_500k`` among them (its batch of one whole on every data rank),
 their FLOPs the hand count of the Mamba layers' products (the SSD's by
 chunk) and the shared block's, plus what the ranks repeat (each "model"
-rank's ``C·B`` of the one group and its ``h0 @ emb_proj``, whole); a
-``not_ported`` row a mesh for each other architecture. In this
-process, under the dry run's fake process group: the production
+rank's ``C·B`` of the one group and its ``h0 @ emb_proj``, whole); the
+xLSTM's (``xlstm-350m``'s) four cells, ``decode_32k`` at its full batch
+and ``long_500k`` among them, their FLOPs the hand count of the mLSTM
+blocks' products (by chunk) and the sLSTM blocks' (the scan's registered
+count, forward and backward), plus what the ranks repeat (its 4 heads,
+whole on the 16 "model" ranks, run by each of them); 62 records, none
+``not_ported`` nor ``fail``. In this process, under the dry run's fake process group: the production
 meshes' shapes, a wrong world refused, the two-dim
 ``("pod", "data")`` group; and the fake group's count of the smoke train
 cell and of the smoke decode cells (by kv heads, along the sequence, and
@@ -56,11 +60,13 @@ from repro_torch.train import optim
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCH = "hubert-xlarge"
 DEPTH = 2
-#: the cells' cut: DEPTH layers, and the hybrid's shared block after every
+#: the cells' cut: DEPTH layers, the hybrid's shared block after every
 #: DEPTH of them (at its own cadence of 6 a 2-layer zamba2 would have
-#: none, and its decode step needs one; the other families read no
-#: ``shared_attn_every``)
-OVERRIDE = {"n_layers": DEPTH, "shared_attn_every": DEPTH}
+#: none, and its decode step needs one) and the xLSTM's sLSTM block every
+#: DEPTH (at its cadence of 8 a 2-layer xlstm-350m would have none); the
+#: other families read neither
+OVERRIDE = {"n_layers": DEPTH, "shared_attn_every": DEPTH,
+            "slstm_every": DEPTH}
 #: the reference's record keys (``repro.launch.dryrun.run_cell``)
 REF_KEYS = set(jroofline.Roofline("a", "s", "m", 1, 0.0, 0.0, 0.0).to_dict()
                ) | {"n_params", "lower_s", "compile_s", "status", "unrolled"}
@@ -391,25 +397,16 @@ def test_moe_expert_splits_on_the_production_meshes(mesh):
     assert grok["router"] == (None, embed, None)
 
 
-@pytest.mark.parametrize("arch", sorted(dryrun.NOT_PORTED))
-def test_other_archs_are_not_ported_rows(records, arch):
-    rows = [r for r in records if r["arch"] == arch]
-    assert sorted(r["mesh"] for r in rows) == ["multi", "single"]
-    for r in rows:
-        assert r["status"] == "not_ported"
-        assert r["reason"].startswith("ROADMAP.md §1 item 4(")
-    assert arch not in configs.ARCH_IDS
-
-
 def test_no_failures_and_the_architectures_are_the_reference(records):
+    """Every cell of every architecture of the reference is an ``ok``
+    record: 62, none ``not_ported`` nor ``fail``."""
     from repro import configs as jconfigs
-    assert dryrun.ARCH_IDS == jconfigs.ARCH_IDS
-    assert set(dryrun.NOT_PORTED) == set(dryrun.ARCH_IDS) - set(
-        configs.ARCH_IDS)
+    assert configs.ARCH_IDS == jconfigs.ARCH_IDS
     assert not [r for r in records if r["status"] == "fail"]
-    assert sum(r["status"] == "ok" for r in records) == 54
-    assert sum(r["status"] == "not_ported" for r in records) == 2
-    assert len(records) == 56
+    assert sum(r["status"] == "ok" for r in records) == 62
+    assert sum(r["status"] == "not_ported" for r in records) == 0
+    assert len(records) == 62
+    assert {r["arch"] for r in records} == set(configs.ARCH_IDS)
 
 
 @pytest.mark.parametrize("multi", [False, True])
@@ -477,10 +474,13 @@ def real_counts(tmp_path_factory):
         cfg = TW.config(case)
         b, s = TW.CASES[case][1]
         spec = lm.Model(cfg).decode_state_spec(b, s)
-        cache = (attention.KVCache(*map(normal, spec))
-                 if cfg.family != "hybrid" else
-                 {"mamba": ssm.SSMState(*map(normal, spec["mamba"])),
-                  "attn": attention.KVCache(*map(normal, spec["attn"]))})
+        if cfg.family == "ssm":
+            cache = [type(t)(*map(normal, t)) for t in spec]
+        elif cfg.family == "hybrid":
+            cache = {"mamba": ssm.SSMState(*map(normal, spec["mamba"])),
+                     "attn": attention.KVCache(*map(normal, spec["attn"]))}
+        else:
+            cache = attention.KVCache(*map(normal, spec))
         payload[case] = dict(
             params=np_params(cfg), tokens=rng.integers(
                 0, cfg.vocab, (b, 1)).astype(np.int32), cache=cache)
@@ -624,3 +624,114 @@ def test_hybrid_memory_is_analyze(records, shape, mesh):
                                 m).total_gb
     assert ok_record(records, shape, mesh, HYBRID)[
         "per_device_peak_mem_gb"] == want
+
+
+# ---------------------------------------------------------------------------
+# the xLSTM
+# ---------------------------------------------------------------------------
+
+XLSTM = "xlstm-350m"
+XLSTM_CELLS = HYBRID_CELLS
+
+
+def xlstm_cfg():
+    return configs.get_config(XLSTM).replace(**OVERRIDE)
+
+
+def xlstm_flops(cfg, shape, model: int = 1, data: int = 1) -> int:
+    """The products of an xLSTM cell: per mLSTM block ``w_up``, ``wq``,
+    ``wk``, ``wv``, ``w_i``, ``w_f`` and ``w_down`` and, for train and
+    prefill, the chunkwise form's by chunk of ``q = min(ssm_chunk, s)``
+    (``S_c = (ws k)^T v``, ``q k^T``, ``(qk s_intra) v`` and ``q C_prev``),
+    for decode ``q C``; per sLSTM block ``w``, the scan's recurrent
+    products (``2 b 4 h dh²`` a step) and ``w_down``; the unembedding.
+    Train: three times the forward but for the scan, whose backward pass
+    runs the plain loop again and takes ``r``'s gradient at every step and
+    the hidden state's at every step but the first; under remat "full"
+    each block again but its last product (``w_down``); the chunked
+    loss's unembedding again. Over ``model`` "model" ranks that do not
+    divide the heads, every block run whole by each of them; over
+    ``data`` ranks of the batch's dims, a batch they do not split, whole
+    on every one."""
+    d, h, vocab = cfg.d_model, cfg.n_heads, cfg.vocab
+    di, b, s = 2 * d, shape.global_batch, shape.seq_len
+    dh, dhs = di // h, d // h
+    kinds = ["slstm" if cfg.slstm_every and (i + 1) % cfg.slstm_every == 0
+             else "mlstm" for i in range(cfg.n_layers)]
+    n_m, n_s = kinds.count("mlstm"), kinds.count("slstm")
+    rep_m = model if h % model else 1
+    rep_b = data if b % data else 1
+    step = 2 * b * 4 * h * dhs * dhs
+    t = b if shape.kind == "decode" else b * s
+    m_down, s_down = 2 * t * di * d, 2 * t * d * d
+    m_proj = (2 * t * d * 2 * di + 3 * 2 * t * di * di + 2 * 2 * t * di * h
+              + m_down)
+    unembed = 2 * t * d * vocab
+    if shape.kind == "decode":
+        layers = (n_m * (m_proj + 2 * t * h * dh * dh)
+                  + n_s * (2 * t * d * 4 * d + step + s_down))
+        return rep_b * (rep_m * layers + unembed)
+    q = min(cfg.ssm_chunk, s)
+    m_layer = m_proj + 2 * 2 * t * h * dh * dh + 2 * 2 * t * h * q * dh
+    s_layer = 2 * t * d * 4 * d + s * step + s_down
+    layers = n_m * m_layer + n_s * s_layer
+    if shape.kind == "prefill":
+        return rep_b * (rep_m * layers + unembed)
+    chunked = vocab >= 8192 and s > 1024 and s % 1024 == 0
+    remat = (n_m * (m_layer - m_down) + n_s * (s_layer - s_down)
+             if cfg.remat == "full" else 0)
+    return rep_b * (rep_m * (3 * layers + n_s * (s - 1) * step + remat)
+                    + 3 * unembed + (unembed if chunked else 0))
+
+
+@pytest.mark.parametrize("shape,mesh", XLSTM_CELLS)
+def test_xlstm_records_have_the_reference_keys(records, shape, mesh):
+    rec = ok_record(records, shape, mesh, XLSTM)
+    assert set(rec) == REF_KEYS
+    assert rec["chips"] == dryrun.MESH_CHIPS[mesh] and rec["unrolled"]
+    assert rec["n_params"] == common.spec_param_count(
+        lm.Model(xlstm_cfg()).spec())
+
+
+@pytest.mark.parametrize("shape,mesh", XLSTM_CELLS)
+def test_xlstm_flops_are_the_hand_count_plus_repeats(records, shape, mesh):
+    """Its 4 heads do not split 16 ways: every "model" rank runs every
+    block whole, the weights split there gathered; the vocab (50,304)
+    splits; long_500k's batch of one runs whole on each of the 16 or 32
+    data ranks."""
+    cfg, sh = xlstm_cfg(), configs.SHAPES[shape]
+    data = 16 if mesh == "single" else 32
+    got = ok_record(records, shape, mesh, XLSTM)["hlo_gflops"] * 1e9
+    assert got > xlstm_flops(cfg, sh)
+    assert got == pytest.approx(xlstm_flops(cfg, sh, MODEL, data),
+                                rel=1e-12)
+
+
+@pytest.mark.parametrize("shape,mesh", XLSTM_CELLS)
+def test_xlstm_memory_is_analyze(records, shape, mesh):
+    m = ({"data": 16, "model": 16} if mesh == "single"
+         else {"pod": 2, "data": 16, "model": 16})
+    want = memory_model.analyze(xlstm_cfg(), configs.SHAPES[shape],
+                                m).total_gb
+    assert ok_record(records, shape, mesh, XLSTM)[
+        "per_device_peak_mem_gb"] == want
+
+
+@pytest.mark.parametrize("mesh", [{"data": 16, "model": 16},
+                                  {"pod": 2, "data": 16, "model": 16}])
+def test_xlstm_layout_on_the_production_meshes(mesh):
+    """xlstm-350m's 4 heads do not divide "model": the heads' dims stay
+    whole and the inner dims take "model" instead (``w_i`` and ``w_f``
+    rows, ``wq``/``wk``/``wv`` rows, ``w_up`` columns); the sLSTM's
+    ``w_down`` splits over the data dims alone."""
+    embed = "data" if len(mesh) == 2 else ("pod", "data")
+    specs = lm.Model(configs.get_config(XLSTM)).param_specs(mesh)["layers"]
+    m, s = specs["mlstm"], specs["slstm"]
+    assert m["w_i"] == m["w_f"] == (None, "model", None)
+    assert m["b_i"] == (None, None)
+    assert m["wq"] == (None, "model", None)
+    assert m["w_up"] == (None, embed, "model")
+    assert m["w_down"] == (None, "model", embed)
+    assert s["r"] == (None, None, None, None, None)
+    assert s["w"] == (None, embed, "model")
+    assert s["w_down"] == (None, embed, None)

@@ -11,7 +11,8 @@ integers, so every term must be equal, not close. ``fits_h100`` replaces
 the reference's ``fits_v5e``: the same total against 80 GB, not 16.
 The hybrid ``zamba2-1.2b``, full and smoke, at all four shapes (its
 decode states a dict of SSM states and caches) on one device, (1, 1),
-16x16 and 2x16x16.
+16x16 and 2x16x16; the xLSTM ``xlstm-350m`` the same way (its decode
+states a list of per-block states), and the figures its cells record.
 """
 
 import dataclasses
@@ -150,3 +151,51 @@ def test_hybrid_long_500k_state():
     ssm = 38 * (64 * 64 * 64 * 4 + 3 * (4096 + 2 * 64) * 2)
     assert mb.state_gb == (cache + ssm) / 1e9
     assert mb.fits_h100 and round(cache / 1e9, 2) == 25.77
+
+
+XLSTM = "xlstm-350m"
+
+
+@pytest.mark.parametrize("mesh", list(HYBRID_MESHES))
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k",
+                                   "long_500k"])
+@pytest.mark.parametrize("which", ["get_config", "get_smoke"])
+def test_xlstm_analyze_equals_the_reference(which, shape, mesh):
+    """xlstm-350m on every shape, the decode shapes' states (a list of
+    per-block states: the mLSTM's float32 C, n and m split by heads where
+    "model" divides them, its bf16 convolution buffer whole; the sLSTM's
+    four float32 leaves) flattened in one order with their axes."""
+    jcfg = getattr(jconfigs, which)(XLSTM)
+    cfg = getattr(configs, which)(XLSTM)
+    dims = HYBRID_MESHES[mesh]
+    names = {0: (), 2: ("data", "model"), 3: ("pod", "data", "model")}[
+        len(dims)]
+    same_breakdown(mm.analyze(cfg, configs.SHAPES[shape],
+                              dict(zip(names, dims))),
+                   jmm.analyze(jcfg, jconfigs.SHAPES[shape],
+                               jax.sharding.AbstractMesh(dims, names)))
+
+
+def test_xlstm_recorded_points():
+    """decode_32k at its full batch of 128 fits one card: 21 mLSTM
+    blocks' float32 C (537 MB each) among 12.378 GB; 0.751 GB a card on
+    16x16 and 0.395 on 2x16x16; long_500k 1.126 GB on one card; train_4k
+    1.423 / 0.870 GB and prefill_32k 0.991 / 0.515 GB on the two
+    production meshes."""
+    cfg = configs.get_config(XLSTM)
+    one, single = {}, {"data": 16, "model": 16}
+    multi = {"pod": 2, "data": 16, "model": 16}
+
+    def gb(shape, mesh):
+        return round(mm.analyze(cfg, configs.SHAPES[shape], mesh).total_gb,
+                     3)
+    dec = mm.analyze(cfg, configs.SHAPES["decode_32k"], one)
+    state = 21 * 128 * (4 * 512 * 512 * 4 + 4 * 512 * 4 + 4 * 4
+                        + 3 * 2048 * 2) + 3 * 4 * 128 * 4 * 256 * 4
+    assert dec.state_gb == state / 1e9 and dec.fits_h100
+    assert (gb("decode_32k", one), gb("decode_32k", single),
+            gb("decode_32k", multi)) == (12.378, 0.751, 0.395)
+    assert gb("long_500k", one) == 1.126
+    assert (gb("train_4k", single), gb("train_4k", multi)) == (1.423, 0.870)
+    assert (gb("prefill_32k", single), gb("prefill_32k", multi)) == (
+        0.991, 0.515)

@@ -85,22 +85,30 @@ def test_ported_archs_are_the_reference_order():
                                 if a in configs.ARCH_IDS]
 
 
-def test_unported_arch_names_the_roadmap_item():
-    assert "xlstm-350m" in jconfigs.ARCH_IDS
-    with pytest.raises(ValueError, match="item 4"):
-        configs.get_config("xlstm-350m")
+def test_the_architectures_are_the_reference_s():
+    """Every architecture of the reference, in its order: none is
+    refused."""
+    assert configs.ARCH_IDS == jconfigs.ARCH_IDS
+    for arch in configs.ARCH_IDS:
+        lm.Model(configs.get_config(arch))
 
 
-def test_model_refuses_unported_families():
-    with pytest.raises(ValueError, match=re.escape("item 4(e)")):
-        lm.Model(configs.get_smoke("hubert-xlarge").replace(family="ssm",
-                                                            embeds_in=False))
+def test_an_unknown_arch_id_raises():
+    with pytest.raises(ValueError, match="no config"):
+        configs.get_config("no-such-arch")
+    with pytest.raises(ModuleNotFoundError):
+        jconfigs.get_config("no-such-arch")
 
 
-@pytest.mark.parametrize("family,item", [("ssm", "4(e)")])
-def test_model_names_each_family_s_roadmap_item(family, item):
-    with pytest.raises(ValueError, match=re.escape(f"item {item}")):
-        lm.Model(configs.get_smoke("olmo-1b").replace(family=family))
+@pytest.mark.parametrize("family", ["rnn", "transformer"])
+def test_model_refuses_an_unknown_family(family):
+    """A plain ``ValueError``, as the reference's ``spec`` raises."""
+    cfg = configs.get_smoke("olmo-1b").replace(family=family)
+    with pytest.raises(ValueError, match=re.escape(repr(family))):
+        lm.Model(cfg)
+    with pytest.raises(ValueError, match=family):
+        jlm.build(jconfigs.get_smoke("olmo-1b").replace(
+            family=family)).spec()
 
 
 @pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "grok-1-314b"])

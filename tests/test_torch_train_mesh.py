@@ -11,9 +11,12 @@ olmo-1b (parameter-free norms, MHA) and internvl2-76b (the image prefix)
 on (2, 2) and (4, 1); the smoke zamba2-1.2b (the hybrid, by SSM heads:
 its in_proj and convolution blocks, which are not one rank's heads,
 gathered and cut) on (1, 2), (2, 2) and (1, 4), and at SSM state 7 on
-(1, 4), where those blocks stay whole; each also on (1, 1). The hybrid's
-weights are drawn at ``TW.HYBRID_WEIGHT_STD`` (0.02), where the random
-model is well conditioned.
+(1, 4), where those blocks stay whole; the smoke xlstm-350m (its 2 heads
+split on (1, 2) and (2, 2), whole on (1, 4) with its inner dims split
+there, as the production meshes' "model" of 16 leaves xlstm-350m's 4), in
+float32 and in bf16 under remat "full"; each also on (1, 1). The hybrid's
+and the xLSTM's weights are drawn at ``TW.HYBRID_WEIGHT_STD`` (0.02),
+where the random models are well conditioned.
 
 Every rank cuts its blocks from one whole mid-run state (numpy arrays:
 weights at ``WEIGHT_STD``, as in ``tests/test_torch_cells.py``, moments
@@ -38,14 +41,18 @@ and again with "act_kv_heads" unmapped (the cache along the sequence on
 every mesh, the weights' kv heads split on (1, 2)); the smoke olmo-1b on
 (2, 2) and (4, 1); the smoke zamba2 (its float32 SSM states by heads,
 its bf16 convolution buffers whole, its two shared-block caches by kv
-heads) on (1, 2), (2, 2) and (1, 4); each on (1, 1). One step from a
-half-filled bf16 cache (numpy, the same for every side; the hybrid's
-float32 SSM states and bf16 buffers N(0, 1)), twice: the next tokens
+heads) on (1, 2), (2, 2) and (1, 4); the smoke xlstm-350m (its
+per-block states by heads, whole on (1, 4), its bf16 convolution buffers
+whole) on the same meshes; each on (1, 1). One step from a half-filled
+bf16 cache (numpy, the same for every side; the hybrid's float32 SSM
+states and bf16 buffers N(0, 1); the xLSTM's a state reached by decoding
+six tokens from zeros), twice: the next tokens
 equal to the unsharded port's and the reference's jitted
 ``decode_step``'s, the logits within ``GRAD_RTOL`` of their largest
 |logit|, the cache (and the hybrid's buffers) after the step within one
 bf16 ulp of both (the new k and v rounded from float32 sums in another
-order), the hybrid's SSM states within ``GRAD_RTOL``; every rank
+order), the hybrid's SSM states and the xLSTM's float32 states within
+``GRAD_RTOL``; every rank
 bitwise the same, run to run, and (1, 1) bitwise the unsharded step;
 the cache's spec the split named.
 
@@ -76,8 +83,10 @@ from repro.launch import steps as jsteps
 from repro.models import attention as jattention
 from repro.models import lm as jlm
 from repro.models import ssm as jssm
+from repro.models import xlstm as jxlstm
 from repro.train import optim as joptim
-from repro_torch.models import attention, common, lm, ssm
+from repro_torch.convert import lm_params_from_arrays
+from repro_torch.models import attention, common, lm, ssm, xlstm
 from repro_torch.train import optim
 
 jax.config.update("jax_platform_name", "cpu")
@@ -130,7 +139,8 @@ def np_params(spec, seed, std=WEIGHT_STD):
 
 
 def weight_std(case) -> float:
-    return TW.HYBRID_WEIGHT_STD if case in TW.HYBRID_CASES else WEIGHT_STD
+    return (TW.HYBRID_WEIGHT_STD if case in TW.HYBRID_CASES + TW.XLSTM_CASES
+            else WEIGHT_STD)
 
 
 def case_payload(case, seed):
@@ -213,7 +223,9 @@ def decode_payload(case, seed):
         x = normal(t)
         x[:, :, index:] = 0
         return bf16(x)
-    if cfg.family == "hybrid":
+    if cfg.family == "ssm":
+        state = reached_xlstm_state(model, arrays, b, rng)
+    elif cfg.family == "hybrid":
         state = {"mamba": ssm.SSMState(normal(spec["mamba"].ssm),
                                        bf16(normal(spec["mamba"].conv))),
                  "attn": attention.KVCache(*map(cache, spec["attn"]))}
@@ -221,6 +233,28 @@ def decode_payload(case, seed):
         state = attention.KVCache(*map(cache, spec))
     return dict(params=arrays, cache=state,
                 tokens=rng.integers(0, cfg.vocab, (b, 1)).astype(np.int32))
+
+
+def reached_xlstm_state(model, arrays, b, rng, n_tokens=6):
+    """An xLSTM state the recurrence can reach: ``n_tokens`` random tokens
+    decoded from zeros by the unsharded port (float32 convolution
+    buffers, rounded to bf16 after), as numpy per-block states."""
+    params = lm_params_from_arrays(arrays, cfg=model.cfg, device="cpu")
+    st = lm.map_state(lambda t: t.to(torch.float32),
+                      model.init_decode_state(b, 1, device="cpu"))
+    tokens = torch.from_numpy(rng.integers(
+        0, model.cfg.vocab, (b, n_tokens)).astype(np.int32))
+    for t in range(n_tokens):
+        model.decode_step(params, st, lm.DecodeBatch(
+            tokens[:, t:t + 1], torch.tensor(t, dtype=torch.int32)))
+
+    def arrays_of(s):
+        leaves = [t.numpy().copy() for t in s]
+        if isinstance(s, xlstm.MLSTMState):
+            leaves[3] = torch.from_numpy(leaves[3]).to(torch.bfloat16).to(
+                torch.float32).numpy()
+        return type(s)(*leaves)
+    return [arrays_of(s) for s in st]
 
 
 def reference_decode(case, p):
@@ -231,16 +265,28 @@ def reference_decode(case, p):
     def cache(c):
         return jattention.KVCache(*(jnp.asarray(a, jnp.bfloat16) for a in c))
     c = p["cache"]
-    state = cache(c) if not isinstance(c, dict) else {
-        "mamba": jssm.SSMState(jnp.asarray(c["mamba"].ssm),
-                               jnp.asarray(c["mamba"].conv, jnp.bfloat16)),
-        "attn": cache(c["attn"])}
+    if isinstance(c, list):
+        state = [jxlstm.MLSTMState(*map(jnp.asarray, s[:3]),
+                                   jnp.asarray(s.conv, jnp.bfloat16))
+                 if isinstance(s, xlstm.MLSTMState)
+                 else jxlstm.SLSTMState(*map(jnp.asarray, s)) for s in c]
+    else:
+        state = cache(c) if not isinstance(c, dict) else {
+            "mamba": jssm.SSMState(jnp.asarray(c["mamba"].ssm),
+                                   jnp.asarray(c["mamba"].conv,
+                                               jnp.bfloat16)),
+            "attn": cache(c["attn"])}
     logits, state = jax.jit(jlm.build(jcfg).decode_step)(
         jax.tree.map(jnp.asarray, p["params"]), state,
         jlm.DecodeBatch(jnp.asarray(p["tokens"]),
                         jnp.int32(TW.DECODE[case][1])))
     logits = np.asarray(logits, np.float32)
     out = dict(tokens=logits[:, -1].argmax(-1), logits=logits)
+    if isinstance(state, list):
+        out.update({f"{i}.{name}": np.asarray(t, np.float32)
+                    for i, st in enumerate(state)
+                    for name, t in zip(st._fields, st)})
+        return out
     kv = state["attn"] if isinstance(state, dict) else state
     out.update(k=np.asarray(kv.k, np.float32), v=np.asarray(kv.v, np.float32))
     if isinstance(state, dict):
@@ -422,6 +468,21 @@ DECODE_SPEC = {
 #: hybrid's SSM states and convolution buffers
 STATE_KEYS = {c: ("k", "v", "ssm", "conv") if c in TW.HYBRID_CASES
               else ("k", "v") for c in TW.DECODE}
+STATE_KEYS["xlstm-decode"] = tuple(
+    f"{i}.{name}" for i, st in enumerate(lm.Model(TW.config(
+        "xlstm-decode")).decode_state_spec(1, 1)) for name in st._fields)
+#: the mLSTM's C spec (batch, heads, dh, dh) on each mesh: the 2 heads
+#: split over "model" on (1, 2) and (2, 2), whole on (1, 4)
+XLSTM_C_SPEC = {"1x1": ("data", "model", None, None),
+                "1x2": ("data", "model", None, None),
+                "2x2": ("data", "model", None, None),
+                "1x4": ("data", None, None, None)}
+
+
+def float32_state(key: str) -> bool:
+    """The hybrid's SSM states and the xLSTM's leaves but its convolution
+    buffers are float32; the other state leaves bf16."""
+    return key == "ssm" or ("." in key and not key.endswith(".conv"))
 
 
 @pytest.mark.parametrize("mesh,case", DECODE_RUNS)
@@ -429,20 +490,25 @@ def test_decode_against_the_unsharded_port_and_the_reference(runs, mesh,
                                                              case):
     """Rank 0's gathered decode step: the next tokens equal, the logits
     within GRAD_RTOL of the largest |logit|, the caches and the hybrid's
-    convolution buffers within one bf16 ulp, its float32 SSM states
-    within GRAD_RTOL of their largest |entry|, against the unsharded
-    port and the reference; the cache's spec, and the hybrid's SSM
-    states split by heads over "model" and its buffers whole."""
+    and the xLSTM's convolution buffers within one bf16 ulp, their
+    float32 states within GRAD_RTOL of their largest |entry|, against
+    the unsharded port and the reference; the cache's spec (the xLSTM's
+    C split by heads, whole on (1, 4)), and the hybrid's SSM states split
+    by heads over "model" and its buffers whole."""
     got = runs[mesh][0][("decode", case)]
     for want in (runs["ref"][case], runs["jax"][case]):
         np.testing.assert_array_equal(got["tokens"], want["tokens"])
         assert rel(got["logits"], want["logits"]) <= GRAD_RTOL
         for key in STATE_KEYS[case]:
-            if key == "ssm":
-                assert rel(got[key], want[key]) <= GRAD_RTOL
+            if float32_state(key):
+                assert rel(got[key], want[key]) <= GRAD_RTOL, key
             else:
                 assert within_one_bf16_ulp(got[key], want[key]), key
-    assert got["cache_spec"] == (None, *DECODE_SPEC[(case, mesh)], None)
+    if case in TW.XLSTM_CASES:
+        assert got["cache_spec"] == XLSTM_C_SPEC[mesh]
+    else:
+        assert got["cache_spec"] == (None, *DECODE_SPEC[(case, mesh)],
+                                     None)
     if case in TW.HYBRID_CASES:
         assert got["ssm_spec"] == ((None, "data", "model", None, None),
                                    (None, "data", None, None))
