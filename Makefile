@@ -42,7 +42,9 @@ SHARD2_FILES = tests/test_arch_smoke.py tests/test_cells.py \
 	tests/test_torch_lm_dense.py tests/test_torch_decode.py \
 	tests/test_torch_moe.py tests/test_torch_lm_moe.py \
 	tests/test_torch_ssm.py tests/test_torch_lm_hybrid.py \
-	tests/test_torch_xlstm.py tests/test_torch_lm_xlstm.py
+	tests/test_torch_xlstm.py tests/test_torch_lm_xlstm.py \
+	tests/test_torch_compress.py tests/test_torch_train_loop.py \
+	tests/test_torch_remat.py
 
 # PYTEST_EXTRA lets CI attach coverage flags (see .github/workflows/ci.yml);
 # plain local runs need no pytest-cov install.

@@ -12,6 +12,7 @@
     python3 chip_smoke.py --only hybrid_mesh  # its sharded runs alone
     python3 chip_smoke.py --only xlstm   # the xLSTM phase
     python3 chip_smoke.py --only xlstm_mesh  # its sharded runs alone
+    python3 chip_smoke.py --only loop    # the training runtime's phase
 
 from the root of a checkout, on a machine with one CUDA card (built for
 sm_90a: an H100; with ``--only mesh``, every card of the host joins the
@@ -152,8 +153,8 @@ mesh phase's NCCL world). It
    ``Model.init`` on a seeded generator): counts the train cell at
    ``train_4k`` and the prefill cell at ``prefill_32k`` on meta tensors
    (``FlopCounterMode`` equal to the hand count; ``analyze()`` on one
-   card, 16x16 and 2x16x16); runs the train step at 4096 tokens x 4 (the
-   batch cut from 256), a warm step and three timed ones from the same
+   card, 16x16 and 2x16x16); at 24 of the 48 layers runs the train step
+   at 4096 tokens x 4 (the batch cut from 256), a warm step and three timed ones from the same
    state, each bitwise the warm one, the loss and gradients twice
    bitwise, one step profiled, with ms a step, tokens/s, TFLOP/s and the
    allocator's peak beside ``analyze()``; runs the prefill cell at 32,768
@@ -185,8 +186,10 @@ mesh phase's NCCL world). It
    blocks; the train step bitwise run to run, the step and its gradients
    again under ``torch.use_deterministic_algorithms(True)`` with no op
    flagged; the prefill bitwise ``Model.forward``; card vs CPU at 2
-   layers; the loss falling); ``olmo-1b``'s train step and prefill (its
-   norms hold no parameters); ``internvl2-76b`` at 2 of its 80 layers, a
+   layers; the loss falling), its train step and prefill at 12 of the 24
+   layers; ``olmo-1b``'s train step and prefill at 8 of its 16 layers
+   (its norms hold no parameters); ``internvl2-76b`` at 2 of its 80
+   layers, a
    prefill of 32,768 tokens behind 256 image embeddings, its text logits
    bitwise run to run and moved by another image prefix;
 13. runs the decode cell (``decode`` phase) of ``internlm2-1.8b`` at full
@@ -251,8 +254,9 @@ mesh phase's NCCL world). It
    full batch, the FLOPs the hand count (the mLSTM blocks' projections
    and chunkwise products, the sLSTM scan's registered counts forward
    and backward, the unembedding, the recompute), ``analyze()`` on one
-   card and the production meshes; at full width and depth (21 mLSTM and
-   3 sLSTM blocks, bf16, remat "full", ``Model.init``'s weights) the
+   card and the production meshes; at full width and 8 of the 24 blocks
+   (7 mLSTM and 1 sLSTM, bf16, remat "full", ``Model.init``'s weights;
+   ``XLSTM_TIMED_LAYERS``, cut to make room for the loop phase) the
    train step at 4096 tokens x 4 bitwise run to run, also under
    deterministic algorithms, the 32,768-token prefill bitwise
    ``Model.forward``, each with ms, tokens/s, TFLOP/s, the bounds, the
@@ -266,7 +270,28 @@ mesh phase's NCCL world). It
    difference recorded); the card against the CPU at 8 blocks in float32
    (loss 1e-6, logits 1e-5, gradients 1e-4) and bf16 (5%); the decode
    card against the CPU at 8 blocks; the launcher; the phase's seconds;
-17. drives the training path (paper Fig. 5a) at the same width: samples
+17. runs the training runtime (``loop`` phase): ``train/loop.py``'s
+   ``train`` at full ``olmo-1b`` width and 2 of its 16 layers (bf16,
+   remat "full"; the cut for the checkpoint's 4.08 GB a save) on
+   train_4k's 4096 tokens x 4 in 2 microbatches, AdamW at 3e-4 after
+   10 warmup steps: 6 steps checkpointed every 3, a relaunch to 8 steps
+   in the same directory that resumes from step 6 and reads the stream
+   from there, bitwise (parameters, moments, step) an uninterrupted 8
+   steps; the first step's ms, a warm step free of host syncs
+   (``set_sync_debug_mode``), ms a step and tokens/s over timed steps,
+   the peak beside ``analyze()``; one step at lr 0 in 1 and 2
+   microbatches, the losses within 1e-3; one step's loss and gradients
+   under remat "none", "dots" and "full" from one state, bitwise the
+   same, with ms and peak GB each; ``compress_grads`` on those
+   gradients (3.40e8 float32), codes and scales bitwise the CPU's, the
+   error within 1 ulp, ms a call beside its bytes bound; ``python -m
+   repro_torch.launch.train --smoke`` in a subprocess on the card sent
+   SIGTERM on its ``step 10/`` line (exit 143, a checkpoint at the step
+   it reached), relaunched (it resumes there and finishes), its last
+   checkpoint leaf by leaf bitwise an uninterrupted ``main([...])``'s;
+   the checkpoints' host copies, writes (GB) and restore in seconds;
+   ``build/loop/`` deleted at the end;
+18. drives the training path (paper Fig. 5a) at the same width: samples
    balanced fragments from 256 synthetic training frames and 128 held-out
    frames (``sensing.fragments``), trains the Fragment model on the
    permutation base (``train_fragment_model``, 20 epochs), scores the
@@ -283,7 +308,7 @@ mesh phase's NCCL world). It
    both encoders the same way at ragged shapes (N, K and D off the tiles,
    K steps that straddle generator rows) for each nonlinearity, and
    reports their tiles, blocks and waves;
-18. drives the int-datapath path (``benchmarks/int_datapath.py``'s
+19. drives the int-datapath path (``benchmarks/int_datapath.py``'s
    claims): the float32 kernel, the live int8 kernel and the expanded-slab
    kernel (the int scorer's retired layout, ``csrc/int_expanded.cu``, on
    the int8 tensor cores) race on one ADC capture at the reference's shape
@@ -308,7 +333,7 @@ mesh phase's NCCL world). It
    equal to the same gate's on the CPU wherever the deciding score sits
    more than 2.5e-4 from ``t_score``, its frames/s, duty cycle and the
    detector FLOPs it saves;
-19. runs Table I and Fig. 16's model comparison (``baselines`` phase):
+20. runs Table I and Fig. 16's model comparison (``baselines`` phase):
    ``benchmarks/common.py``'s noisy 4-bit data made with
    ``sensing.synthetic`` (training noise 0.20; held-out noise 0.30 with
    3% impulse spikes), balanced fragments, at the paper's operating point
@@ -325,7 +350,7 @@ mesh phase's NCCL world). It
    then times, per frame of a 32-frame chunk, the float32 HDC scorer
    against MLP2 on all 25 windows (beside the paper's 2.4x) and
    ``encode_frames`` with and without reuse;
-20. prints one JSON line per phase, a ``kernels`` line, and last
+21. prints one JSON line per phase, a ``kernels`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises: the script exits non-zero and prints no result.
@@ -335,18 +360,22 @@ It exits non-zero as well without a CUDA device, or outside a checkout.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import ctypes
 import dataclasses
+import io
 import json
 import math
 import os
 import pathlib
 import shlex
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import warnings
 
@@ -385,7 +414,10 @@ from repro_torch.models import lm  # noqa: E402
 from repro_torch.models import xlstm  # noqa: E402
 from repro_torch.sensing import (adc, baselines, fleet,  # noqa: E402
                                  fragments, stream, synthetic)
-from repro_torch.train import optim  # noqa: E402
+from repro_torch.ckpt import checkpoint as tckpt  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
+from repro_torch.train import compress, optim  # noqa: E402
+from repro_torch.train import loop as train_loop  # noqa: E402
 
 # the paper's operating point (configs/hypersense.py)
 FRAME, FRAG, STRIDE, DIM, BLOCK_D = 128, 96, 8, 5000, 512
@@ -2891,13 +2923,19 @@ CELLS_MESHES = ({"data": 1, "model": 1}, {"data": 16, "model": 16},
 # ~150 GB), its prefill behind its image prefix
 LM_ARCH, LM_OLMO, LM_VLM, LM_VLM_LAYERS = ("internlm2-1.8b", "olmo-1b",
                                            "internvl2-76b", 2)
+# the cells and LM phases' train and prefill runs at CELLS_TIMED_LAYERS,
+# half of each stack (48, 24 and 16 layers), to keep the script inside
+# its 1200 s on an H100 host with a slower CPU (with these runs at full
+# depth the script took 1033.6 to 1194.6 s on H100 hosts); their counts
+# on meta tensors and the dry run stay at full depth
+CELLS_TIMED_LAYERS = {CASCADE_ARCH: 24, LM_ARCH: 12, LM_OLMO: 8}
 # the "model" ranks of the production meshes the dry run counts
 DRYRUN_MODEL = 16
 # the mesh phase's sharded cells (mesh_cells, mesh_decodes): each
 # architecture's rank record key and the seed of its full-width weights;
 # their depth, cut to MESH_CELLS_LAYERS of 48 and 24 layers to make room
-# for the xLSTM phase in the script's 1200 s (the cells and LM phases run
-# both at full depth; a layer of the stack repeats the same collectives)
+# for the xLSTM phase in the script's 1200 s (a layer of the stack repeats
+# the same collectives)
 MESH_CELLS = {CASCADE_ARCH: ("cells", SEED + 15), LM_ARCH: ("cells_lm",
                                                             SEED + 25)}
 MESH_CELLS_LAYERS = {CASCADE_ARCH: 12, LM_ARCH: 6}
@@ -3535,10 +3573,11 @@ def dryrun_records(proc, out, log) -> list[dict]:
 
 
 def cells_phase(card: str, dry=None) -> dict:
-    """The encoder's training path at full ``hubert-xlarge`` width (48
-    layers, bf16 compute, remat "full", weights from ``Model.init`` on a
-    seeded generator): the cells counted on meta tensors, the train and
-    prefill cells run, the card against the CPU, the model learning; and
+    """The encoder's training path at full ``hubert-xlarge`` width (bf16
+    compute, remat "full", weights from ``Model.init`` on a seeded
+    generator): the cells counted on meta tensors at its 48 layers, the
+    train and prefill cells run at CELLS_TIMED_LAYERS, the card against
+    the CPU, the model learning; and
     the records of the dry run of the sharded cells on the production
     meshes (:func:`dryrun_records`), started at the top of the script on
     the host's CPU (``dry``: :func:`dryrun_start`'s; None starts it
@@ -3548,7 +3587,8 @@ def cells_phase(card: str, dry=None) -> dict:
     dry = dry or dryrun_start()
     try:
         rec = {"card": card, "counted": cells_counted()}
-        cfg = configs.get_config(CASCADE_ARCH)
+        cfg = configs.get_config(CASCADE_ARCH).replace(
+            n_layers=CELLS_TIMED_LAYERS[CASCADE_ARCH])
         params = lm.Model(cfg).init(
             torch.Generator(device=DEVICE).manual_seed(SEED + 15))
         rec["train"] = train_cell_run(cfg, params)
@@ -3568,12 +3608,13 @@ def cells_phase(card: str, dry=None) -> dict:
 def lm_phase(card: str) -> dict:
     """The dense and vlm families at full width (bf16 compute, remat
     "full", weights from ``Model.init`` on seeded generators):
-    ``internlm2-1.8b`` (24 layers, 16 heads over 8 kv heads, vocab
-    92,544) through the cells phase's runs: counted on meta tensors, the
+    ``internlm2-1.8b`` (16 heads over 8 kv heads, vocab 92,544) through
+    the cells phase's runs: counted on meta tensors at its 24 layers, the
     train step (its run-to-run check also under deterministic
-    algorithms), the prefill, the card against the CPU at 2 layers, the
-    model learning; ``olmo-1b``'s train step and prefill (its norms hold
-    no parameters); ``internvl2-76b`` at LM_VLM_LAYERS layers, its
+    algorithms) and the prefill at CELLS_TIMED_LAYERS, the card against
+    the CPU at 2 layers, the model learning; ``olmo-1b``'s train step and
+    prefill at CELLS_TIMED_LAYERS (its norms hold no parameters);
+    ``internvl2-76b`` at LM_VLM_LAYERS layers, its
     prefill behind 256 image embeddings. Every record carries the card's
     name and power limit."""
     torch.cuda.empty_cache()
@@ -3581,7 +3622,8 @@ def lm_phase(card: str) -> dict:
     rec = {"card": card, "counted": cells_counted(LM_ARCH)}
     emit({"lm": {"card": card, "counted": rec["counted"]}})
     for arch, seed in ((LM_ARCH, SEED + 25), (LM_OLMO, SEED + 26)):
-        cfg = configs.get_config(arch)
+        cfg = configs.get_config(arch).replace(
+            n_layers=CELLS_TIMED_LAYERS[arch])
         params = lm.Model(cfg).init(
             torch.Generator(device=DEVICE).manual_seed(seed))
         rec[arch] = dict(train=train_cell_run(cfg, params,
@@ -4763,14 +4805,26 @@ def host_stop(*procs) -> None:
             proc.wait()
 
 
-def hybrid_phase(card: str) -> dict:
+def hybrid_helpers() -> tuple:
+    """The hybrid phase's two subprocesses on the host's CPU
+    (:func:`host_start`): the train and prefill cells counted on meta
+    tensors and the CPU side of the card-vs-CPU check; ``(counting,
+    cpu_side, the path the CPU side writes)``."""
+    cpu_path = ROOT / "build" / "hybrid_cpu.pt"
+    cpu_path.parent.mkdir(parents=True, exist_ok=True)
+    return (host_start(f"cells_counted({HYBRID_ARCH!r})"),
+            host_start(f"hybrid_cpu_side({str(cpu_path)!r})"), cpu_path)
+
+
+def hybrid_phase(card: str, helpers: tuple | None = None) -> dict:
     """The hybrid on the card: HYBRID_ARCH sharded over every card
     (:func:`hybrid_world`, first, while this process holds nothing on the
     card); at full width and depth the train step, the prefill, the
     decode steps at decode_32k's cut and long_500k uncut, greedy run to
     run, decode against prefill, the card against the CPU at
     HYBRID_CHECK_LAYERS. Two subprocesses on the host's CPU
-    (:func:`host_start`) run beside the sharded world and the train step,
+    (:func:`hybrid_helpers`, ``helpers`` where the caller started them a
+    phase early) run beside the sharded world and the train step,
     both device-bound, and are waited for before the prefill and the
     decode steps are timed: the CPU side of the card-vs-CPU check
     (:func:`hybrid_cpu_side`), and the train and prefill cells counted on
@@ -4782,10 +4836,7 @@ def hybrid_phase(card: str) -> dict:
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     part_s = {}
-    cpu_path = ROOT / "build" / "hybrid_cpu.pt"
-    cpu_path.parent.mkdir(parents=True, exist_ok=True)
-    counting = host_start(f"cells_counted({HYBRID_ARCH!r})")
-    cpu_side = host_start(f"hybrid_cpu_side({str(cpu_path)!r})")
+    counting, cpu_side, cpu_path = helpers or hybrid_helpers()
     try:
         rec = {"card": card, "mesh": hybrid_world()}
         part_s["mesh"] = time.perf_counter() - t0
@@ -4864,6 +4915,11 @@ XLSTM_CHECK_LAYERS, XLSTM_CHECK_TOKENS = 8, (1, 512)
 XLSTM_CPU_TOL = {"float32": {"loss": 1e-6, "logits": 1e-4, "grads": 1e-4},
                  "bfloat16": {"loss": 5e-2, "logits": 5e-2, "grads": 5e-2}}
 XLSTM_REACH, XLSTM_MESH_LAYERS, XLSTM_WARM_SEQ = 4, 8, 4096
+# the timed train step and prefill run XLSTM_TIMED_LAYERS of the 24 blocks
+# (one sLSTM of three: the sLSTM loop is host-bound, ~20 s a step at full
+# depth) to make room for the loop phase; decode and the counts on meta
+# tensors stay at full depth
+XLSTM_TIMED_LAYERS = 8
 XLSTM_MESH_TOL = {"loss": 1e-4, "logits": CASCADE_BF16_RTOL}
 
 
@@ -5025,8 +5081,8 @@ def xlstm_train_run(cfg, params) -> dict:
     bitwise the warm one (:func:`fingerprint`); one step profiled
     (:func:`device_profile`); ms, tokens/s and TFLOP/s against the
     hand count (:func:`xlstm_matmul_flops`) and its bounds, the
-    allocator's peak beside ``analyze()``. (A step takes ~20 s: the
-    sLSTM loop, host-bound; so one timed step.)"""
+    allocator's peak beside ``analyze()``. (A step takes ~20 s at full
+    depth, the sLSTM loop host-bound; so one timed step.)"""
     shape = cut_shape("train_4k")
     b, s = shape.global_batch, shape.seq_len
     step = steps.build_cell(cfg, shape).step_fn
@@ -5548,11 +5604,12 @@ def xlstm_world() -> dict:
 def xlstm_phase(card: str) -> dict:
     """The xLSTM on the card: XLSTM_ARCH sharded over every card
     (:func:`xlstm_world`, first, while this process holds nothing on the
-    card); at full width and depth the train step at train_4k's cut, the
-    prefill at prefill_32k's cut, the decode steps at decode_32k's full
-    batch and at long_500k, greedy run to run, decode against prefill,
-    the card against the CPU at XLSTM_CHECK_LAYERS, the decode card
-    against the CPU there. Two subprocesses on the host's
+    card); at full width and XLSTM_TIMED_LAYERS blocks the train step at
+    train_4k's cut and the prefill at prefill_32k's cut; at full depth the
+    decode steps at decode_32k's full batch and at long_500k, greedy run
+    to run, decode against prefill, the card against the CPU at
+    XLSTM_CHECK_LAYERS, the decode card against the CPU there. Two
+    subprocesses on the host's
     CPU (:func:`host_start`) run beside the sharded world and the train
     step and are waited for before the prefill is timed: the CPU side of
     the card-vs-CPU check (:func:`xlstm_cpu_side`), and the train and
@@ -5578,10 +5635,11 @@ def xlstm_phase(card: str) -> dict:
         rec = {"card": card, "mesh": xlstm_world()}
         done("mesh", t0, mesh=rec["mesh"])
         cfg = configs.get_config(XLSTM_ARCH)
-        params = lm.Model(cfg).init(
+        timed = cfg.replace(n_layers=XLSTM_TIMED_LAYERS)
+        params = lm.Model(timed).init(
             torch.Generator(device=DEVICE).manual_seed(SEED + 60))
         t = time.perf_counter()
-        rec["train"] = xlstm_train_run(cfg, params)
+        rec["train"] = xlstm_train_run(timed, params)
         torch.cuda.empty_cache()
         done("train", t, train=rec["train"])
         t = time.perf_counter()
@@ -5600,21 +5658,519 @@ def xlstm_phase(card: str) -> dict:
             cfg, configs.SHAPES[name], m) for m in CELLS_MESHES}
         for name in ("decode_32k", "long_500k")}
     done("host_wait", t, counted=rec["counted"])
-    for name, fn in (("prefill", lambda: xlstm_prefill_run(cfg, params)),
-                     ("decode", lambda: xlstm_decode(cfg, params)),
+    for name, fn in (("prefill", lambda: xlstm_prefill_run(timed, params)),
+                     ("decode", lambda: xlstm_decode(cfg, lm.Model(
+                         cfg).init(torch.Generator(device=DEVICE)
+                                   .manual_seed(SEED + 60)))),
                      ("vs_prefill", xlstm_vs_prefill),
                      ("card_vs_cpu", lambda: xlstm_card_vs_cpu(cpu)),
                      ("decode_card_vs_cpu", lambda: decode_card_vs_cpu(
                          XLSTM_ARCH, XLSTM_CHECK_LAYERS))):
         t = time.perf_counter()
         rec[name] = fn()
-        if name == "decode":
+        if name == "prefill":
             del params
         torch.cuda.empty_cache()
         done(name, t, **{name: rec[name]})
     rec["phase_s"] = time.perf_counter() - t0
     emit({"xlstm": {"card": card, "part_s": part_s,
                     "phase_s": rec["phase_s"]}})
+    return rec
+
+
+# the loop phase (ROADMAP.md §1 item 4(f)): the production train loop
+# (train/loop.py) at full LOOP_ARCH width and LOOP_LAYERS of its 16 layers
+# (the checkpoint's bytes: parameters, mu and nu are 12 B a parameter, 4.08
+# GB a save at 2 layers against 15.36 GB at 16, and the phase writes
+# several), bf16, remat "full", on LOOP_TOKENS (train_4k's 4096 tokens x 4)
+# in LOOP_MICRO microbatches, AdamW at LOOP_LR after LOOP_WARMUP steps:
+# (a) a run of LOOP_STEPS[1] steps checkpointed every LOOP_CKPT_EVERY,
+# stopped at LOOP_STEPS[0] by its SIGTERM handler (the preemption save),
+# (b) the same run relaunched in its directory, its steps past the warmup,
+# (c) LOOP_STEPS[1] steps uninterrupted in another, (b) bitwise (c);
+# LOOP_TIMED warm steps; one step at lr 0 with 1 and LOOP_MICRO
+# microbatches: the losses within LOOP_MB_RTOL (the reference's bound,
+# tests/test_train_runtime.py:194), the gradient norms within
+# LOOP_GNORM_RTOL (the dense family's bf16 bound in
+# tests/test_torch_train_loop.py; a microbatch's gradients dropped, or
+# their sum not divided, moves the norm by ~1/2 or x2); the launcher on the
+# smoke config (LOOP_LAUNCHER_ARGS) sent SIGTERM on its `step LOOP_KILL_AT/`
+# line, of LOOP_LAUNCHER_STEPS, relaunched, its last checkpoint bitwise an
+# uninterrupted main()'s; one step's loss and gradients under remat "none",
+# "dots" and "full" from one state, each warmed, then LOOP_TIMED timed;
+# compress_grads on those gradients against the CPU. Every run writes under
+# LOOP_DIR, deleted at the end.
+LOOP_ARCH, LOOP_LAYERS, LOOP_TOKENS, LOOP_MICRO = "olmo-1b", 2, (4, 4096), 2
+LOOP_STEPS, LOOP_CKPT_EVERY, LOOP_LR, LOOP_WARMUP = (12, 16), 6, 3e-4, 10
+LOOP_TIMED, LOOP_MB_RTOL, LOOP_GNORM_RTOL = 3, 1e-3, 1e-2
+LOOP_COMPRESS_CALLS = 5
+LOOP_KILL_AT, LOOP_LAUNCHER_STEPS = 10, 200
+LOOP_LAUNCHER_ARGS = ("--arch", LOOP_ARCH, "--smoke")
+LOOP_DIR = ROOT / "build" / "loop"
+
+
+def dir_gb(path) -> float:
+    return sum(f.stat().st_size for f in pathlib.Path(path).iterdir()) / 1e9
+
+
+class SaveClock:
+    """The checkpoint's costs while the scope is open: each
+    ``AsyncCheckpointer.save``'s blocking part (the wait for the write in
+    flight, then the copy of every leaf to the host), each write
+    (``checkpoint.save``, on the writer's thread or the caller's) with
+    its GB on disk, and each restore, on the host clock."""
+
+    def __enter__(self):
+        self.records = []
+        self._fns = save, restore, async_save = (
+            tckpt.save, tckpt.restore, tckpt.AsyncCheckpointer.save)
+        rec = self.records
+
+        def timed_save(ckpt_dir, step, tree, **kw):
+            t0 = time.perf_counter()
+            out = save(ckpt_dir, step, tree, **kw)
+            rec.append(dict(what="write", step=step,
+                            s=time.perf_counter() - t0, gb=dir_gb(out),
+                            background=threading.current_thread()
+                            is not threading.main_thread()))
+            return out
+
+        def timed_restore(ckpt_dir, like, **kw):
+            t0 = time.perf_counter()
+            out = restore(ckpt_dir, like, **kw)
+            rec.append(dict(what="restore", s=time.perf_counter() - t0))
+            return out
+
+        def timed_async(saver, step, tree, extra=None):
+            t0 = time.perf_counter()
+            saver.wait()
+            t1 = time.perf_counter()
+            async_save(saver, step, tree, extra)
+            rec.append(dict(what="host_copy", step=step, wait_s=t1 - t0,
+                            s=time.perf_counter() - t1))
+        tckpt.save, tckpt.restore = timed_save, timed_restore
+        tckpt.AsyncCheckpointer.save = timed_async
+        return self
+
+    def __exit__(self, *exc):
+        tckpt.save, tckpt.restore, tckpt.AsyncCheckpointer.save = self._fns
+
+
+def loop_cfg():
+    return configs.get_config(LOOP_ARCH).replace(n_layers=LOOP_LAYERS)
+
+
+def sigterm_at(stop: int):
+    """An ``on_metrics`` that calls the installed SIGTERM handler (the
+    loop's preemption save, then ``SystemExit(143)``) on step ``stop``."""
+    def on_metrics(step, metrics):
+        if step == stop:
+            signal.getsignal(signal.SIGTERM)(signal.SIGTERM, None)
+    return on_metrics
+
+
+def loop_train(model, cfg, steps: int, ckpt_dir,
+               ckpt_every: int = LOOP_CKPT_EVERY,
+               stop_at: int | None = None) -> tuple:
+    """``train_loop.train`` of ``steps`` in ``ckpt_dir`` (resumed from
+    its latest checkpoint, the stream from that step), its ``[train]``
+    lines captured: (its result, a record). With ``stop_at`` the run is
+    preempted on that step and the result is ``{"exit": code}``."""
+    b, s = LOOP_TOKENS
+    tc = train_loop.TrainConfig(
+        steps=steps, microbatches=LOOP_MICRO, ckpt_every=ckpt_every,
+        ckpt_dir=str(ckpt_dir), keep=1, log_every=LOOP_CKPT_EVERY,
+        lr=LOOP_LR, warmup=LOOP_WARMUP)
+    start = tckpt.latest_step(str(ckpt_dir)) or 0
+    data = train_loop.synthetic_lm_data(cfg, b, s, start_step=start,
+                                        device=DEVICE)
+    buf = io.StringIO()
+    on_metrics = None if stop_at is None else sigterm_at(stop_at)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        try:
+            out = train_loop.train(model, data, tc, on_metrics=on_metrics,
+                                   device=DEVICE)
+        except SystemExit as e:
+            out = {"exit": e.code}
+    torch.cuda.synchronize()
+    return out, dict(steps=steps, stream_from=start, stop_at=stop_at,
+                     wall_ms=(time.perf_counter() - t0) * 1e3,
+                     log=buf.getvalue().splitlines())
+
+
+def loop_resume(model, cfg) -> tuple:
+    """(a), (b) and (c): (a) exits 143 with its checkpoint at
+    LOOP_STEPS[0], the relaunch (b) of the same run prints that it resumed
+    there, and its parameters, moments and step counter are the
+    uninterrupted run's, bitwise (exact digests). Returns the record and
+    (c)'s result. (a) writes ~4 GB checkpoints at step 6 (in the
+    background) and 12 (the preemption save), (b) and (c) at 16."""
+    first, second = LOOP_STEPS
+    out, rec_a = loop_train(model, cfg, second, LOOP_DIR / "a",
+                            stop_at=first)
+    check(out == {"exit": 128 + signal.SIGTERM}
+          and tckpt.latest_step(str(LOOP_DIR / "a")) == first
+          and f"[train] preemption checkpoint at step {first}"
+          in rec_a["log"],
+          f"loop: run (a) preempted at {first}: {out}, checkpoint "
+          f"{tckpt.latest_step(str(LOOP_DIR / 'a'))}")
+    del out
+    out, rec_b = loop_train(model, cfg, second, LOOP_DIR / "a")
+    check(rec_b["stream_from"] == first
+          and f"[train] resumed from step {first}" in rec_b["log"],
+          f"loop: the relaunch did not resume from step {first}: {rec_b}")
+    got = fingerprint([out["params"], list(out["opt_state"])])
+    del out
+    shutil.rmtree(LOOP_DIR / "a")
+    # (c) saves only its last step: the writes change no bit
+    out, rec_c = loop_train(model, cfg, second, LOOP_DIR / "c",
+                            ckpt_every=second + 1)
+    check(fingerprint([out["params"], list(out["opt_state"])]) == got,
+          "loop: the resumed run differs from the uninterrupted one")
+    shutil.rmtree(LOOP_DIR / "c")
+    return dict(bitwise_uninterrupted=True, leaves=len(got),
+                runs={"a": rec_a, "b": rec_b, "c": rec_c}), out
+
+
+def loop_sync_free(step, params, state, data) -> tuple:
+    """One warm step, the batch drawn from the stream, under
+    ``torch.cuda.set_sync_debug_mode("warn")``: any synchronizing call
+    fails the check, named."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = step(params, state, next(data))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = sorted({str(w.message)[:200] for w in seen
+                    if "called a synchronizing" in str(w.message)})
+    check(not syncs, f"loop: a warm step synchronizes the host: {syncs}")
+    return out
+
+
+def loop_steps(model, cfg, params, state) -> dict:
+    """The loop's step (``make_train_step``, LOOP_MICRO microbatches) from
+    the uninterrupted run's state: one sync-free step, LOOP_TIMED timed
+    ones (CUDA events), the allocator's peak beside ``analyze()``."""
+    b, s = LOOP_TOKENS
+    opt = optim.AdamW(lr=optim.warmup_cosine(LOOP_LR, LOOP_WARMUP,
+                                             LOOP_STEPS[1]),
+                      weight_decay=0.1)
+    step = train_loop.make_train_step(model, opt, LOOP_MICRO)
+    data = train_loop.synthetic_lm_data(cfg, b, s, start_step=LOOP_STEPS[1],
+                                        device=DEVICE)
+    params, state, _ = loop_sync_free(step, params, state, data)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(LOOP_TIMED):
+        batch = next(data)
+        (params, state, metrics), ms = timed_run(step, params, state, batch)
+        times.append(ms)
+    loss = float(metrics["loss"])
+    check(math.isfinite(loss), f"loop: loss {loss}")
+    ms = statistics.median(times)
+    shape = dataclasses.replace(configs.SHAPES["train_4k"], global_batch=b)
+    return dict(sync_free=True, ms=ms, step_ms=times,
+                tokens_per_s=b * s / (ms / 1e3), loss=loss,
+                peak_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+                memory_model=memory_record(cfg, shape, CELLS_MESHES[0]))
+
+
+def loop_microbatch_scale(model, params, batch) -> dict:
+    """One step at lr 0 with 1 and LOOP_MICRO microbatches: the losses
+    within LOOP_MB_RTOL relative, the gradient norms (of the accumulated
+    gradients, before AdamW) within LOOP_GNORM_RTOL."""
+    opt = optim.AdamW(lr=0.0)
+    losses, norms = {}, {}
+    for mb in (1, LOOP_MICRO):
+        _, _, m = train_loop.make_train_step(model, opt, mb)(
+            params, opt.init(params), batch)
+        losses[mb], norms[mb] = float(m["loss"]), float(m["grad_norm"])
+    rel = abs(losses[1] - losses[LOOP_MICRO]) / abs(losses[1])
+    gnorm_rel = abs(norms[1] - norms[LOOP_MICRO]) / abs(norms[1])
+    check(rel <= LOOP_MB_RTOL and gnorm_rel <= LOOP_GNORM_RTOL,
+          f"loop: microbatched loss {losses}, gradient norm {norms}")
+    return dict(losses=losses, rel_diff=rel, rtol=LOOP_MB_RTOL,
+                grad_norms=norms, grad_norm_rel_diff=gnorm_rel,
+                grad_norm_rtol=LOOP_GNORM_RTOL)
+
+
+def loop_remat(cfg, params, batch) -> tuple:
+    """One step's loss and gradients (``train_loop.loss_and_grads``) under
+    remat "none", "dots" and "full" from one state: each mode warmed by
+    one call, then the median ms of LOOP_TIMED (CUDA events) and the
+    allocator's peak above what was held before; every leaf bitwise
+    "none"'s, or the leaves that differ with their largest difference.
+    Returns the record and "none"'s gradients."""
+    names = [n for n, _ in named_leaves(params)]
+    rec, ref = {}, None
+    for remat in ("none", "dots", "full"):
+        model = lm.Model(cfg.replace(remat=remat))
+        train_loop.loss_and_grads(model, params, batch)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(LOOP_TIMED):
+            (loss, grads), ms = timed_run(train_loop.loss_and_grads, model,
+                                          params, batch)
+            times.append(ms)
+        r = dict(ms=statistics.median(times), call_ms=times,
+                 loss=float(loss), peak_above_held_gb=(
+                     torch.cuda.max_memory_allocated() - held) / 1e9)
+        if ref is None:
+            ref = (loss, grads)
+        else:
+            diffs = {n: float((a - b).abs().max()) for n, a, b in zip(
+                ["loss", *names], [loss, *model_common.leaves(grads)],
+                [ref[0], *model_common.leaves(ref[1])])
+                if not torch.equal(a, b)}
+            r.update(bitwise_none=not diffs, differing=diffs)
+        rec[remat] = r
+        del loss, grads
+    check(all(rec[r]["bitwise_none"] for r in ("dots", "full")),
+          f"loop: remat changes the loss or gradients: {rec}")
+    return rec, ref[1]
+
+
+def qgrad_leaves(tree) -> list:
+    out: list = []
+    model_common.tree_map(out.append, tree,
+                          lambda x: isinstance(x, compress.QGrad))
+    return out
+
+
+def loop_compress(grads) -> dict:
+    """``compress_grads`` on the step's gradients, on the card and on the
+    CPU: codes and scales bitwise, the error within one ulp; ms a call
+    (CUDA events, the median of LOOP_COMPRESS_CALLS) beside its bytes
+    bound (the gradients and the error feedback read, codes, scales and
+    the new error written)."""
+    ef = compress.init_error_feedback(grads)
+    (q, err), _ = timed_run(compress.compress_grads, grads, ef)
+    times = [timed_run(compress.compress_grads, grads, ef)[1]
+             for _ in range(LOOP_COMPRESS_CALLS)]
+    cpu = model_common.tree_map(lambda a: a.cpu(), grads)
+    cq, cerr = compress.compress_grads(cpu, compress.init_error_feedback(cpu))
+    n = sum(g.numel() for g in model_common.leaves(grads))
+    qs = qgrad_leaves(q)
+    q_same = all(torch.equal(a.q.cpu(), b.q) and torch.equal(
+        a.scale.cpu(), b.scale) for a, b in zip(qs, qgrad_leaves(cq),
+                                                 strict=True))
+    ulps = 0.0
+    for a, b in zip(model_common.leaves(err), model_common.leaves(cerr)):
+        a = a.cpu()
+        ulp = torch.nextafter(b.abs(), torch.full_like(b, math.inf)) \
+            - b.abs()
+        ulps = max(ulps, float(((a - b).abs() / ulp).max()))
+    check(q_same and ulps <= 1.0, f"loop: compress_grads on the card: "
+          f"codes and scales bitwise {q_same}, error {ulps} ulp")
+    n_scales = sum(x.scale.numel() for x in qs)
+    n_bytes = 4 * n + 4 * n + n + 4 * n + 4 * n_scales
+    ms = statistics.median(times)
+    return dict(params=n, ms=ms, call_ms=times, bytes=n_bytes,
+                bound_ms=n_bytes / HBM_BYTES_S * 1e3, bound_by="bytes",
+                bound_share=n_bytes / HBM_BYTES_S * 1e3 / ms,
+                codes_scales_bitwise=True, error_max_ulp=ulps,
+                ratio=compress.compression_ratio(grads))
+
+
+class PreemptedLauncher(threading.Thread):
+    """``python -u -m repro_torch.launch.train`` (LOOP_LAUNCHER_ARGS, on
+    the card) in a subprocess, sent SIGTERM on its ``step LOOP_KILL_AT/``
+    line, then relaunched in the same directory, on a thread beside the
+    phase's first part (each process takes ~9 s to reach the card); its
+    record and its first error wait for :meth:`result`."""
+
+    def __init__(self, ckpt_dir):
+        super().__init__(daemon=True)
+        self.ckpt_dir = ckpt_dir
+        self.args = [*LOOP_LAUNCHER_ARGS, "--steps", str(LOOP_LAUNCHER_STEPS)]
+        self.cmd = [sys.executable, "-u", "-m", "repro_torch.launch.train",
+                    *self.args, "--ckpt-dir", str(ckpt_dir)]
+        self.rec, self.error, self.procs = {}, None, []
+
+    def popen(self, **kw):
+        proc = subprocess.Popen(
+            self.cmd, cwd=ROOT, env=dict(os.environ,
+                                         PYTHONPATH=str(ROOT / "src")),
+            stdout=subprocess.PIPE, text=True, **kw)
+        self.procs.append(proc)
+        return proc
+
+    def run(self):
+        try:
+            self.preempt_and_relaunch()
+        except BaseException as e:          # noqa: BLE001 - see result()
+            self.error = e
+
+    def preempt_and_relaunch(self):
+        t0 = time.perf_counter()
+        proc = self.popen(stderr=subprocess.STDOUT)
+        lines, signalled_s = [], None
+        for line in proc.stdout:
+            lines.append(line.rstrip())
+            if signalled_s is None and line.startswith(
+                    f"[train] step {LOOP_KILL_AT}/"):
+                proc.send_signal(signal.SIGTERM)
+                signalled_s = time.perf_counter() - t0
+        rc = proc.wait()
+        preempted_s = time.perf_counter() - t0
+        saved = [int(ln.rsplit(" ", 1)[1]) for ln in lines
+                 if ln.startswith("[train] preemption checkpoint at step")]
+        latest = tckpt.latest_step(str(self.ckpt_dir))
+        check(rc == 128 + signal.SIGTERM and len(saved) == 1
+              and latest == saved[0]
+              and LOOP_KILL_AT <= saved[0] < LOOP_LAUNCHER_STEPS,
+              f"loop: the launcher after SIGTERM: exit {rc}, checkpoint "
+              f"{latest}\n" + "\n".join(lines[-20:]))
+        k = saved[0]
+        t1 = time.perf_counter()
+        again = self.popen(stderr=subprocess.PIPE)
+        out, err = again.communicate(timeout=300)
+        check(again.returncode == 0
+              and f"[train] resumed from step {k}" in out
+              and f"done at step {LOOP_LAUNCHER_STEPS}" in out,
+              f"loop: the relaunch: exit {again.returncode}\n"
+              f"{out[-2000:]}{err[-2000:]}")
+        self.rec = dict(args=self.args, signalled_after_s=signalled_s,
+                        preempted_s=preempted_s, exit=rc,
+                        preemption_step=k,
+                        relaunch_s=time.perf_counter() - t1,
+                        relaunch_tail=out.strip().splitlines()[-1])
+
+    def result(self) -> dict:
+        self.join(timeout=600)
+        check(not self.is_alive(), "loop: the launcher runs did not end")
+        if self.error is not None:
+            raise self.error
+        return self.rec
+
+    def stop(self) -> None:
+        host_stop(*self.procs)
+
+
+def loop_launcher(runs: PreemptedLauncher) -> dict:
+    """The preempted and relaunched launcher (``runs``, ended) against an
+    uninterrupted ``main([...])`` in this process: the last checkpoints
+    leaf by leaf bitwise."""
+    rec = runs.result()
+    whole = LOOP_DIR / "launcher_whole"
+    before = signal.getsignal(signal.SIGTERM)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = launch_train.main([*runs.args, "--ckpt-dir", str(whole)])
+    finally:
+        signal.signal(signal.SIGTERM, before)
+    check(rc == 0, f"loop: main() returned {rc}")
+    return dict(rec, uninterrupted_s=time.perf_counter() - t0,
+                leaves_bitwise=same_checkpoint(runs.ckpt_dir, whole,
+                                               LOOP_LAUNCHER_STEPS))
+
+
+def same_checkpoint(a, b, step: int) -> int:
+    """Every leaf of ``a``'s and ``b``'s checkpoints at ``step``: the same
+    names, dtypes and bits. Returns the number of leaves."""
+    da, db = (pathlib.Path(d) / f"step_{step:010d}" for d in (a, b))
+    names = [json.loads((d / "MANIFEST.json").read_text())["leaves"]
+             for d in (da, db)]
+    check(sorted(names[0]) == sorted(names[1]), "loop: the checkpoints' "
+          "leaf names differ")
+    for name in names[0]:
+        x, y = (np.load(d / f"{name}.npy") for d in (da, db))
+        check(x.dtype == y.dtype and np.array_equal(x, y),
+              f"loop: the relaunched checkpoint's {name} differs from the "
+              f"uninterrupted one's")
+    return len(names[0])
+
+
+def loop_phase(card: str) -> dict:
+    """The training runtime on the card (the comment above LOOP_ARCH):
+    the loop's resume bitwise, its timed steps, the microbatch scale,
+    remat "none", "dots" and "full", the gradients' compression against
+    the CPU, the launcher preempted and relaunched. Every record carries
+    the card's name and power limit; the checkpoints' host copies,
+    writes and restores (:class:`SaveClock`) and the phase's seconds
+    last."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    part_s = {}
+
+    def done(name: str, t: float, **recs) -> None:
+        part_s[name] = time.perf_counter() - t
+        emit({"loop": dict(card=card, part=name, part_s=part_s[name],
+                           **recs)})
+    shutil.rmtree(LOOP_DIR, ignore_errors=True)
+    LOOP_DIR.mkdir(parents=True)
+    # the launcher's preemption and relaunch run beside the resume runs
+    # and are waited for before anything is timed
+    runs = PreemptedLauncher(LOOP_DIR / "launcher")
+    runs.start()
+    cfg = loop_cfg()
+    model = lm.Model(cfg)
+    handler = signal.getsignal(signal.SIGTERM)
+    rec = {"card": card, "arch": LOOP_ARCH,
+           "cut": f"{LOOP_LAYERS} of 16 layers, train_4k's batch 256 -> "
+                  f"{LOOP_TOKENS[0]}",
+           "params": model_common.count_params(model.abstract_params())}
+    try:
+        with SaveClock() as clock:
+            t = time.perf_counter()
+            params = model.init(torch.Generator(device=DEVICE).manual_seed(
+                SEED + 70))
+            opt = optim.AdamW(lr=optim.warmup_cosine(
+                LOOP_LR, LOOP_WARMUP, LOOP_STEPS[1]), weight_decay=0.1)
+            batch = next(train_loop.synthetic_lm_data(
+                cfg, *LOOP_TOKENS, device=DEVICE))
+            _, rec["first_step_ms"] = timed_run(
+                train_loop.make_train_step(model, opt, LOOP_MICRO), params,
+                opt.init(params), batch)
+            rec["resume"], out = loop_resume(model, cfg)
+            done("resume", t, resume=rec["resume"],
+                 first_step_ms=rec["first_step_ms"])
+            t = time.perf_counter()
+            runs.result()
+            done("launcher_wait", t)
+            t = time.perf_counter()
+            rec["steps"] = loop_steps(model, cfg, out["params"],
+                                      out["opt_state"])
+            del out
+            torch.cuda.empty_cache()
+            rec["microbatch_scale"] = loop_microbatch_scale(model, params,
+                                                            batch)
+            done("steps", t, steps=rec["steps"],
+                 microbatch_scale=rec["microbatch_scale"])
+            t = time.perf_counter()
+            rec["remat"], grads = loop_remat(cfg, params, batch)
+            del params
+            done("remat", t, remat=rec["remat"])
+            t = time.perf_counter()
+            rec["compress"] = loop_compress(grads)
+            del grads
+            torch.cuda.empty_cache()
+            done("compress", t, compress=rec["compress"])
+            t = time.perf_counter()
+            rec["launcher"] = loop_launcher(runs)
+            done("launcher", t, launcher=rec["launcher"])
+        rec["checkpoints"] = clock.records
+        rec["written_gb"] = sum(r["gb"] for r in clock.records
+                                if r["what"] == "write")
+    finally:
+        runs.stop()
+        signal.signal(signal.SIGTERM, handler)
+        shutil.rmtree(LOOP_DIR, ignore_errors=True)
+    rec["phase_s"] = time.perf_counter() - t0
+    emit({"loop": {"card": card, "checkpoints": rec["checkpoints"],
+                   "written_gb": rec["written_gb"], "part_s": part_s,
+                   "phase_s": rec["phase_s"]}})
     return rec
 
 
@@ -6923,10 +7479,10 @@ def main(argv=None) -> int:
     parser.add_argument(
         "--only", choices=("mesh", "cells", "lm", "decode", "mesh_decode",
                            "moe", "hybrid", "hybrid_mesh", "xlstm",
-                           "xlstm_mesh"),
+                           "xlstm_mesh", "loop"),
         help="mesh: build the kernels and run the mesh phase alone (on a "
              "host with several cards: the NCCL world takes every card); "
-             "cells, lm, decode, moe, hybrid, xlstm: that phase alone "
+             "cells, lm, decode, moe, hybrid, xlstm, loop: that phase alone "
              "(moe's, hybrid's and xlstm's sharded runs in an NCCL world of "
              "every card); mesh_decode, hybrid_mesh, xlstm_mesh: the mesh "
              "phase's sharded decode cell, the hybrid's or the xLSTM's "
@@ -6959,7 +7515,7 @@ def run_phases(args, smi: str, dry) -> int:
         ok_line()
         return 0
     if args.only in ("lm", "decode", "mesh_decode", "moe", "hybrid",
-                     "hybrid_mesh", "xlstm", "xlstm_mesh"):
+                     "hybrid_mesh", "xlstm", "xlstm_mesh", "loop"):
         if args.only == "lm":
             lm_phase(smi)
         elif args.only == "decode":
@@ -6974,6 +7530,8 @@ def run_phases(args, smi: str, dry) -> int:
                              "phase_s": time.perf_counter() - t0}})
         elif args.only == "xlstm":
             xlstm_phase(smi)
+        elif args.only == "loop":
+            loop_phase(smi)
         elif args.only == "xlstm_mesh":
             t0 = time.perf_counter()
             emit({"xlstm": {"card": smi, "mesh": xlstm_world(),
@@ -7038,9 +7596,16 @@ def run_phases(args, smi: str, dry) -> int:
     cells_phase(smi, dry)
     lm_phase(smi)
     decode_phase(smi)
-    moe_phase(smi)
-    hybrid_phase(smi)
+    # the hybrid's host subprocesses run beside the MoE phase's card work
+    helpers = hybrid_helpers()
+    try:
+        moe_phase(smi)
+    except BaseException:
+        host_stop(*helpers[:2])
+        raise
+    hybrid_phase(smi, helpers)
     xlstm_phase(smi)
+    loop_phase(smi)
     train, train_launches, train_records = train_phase(g)
     emit({"train": train})
     for r in train_records:

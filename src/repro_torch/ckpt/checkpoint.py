@@ -12,10 +12,13 @@ The on-disk format is the reference's, byte for byte: one ``.npy`` per
 leaf and a ``MANIFEST.json`` with ``step``, ``time``, ``extra`` and
 ``leaves`` in a ``step_%010d`` directory. Leaves are named as the
 reference's ``jax.tree_util`` paths name them — a dict key ``k`` becomes
-``(k)`` and a list or tuple index ``i`` becomes ``(i)``, dict keys taken
-in sorted order and ``None`` holding no leaf — so a checkpoint written by
-either package is read by the other. The trees are dicts, lists and
-tuples of tensors, numpy arrays and Python scalars, flattened here.
+``(k)``, a list or tuple index ``i`` becomes ``(i)`` and a NamedTuple's
+field ``f`` becomes ``.f``, dict keys taken in sorted order and ``None``
+holding no leaf — so a checkpoint written by either package is read by
+the other: a training state ``(params, AdamWState)`` has the leaves
+``(0)...``, ``(1).step``, ``(1).mu...`` and ``(1).nu...`` in both. The
+trees are dicts, lists, tuples and NamedTuples of tensors, numpy arrays
+and Python scalars, flattened here.
 """
 
 from __future__ import annotations
@@ -32,11 +35,18 @@ import numpy as np
 import torch
 
 
+def _is_namedtuple(tree) -> bool:
+    return isinstance(tree, tuple) and hasattr(tree, "_fields")
+
+
 def _children(tree) -> list[tuple[str, Any]] | None:
     """``[(path key, child), ...]`` of a container node (``None`` for a
-    leaf), in the reference's flattening order."""
+    leaf), in the reference's flattening order: a NamedTuple's fields by
+    name (JAX's ``GetAttrKey``), a list's or plain tuple's by index."""
     if isinstance(tree, dict):
         return [(f"[{k!r}]", tree[k]) for k in sorted(tree)]
+    if _is_namedtuple(tree):
+        return [(f".{f}", getattr(tree, f)) for f in tree._fields]
     if isinstance(tree, (list, tuple)):
         return [(f"[{i}]", x) for i, x in enumerate(tree)]
     return None
@@ -65,6 +75,8 @@ def _unflatten(like, leaves):
         return None
     if isinstance(like, dict):
         return {k: _unflatten(like[k], leaves) for k in sorted(like)}
+    if _is_namedtuple(like):
+        return type(like)(*[_unflatten(x, leaves) for x in like])
     if isinstance(like, (list, tuple)):
         return type(like)(_unflatten(x, leaves) for x in like)
     return next(leaves)

@@ -1,7 +1,8 @@
 """Carry a HyperSense model's, a Fragment model's, a detector's, an LM's
-or a baseline's weights, an AdamW state or an LM's decode state (its KV
-cache, the hybrid's SSM states and KV caches, or the xLSTM's per-block
-states) across into the port.
+or a baseline's weights, an AdamW state, a training state (an LM's
+parameters and its AdamW state), compressed gradients or an LM's decode
+state (its KV cache, the hybrid's SSM states and KV caches, or the
+xLSTM's per-block states) across into the port.
 
 The tests build a model in the JAX package and hand its arrays over as
 numpy (``np.asarray(jax_model.class_hvs)`` etc.), so that both packages
@@ -24,6 +25,7 @@ from repro_torch.models.lm import dtype_of
 from repro_torch.models.ssm import SSMState
 from repro_torch.models.xlstm import MLSTMState, SLSTMState
 from repro_torch.sensing.baselines import MLP, TinyConv
+from repro_torch.train.compress import QGrad
 from repro_torch.train.optim import AdamWState
 
 
@@ -113,6 +115,38 @@ def adamw_state_from_arrays(state, *,
     return AdamWState(step=t(np.asarray(state.step, np.int32)),
                       mu=common.tree_map(t, state.mu),
                       nu=common.tree_map(t, state.nu))
+
+
+def train_state_from_arrays(params, state, *, cfg,
+                            device: str | torch.device | None = None
+                            ) -> tuple[dict, AdamWState]:
+    """The ``(params, opt_state)`` pair the train loop checkpoints, from the
+    reference's (its ``Model.init`` tree and ``optim.AdamWState``, as numpy
+    arrays): :func:`lm_params_from_arrays` and
+    :func:`adamw_state_from_arrays`, on ``device`` (``None`` -> CUDA,
+    raising without it)."""
+    return (lm_params_from_arrays(params, cfg=cfg, device=device),
+            adamw_state_from_arrays(state, device=device))
+
+
+def _is_qgrad(x) -> bool:
+    return isinstance(x, tuple) and getattr(x, "_fields", None) == (
+        "q", "scale")
+
+
+def qgrads_from_arrays(tree, *, device: str | torch.device | None = None):
+    """The port's compressed gradients from the reference's
+    ``compress_grads`` tree as numpy arrays: each ``QGrad``'s int8 codes
+    and float32 scales, the nesting kept, on ``device`` (``None`` -> CUDA,
+    raising without it)."""
+    dev = resolve_device(device)
+    return common.tree_map(
+        lambda x: QGrad(q=torch.as_tensor(np.asarray(x.q, np.int8),
+                                          device=dev),
+                        scale=torch.as_tensor(np.asarray(x.scale,
+                                                         np.float32),
+                                              device=dev)),
+        tree, _is_qgrad)
 
 
 def kv_cache_from_arrays(state, *,

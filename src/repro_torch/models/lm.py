@@ -35,8 +35,10 @@ Layers are stacked on a leading axis (``scan_layers=True``) or kept as a
 list, as in the reference; the stack runs as a Python loop over the
 layers, each layer (and each call of the hybrid's shared block) under
 ``remat`` when a backward pass will need it (``"full"``: a per-layer
-``torch.utils.checkpoint``). A stacked tree is unbound once a pass, so
-the backward pass of its views is one ``stack`` a leaf. The decode step
+``torch.utils.checkpoint``; ``"dots"``: the same checkpoint keeping the
+outputs of the products without batch dims, :func:`_remat`). A stacked
+tree is unbound once a pass, so the backward pass of its views is one
+``stack`` a leaf. The decode step
 (``decode_state_spec``, ``init_decode_state``, ``decode_step`` and
 :class:`DecodeBatch`) runs one token for the whole stack against its
 state, written in place: for the transformer families a stacked bf16
@@ -51,8 +53,7 @@ four float32 leaves). Sharded, each rank holds its block of it under the
 :func:`~repro_torch.models.attention.cache_axes`,
 :func:`~repro_torch.models.ssm.state_axes` and the xLSTM's state axes,
 and the logits are this rank's block of the vocab, as ``forward``'s. The
-VLM decodes tokens alone, as the reference does. ``"dots"`` remat comes
-with the LM zoo (``ROADMAP.md`` §1 item 4).
+VLM decodes tokens alone, as the reference does.
 """
 
 from __future__ import annotations
@@ -254,19 +255,46 @@ def map_state(fn: Callable, state):
     return fn(state)
 
 
+#: the products without batch dims, whose outputs "dots" remat keeps
+#: (JAX's ``dots_with_no_batch_dims_saveable``): a 2-D weight against the
+#: folded activations (``x @ w`` and ``F.linear`` lower to these)
+_DOTS_SAVED = ("mm", "addmm", "mv", "addmv", "dot")
+_DOTS_OPS = tuple(getattr(torch.ops.aten, name) for name in _DOTS_SAVED)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Keep the output of a product without batch dims; recompute every
+    other op, batched products (``bmm``, ``baddbmm``: the attention scores
+    and ``P·V``, the experts, the SSD's and mLSTM's chunk products) and
+    the ``repro_torch::slstm_scan`` op among them."""
+    pol = torch.utils.checkpoint.CheckpointPolicy
+    if getattr(op, "_overloadpacket", None) in _DOTS_OPS:
+        return pol.MUST_SAVE
+    return pol.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return torch.utils.checkpoint.create_selective_checkpoint_contexts(
+        _dots_policy)
+
+
 def _remat(fn: Callable, cfg: ModelConfig) -> Callable:
     """``fn(params, x)`` under the config's rematerialisation: ``"none"``
     keeps its activations for the backward pass; ``"full"`` keeps only
     its inputs and runs it again in the backward pass (a non-reentrant
-    ``torch.utils.checkpoint``), applied where autograd records the call,
-    so a pass without gradients runs ``fn`` itself."""
+    ``torch.utils.checkpoint``); ``"dots"`` is that checkpoint with a
+    selective policy (:func:`_dots_policy`): the outputs of the products
+    without batch dims (the projections, the MLP) are kept, everything
+    else runs again, as the reference's ``dots_with_no_batch_dims_saveable``.
+    The three give the same values; they differ in what the backward pass
+    keeps and recomputes. The checkpoint applies where autograd records
+    the call, so a pass without gradients runs ``fn`` itself."""
     if cfg.remat == "none":
         return fn
-    if cfg.remat != "full":
-        raise NotImplementedError(
-            f"remat {cfg.remat!r}: the port has 'full' and 'none'; 'dots' "
-            f"(keep the products' outputs) comes with the LM zoo, "
-            f"ROADMAP.md §1 item 4")
+    if cfg.remat not in ("full", "dots"):
+        raise ValueError(f"remat {cfg.remat!r}: one of 'full', 'dots', "
+                         f"'none'")
+    kw = {"context_fn": _dots_context} if cfg.remat == "dots" else {}
 
     def layer(p, x):
         if not torch.is_grad_enabled() or not (
@@ -274,7 +302,7 @@ def _remat(fn: Callable, cfg: ModelConfig) -> Callable:
                 or any(t.requires_grad for t in common.leaves(p))):
             return fn(p, x)
         return torch.utils.checkpoint.checkpoint(
-            fn, p, x, use_reentrant=False, preserve_rng_state=False)
+            fn, p, x, use_reentrant=False, preserve_rng_state=False, **kw)
     return layer
 
 

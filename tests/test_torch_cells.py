@@ -454,11 +454,24 @@ def test_remat_full_is_bitwise_none(dtype):
 
 
 def test_dots_remat_names_the_roadmap_item():
-    cfg = configs.get_smoke(ARCH).replace(remat="dots")
-    _, tb = np_batch(11, 1, 8, cfg.d_model, cfg.vocab)
-    params = lm.Model(cfg).init(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="item 4"):
-        lm.Model(cfg).loss(params, tb)
+    """ROADMAP.md §1 item 4(f) ported "dots": the loss and gradients
+    bitwise "full"'s (tests/test_torch_remat.py holds every family); an
+    unknown policy is refused."""
+    _, tb = np_batch(11, 1, 8, configs.get_smoke(ARCH).d_model,
+                     configs.get_smoke(ARCH).vocab)
+    params = lm.Model(configs.get_smoke(ARCH)).init(
+        torch.Generator().manual_seed(0))
+    out = {}
+    for remat in ("dots", "full"):
+        model = lm.Model(configs.get_smoke(ARCH).replace(remat=remat))
+        ps = common.tree_map(lambda p: p.detach().requires_grad_(), params)
+        loss = model.loss(ps, tb)
+        out[remat] = [loss.detach(), *torch.autograd.grad(
+            loss, common.leaves(ps))]
+    assert all(torch.equal(a, b) for a, b in zip(out["dots"], out["full"]))
+    with pytest.raises(ValueError, match="remat 'some'"):
+        lm.Model(configs.get_smoke(ARCH).replace(remat="some")).loss(
+            params, tb)
 
 
 def test_stacked_layers_unbind_to_the_views():

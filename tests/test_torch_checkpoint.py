@@ -4,7 +4,9 @@ reads the reference's on-disk format (one ``.npy`` per leaf, the
 names), so a checkpoint written by either package is read bitwise by the
 other; then keep-K, the orphaned ``.tmp`` cleanup, ``latest_step``, the
 shape guard, the async writer's error and snapshot, and the preemption
-handler."""
+handler; last the train loop's ``(params, AdamWState)``, its NamedTuple's
+fields named ``.step``, ``.mu``, ``.nu`` as JAX names them, written by
+either package and read by the other and by the port itself."""
 
 import os
 import signal
@@ -15,7 +17,9 @@ import pytest
 import torch
 
 from repro.ckpt import checkpoint as jckpt
+from repro.train import optim as joptim
 from repro_torch.ckpt import checkpoint as tckpt
+from repro_torch.train.optim import AdamWState
 
 jax.config.update("jax_platform_name", "cpu")
 
@@ -174,3 +178,83 @@ def test_preemption_handler_saves_then_exits():
         assert exc.value.code == 128 + signal.SIGTERM and saved == [True]
     finally:
         signal.signal(signal.SIGTERM, old)
+
+
+# ---------------------------------------------------------------------------
+# a training state: (params, AdamWState), a NamedTuple's fields by name
+# ---------------------------------------------------------------------------
+
+def train_state(seed):
+    """``(params, AdamWState)`` as numpy arrays in the reference's classes
+    and the port's: the names the reference writes are ``(0)...``,
+    ``(1).step``, ``(1).mu...``, ``(1).nu...``."""
+    rng = np.random.default_rng(seed)
+
+    def params():
+        return {"layers": {"w": rng.standard_normal((2, 3, 4)).astype(
+                    np.float32)},
+                "norm": {}, "unembed": [rng.standard_normal(5).astype(
+                    np.float32)]}
+    p, mu, nu = params(), params(), params()
+    step = np.int32(seed + 7)
+    return ((p, joptim.AdamWState(step=step, mu=mu, nu=nu)),
+            (to_torch(p), AdamWState(
+                step=torch.from_numpy(np.array(step)), mu=to_torch(mu),
+                nu=to_torch(nu))))
+
+
+def test_train_state_leaf_names_are_the_reference_s():
+    jtree, ttree = train_state(0)
+    names = [n for n, _ in tckpt._flatten_with_paths(ttree)]
+    assert names == [n for n, _ in jckpt._flatten_with_paths(jtree)]
+    assert names == ["(0)(layers)(w)", "(0)(unembed)(0)", "(1).step",
+                     "(1).mu(layers)(w)", "(1).mu(unembed)(0)",
+                     "(1).nu(layers)(w)", "(1).nu(unembed)(0)"]
+
+
+@pytest.mark.parametrize("writer", ["jax", "torch"])
+def test_train_state_read_by_the_other_package(writer, tmp_path):
+    jtree, ttree = train_state(1)
+    _, tlike = train_state(2)
+    jlike, _ = train_state(3)
+    d = os.fspath(tmp_path)
+    if writer == "jax":
+        jckpt.save(d, 4, jtree, extra={"step": 4})
+        (params, state), extra = tckpt.restore(d, tlike)
+        assert isinstance(state, AdamWState)
+        assert state.step.dtype == torch.int32 and int(state.step) == 8
+        got = [t.numpy() for _, t in tckpt._flatten((params, state))]
+    else:
+        tckpt.save(d, 4, ttree, extra={"step": 4})
+        (params, state), extra = jckpt.restore(d, jlike)
+        assert type(state).__name__ == "AdamWState"
+        got = [np.asarray(x) for x in jax.tree.leaves((params, state))]
+    assert extra == {"step": 4}
+    want = [np.asarray(x) for x in jax.tree.leaves(jtree)]
+    assert len(got) == len(want)
+    for x, y in zip(got, want):
+        assert x.dtype == y.dtype
+        np.testing.assert_array_equal(x, y)
+
+
+def test_train_state_round_trip_in_the_port(tmp_path):
+    """Saved and restored by the port, synchronously and through the
+    async writer: the same class, leaves and bits (a NamedTuple is
+    rebuilt from its fields one by one)."""
+    _, ttree = train_state(5)
+    _, tlike = train_state(6)
+    for sub, write in (("sync", lambda d: tckpt.save(d, 2, ttree)),
+                       ("async", lambda d: _async_save(d, ttree))):
+        d = os.fspath(tmp_path / sub)
+        write(d)
+        (params, state), _ = tckpt.restore(d, tlike)
+        assert isinstance(state, AdamWState) and params["norm"] == {}
+        for (na, a), (nb, b) in zip(tckpt._flatten((params, state)),
+                                    tckpt._flatten(ttree)):
+            assert na == nb and torch.equal(a, b)
+
+
+def _async_save(d, tree):
+    ac = tckpt.AsyncCheckpointer(d, keep=1)
+    ac.save(2, tree)
+    ac.wait()
