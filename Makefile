@@ -25,7 +25,7 @@ SHARD1_FILES = tests/test_kernels.py tests/test_kernels_batch.py \
 	tests/test_torch_cascade.py tests/test_torch_int_expanded.py \
 	tests/test_torch_synthetic.py tests/test_torch_baselines.py \
 	tests/test_torch_mesh.py tests/test_torch_cascade_mesh.py \
-	tests/test_torch_train_mesh.py
+	tests/test_torch_train_mesh.py tests/test_torch_train_loop_mesh.py
 SHARD2_FILES = tests/test_arch_smoke.py tests/test_cells.py \
 	tests/test_data_pipeline.py tests/test_gate.py tests/test_hdc_core.py \
 	tests/test_hypersense.py tests/test_online.py tests/test_system.py \
@@ -44,7 +44,7 @@ SHARD2_FILES = tests/test_arch_smoke.py tests/test_cells.py \
 	tests/test_torch_ssm.py tests/test_torch_lm_hybrid.py \
 	tests/test_torch_xlstm.py tests/test_torch_lm_xlstm.py \
 	tests/test_torch_compress.py tests/test_torch_train_loop.py \
-	tests/test_torch_remat.py
+	tests/test_torch_remat.py tests/test_torch_examples.py
 
 # PYTEST_EXTRA lets CI attach coverage flags (see .github/workflows/ci.yml);
 # plain local runs need no pytest-cov install.

@@ -13,6 +13,7 @@
     python3 chip_smoke.py --only xlstm   # the xLSTM phase
     python3 chip_smoke.py --only xlstm_mesh  # its sharded runs alone
     python3 chip_smoke.py --only loop    # the training runtime's phase
+    python3 chip_smoke.py --only loop_mesh  # the loop over a mesh alone
 
 from the root of a checkout, on a machine with one CUDA card (built for
 sm_90a: an H100; with ``--only mesh``, every card of the host joins the
@@ -107,7 +108,7 @@ mesh phase's NCCL world). It
    ``roofline()`` (printed), and ms a batch in turns against an
    unsharded cascade on the rank's card; then the sharded train and
    prefill cells at full ``hubert-xlarge`` and ``internlm2-1.8b`` width
-   and 12 and 6 of their 48 and 24 layers (``train_4k``'s 4096 tokens x
+   and 6 and 3 of their 48 and 24 layers (``train_4k``'s 4096 tokens x
    4, ``prefill_32k``'s 32,768 x 1, the cells phase's cuts) on every
    mesh, each rank fed its blocks of one
    whole state this process makes and hands over in
@@ -153,7 +154,7 @@ mesh phase's NCCL world). It
    ``Model.init`` on a seeded generator): counts the train cell at
    ``train_4k`` and the prefill cell at ``prefill_32k`` on meta tensors
    (``FlopCounterMode`` equal to the hand count; ``analyze()`` on one
-   card, 16x16 and 2x16x16); at 24 of the 48 layers runs the train step
+   card, 16x16 and 2x16x16); at 12 of the 48 layers runs the train step
    at 4096 tokens x 4 (the batch cut from 256), a warm step and three timed ones from the same
    state, each bitwise the warm one, the loss and gradients twice
    bitwise, one step profiled, with ms a step, tokens/s, TFLOP/s and the
@@ -186,15 +187,16 @@ mesh phase's NCCL world). It
    blocks; the train step bitwise run to run, the step and its gradients
    again under ``torch.use_deterministic_algorithms(True)`` with no op
    flagged; the prefill bitwise ``Model.forward``; card vs CPU at 2
-   layers; the loss falling), its train step and prefill at 12 of the 24
-   layers; ``olmo-1b``'s train step and prefill at 8 of its 16 layers
+   layers; the loss falling), its train step and prefill at 6 of the 24
+   layers; ``olmo-1b``'s train step and prefill at 4 of its 16 layers
    (its norms hold no parameters); ``internvl2-76b`` at 2 of its 80
    layers, a
    prefill of 32,768 tokens behind 256 image embeddings, its text logits
    bitwise run to run and moved by another image prefix;
 13. runs the decode cell (``decode`` phase) of ``internlm2-1.8b`` at full
-   width and depth against ``decode_32k``'s cache of 32,768 positions,
-   its batch cut from 128 to 8 (the bf16 cache 412 GB -> 25.8 GB): 64
+   width and 12 of its 24 layers against ``decode_32k``'s cache of
+   32,768 positions, its batch cut from 128 to 8 (the bf16 cache 412 GB
+   -> 12.9 GB): 64
    tokens primed one at a time, their logits within 5% of the largest
    |logit| of ``Model.forward``'s on the same tokens (weights at std
    0.02; the difference at ``Model.init``'s weights recorded); the card
@@ -203,9 +205,10 @@ mesh phase's NCCL world). It
    ms a step at the cache's last index, timed under
    ``torch.cuda.set_sync_debug_mode("error")``, tokens/s, one step
    profiled, the allocator's peak beside ``analyze()`` and the bytes
-   bound; ``olmo-1b``'s step at the same batch and cache; and
-   ``python -m repro_torch.launch.decode`` in a subprocess, its tokens
-   ``greedy_decode``'s on the same seeds;
+   bound; ``olmo-1b``'s step at 8 of its 16 layers at the same batch and
+   cache; and ``python -m repro_torch.launch.decode`` (the full config)
+   in a subprocess started first, its tokens ``greedy_decode``'s on the
+   same seeds;
 14. runs the mixture of experts (``moe`` phase): ``qwen3-moe-235b-a22b``
    sharded in an NCCL world of every card (one card: the (1, 1) prefill
    and decode cell bitwise the unsharded ones; four: the train step at
@@ -270,13 +273,29 @@ mesh phase's NCCL world). It
    difference recorded); the card against the CPU at 8 blocks in float32
    (loss 1e-6, logits 1e-5, gradients 1e-4) and bf16 (5%); the decode
    card against the CPU at 8 blocks; the launcher; the phase's seconds;
-17. runs the training runtime (``loop`` phase): ``train/loop.py``'s
+17. runs the training runtime (``loop`` phase): first the loop over a
+   mesh (``train(mesh=)``, at the configuration below, every rank handed
+   the whole stream) in an NCCL world of every card, while this process
+   holds nothing on the card: on each mesh of the host's cards (one card:
+   (1, 1)) 16 steps whose last rank sends itself SIGTERM on step 12,
+   every rank leaving with 143 there and one checkpoint, gathered whole
+   and written by rank 0 (the gather's and the write's s, GB and peak);
+   that checkpoint relaunched on the mesh (the restore's s; every rank's
+   digests equal; on several cards bitwise an uninterrupted run on the
+   mesh, and the previous mesh's checkpoint restored bitwise its leaves
+   and relaunched, losses within 1e-2); from its state a warm step free
+   of host syncs, the peak beside ``analyze()`` on the mesh, ms a step
+   sharded and unsharded in turns, one of each profiled; the world exits
+   with the preempted run's 143. On one card the (1, 1) relaunch and the
+   unsharded loop resuming the (1, 1) checkpoint are bitwise the
+   uninterrupted run below. Then ``train/loop.py``'s
    ``train`` at full ``olmo-1b`` width and 2 of its 16 layers (bf16,
    remat "full"; the cut for the checkpoint's 4.08 GB a save) on
    train_4k's 4096 tokens x 4 in 2 microbatches, AdamW at 3e-4 after
-   10 warmup steps: 6 steps checkpointed every 3, a relaunch to 8 steps
-   in the same directory that resumes from step 6 and reads the stream
-   from there, bitwise (parameters, moments, step) an uninterrupted 8
+   10 warmup steps: 16 steps checkpointed every 6 and preempted on step
+   12 by the SIGTERM handler (exit 143, the checkpoint at 12), relaunched
+   in the same directory (it resumes from step 12 and reads the stream
+   from there), bitwise (parameters, moments, step) 16 uninterrupted
    steps; the first step's ms, a warm step free of host syncs
    (``set_sync_debug_mode``), ms a step and tokens/s over timed steps,
    the peak beside ``analyze()``; one step at lr 0 in 1 and 2
@@ -289,8 +308,13 @@ mesh phase's NCCL world). It
    SIGTERM on its ``step 10/`` line (exit 143, a checkpoint at the step
    it reached), relaunched (it resumes there and finishes), its last
    checkpoint leaf by leaf bitwise an uninterrupted ``main([...])``'s;
+   the launcher as one program over a process a card (``--coordinator``,
+   ``--num-processes``), every process sent SIGTERM on rank 0's ``step
+   10/`` line (each exits 143, one checkpoint), relaunched with as many
+   (its last checkpoint bitwise an uninterrupted run's with that count)
+   and, on several cards, with half as many (resumed, finished);
    the checkpoints' host copies, writes (GB) and restore in seconds;
-   ``build/loop/`` deleted at the end;
+   ``build/loop/`` and ``build/loop_mesh/`` deleted at the end;
 18. drives the training path (paper Fig. 5a) at the same width: samples
    balanced fragments from 256 synthetic training frames and 128 held-out
    frames (``sensing.fragments``), trains the Fragment model on the
@@ -372,6 +396,7 @@ import pathlib
 import shlex
 import shutil
 import signal
+import socket
 import statistics
 import subprocess
 import sys
@@ -1800,8 +1825,12 @@ def mesh_rank(rank: int, world: int, root: str, what: str = "all") -> None:
     ``what`` "decode", the decode cell alone; with "moe", the sharded
     mixture of experts alone (:func:`mesh_moe`); with "hybrid", the
     sharded hybrid alone (:func:`mesh_hybrid`); with "xlstm", the sharded
-    xLSTM alone (:func:`mesh_xlstm`). Writes its records to
-    ``root/rank<r>.json``; any failed check raises (a non-zero exit)."""
+    xLSTM alone (:func:`mesh_xlstm`); with "loop_mesh", the train loop
+    over each mesh of :func:`loop_mesh_shapes` (:func:`loop_mesh_rank`).
+    Writes its records to
+    ``root/rank<r>.json``; any failed check raises (a non-zero exit); a
+    preempted loop's ``SystemExit`` (143) is raised after the records are
+    written."""
     import datetime
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
@@ -1823,6 +1852,14 @@ def mesh_rank(rank: int, world: int, root: str, what: str = "all") -> None:
                                    mesh_dim_names=("data", "model"))
                   for shape in mesh_shapes(world)]
         records = [dict(mesh=list(shape)) for shape in mesh_shapes(world)]
+        preempted = None
+        if what == "loop_mesh":
+            on = loop_mesh_shapes(world)
+            for shape, mesh, rec in zip(mesh_shapes(world), meshes,
+                                        records):
+                if shape in on:
+                    rec["loop_mesh"], preempted = loop_mesh_rank(
+                        mesh, on.index(shape), world, root)
         if what == "moe":
             for shape, mesh, rec in zip(mesh_shapes(world), meshes,
                                         records):
@@ -1836,7 +1873,7 @@ def mesh_rank(rank: int, world: int, root: str, what: str = "all") -> None:
                                         records):
                 rec["xlstm"] = mesh_xlstm(mesh, shape, world, root)
         archs = {"decode": [LM_ARCH], "moe": [], "hybrid": [],
-                 "xlstm": []}.get(
+                 "xlstm": [], "loop_mesh": []}.get(
             what, list(MESH_CELLS))
         if what == "all":
             ref = torch.load(root / "payload.pt", map_location=dev,
@@ -1872,6 +1909,8 @@ def mesh_rank(rank: int, world: int, root: str, what: str = "all") -> None:
         import traceback
         (root / f"rank{rank}.err").write_text(traceback.format_exc())
         raise
+    if preempted is not None:
+        raise preempted
 
 
 def mesh_runs(mesh, shape, ref, raw, labels_np, root) -> dict:
@@ -2517,11 +2556,12 @@ def cpu_tree(tree):
     return model_common.tree_map(lambda a: a.cpu(), tree)
 
 
-def run_world(root, world: int, what: str):
+def run_world(root, world: int, what: str, exit_code: int = 0):
     """An NCCL world of ``world`` ranks (one a card, ``torch.
     multiprocessing`` with ``spawn``) running :func:`mesh_rank` on
     ``what``: every rank's records and the world's seconds. A rank that
-    fails or outlives MESH_TIMEOUT_S fails the phase."""
+    exits with another code than ``exit_code`` (a preempted world's is
+    143), or outlives MESH_TIMEOUT_S, fails the phase."""
     import torch.multiprocessing as mp
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=mesh_rank, args=(r, world, str(root), what))
@@ -2540,7 +2580,7 @@ def run_world(root, world: int, what: str):
     world_s = time.perf_counter() - t0
     for r, p in enumerate(procs):
         err = root / f"rank{r}.err"
-        check(not alive and p.exitcode == 0 and not err.exists(),
+        check(not alive and p.exitcode == exit_code and not err.exists(),
               f"mesh rank {r}: exit {p.exitcode}"
               f"{' (timed out)' if alive else ''}\n"
               f"{err.read_text() if err.exists() else ''}")
@@ -2924,21 +2964,22 @@ CELLS_MESHES = ({"data": 1, "model": 1}, {"data": 16, "model": 16},
 LM_ARCH, LM_OLMO, LM_VLM, LM_VLM_LAYERS = ("internlm2-1.8b", "olmo-1b",
                                            "internvl2-76b", 2)
 # the cells and LM phases' train and prefill runs at CELLS_TIMED_LAYERS,
-# half of each stack (48, 24 and 16 layers), to keep the script inside
-# its 1200 s on an H100 host with a slower CPU (with these runs at full
-# depth the script took 1033.6 to 1194.6 s on H100 hosts); their counts
-# on meta tensors and the dry run stay at full depth
-CELLS_TIMED_LAYERS = {CASCADE_ARCH: 24, LM_ARCH: 12, LM_OLMO: 8}
+# a quarter of each stack (48, 24 and 16 layers), to keep the script
+# inside its 1200 s on an H100 host with a slower CPU (with these runs at
+# full depth the script took 1033.6 to 1194.6 s on H100 hosts, and 1031.9
+# s at half depth before the loop over a mesh came); their counts on meta
+# tensors and the dry run stay at full depth
+CELLS_TIMED_LAYERS = {CASCADE_ARCH: 12, LM_ARCH: 6, LM_OLMO: 4}
 # the "model" ranks of the production meshes the dry run counts
 DRYRUN_MODEL = 16
 # the mesh phase's sharded cells (mesh_cells, mesh_decodes): each
 # architecture's rank record key and the seed of its full-width weights;
 # their depth, cut to MESH_CELLS_LAYERS of 48 and 24 layers to make room
-# for the xLSTM phase in the script's 1200 s (a layer of the stack repeats
-# the same collectives)
+# in the script's 1200 s (12 and 6 for the xLSTM phase, 6 and 3 for the
+# loop over a mesh; a layer of the stack repeats the same collectives)
 MESH_CELLS = {CASCADE_ARCH: ("cells", SEED + 15), LM_ARCH: ("cells_lm",
                                                             SEED + 25)}
-MESH_CELLS_LAYERS = {CASCADE_ARCH: 12, LM_ARCH: 6}
+MESH_CELLS_LAYERS = {CASCADE_ARCH: 6, LM_ARCH: 3}
 
 
 def mesh_cells_cfg(arch: str):
@@ -3651,8 +3692,10 @@ def lm_phase(card: str) -> dict:
 
 
 # the decode phase (ROADMAP.md §1 item 4(b)): LM_ARCH at full width and
-# depth against decode_32k's cache of 32,768 positions, its batch cut 128
-# -> DECODE_BATCH (the bf16 cache 412 GB -> 25.8 GB); DECODE_PRIME tokens
+# DECODE_LAYERS (half of each stack since the loop over a mesh needed room
+# in the script's 1200 s; full depth before) against decode_32k's cache
+# of 32,768 positions, its batch cut 128 -> DECODE_BATCH (the bf16 cache
+# 412 GB -> 12.9 GB at 12 layers); DECODE_PRIME tokens
 # primed one at a time and held against Model.forward within
 # DECODE_PREFILL_RTOL of the largest |logit| (bf16; weights at
 # CELLS_WEIGHT_STD, where a random model is well conditioned; the
@@ -3669,6 +3712,7 @@ DECODE_BATCH, DECODE_PRIME, DECODE_PREFILL_RTOL = 8, 64, 5e-2
 DECODE_CHECK, DECODE_CPU_RTOL = (2, 256, 32), 1e-4
 DECODE_GREEDY, DECODE_TIMED, DECODE_WARM = (16, 16), 10, 2
 DECODE_LAUNCHER = (2, 8, 16)
+DECODE_LAYERS = {LM_ARCH: 12, LM_OLMO: 8}
 
 
 def decode_shape(batch: int = DECODE_BATCH, seq: int | None = None):
@@ -3893,22 +3937,36 @@ def greedy_run_to_run(cfg, params) -> dict:
                 cache_digests=runs[0][1], bitwise=True)
 
 
-def decode_launcher(cfg) -> dict:
+def decode_launcher_start(cfg) -> tuple:
     """``python -m repro_torch.launch.decode`` (full config, on the card)
-    in a subprocess: its tokens, ``greedy_decode``'s on the same seeds."""
-    from repro_torch.launch.decode import greedy_decode
+    started in a subprocess, beside the decode phase's untimed work (a
+    new process takes seconds to reach the card): (the process, its
+    start time)."""
     b, p, n = DECODE_LAUNCHER
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    t0 = time.perf_counter()
-    proc = subprocess.run(
+    return subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.decode", "--arch",
          cfg.arch_id, "--batch", str(b), "--prompt-len", str(p), "--gen",
-         str(n)], cwd=ROOT, env=env, capture_output=True, text=True,
-        timeout=300)
-    wall_s = time.perf_counter() - t0
+         str(n)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True), time.perf_counter()
+
+
+def decode_launcher_wait(started) -> tuple:
+    """The launcher :func:`decode_launcher_start` started, ended: (its
+    standard output, its seconds from the start)."""
+    proc, t0 = started
+    out, err = proc.communicate(timeout=300)
     check(proc.returncode == 0, f"decode launcher: exit {proc.returncode}"
-          f"\n{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
-    got = json.loads(proc.stdout.strip().splitlines()[-1])["tokens"]
+          f"\n{out[-2000:]}{err[-2000:]}")
+    return out, time.perf_counter() - t0
+
+
+def decode_launcher(cfg, out: str, wall_s: float) -> dict:
+    """The launcher's output ``out``: its tokens, ``greedy_decode``'s on
+    the same seeds."""
+    from repro_torch.launch.decode import greedy_decode
+    b, p, n = DECODE_LAUNCHER
+    got = json.loads(out.strip().splitlines()[-1])["tokens"]
     model = lm.Model(cfg)
     params = model.init(torch.Generator(device=DEVICE).manual_seed(0))
     prompts = torch.randint(
@@ -3920,46 +3978,55 @@ def decode_launcher(cfg) -> dict:
     check(got == want, f"decode launcher: tokens {got} against "
           f"greedy_decode's {want}")
     return dict(args=[b, p, n], tokens_equal=True, wall_s=wall_s,
-                printed=proc.stdout.strip().splitlines()[0])
+                printed=out.strip().splitlines()[0])
 
 
 def decode_phase(card: str) -> dict:
     """The decode cell of the dense family on the card: LM_ARCH at full
-    width and depth (bf16, weights from ``Model.init`` on a seeded
-    generator) against decode_32k's cut cache: decode against prefill
-    (held at CELLS_WEIGHT_STD's weights, recorded at ``Model.init``'s),
-    the card against the CPU at CELLS_CHECK_LAYERS in float32, greedy run
-    to run, the timed steps; LM_OLMO's timed steps; the launcher. Every
-    record carries the card's name and power limit."""
+    width and DECODE_LAYERS (bf16, weights from ``Model.init`` on a
+    seeded generator) against decode_32k's cut cache: decode against
+    prefill (held at CELLS_WEIGHT_STD's weights, recorded at
+    ``Model.init``'s), the card against the CPU at CELLS_CHECK_LAYERS in
+    float32, greedy run to run, the timed steps; LM_OLMO's timed steps;
+    the launcher on the full config (started first, waited for before
+    anything is timed). Every record carries the card's name and power
+    limit."""
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    cfg = configs.get_config(LM_ARCH)
-    rec = {"card": card}
-    std = scaled_params(cfg, SEED + 30, DEVICE, draw_device=DEVICE)
-    r = decode_vs_prefill(cfg, std)
-    del std
-    r.update(rtol=DECODE_PREFILL_RTOL, weights=f"std {CELLS_WEIGHT_STD}",
-             tokens=[DECODE_BATCH, DECODE_PRIME])
-    check(r["max_abs_diff"] <= DECODE_PREFILL_RTOL * r["max_abs_logit"],
-          f"decode: {LM_ARCH} decode against prefill: {r}")
-    rec["vs_prefill"] = r
-    params = lm.Model(cfg).init(
-        torch.Generator(device=DEVICE).manual_seed(SEED + 25))
-    rec["vs_prefill_model_init"] = dict(
-        decode_vs_prefill(cfg, params), held="no (recorded)")
-    rec["greedy"] = greedy_run_to_run(cfg, params)
+    full = configs.get_config(LM_ARCH)
+    launcher = decode_launcher_start(full)
+    cfg = full.replace(n_layers=DECODE_LAYERS[LM_ARCH])
+    rec = {"card": card, "layers": DECODE_LAYERS}
+    try:
+        std = scaled_params(cfg, SEED + 30, DEVICE, draw_device=DEVICE)
+        r = decode_vs_prefill(cfg, std)
+        del std
+        r.update(rtol=DECODE_PREFILL_RTOL, weights=f"std {CELLS_WEIGHT_STD}",
+                 tokens=[DECODE_BATCH, DECODE_PRIME])
+        check(r["max_abs_diff"] <= DECODE_PREFILL_RTOL * r["max_abs_logit"],
+              f"decode: {LM_ARCH} decode against prefill: {r}")
+        rec["vs_prefill"] = r
+        params = lm.Model(cfg).init(
+            torch.Generator(device=DEVICE).manual_seed(SEED + 25))
+        rec["vs_prefill_model_init"] = dict(
+            decode_vs_prefill(cfg, params), held="no (recorded)")
+        rec["greedy"] = greedy_run_to_run(cfg, params)
+        launched = decode_launcher_wait(launcher)
+    finally:
+        host_stop(launcher[0])
     rec["timed"] = decode_timed(cfg, params)
     del params
     torch.cuda.empty_cache()
     emit({"decode": {"card": card, LM_ARCH: rec}})
     rec["card_vs_cpu"] = decode_card_vs_cpu(LM_ARCH)
-    ocfg = configs.get_config(LM_OLMO)
+    ocfg = configs.get_config(LM_OLMO).replace(
+        n_layers=DECODE_LAYERS[LM_OLMO])
     params = lm.Model(ocfg).init(
         torch.Generator(device=DEVICE).manual_seed(SEED + 26))
     rec[LM_OLMO] = decode_timed(ocfg, params)
     del params
     torch.cuda.empty_cache()
-    rec["launcher"] = decode_launcher(cfg)
+    rec["launcher"] = decode_launcher(full, *launched)
     rec["phase_s"] = time.perf_counter() - t0
     emit({"decode": {"card": card, "card_vs_cpu": rec["card_vs_cpu"],
                      LM_OLMO: rec[LM_OLMO], "launcher": rec["launcher"],
@@ -5718,13 +5785,29 @@ class SaveClock:
     ``AsyncCheckpointer.save``'s blocking part (the wait for the write in
     flight, then the copy of every leaf to the host), each write
     (``checkpoint.save``, on the writer's thread or the caller's) with
-    its GB on disk, and each restore, on the host clock."""
+    its GB on disk, each restore, and on a mesh each gather of the whole
+    state (``MeshCheckpointer.whole``: its GB and the allocator's peak
+    while it runs, between synchronisations), on the host clock."""
 
     def __enter__(self):
         self.records = []
-        self._fns = save, restore, async_save = (
-            tckpt.save, tckpt.restore, tckpt.AsyncCheckpointer.save)
+        self._fns = save, restore, async_save, whole = (
+            tckpt.save, tckpt.restore, tckpt.AsyncCheckpointer.save,
+            tckpt.MeshCheckpointer.whole)
         rec = self.records
+
+        def timed_whole(saver, blocks):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = whole(saver, blocks)
+            torch.cuda.synchronize()
+            rec.append(dict(what="gather", s=time.perf_counter() - t0,
+                            gb=sum(t.numel() * t.element_size() for t in
+                                   model_common.leaves(out)) / 1e9,
+                            peak_allocated_gb=(
+                                torch.cuda.max_memory_allocated() / 1e9)))
+            return out
 
         def timed_save(ckpt_dir, step, tree, **kw):
             t0 = time.perf_counter()
@@ -5750,10 +5833,12 @@ class SaveClock:
                             s=time.perf_counter() - t1))
         tckpt.save, tckpt.restore = timed_save, timed_restore
         tckpt.AsyncCheckpointer.save = timed_async
+        tckpt.MeshCheckpointer.whole = timed_whole
         return self
 
     def __exit__(self, *exc):
-        tckpt.save, tckpt.restore, tckpt.AsyncCheckpointer.save = self._fns
+        (tckpt.save, tckpt.restore, tckpt.AsyncCheckpointer.save,
+         tckpt.MeshCheckpointer.whole) = self._fns
 
 
 def loop_cfg():
@@ -5830,7 +5915,7 @@ def loop_resume(model, cfg) -> tuple:
     check(fingerprint([out["params"], list(out["opt_state"])]) == got,
           "loop: the resumed run differs from the uninterrupted one")
     shutil.rmtree(LOOP_DIR / "c")
-    return dict(bitwise_uninterrupted=True, leaves=len(got),
+    return dict(bitwise_uninterrupted=True, leaves=len(got), digests=got,
                 runs={"a": rec_a, "b": rec_b, "c": rec_c}), out
 
 
@@ -6076,6 +6161,402 @@ def loop_launcher(runs: PreemptedLauncher) -> dict:
                                                LOOP_LAUNCHER_STEPS))
 
 
+# the loop over a mesh (ROADMAP.md §1 item 4(g)): train(mesh=) at the loop
+# phase's configuration (the comment above LOOP_ARCH; every step logged, no
+# periodic checkpoint) in an NCCL world of every card of the host
+# (run_world), started while the parent holds nothing on the card, on each
+# mesh of loop_mesh_shapes(world), every rank handed the whole stream and
+# cutting its blocks: (a) LOOP_STEPS[1] steps whose last rank sends itself
+# SIGTERM on step LOOP_STEPS[0] (every rank leaves train with 143 there,
+# one checkpoint written, gathered whole, by rank 0); (b) that run
+# relaunched in its directory, the digests of its gathered state; where
+# world > 1 an uninterrupted run on the mesh (bitwise (b)) and, on every
+# mesh but the first, (c) the previous mesh's (a) checkpoint restored onto
+# this one (bitwise its leaves) and relaunched (losses within
+# LOOP_MESH_LOSS_RTOL of that mesh's (b)); (e) from (b)'s state, a warm
+# step (the batch cut, the step, the ranks' agreement) under
+# set_sync_debug_mode, one with the allocator's peak beside analyze() on
+# the mesh, LOOP_MESH_TIMED sharded and unsharded steps in turns, one of
+# each profiled. The world exits with the last
+# mesh's preempted train's SystemExit (143), raised once every rank has
+# written its records. On one card (d): the (1, 1) relaunch bitwise the
+# loop phase's uninterrupted run (c), and the (1, 1) checkpoint resumed by
+# the unsharded loop bitwise (c) too. Two writes a mesh on one card. The
+# multi-process launcher (MeshLauncher) runs beside the resume runs.
+LOOP_MESH_DIR = ROOT / "build" / "loop_mesh"
+LOOP_MESH_TIMED, LOOP_MESH_LOSS_RTOL = 3, 1e-2
+
+
+def loop_mesh_shapes(world: int) -> list[tuple[int, int]]:
+    """The meshes of ``mesh_shapes(world)`` the loop runs on: those whose
+    "data" dim leaves each rank a block of LOOP_TOKENS' batch that cuts
+    into LOOP_MICRO microbatches (four cards: (1, 4) and (2, 2); (4, 1)
+    would leave each rank one of the 4 sequences)."""
+    return [m for m in mesh_shapes(world)
+            if LOOP_TOKENS[0] % (m[0] * LOOP_MICRO) == 0]
+
+
+def loop_mesh_specs(cfg, mesh):
+    """The train cell's ``in_shardings`` at LOOP_TOKENS on ``mesh``:
+    ``(params, opt_state, batch)`` specs."""
+    b, s = LOOP_TOKENS
+    return steps.build_train_cell(
+        cfg, configs.ShapeConfig("loop", s, b, "train"), mesh).in_shardings
+
+
+def loop_mesh_run(mesh, ckpt_dir, preempt_rank: int | None = None) -> tuple:
+    """``train(mesh=)`` of LOOP_STEPS[1] steps in ``ckpt_dir`` (resumed
+    from its latest checkpoint, the stream from that step), every step
+    logged: (its result, a record: the stream's start, every rank's
+    ``[step, loss, grad norm]`` a step, rank 0's ``[train]`` lines, wall
+    s). With ``preempt_rank``, that rank sends itself SIGTERM on step
+    LOOP_STEPS[0], and the result is ``{"exit": code, "error": the
+    SystemExit}``."""
+    cfg = loop_cfg()
+    b, s = LOOP_TOKENS
+    tc = train_loop.TrainConfig(
+        steps=LOOP_STEPS[1], microbatches=LOOP_MICRO,
+        ckpt_every=LOOP_STEPS[1] + 1, ckpt_dir=str(ckpt_dir), keep=2,
+        log_every=1, lr=LOOP_LR, warmup=LOOP_WARMUP)
+    start = tckpt.latest_step(str(ckpt_dir)) or 0
+    data = train_loop.synthetic_lm_data(cfg, b, s, start_step=start,
+                                        device=DEVICE)
+    me = torch.distributed.get_rank()
+    metrics = []
+
+    def on_metrics(step, m):
+        metrics.append([step, m["loss"], m["grad_norm"]])
+        if me == preempt_rank and step == LOOP_STEPS[0]:
+            os.kill(os.getpid(), signal.SIGTERM)
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        try:
+            out = train_loop.train(lm.Model(cfg), data, tc,
+                                   on_metrics=on_metrics, device=DEVICE,
+                                   mesh=mesh)
+        except SystemExit as e:
+            out = {"exit": e.code, "error": e}
+    torch.cuda.synchronize()
+    return out, dict(stream_from=start, metrics=metrics,
+                     wall_s=time.perf_counter() - t0,
+                     log=buf.getvalue().splitlines())
+
+
+def loop_mesh_rank(mesh, i: int, world: int, root) -> tuple:
+    """(a), (b), on several cards the uninterrupted run, (c) from the
+    previous mesh's checkpoint (on every mesh but the first), and (e) on
+    mesh ``i`` of :func:`loop_mesh_shapes`, in every rank: (the records,
+    the preempted run's SystemExit)."""
+    shapes = loop_mesh_shapes(world)
+    root = pathlib.Path(root)
+    key = "x".join(map(str, shapes[i]))
+    cfg = loop_cfg()
+    b, s = LOOP_TOKENS
+    p_sh, opt_sh, b_sh = loop_mesh_specs(cfg, mesh)
+    like = steps.input_specs(cfg, configs.ShapeConfig("loop", s, b,
+                                                      "train"))[:2]
+
+    def digests(params, opt_state):
+        # whole_digests reads a tuple as a spec: the trees as lists
+        return whole_digests([params, list(opt_state)],
+                             [p_sh, list(opt_sh)], mesh)
+    a = root / key / "a"
+    with SaveClock() as clock:
+        out, rec = loop_mesh_run(mesh, a, preempt_rank=world - 1)
+    preempted = out.get("error")
+    rec.update(exit=out.get("exit"), listing=sorted(os.listdir(a)),
+               checkpoints=clock.records)
+    with SaveClock() as clock:
+        out, rec["b"] = loop_mesh_run(mesh, a)
+    rec["b"].update(checkpoints=clock.records,
+                    digests=digests(out["params"], out["opt_state"]))
+    state = out["params"], out["opt_state"]
+    del out
+    if world > 1:
+        u, _ = loop_mesh_run(mesh, root / key / "u")
+        rec["b"]["uninterrupted_digests"] = digests(u["params"],
+                                                    u["opt_state"])
+        del u
+    if i > 0:
+        src = "x".join(map(str, shapes[i - 1]))
+        step_dir = f"step_{LOOP_STEPS[0]:010d}"
+        c = root / key / "c"
+        if torch.distributed.get_rank() == 0:
+            shutil.copytree(root / src / "a" / step_dir, c / step_dir,
+                            copy_function=os.link)
+        torch.distributed.barrier(group=train_loop.control_group(mesh))
+        blocks, _ = tckpt.restore(str(c), like, device=DEVICE,
+                                  specs=(p_sh, opt_sh), mesh=mesh)
+        restored = digests(*blocks)
+        del blocks
+        whole, _ = tckpt.restore(str(c), like, device=DEVICE)
+        rec["c"] = dict(source=src, restored_digests=restored,
+                        checkpoint_digests=fingerprint(whole))
+        del whole
+        out, rec["c"]["relaunch"] = loop_mesh_run(mesh, c)
+        del out
+    torch.cuda.empty_cache()
+    rec["timed"] = loop_mesh_timed(mesh, shapes[i], state, b_sh)
+    return rec, preempted
+
+
+def loop_mesh_timed(mesh, shape, state, batch_specs) -> dict:
+    """(e) from the relaunch's final ``state`` (this rank's blocks) and
+    the stream after it: one warm step (the whole batch arranged and
+    cut, the sharded step, the ranks' agreement, as the loop runs them)
+    under ``torch.cuda.set_sync_debug_mode("warn")``, any synchronizing
+    call failing the check; one with the allocator's peak beside
+    ``analyze()`` on the mesh; LOOP_MESH_TIMED sharded steps and as many
+    unsharded ones on the whole state on this rank's card, in turns
+    (host clock between synchronisations: the collectives run on NCCL's
+    streams); one of each profiled (:func:`device_profile`)."""
+    cfg = loop_cfg()
+    model = lm.Model(cfg)
+    b, s = LOOP_TOKENS
+    opt = optim.AdamW(lr=optim.warmup_cosine(LOOP_LR, LOOP_WARMUP,
+                                             LOOP_STEPS[1]),
+                      weight_decay=0.1)
+    sharded = train_loop.make_train_step(model, opt, LOOP_MICRO,
+                                         model_common.Parallel(
+                                             mesh, sharding.current_rules(),
+                                             b // LOOP_MICRO))
+    arrange = train_loop.microbatch_rows(batch_specs.labels[0], mesh, b,
+                                         LOOP_MICRO)
+    group = train_loop.control_group(mesh)
+    data = train_loop.synthetic_lm_data(cfg, b, s, start_step=LOOP_STEPS[1],
+                                        device=DEVICE)
+    specs = loop_mesh_specs(cfg, mesh)[:2]
+
+    def sharded_step(st, batch):
+        out = sharded(*st, steps.local_args(
+            lm.Batch(*map(arrange, batch)), batch_specs, mesh))
+        train_loop.agree(False, group)
+        return out[:2]
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            state = sharded_step(state, next(data))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = sorted({str(w.message)[:200] for w in seen
+                    if "called a synchronizing" in str(w.message)})
+    check(not syncs, f"loop on a {shape} mesh: a warm step synchronizes "
+          f"the host: {syncs}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, first_ms = wall_ms(sharded_step, state, next(data))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    whole = steps.whole_args(state, specs, mesh)
+    unsharded = train_loop.make_train_step(model, opt, LOOP_MICRO)
+    times = {"sharded": [], "unsharded": []}
+    for i in range(LOOP_MESH_TIMED):
+        batch = next(data)
+        for kind in (("unsharded", "sharded") if i % 2 == 0
+                     else ("sharded", "unsharded")):
+            if kind == "sharded":
+                state, ms = wall_ms(sharded_step, state, batch)
+            else:
+                out, ms = wall_ms(unsharded, *whole, batch)
+                whole = out[:2]
+                del out
+            times[kind].append(ms)
+    batch = next(data)
+    profiles = dict(
+        sharded=device_profile(lambda: sharded_step(state, batch), top=8),
+        unsharded=device_profile(lambda: unsharded(*whole, batch), top=8))
+    del state, whole
+    torch.cuda.empty_cache()
+    ms = statistics.median(times["sharded"])
+    shape_cfg = dataclasses.replace(configs.SHAPES["train_4k"],
+                                    global_batch=b)
+    return dict(sync_free=True, ms=ms,
+                unsharded_ms=statistics.median(times["unsharded"]),
+                step_ms=times, peak_step_ms=first_ms,
+                tokens_per_s=b * s / (ms / 1e3), peak_allocated_gb=peak_gb,
+                profiles=profiles,
+                memory_model=memory_record(cfg, shape_cfg,
+                                           sharding.mesh_shape(mesh)))
+
+
+def loop_mesh_world(card: str) -> dict:
+    """The world (the comment above LOOP_MESH_DIR) on every card of the
+    host, run while this process holds nothing on the card, and its
+    records checked: every rank exits 143; on each mesh every rank's
+    metrics and digests the same, (a) ending at LOOP_STEPS[0] with one
+    checkpoint there, (b) resumed there; on several cards (b) bitwise the
+    uninterrupted run, and (c) restored bitwise and within
+    LOOP_MESH_LOSS_RTOL. Returns its record (rank 0's ``[train]`` lines
+    dropped)."""
+    shutil.rmtree(LOOP_MESH_DIR, ignore_errors=True)
+    LOOP_MESH_DIR.mkdir(parents=True)
+    world = torch.cuda.device_count()
+    ranks, world_s = run_world(LOOP_MESH_DIR, world, "loop_mesh",
+                               exit_code=128 + signal.SIGTERM)
+    ranks = [[dict(r["loop_mesh"], mesh=r["mesh"]) for r in rank
+              if "loop_mesh" in r] for rank in ranks]
+    first, last = LOOP_STEPS
+    shapes = [r["mesh"] for r in ranks[0]]
+    for i, a in enumerate(ranks[0]):
+        what = f"loop on a {a['mesh']} mesh"
+        bb = a["b"]
+        check(all(r[i]["exit"] == 128 + signal.SIGTERM
+                  and r[i]["metrics"] == a["metrics"] for r in ranks)
+              and [m[0] for m in a["metrics"]] == list(range(1, first + 1))
+              and a["listing"] == [f"step_{first:010d}"]
+              and f"[train] preemption checkpoint at step {first}"
+              in a["log"],
+              f"{what}: the run preempted on step {first}: "
+              f"{[r[i]['exit'] for r in ranks]}, "
+              f"{a['listing']}, {a['metrics'][-1:]}")
+        check(all(r[i]["b"]["digests"] == bb["digests"]
+                  and r[i]["b"]["metrics"] == bb["metrics"]
+                  for r in ranks[1:]),
+              f"{what}: the relaunch differs between ranks")
+        check(bb["stream_from"] == first
+              and f"[train] resumed from step {first}" in bb["log"]
+              and [m[0] for m in bb["metrics"]]
+              == list(range(first + 1, last + 1)),
+              f"{what}: the relaunch did not resume at step {first}: "
+              f"{bb['log'][:3]}")
+        if world == 1:
+            continue
+        check(bb["uninterrupted_digests"] == bb["digests"],
+              f"{what}: the relaunch differs from the uninterrupted run")
+        if i == 0:
+            continue
+        c = a["c"]
+        check(c["restored_digests"] == c["checkpoint_digests"],
+              f"{what}: the {c['source']} checkpoint restored here differs "
+              f"from its leaves")
+        src = ranks[0][shapes.index([int(x) for x in c["source"].split(
+            "x")])]["b"]
+        rels = [abs(x[1] - y[1]) / abs(y[1]) for x, y in zip(
+            c["relaunch"]["metrics"], src["metrics"], strict=True)]
+        c["loss_rel_diff"] = max(rels)
+        check(max(rels) <= LOOP_MESH_LOSS_RTOL,
+              f"{what}: the {c['source']} checkpoint relaunched here: "
+              f"losses {rels} off that mesh's")
+
+    def quiet(x):
+        if isinstance(x, dict):
+            return {k: quiet(v) for k, v in x.items() if k != "log"}
+        return x
+    out = dict(card=card, world=world, world_s=world_s,
+               ranks=quiet(ranks))
+    emit({"loop_mesh": out})
+    return out
+
+
+class MeshLauncher(threading.Thread):
+    """``python -u -m repro_torch.launch.train`` (LOOP_LAUNCHER_ARGS, on
+    the cards) as one program over ``n`` processes, one a card
+    (``--coordinator`` on a free port of this host, ``--process-id``,
+    ``--num-processes``): ``n`` processes sent SIGTERM, every one, on
+    rank 0's ``step LOOP_KILL_AT/`` line, beside ``n`` more running
+    uninterrupted; then ``n`` relaunched (their last checkpoint bitwise
+    the uninterrupted run's) and, where ``n > 1``, ``n // 2`` relaunched
+    from a linked copy of the preemption checkpoint (resumed there,
+    finished); on a thread beside the loop phase's resume runs, its
+    record and first error waiting for :meth:`result`."""
+
+    def __init__(self, root, n: int):
+        super().__init__(daemon=True)
+        self.root, self.n = pathlib.Path(root), n
+        self.args = [*LOOP_LAUNCHER_ARGS, "--steps", str(LOOP_LAUNCHER_STEPS)]
+        self.rec, self.error, self.procs = {}, None, []
+
+    def launch(self, n: int, ckpt_dir, **kw) -> list:
+        with contextlib.closing(socket.socket()) as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        procs = [subprocess.Popen(
+            [sys.executable, "-u", "-m", "repro_torch.launch.train",
+             *self.args, "--ckpt-dir", str(ckpt_dir), "--coordinator",
+             f"127.0.0.1:{port}", "--num-processes", str(n),
+             "--process-id", str(r)],
+            cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            **kw) for r in range(n)]
+        self.procs += procs
+        return procs
+
+    @staticmethod
+    def finish(procs, timeout: float = 300) -> list:
+        return [(p.communicate(timeout=timeout)[0], p.returncode)
+                for p in procs]
+
+    def run(self):
+        try:
+            self.preempt_and_relaunch()
+        except BaseException as e:          # noqa: BLE001 - see result()
+            self.error = e
+
+    def preempt_and_relaunch(self):
+        t0 = time.perf_counter()
+        ck, whole, half = (self.root / x for x in ("ck", "whole", "half"))
+        procs = self.launch(self.n, ck)
+        uninterrupted = self.launch(self.n, whole)
+        lines, signalled_s = [], None
+        for line in procs[0].stdout:
+            lines.append(line.rstrip())
+            if line.startswith(f"[train] step {LOOP_KILL_AT}/"):
+                for p in procs:
+                    p.send_signal(signal.SIGTERM)
+                signalled_s = time.perf_counter() - t0
+                break
+        rest = self.finish(procs)
+        lines += rest[0][0].splitlines()
+        preempted_s = time.perf_counter() - t0
+        saved = [int(ln.rsplit(" ", 1)[1]) for ln in lines
+                 if ln.startswith("[train] preemption checkpoint at step")]
+        check([rc for _, rc in rest] == [128 + signal.SIGTERM] * self.n
+              and len(saved) == 1 and tckpt.latest_step(str(ck)) == saved[0]
+              and os.listdir(ck) == [f"step_{saved[0]:010d}"]
+              and LOOP_KILL_AT <= saved[0] < LOOP_LAUNCHER_STEPS,
+              f"loop: {self.n} launcher processes after SIGTERM: exits "
+              f"{[rc for _, rc in rest]}, checkpoint "
+              f"{tckpt.latest_step(str(ck))}\n" + "\n".join(lines[-20:]))
+        k = saved[0]
+        if self.n > 1:
+            shutil.copytree(ck, half, copy_function=os.link)
+        t1 = time.perf_counter()
+        again = self.launch(self.n, ck)
+        fewer = self.launch(self.n // 2, half) if self.n > 1 else []
+        again, fewer = self.finish(again), self.finish(fewer)
+        for run in (again, fewer) if self.n > 1 else (again,):
+            for out, rc in run:
+                check(rc == 0, f"loop: a relaunched launcher process: exit "
+                      f"{rc}\n{out[-2000:]}")
+            check(f"[train] resumed from step {k}" in run[0][0]
+                  and f"done at step {LOOP_LAUNCHER_STEPS}" in run[0][0],
+                  f"loop: the relaunch of {len(run)} launcher processes did "
+                  f"not resume at {k} and finish\n{run[0][0][-2000:]}")
+        relaunch_s = time.perf_counter() - t1
+        check(all(rc == 0 for _, rc in self.finish(uninterrupted)),
+              "loop: the uninterrupted launcher processes failed")
+        self.rec = dict(args=self.args, processes=self.n,
+                        signalled_after_s=signalled_s,
+                        preempted_s=preempted_s, exits=[rc for _, rc in rest],
+                        preemption_step=k, relaunch_s=relaunch_s,
+                        relaunched_half=self.n // 2 if self.n > 1 else None,
+                        leaves_bitwise=same_checkpoint(
+                            ck, whole, LOOP_LAUNCHER_STEPS))
+
+    def result(self) -> dict:
+        self.join(timeout=900)
+        check(not self.is_alive(), "loop: the launcher processes did not end")
+        if self.error is not None:
+            raise self.error
+        return self.rec
+
+    def stop(self) -> None:
+        host_stop(*self.procs)
+
+
 def same_checkpoint(a, b, step: int) -> int:
     """Every leaf of ``a``'s and ``b``'s checkpoints at ``step``: the same
     names, dtypes and bits. Returns the number of leaves."""
@@ -6094,12 +6575,15 @@ def same_checkpoint(a, b, step: int) -> int:
 
 def loop_phase(card: str) -> dict:
     """The training runtime on the card (the comment above LOOP_ARCH):
-    the loop's resume bitwise, its timed steps, the microbatch scale,
-    remat "none", "dots" and "full", the gradients' compression against
-    the CPU, the launcher preempted and relaunched. Every record carries
-    the card's name and power limit; the checkpoints' host copies,
-    writes and restores (:class:`SaveClock`) and the phase's seconds
-    last."""
+    first the loop over a mesh (:func:`loop_mesh_world`, while this
+    process holds nothing on the card); then, beside the launcher's
+    preempted runs (one process, and one a card), the loop's resume
+    bitwise, and on one card (d); then the timed steps, the microbatch
+    scale, remat "none", "dots" and "full", the gradients' compression against
+    the CPU, the launchers' checkpoints against uninterrupted runs. Every
+    record carries the card's name and power limit; the checkpoints' host
+    copies, writes and restores (:class:`SaveClock`) and the phase's
+    seconds last."""
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     part_s = {}
@@ -6110,17 +6594,22 @@ def loop_phase(card: str) -> dict:
                            **recs)})
     shutil.rmtree(LOOP_DIR, ignore_errors=True)
     LOOP_DIR.mkdir(parents=True)
-    # the launcher's preemption and relaunch run beside the resume runs
-    # and are waited for before anything is timed
+    world = torch.cuda.device_count()
+    rec = {"card": card, "arch": LOOP_ARCH,
+           "cut": f"{LOOP_LAYERS} of 16 layers, train_4k's batch 256 -> "
+                  f"{LOOP_TOKENS[0]}"}
+    rec["mesh"] = loop_mesh_world(card)
+    done("mesh", t0)
+    # the launchers' preemptions and relaunches run beside the resume
+    # runs, and are waited for before anything is timed
     runs = PreemptedLauncher(LOOP_DIR / "launcher")
     runs.start()
+    procs = MeshLauncher(LOOP_DIR / "mesh_launcher", world)
+    procs.start()
     cfg = loop_cfg()
     model = lm.Model(cfg)
     handler = signal.getsignal(signal.SIGTERM)
-    rec = {"card": card, "arch": LOOP_ARCH,
-           "cut": f"{LOOP_LAYERS} of 16 layers, train_4k's batch 256 -> "
-                  f"{LOOP_TOKENS[0]}",
-           "params": model_common.count_params(model.abstract_params())}
+    rec["params"] = model_common.count_params(model.abstract_params())
     try:
         with SaveClock() as clock:
             t = time.perf_counter()
@@ -6136,8 +6625,14 @@ def loop_phase(card: str) -> dict:
             rec["resume"], out = loop_resume(model, cfg)
             done("resume", t, resume=rec["resume"],
                  first_step_ms=rec["first_step_ms"])
+            if world == 1:
+                t = time.perf_counter()
+                rec["mesh_elastic"] = loop_mesh_elastic(
+                    model, cfg, rec["mesh"], rec["resume"]["digests"])
+                done("mesh_elastic", t, mesh_elastic=rec["mesh_elastic"])
             t = time.perf_counter()
             runs.result()
+            procs.result()
             done("launcher_wait", t)
             t = time.perf_counter()
             rec["steps"] = loop_steps(model, cfg, out["params"],
@@ -6159,19 +6654,67 @@ def loop_phase(card: str) -> dict:
             done("compress", t, compress=rec["compress"])
             t = time.perf_counter()
             rec["launcher"] = loop_launcher(runs)
-            done("launcher", t, launcher=rec["launcher"])
+            rec["mesh_launcher"] = procs.result()
+            done("launcher", t, launcher=rec["launcher"],
+                 mesh_launcher=rec["mesh_launcher"])
         rec["checkpoints"] = clock.records
         rec["written_gb"] = sum(r["gb"] for r in clock.records
                                 if r["what"] == "write")
     finally:
         runs.stop()
+        procs.stop()
         signal.signal(signal.SIGTERM, handler)
         shutil.rmtree(LOOP_DIR, ignore_errors=True)
+        shutil.rmtree(LOOP_MESH_DIR, ignore_errors=True)
     rec["phase_s"] = time.perf_counter() - t0
     emit({"loop": {"card": card, "checkpoints": rec["checkpoints"],
                    "written_gb": rec["written_gb"], "part_s": part_s,
                    "phase_s": rec["phase_s"]}})
     return rec
+
+
+def loop_mesh_elastic(model, cfg, world_rec: dict, want: list) -> dict:
+    """(d), on one card: the (1, 1) relaunch's digests (in
+    ``world_rec``, :func:`loop_mesh_world`'s) against the loop phase's
+    uninterrupted run's (``want``, bitwise), and the (1, 1) checkpoint
+    (linked into LOOP_DIR) resumed by the unsharded loop, bitwise that
+    run too."""
+    check(world_rec["ranks"][0][0]["b"]["digests"] == want,
+          "loop: the (1, 1) mesh's relaunch differs from the unsharded "
+          "uninterrupted run")
+    step_dir = f"step_{LOOP_STEPS[0]:010d}"
+    d = LOOP_DIR / "d"
+    shutil.copytree(LOOP_MESH_DIR / "1x1" / "a" / step_dir, d / step_dir,
+                    copy_function=os.link)
+    out, rec = loop_train(model, cfg, LOOP_STEPS[1], d)
+    check(rec["stream_from"] == LOOP_STEPS[0]
+          and fingerprint([out["params"], list(out["opt_state"])]) == want,
+          "loop: the (1, 1) mesh's checkpoint resumed by the unsharded "
+          "loop differs from the uninterrupted run")
+    del out
+    shutil.rmtree(d)
+    return dict(mesh_relaunch_bitwise=True, unsharded_relaunch_bitwise=True,
+                unsharded_relaunch=rec)
+
+
+def loop_mesh_only(card: str) -> None:
+    """``--only loop_mesh``: the loop over a mesh alone, then the
+    launcher over a process a card."""
+    t0 = time.perf_counter()
+    try:
+        loop_mesh_world(card)
+        procs = MeshLauncher(LOOP_DIR / "mesh_launcher",
+                             torch.cuda.device_count())
+        procs.start()
+        try:
+            emit({"loop_mesh": dict(part="launcher", card=card,
+                                    **procs.result())})
+        finally:
+            procs.stop()
+    finally:
+        shutil.rmtree(LOOP_MESH_DIR, ignore_errors=True)
+        shutil.rmtree(LOOP_DIR, ignore_errors=True)
+    emit({"loop_mesh": {"card": card, "phase_s": time.perf_counter() - t0}})
 
 
 TRAIN_KERNELS = {"hdc_encode_perm": enc_perm, "hdc_encode": enc,
@@ -7479,15 +8022,17 @@ def main(argv=None) -> int:
     parser.add_argument(
         "--only", choices=("mesh", "cells", "lm", "decode", "mesh_decode",
                            "moe", "hybrid", "hybrid_mesh", "xlstm",
-                           "xlstm_mesh", "loop"),
+                           "xlstm_mesh", "loop", "loop_mesh"),
         help="mesh: build the kernels and run the mesh phase alone (on a "
              "host with several cards: the NCCL world takes every card); "
              "cells, lm, decode, moe, hybrid, xlstm, loop: that phase alone "
              "(moe's, hybrid's and xlstm's sharded runs in an NCCL world of "
              "every card); mesh_decode, hybrid_mesh, xlstm_mesh: the mesh "
              "phase's sharded decode cell, the hybrid's or the xLSTM's "
-             "sharded runs alone, in an NCCL world of every card (none of "
-             "these runs any of the kernels)")
+             "sharded runs alone, in an NCCL world of every card; "
+             "loop_mesh: the train loop over a mesh of every card and the "
+             "launcher over a process a card (none of these runs any of "
+             "the kernels)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -7515,7 +8060,8 @@ def run_phases(args, smi: str, dry) -> int:
         ok_line()
         return 0
     if args.only in ("lm", "decode", "mesh_decode", "moe", "hybrid",
-                     "hybrid_mesh", "xlstm", "xlstm_mesh", "loop"):
+                     "hybrid_mesh", "xlstm", "xlstm_mesh", "loop",
+                     "loop_mesh"):
         if args.only == "lm":
             lm_phase(smi)
         elif args.only == "decode":
@@ -7532,6 +8078,8 @@ def run_phases(args, smi: str, dry) -> int:
             xlstm_phase(smi)
         elif args.only == "loop":
             loop_phase(smi)
+        elif args.only == "loop_mesh":
+            loop_mesh_only(smi)
         elif args.only == "xlstm_mesh":
             t0 = time.perf_counter()
             emit({"xlstm": {"card": smi, "mesh": xlstm_world(),

@@ -7,6 +7,9 @@
 * **Async**: :class:`AsyncCheckpointer` copies every leaf to the host
   before ``save`` returns, then writes on a daemon thread.
 * **Preemption-safe**: :func:`install_preemption_handler` saves on SIGTERM.
+* **Elastic**: :func:`restore` with ``specs`` and ``mesh`` cuts each
+  rank's blocks from the whole leaves; :class:`MeshCheckpointer` writes a
+  sharded state whole, from rank 0, so a relaunch may take another mesh.
 
 The on-disk format is the reference's, byte for byte: one ``.npy`` per
 leaf and a ``MANIFEST.json`` with ``step``, ``time``, ``extra`` and
@@ -33,6 +36,10 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from repro_torch.distributed.sharding import (local_block, map_blocks,
+                                              whole_block)
 
 
 def _is_namedtuple(tree) -> bool:
@@ -149,19 +156,48 @@ def _step_dir(ckpt_dir: str, step: int | None) -> tuple[str, dict]:
         return d, json.load(f)
 
 
+def _spec_leaves(tree, specs) -> list:
+    """The spec at each leaf of ``tree``, in :func:`_flatten`'s order, from
+    ``specs``, a tree of the same structure with a spec (a tuple, see
+    :func:`~repro_torch.distributed.sharding.spec_for`) at every leaf."""
+    if tree is None:
+        return []
+    kids = _children(tree)
+    if kids is None:
+        return [specs]
+    if isinstance(tree, dict):
+        return [s for k in sorted(tree)
+                for s in _spec_leaves(tree[k], specs[k])]
+    return [s for (_, child), spec in zip(kids, specs, strict=True)
+            for s in _spec_leaves(child, spec)]
+
+
 def restore(ckpt_dir: str, like, *, step: int | None = None,
-            device: str | torch.device | None = None) -> tuple[Any, dict]:
+            device: str | torch.device | None = None, specs=None,
+            mesh=None) -> tuple[Any, dict]:
     """Restore into the structure of ``like`` as tensors on ``device``
-    (the CPU when None). Each leaf's shape must be its ``like`` leaf's.
-    Returns ``(tree, manifest extra)``."""
+    (the CPU when None). Each leaf's shape must be its ``like`` leaf's
+    (meta tensors will do). Returns ``(tree, manifest extra)``.
+
+    With ``specs`` (a tree of ``like``'s structure with a spec at every
+    leaf, as a cell's ``in_shardings``) and ``mesh``, the elastic restore
+    (the reference's ``shardings=``): every rank reads each whole array
+    and keeps its own block of it
+    (:func:`~repro_torch.distributed.sharding.local_block`) on
+    ``device``, a leaf at a time. The checkpoint may have been written
+    unsharded, on any mesh, or by the reference: its leaves are whole."""
     d, manifest = _step_dir(ckpt_dir, step)
+    leaf_specs = (_spec_leaves(like, specs) if specs is not None
+                  else [None] * len(_flatten(like)))
     out = []
-    for name, leaf in _flatten_with_paths(like):
+    for (name, leaf), spec in zip(_flatten_with_paths(like), leaf_specs,
+                                  strict=True):
         arr = np.load(os.path.join(d, name + ".npy"))
         want_shape = tuple(np.shape(leaf))
         if tuple(arr.shape) != want_shape:
             raise ValueError(f"{name}: ckpt {arr.shape} != {want_shape}")
-        out.append(torch.from_numpy(arr).to(device or "cpu"))
+        t = torch.from_numpy(arr).to(device or "cpu")
+        out.append(t if spec is None else local_block(t, spec, mesh))
     return _unflatten(like, iter(out)), manifest["extra"]
 
 
@@ -221,6 +257,48 @@ class AsyncCheckpointer:
 
         self._thread = threading.Thread(target=_write, daemon=True)
         self._thread.start()
+
+
+class MeshCheckpointer:
+    """The train loop's checkpoints of a state sharded over ``mesh``, each
+    rank holding its blocks under ``specs`` (a tree of the state's
+    structure with a spec at every leaf), or whole on this process where
+    ``mesh`` is None. On a mesh a save is a collective: every rank
+    gathers the whole tree (:func:`~repro_torch.distributed.sharding.
+    whole_block`, in group-rank order), and rank 0 alone writes it, in
+    the format of :func:`save`, so any mesh, the unsharded loop or the
+    reference reads it; rank 0 alone applies ``keep``. The other ranks
+    never write into ``ckpt_dir``. :meth:`save` writes in the background
+    (:class:`AsyncCheckpointer`); :meth:`save_now` waits for that write,
+    writes, and returns on every rank once the checkpoint is on disk (a
+    barrier over ``group``, a process group of the mesh's ranks)."""
+
+    def __init__(self, ckpt_dir: str, keep: int = 3, specs=None, mesh=None,
+                 group=None):
+        self.specs, self.mesh, self.group = specs, mesh, group
+        self.ckpt_dir, self.keep = ckpt_dir, keep
+        self.writer = (AsyncCheckpointer(ckpt_dir, keep)
+                       if mesh is None or dist.get_rank() == 0 else None)
+
+    def whole(self, blocks):
+        return map_blocks(whole_block, blocks, self.specs, self.mesh)
+
+    def _tree(self, blocks):
+        return blocks if self.mesh is None else self.whole(blocks)
+
+    def save(self, step: int, blocks, extra: dict | None = None) -> None:
+        whole = self._tree(blocks)
+        if self.writer is not None:
+            self.writer.save(step, whole, extra)
+
+    def save_now(self, step: int, blocks, extra: dict | None = None) -> None:
+        whole = self._tree(blocks)
+        if self.writer is not None:
+            self.writer.wait()
+            save(self.ckpt_dir, step, whole, keep=self.keep, extra=extra)
+        del whole
+        if self.mesh is not None:
+            dist.barrier(group=self.group)
 
 
 def install_preemption_handler(save_fn: Callable[[], None]) -> None:

@@ -18,7 +18,8 @@ tensor dimension: a mesh dimension's name, a tuple of names, or None
 (replicated). The runtime helpers work on the process groups of a
 ``DeviceMesh``: :func:`axis_group` (over one mesh dim or several),
 :func:`local_range`, :func:`local_block` (this rank's block of a whole
-tensor) and :func:`whole_block` (the blocks back together),
+tensor) and :func:`whole_block` (the blocks back together), each over a
+tree by :func:`map_blocks`,
 :func:`all_gather_cat` (the blocks back together, in rank order),
 :func:`gather_alike` (the same, for a computation every rank then runs
 alike), :func:`fold_partials` (the partial sums of a row-parallel product added
@@ -321,6 +322,23 @@ def whole_block(t: torch.Tensor, spec: Sequence, mesh) -> torch.Tensor:
             if axes is not None:
                 t = all_gather_cat(t, axis_group(mesh, axes), dim)
     return t
+
+
+def map_blocks(fn, tree, specs, mesh):
+    """``fn(tensor, spec, mesh)`` at every tensor of ``tree`` (nested
+    dicts, lists and tuples, NamedTuples among them) and its spec in the
+    tree ``specs`` of the same structure; None stays None. With
+    :func:`local_block` it cuts a whole tree into this rank's blocks, with
+    :func:`whole_block` it puts them back together."""
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        return fn(tree, specs, mesh)
+    if isinstance(tree, dict):
+        return {k: map_blocks(fn, tree[k], specs[k], mesh) for k in tree}
+    parts = [map_blocks(fn, t, s, mesh) for t, s in zip(tree, specs)]
+    return type(tree)(*parts) if hasattr(tree, "_fields") \
+        else type(tree)(parts)
 
 
 @dataclasses.dataclass

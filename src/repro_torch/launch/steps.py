@@ -103,62 +103,19 @@ def _abstract_opt_state(p_abs: dict) -> optim.AdamWState:
         nu=common.tree_map(lambda t: _meta(t.shape, t.dtype), p_abs))
 
 
-def _blockwise(fn: Callable, tree, specs, mesh):
-    """``fn(tensor, spec, mesh)`` at every tensor of ``tree`` (nested
-    dicts, lists and tuples, NamedTuples among them) and its spec in the
-    tree ``specs`` of the same structure; None stays None."""
-    if tree is None:
-        return None
-    if isinstance(tree, torch.Tensor):
-        return fn(tree, specs, mesh)
-    if isinstance(tree, dict):
-        return {k: _blockwise(fn, tree[k], specs[k], mesh) for k in tree}
-    parts = [_blockwise(fn, t, s, mesh) for t, s in zip(tree, specs)]
-    return type(tree)(*parts) if hasattr(tree, "_fields") \
-        else type(tree)(parts)
-
-
 def local_args(args, specs, mesh):
     """This rank's blocks of ``args`` (whole tensors, the same on every
     rank) under ``specs``, a cell's ``in_shardings`` or ``out_shardings``
     of the same structure (:func:`~repro_torch.distributed.sharding.
     local_block` at each tensor). On meta tensors it allocates nothing."""
-    return _blockwise(sharding.local_block, args, specs, mesh)
+    return sharding.map_blocks(sharding.local_block, args, specs, mesh)
 
 
 def whole_args(blocks, specs, mesh):
     """The inverse of :func:`local_args`: every block gathered whole
     (:func:`~repro_torch.distributed.sharding.whole_block`), the same on
     every rank."""
-    return _blockwise(sharding.whole_block, blocks, specs, mesh)
-
-
-def _split_axes(spec) -> tuple[str, ...]:
-    """The mesh dims a spec splits its tensor over."""
-    out: list[str] = []
-    for axes in spec:
-        if axes is not None:
-            out.extend((axes,) if isinstance(axes, str) else axes)
-    return tuple(out)
-
-
-def _grad_groups(model: lm.Model, par: common.Parallel):
-    """Per parameter, in leaf order: the group over the batch's mesh dims
-    its spec does not split it over (its gradient is a partial sum over
-    the batch blocks there), or None; and the tree of the clip's groups,
-    each leaf's over every mesh dim its spec splits it over, or None."""
-    batch_axes, _ = sharding.mesh_extent("act_batch", par.mesh, par.rules)
-
-    def group(axes):
-        return sharding.axis_group(par.mesh, axes) if axes else None
-
-    spec = model.spec()
-    split = [_split_axes(par.spec(p)) for p in common.leaves(spec)]
-    folds = [group(tuple(a for a in batch_axes if a not in s))
-             for s in split]
-    norm = iter([group(s) for s in split])
-    return folds, common.tree_map(lambda _: next(norm), spec,
-                                  lambda x: isinstance(x, common.P))
+    return sharding.map_blocks(sharding.whole_block, blocks, specs, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -198,7 +155,7 @@ def loss_and_grads(model: lm.Model, params: dict, batch: Batch,
         loss = model.loss(cast_params, batch, par)
         flat = torch.autograd.grad(loss, common.leaves(cast_params))
     if par is not None:
-        folds, _ = _grad_groups(model, par)
+        folds, _ = par.grad_groups(model.spec())
         with torch.no_grad():
             flat = [g if grp is None else sharding.fold_partials(g, grp)
                     for g, grp in zip(flat, folds)]
@@ -214,7 +171,8 @@ def train_step_fn(model: lm.Model, opt: optim.AdamW,
     norm folded over each leaf's groups."""
     def train_step(params, opt_state, batch):
         loss, grads = loss_and_grads(model, params, batch, par)
-        norm_groups = None if par is None else _grad_groups(model, par)[1]
+        norm_groups = None if par is None else par.grad_groups(
+            model.spec())[1]
         with torch.no_grad():
             updates, opt_state = opt.update(grads, opt_state, params,
                                             norm_groups)

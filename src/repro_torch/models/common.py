@@ -186,6 +186,27 @@ class Parallel(NamedTuple):
         return None if axes is None else sharding.axis_group(self.mesh,
                                                              axes)
 
+    def grad_groups(self, spec: SpecTree) -> tuple[list, Any]:
+        """For the parameters the spec tree ``spec`` declares, in leaf
+        order: the group over the batch's mesh dims a parameter's spec
+        does not split it over (its gradient there is a partial sum over
+        the batch blocks, to be folded), or None; and the tree of the
+        clip's groups (:func:`~repro_torch.train.optim.global_norm`), each
+        leaf's over every mesh dim its spec splits it over, or None."""
+        batch_axes, _ = sharding.mesh_extent("act_batch", self.mesh,
+                                             self.rules)
+
+        def group(axes):
+            return sharding.axis_group(self.mesh, axes) if axes else None
+
+        split = [tuple(a for axes in self.spec(p) if axes is not None
+                       for a in ((axes,) if isinstance(axes, str) else axes))
+                 for p in leaves(spec)]
+        folds = [group(tuple(a for a in batch_axes if a not in s))
+                 for s in split]
+        norm = iter([group(s) for s in split])
+        return folds, tree_map(lambda _: next(norm), spec, _is_p)
+
     def gather(self, w: torch.Tensor, p: P) -> torch.Tensor:
         """``w``, this rank's block of ``p``, with its ``"embed"`` dim whole
         again (FSDP: gathered right before each use, as GSPMD does per
