@@ -44,7 +44,8 @@ SHARD2_FILES = tests/test_arch_smoke.py tests/test_cells.py \
 	tests/test_torch_ssm.py tests/test_torch_lm_hybrid.py \
 	tests/test_torch_xlstm.py tests/test_torch_lm_xlstm.py \
 	tests/test_torch_compress.py tests/test_torch_train_loop.py \
-	tests/test_torch_remat.py tests/test_torch_examples.py
+	tests/test_torch_remat.py tests/test_torch_examples.py \
+	tests/test_torch_analysis.py
 
 # PYTEST_EXTRA lets CI attach coverage flags (see .github/workflows/ci.yml);
 # plain local runs need no pytest-cov install.
@@ -56,7 +57,9 @@ test-shard2:
 
 # Static gates: ruff (baseline hygiene; skipped with a notice when not
 # installed — the container image has no pip access) + the repo-specific
-# jit/Pallas linter. `--check` exits nonzero on any unwaived finding.
+# jit/Pallas linter + the port's eager-PyTorch/CUDA linter (RA006 also
+# reads the kernels' .cu sources). `--check` exits nonzero on any
+# unwaived finding.
 lint:
 	@if command -v ruff >/dev/null 2>&1; then \
 		ruff check src tests benchmarks; \
@@ -64,6 +67,7 @@ lint:
 		echo "ruff not installed; skipping ruff (repro.analysis still runs)"; \
 	fi
 	PYTHONPATH=src python -m repro.analysis --check src
+	PYTHONPATH=src python -m repro_torch.analysis --check src/repro_torch
 
 # Shard 1 under the runtime sanitizer harness: jax_debug_nans,
 # tracer-leak checks, the suite-wide compile ledger, and transfer guards

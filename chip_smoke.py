@@ -19,7 +19,14 @@ from the root of a checkout, on a machine with one CUDA card (built for
 sm_90a: an H100; with ``--only mesh``, every card of the host joins the
 mesh phase's NCCL world). It
 
-1. prints the card's name and power limit (``nvidia-smi``);
+1. prints the card's name and power limit (``nvidia-smi``), then the
+   ``analysis`` record: the port's lint over ``src/repro_torch`` (zero
+   unwaived findings, the 20 C entry points of ``_build.SIGNATURES``
+   held against their prototypes) and two probes that must raise
+   (``.item()`` inside ``sanitize.no_implicit_transfers()``, a CUDA graph
+   captured inside ``sanitize.steady_state()``); every sync-free region
+   below runs under both (:func:`sync_free`), summed in the
+   ``guarded_regions`` record before the last line;
 2. builds all six kernels from ``src/repro_torch/kernels/csrc`` with
    nvcc, one process per source, all at once, and counts ``similarity``'s
    launches per call at 2, 9, 17 and 33 classes from the profiler's
@@ -412,6 +419,8 @@ ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import pin_fp32_matmul  # noqa: E402
+from repro_torch.analysis import linter as port_lint  # noqa: E402
+from repro_torch.analysis import sanitize  # noqa: E402
 from repro_torch.convert import model_from_arrays  # noqa: E402
 from repro_torch.core import (encoding, energy,  # noqa: E402
                               fragment_model, hypersense, metrics)
@@ -483,6 +492,35 @@ def emit(obj) -> None:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+#: every guarded region of this process, in order: its name and the
+#: rebuild events it saw
+GUARDED: list = []
+
+
+@contextlib.contextmanager
+def sync_free(region: str):
+    """A warm region of the card's sync-free path:
+    ``sanitize.no_implicit_transfers()`` (``set_sync_debug_mode("error")``:
+    the first synchronizing op raises, named) inside
+    ``sanitize.steady_state()`` (a rebuild event raises, named)."""
+    led = sanitize.ledger()
+    before = led.events
+    with sanitize.steady_state(region), \
+            sanitize.no_implicit_transfers(always=True):
+        yield
+    GUARDED.append((region, led.events - before))
+
+
+def guarded_summary() -> dict:
+    """``{region: {"entries", "rebuild_events"}}`` of GUARDED."""
+    out = {}
+    for region, events in GUARDED:
+        rec = out.setdefault(region, {"entries": 0, "rebuild_events": 0})
+        rec["entries"] += 1
+        rec["rebuild_events"] += events
+    return out
 
 
 def time_ms(fn, runs: int = 20, warmup: int = 3) -> float:
@@ -1245,19 +1283,16 @@ def service_ctrl():
                             active_rate_hz=30.0)
 
 
-def serve(svc, frames, sync_free: bool = False):
+def serve(svc, frames, sync_free_after_first: bool = False):
     """Every sensor 0..S-1 delivers its frames of ``frames`` (S, n, H, W),
-    one ``CHUNK`` a tick; returns the collected ticks. With ``sync_free``
-    the dispatches after the first run under
-    ``torch.cuda.set_sync_debug_mode("error")``: a host sync raises."""
+    one ``CHUNK`` a tick; returns the collected ticks. With
+    ``sync_free_after_first`` the dispatches after the first run under
+    :func:`sync_free`: a host sync or a rebuild raises."""
     for k, lo in enumerate(range(0, frames.shape[1], CHUNK)):
         arrivals = {s: frames[s, lo:lo + CHUNK] for s in range(len(frames))}
-        if sync_free and k > 0:
-            torch.cuda.set_sync_debug_mode("error")
-        try:
+        with (sync_free("service warm dispatch")
+              if sync_free_after_first and k > 0 else contextlib.nullcontext()):
             svc.dispatch(arrivals)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
     return svc.flush()
 
 
@@ -1377,7 +1412,7 @@ def service_phase(base_model, cal, raw):
         svc = service()
         torch.cuda.synchronize()
         ss.LAUNCHES = ssi.LAUNCHES = 0
-        chunks = serve(svc, raw_np, sync_free=not closed)
+        chunks = serve(svc, raw_np, sync_free_after_first=not closed)
         counts = {"sliding_scores_f32": ss.LAUNCHES,
                   "sliding_scores_int": ssi.LAUNCHES}
         check(counts[kernel] == n_ticks and sum(counts.values()) == n_ticks,
@@ -1406,7 +1441,7 @@ def service_phase(base_model, cal, raw):
             for depth in (1, 4, n_ticks):
                 ss.LAUNCHES = ssi.LAUNCHES = 0
                 sv = service(depth)
-                got = serve(sv, raw_np, sync_free=depth >= n_ticks)
+                got = serve(sv, raw_np, sync_free_after_first=depth >= n_ticks)
                 check(ss.LAUNCHES + ssi.LAUNCHES == n_ticks,
                       f"{name}: max_inflight={depth}: not one scorer call "
                       f"a tick")
@@ -1980,7 +2015,7 @@ def mesh_runs(mesh, shape, ref, raw, labels_np, root) -> dict:
     # of host syncs (the scores gathered by NCCL on the card's stream)
     svc = mesh_service("float32", ref["models"]["float32"], mesh)
     ss.LAUNCHES = ssi.LAUNCHES = 0
-    got = served_arrays(serve(svc, raw.cpu().numpy(), sync_free=True), S)
+    got = served_arrays(serve(svc, raw.cpu().numpy(), sync_free_after_first=True), S)
     check(ss.LAUNCHES == n // CHUNK and ssi.LAUNCHES == 0,
           f"service {shape}: not one scorer call a tick")
     launches["sliding_scores_f32"] += ss.LAUNCHES
@@ -2829,11 +2864,8 @@ def cascade_phase(base_model, cal, raw):
         part = extra[lo:hi]
         frs = (np.stack([want[r] for r in part]) if part
                else np.zeros((0, *hw), np.float32))
-        torch.cuda.set_sync_debug_mode("error")
-        try:
+        with sync_free("cascade warm submit"):
             casc.submit("ragged", [i for _, i in part], frs)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
     ragged = casc.flush()
     check([b.n_padded for b in ragged] == [0] * CASCADE_INFLIGHT + [B - 3]
           and np.array_equal(np.concatenate([b.frame_idx for b in ragged]),
@@ -3846,14 +3878,11 @@ def decode_timed(cfg, params, batch: int = DECODE_BATCH,
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
-    torch.cuda.set_sync_debug_mode("error")
-    try:
+    with sync_free("decode timed steps"):
         start.record()
         for _ in range(DECODE_TIMED):
             tokens, _ = step()
         stop.record()
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
     stop.synchronize()
     ms = start.elapsed_time(stop) / DECODE_TIMED
     check(fingerprint([tokens]) == want, f"decode: {cfg.arch_id}: a timed "
@@ -5289,13 +5318,10 @@ def xlstm_decode_timed(cfg, params, shape) -> dict:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
-    torch.cuda.set_sync_debug_mode("error")
-    try:
+    with sync_free("decode timed steps"):
         start.record()
         tokens = run()
         stop.record()
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
     stop.synchronize()
     ms = start.elapsed_time(stop) / DECODE_TIMED
     want = fingerprint([tokens, *model_common.leaves(state)])
@@ -5921,20 +5947,11 @@ def loop_resume(model, cfg) -> tuple:
 
 def loop_sync_free(step, params, state, data) -> tuple:
     """One warm step, the batch drawn from the stream, under
-    ``torch.cuda.set_sync_debug_mode("warn")``: any synchronizing call
-    fails the check, named."""
+    :func:`sync_free`: the first synchronizing call raises, named, and so
+    does a rebuild."""
     torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as seen:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            out = step(params, state, next(data))
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-    syncs = sorted({str(w.message)[:200] for w in seen
-                    if "called a synchronizing" in str(w.message)})
-    check(not syncs, f"loop: a warm step synchronizes the host: {syncs}")
-    return out
+    with sync_free("loop warm step"):
+        return step(params, state, next(data))
 
 
 def loop_steps(model, cfg, params, state) -> dict:
@@ -6306,8 +6323,7 @@ def loop_mesh_timed(mesh, shape, state, batch_specs) -> dict:
     """(e) from the relaunch's final ``state`` (this rank's blocks) and
     the stream after it: one warm step (the whole batch arranged and
     cut, the sharded step, the ranks' agreement, as the loop runs them)
-    under ``torch.cuda.set_sync_debug_mode("warn")``, any synchronizing
-    call failing the check; one with the allocator's peak beside
+    under :func:`sync_free`, the first synchronizing call raising; one with the allocator's peak beside
     ``analyze()`` on the mesh; LOOP_MESH_TIMED sharded steps and as many
     unsharded ones on the whole state on this rank's card, in turns
     (host clock between synchronisations: the collectives run on NCCL's
@@ -6335,17 +6351,8 @@ def loop_mesh_timed(mesh, shape, state, batch_specs) -> dict:
         train_loop.agree(False, group)
         return out[:2]
     torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as seen:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            state = sharded_step(state, next(data))
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-    syncs = sorted({str(w.message)[:200] for w in seen
-                    if "called a synchronizing" in str(w.message)})
-    check(not syncs, f"loop on a {shape} mesh: a warm step synchronizes "
-          f"the host: {syncs}")
+    with sync_free(f"loop warm step on a {shape} mesh"):
+        state = sharded_step(state, next(data))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     state, first_ms = wall_ms(sharded_step, state, next(data))
@@ -7998,7 +8005,68 @@ def kernel_device_ms(fn, names, calls: int = 5, windows: int = 3):
     return "not measured", means
 
 
+def analysis_phase() -> dict:
+    """The port's lint over ``src/repro_torch`` (zero unwaived findings,
+    every C entry point of ``_build.SIGNATURES`` held against its
+    prototype) and two negative probes that the sanitizers are armed on
+    the card: ``.item()`` of a CUDA tensor inside
+    ``sanitize.no_implicit_transfers()`` and a CUDA graph captured inside
+    ``sanitize.steady_state()`` must each raise."""
+    t0 = time.perf_counter()
+    stats = {}
+    found = port_lint.lint_paths([str(ROOT / "src" / "repro_torch")], stats)
+    lint_s = time.perf_counter() - t0
+    unwaived = [f.render() for f in found if not f.waived]
+    check(not unwaived, "analysis: unwaived findings:\n" + "\n".join(unwaived))
+    entries = sum(len(v) for v in _build.SIGNATURES.values())
+    check(stats["c_entries"] == entries, f"analysis: RA006 held "
+          f"{stats['c_entries']} of {entries} C entry points")
+    x = torch.arange(4.0, device=DEVICE)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    item_error = None
+    try:
+        with sanitize.no_implicit_transfers(always=True):
+            x.sum().item()
+    except RuntimeError as e:
+        item_error = str(e).splitlines()[0][:200]
+    check(item_error is not None,
+          "analysis: .item() passed inside no_implicit_transfers()")
+    check(torch.cuda.get_sync_debug_mode() == 0,
+          "analysis: the sync debug mode was not restored")
+    static = torch.zeros(8, device=DEVICE)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        static.add_(1.0)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    graph_error = None
+    try:
+        with sanitize.steady_state("graph probe"):
+            with torch.cuda.graph(graph):
+                static.mul_(2.0)
+    except AssertionError as e:
+        graph_error = str(e)[:200]
+    check(graph_error is not None and "CUDA graph capture" in graph_error,
+          "analysis: a graph captured inside steady_state() passed")
+    graph.replay()
+    torch.cuda.synchronize()
+    check(bool((static == 2.0).all()), "analysis: the probe graph misran")
+    return {"findings": len(found), "unwaived": len(unwaived),
+            "waived": sum(f.waived for f in found),
+            "files": stats["files"], "c_files": stats["c_files"],
+            "c_entries_held": stats["c_entries"],
+            "smem_sizes": dict(stats["smem_sizes"]),
+            "sync_free_reachable": stats["sync_free_reachable"],
+            "capture_reachable": stats["capture_reachable"],
+            "lint_s": lint_s, "item_probe_raised": item_error,
+            "graph_probe_raised": graph_error,
+            "probes_s": time.perf_counter() - t1}
+
+
 def ok_line() -> None:
+    emit({"guarded_regions": guarded_summary()})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
@@ -8089,6 +8157,7 @@ def run_phases(args, smi: str, dry) -> int:
         ok_line()
         return 0
 
+    emit({"analysis": analysis_phase()})
     t0 = time.perf_counter()
     logs = _build.build()
     emit({"build_s": time.perf_counter() - t0, "ptxas": {

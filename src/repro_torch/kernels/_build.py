@@ -26,6 +26,8 @@ import subprocess
 
 import torch
 
+from repro_torch.analysis import sanitize
+
 CSRC = pathlib.Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 HEADERS = ("score_common.cuh", "encode_common.cuh")
@@ -116,6 +118,7 @@ def build(names: tuple[str, ...] = SOURCES) -> dict[str, str]:
         logs[name] = proc.communicate()[0]
         if proc.returncode == 0:
             os.replace(tmp, out)
+            sanitize.note_rebuild(f"kernel library {name} built")
         else:
             failed.append(name)
     if failed:
@@ -139,6 +142,7 @@ def load(name: str) -> ctypes.CDLL:
             getattr(lib, fn).restype = restype
             getattr(lib, fn).argtypes = argtypes
         _LOADED[name] = lib
+        sanitize.note_rebuild(f"kernel library {name} loaded")
     return lib
 
 

@@ -63,6 +63,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import resolve_device
+from repro_torch.analysis import sanitize
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core import energy
 from repro_torch.distributed import roofline as roofline_mod
@@ -225,6 +226,7 @@ class CascadeService:
         if self._static_in is not None:
             return
         self._rebuilds += 1
+        sanitize.note_rebuild("CascadeService step")
         shape = (self.batch_size, *self.frame_hw)
         n = self.max_inflight + 1
         self._blocks = [torch.zeros(shape, pin_memory=self._cuda)

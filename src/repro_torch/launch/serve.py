@@ -82,6 +82,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import resolve_device
+from repro_torch.analysis import sanitize
 from repro_torch.ckpt import checkpoint as ckpt_mod
 from repro_torch.core.hypersense import HyperSenseModel
 from repro_torch.core.online import AdaptConfig
@@ -390,6 +391,7 @@ class FleetService:
         adapting (re-tiled per tick in the device half): built once."""
         if self._tiles is None:
             self._rebuilds += 1
+            sanitize.note_rebuild("FleetService tiles")
             geom = stream_mod.model_geometry(self.model, W, self.block_d,
                                              self.precision)
             hd = fleet_mod._hyperdim_axes(self._mesh, geom.idx.shape[0])
@@ -411,6 +413,7 @@ class FleetService:
         ring = self._rings.get(name)
         if ring is None:
             self._rebuilds += 1
+            sanitize.note_rebuild(f"FleetService {name} ring")
             ring = [torch.zeros(shape, dtype=dtype, pin_memory=self._cuda)
                     for _ in range(self.max_inflight + 1)]
             self._rings[name] = ring
@@ -545,6 +548,7 @@ class FleetService:
             else:
                 if self._no_labels is None:
                     self._rebuilds += 1
+                    sanitize.note_rebuild("FleetService label buffer")
                     self._no_labels = torch.zeros(
                         (self._hi - self._lo, C), dtype=torch.int32,
                         device=dev)

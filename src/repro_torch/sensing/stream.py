@@ -371,7 +371,9 @@ def chunk_device_half(frames: torch.Tensor, class_hvs: torch.Tensor,
                       adapt: AdaptConfig | None = None,
                       precision: str = "float32", adc_lsb: float = 1.0,
                       decim: int | None = None, park_masked: bool = False,
-                      sensor_group=None, hyperdim_group=None):
+                      sensor_group=None, hyperdim_group=None
+                      ) -> tuple[torch.Tensor, torch.Tensor,
+                                 torch.Tensor | None]:
     """The device half of :func:`super_chunk_fn`: the scorer call and the
     frame scores, and, in the open loop, the online fold (its mask is the
     valid frames of the unmasked slots, which the card can build).
