@@ -14,6 +14,7 @@
     python3 chip_smoke.py --only xlstm_mesh  # its sharded runs alone
     python3 chip_smoke.py --only loop    # the training runtime's phase
     python3 chip_smoke.py --only loop_mesh  # the loop over a mesh alone
+    python3 chip_smoke.py --only examples  # the build and the examples
 
 from the root of a checkout, on a machine with one CUDA card (built for
 sm_90a: an H100; with ``--only mesh``, every card of the host joins the
@@ -82,6 +83,9 @@ mesh phase's NCCL world). It
    own ``StreamRunner``, and no rebuild after the warm-up tick; a
    checkpoint at tick 4 resumed bitwise by a fresh service; warm frozen
    dispatches free of host syncs (``torch.cuda.set_sync_debug_mode``);
+   the int8 service fed its ADC codes already on the card (uint8), its
+   warm tick's host syncs counted (exactly the one read of the fused
+   code-range check) and its run bitwise ``FleetRunner`` on those codes;
    it prints the fps of the service and of ``FleetRunner``, their
    device busy shares and the dispatch->collect latency;
 9. shards the fleet (``mesh`` phase): each scorer's split entries (the
@@ -242,15 +246,18 @@ mesh phase's NCCL world). It
    FLOPs the hand count (the Mamba layers' projections and SSD products
    by chunk, the six shared-block calls with ``emb_proj``, the
    unembedding, the recompute), ``analyze()`` on one card and the
-   production meshes; at full width and depth (38 Mamba-2 layers, bf16,
-   remat "full", ``Model.init``'s weights) the train step at 4096
+   production meshes; at full width and 6 of the 38 layers (one
+   shared-block call; ``HYBRID_TIMED_LAYERS``, cut to make room for the
+   examples phase; bf16, remat "full", ``Model.init``'s weights) the
+   train step at 4096
    tokens x 4 bitwise run to run, also under deterministic algorithms,
    the 32,768-token prefill bitwise ``Model.forward``, each with ms,
    tokens/s, TFLOP/s and the peak beside ``analyze()``; the card
    against the CPU at 6 layers (one shared-block call) in float32 and
    bf16 (loss, every gradient, the logits); sync-free timed decode steps
    at ``decode_32k``'s state cut to batch 8 and at ``long_500k`` uncut
-   (524,288 positions, a 25.8 GB bf16 cache) beside their bytes bounds;
+   (524,288 positions, a 4.3 GB bf16 cache at 6 layers) beside their
+   bytes bounds;
    two greedy runs bitwise; decode against ``Model.forward`` in float32
    with float32 states within 1e-4 of the largest |logit| (the bf16
    states' difference recorded); the decode card against the CPU at 6
@@ -322,7 +329,33 @@ mesh phase's NCCL world). It
    and, on several cards, with half as many (resumed, finished);
    the checkpoints' host copies, writes (GB) and restore in seconds;
    ``build/loop/`` and ``build/loop_mesh/`` deleted at the end;
-18. drives the training path (paper Fig. 5a) at the same width: samples
+18. runs the paper's loop as a user starts it (``examples`` phase): the
+   port's twins of the reference's last three examples, each its own
+   process on the card, all six started at once against the kernels
+   built above (``EXAMPLE_RUNS``): ``examples/quickstart_torch.py``,
+   ``examples/gated_cascade_torch.py`` and
+   ``examples/intelligent_sensing_e2e_torch.py`` by default, with
+   ``--sensors 4``, ``--drift`` and ``--control``; each runs its
+   ``main()`` with every kernel's count zeroed right before it and read
+   right after it (``COUNTED_RUN``), must exit 0, print the lines of its
+   twin's ``LINES`` and launch the gate's kernels, the cascade with one
+   backbone build across its ragged drains; it records each run's wall
+   seconds, counts and headline numbers (the fragment AUC, ``T_score``,
+   duty cycles, the total and edge saving beside the paper's 89.8% /
+   60.6%, the fleet's saving, the three drift AUCs, the capture-log
+   saving, the cascade's J/frame). Meanwhile this process holds the
+   twins' stage functions on the card (counted) against the same calls
+   on the CPU on the same inputs at the runs' shapes
+   (``examples_parity``): gates trained on the card, the training's
+   encode and similarity within HV_ATOL and SCORE_ATOL of their plain
+   versions, ``fragment_auc``, ``frame_decisions``,
+   ``operating_point``, ``single_stream``, ``sensor_fleet``, ``drift``,
+   ``closed_loop`` and the cascade's loop: scores within SCORE_ATOL,
+   AUCs within the share of pairs scored within 2 * SCORE_ATOL, every
+   decision whose score sits beyond DECISION_MARGIN alike and the whole
+   run alike unless one sits nearer, energy within 1e-6 relative, the
+   detector's logits within CASCADE_F32_RTOL of the largest |logit|;
+19. drives the training path (paper Fig. 5a) at the same width: samples
    balanced fragments from 256 synthetic training frames and 128 held-out
    frames (``sensing.fragments``), trains the Fragment model on the
    permutation base (``train_fragment_model``, 20 epochs), scores the
@@ -339,7 +372,7 @@ mesh phase's NCCL world). It
    both encoders the same way at ragged shapes (N, K and D off the tiles,
    K steps that straddle generator rows) for each nonlinearity, and
    reports their tiles, blocks and waves;
-19. drives the int-datapath path (``benchmarks/int_datapath.py``'s
+20. drives the int-datapath path (``benchmarks/int_datapath.py``'s
    claims): the float32 kernel, the live int8 kernel and the expanded-slab
    kernel (the int scorer's retired layout, ``csrc/int_expanded.cu``, on
    the int8 tensor cores) race on one ADC capture at the reference's shape
@@ -364,7 +397,7 @@ mesh phase's NCCL world). It
    equal to the same gate's on the CPU wherever the deciding score sits
    more than 2.5e-4 from ``t_score``, its frames/s, duty cycle and the
    detector FLOPs it saves;
-20. runs Table I and Fig. 16's model comparison (``baselines`` phase):
+21. runs Table I and Fig. 16's model comparison (``baselines`` phase):
    ``benchmarks/common.py``'s noisy 4-bit data made with
    ``sensing.synthetic`` (training noise 0.20; held-out noise 0.30 with
    3% impulse spikes), balanced fragments, at the paper's operating point
@@ -381,7 +414,7 @@ mesh phase's NCCL world). It
    then times, per frame of a 32-frame chunk, the float32 HDC scorer
    against MLP2 on all 25 windows (beside the paper's 2.4x) and
    ``encode_frames`` with and without reuse;
-21. prints one JSON line per phase, a ``kernels`` line, and last
+22. prints one JSON line per phase, a ``kernels`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises: the script exits non-zero and prints no result.
@@ -395,11 +428,13 @@ import contextlib
 import copy
 import ctypes
 import dataclasses
+import importlib.util
 import io
 import json
 import math
 import os
 import pathlib
+import re
 import shlex
 import shutil
 import signal
@@ -1479,8 +1514,61 @@ def service_phase(base_model, cal, raw):
         emit(rec)
         records.append(rec)
 
+    records.append(service_card_codes(base_model, cal, raw))
+    emit(records[-1])
     records += service_churn_checks(base_model, cal, raw)
     return records, launches
+
+
+def service_card_codes(base_model, cal, raw) -> dict:
+    """The int8 service fed ADC codes already on the card (uint8, the
+    codes' wire dtype): its warm tick's host syncs counted under
+    ``torch.cuda.set_sync_debug_mode("warn")`` inside
+    ``sanitize.steady_state()`` must be exactly the one read of the fused
+    code-range check (``adc.check_codes_range`` over every sensor's codes
+    at once), and the run bitwise ``FleetRunner`` on the same codes."""
+    S, n = raw.shape[:2]
+    bits = 8
+    model = calibrated(base_model, *cal, "int8", bits)
+    codes = adc.pack_codes(adc.quantize_codes(raw, bits), bits)
+    common = dict(chunk_size=CHUNK, block_d=BLOCK_D, adc_bits=bits,
+                  precision="int8", adc_seed=SEED, device=DEVICE)
+    svc = FleetService(model, service_ctrl(), n_slots=S,
+                       max_inflight=SERVICE_INFLIGHT, **common)
+    for s in range(S):
+        svc.attach(s)
+    region = "service card codes warm tick"
+    led = sanitize.ledger()
+    syncs = []
+    for k, lo in enumerate(range(0, n, CHUNK)):
+        arrivals = {s: codes[s, lo:lo + CHUNK] for s in range(S)}
+        if k != 1:
+            svc.dispatch(arrivals)
+            continue
+        before = led.events
+        torch.cuda.synchronize()
+        prev = torch.cuda.get_sync_debug_mode()
+        with warnings.catch_warnings(record=True) as caught, \
+                sanitize.steady_state(region):
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                svc.dispatch(arrivals)
+            finally:
+                torch.cuda.set_sync_debug_mode(prev)
+        GUARDED.append((region, led.events - before))
+        syncs = [str(w.message).splitlines()[0] for w in caught
+                 if "synchroniz" in str(w.message)]
+    chunks = svc.flush()
+    check(len(syncs) == 1, f"{region}: {len(syncs)} host syncs, the one "
+          f"code-range read expected: {syncs}")
+    want = fleet.FleetRunner(model, service_ctrl(), **common).process(codes)
+    for got, ref_out in zip(served_arrays(chunks, S), want):
+        check(np.array_equal(got, ref_out),
+              "service fed card codes: differs from FleetRunner")
+    return dict(run="service_int8_card_codes", codes_dtype=str(codes.dtype),
+                slots=S, ticks=n // CHUNK, warm_tick_host_syncs=len(syncs),
+                sync_ops=syncs, bitwise_vs_fleet_runner=True)
 
 
 def service_churn_checks(base_model, cal, raw):
@@ -4487,9 +4575,9 @@ def moe_phase(card: str) -> dict:
 
 
 # the hybrid (ROADMAP.md §1 item 4(d)): HYBRID_ARCH at full width and
-# depth (38 Mamba-2 layers, the shared attention + MLP block after every
-# 6th), bf16 compute, remat "full", weights from Model.init on a seeded
-# generator: the train step at train_4k's sequence (batch 256 ->
+# HYBRID_TIMED_LAYERS of its 38 Mamba-2 layers (the shared attention + MLP
+# block after every 6th), bf16 compute, remat "full", weights from
+# Model.init on a seeded generator: the train step at train_4k's sequence (batch 256 ->
 # CELLS_TRAIN_BATCH), bitwise run to run, also under deterministic
 # algorithms; the prefill at prefill_32k's (batch 32 ->
 # CELLS_PREFILL_BATCH), bitwise Model.forward; the card against the CPU
@@ -4507,6 +4595,13 @@ def moe_phase(card: str) -> dict:
 HYBRID_ARCH = "zamba2-1.2b"
 HYBRID_CHECK_LAYERS, HYBRID_CHECK_TOKENS = 6, (1, 512)
 HYBRID_MESH_LAYERS = 12
+# the timed train step, prefill and decode steps run HYBRID_TIMED_LAYERS
+# of the 38 (one group and one shared-block call, the card-vs-CPU check's
+# depth) to make room for the examples phase: on H100 hosts they took
+# 32.2 s at full depth, 11.2 s at 12 layers on a slower host and 6.5 s
+# at 6, and the examples phase 20.7-28.8 s; decode against
+# Model.forward and the counts on meta tensors stay at full depth
+HYBRID_TIMED_LAYERS = HYBRID_CHECK_LAYERS
 
 
 def hybrid_train_run(cfg, params) -> dict:
@@ -4915,10 +5010,10 @@ def hybrid_helpers() -> tuple:
 def hybrid_phase(card: str, helpers: tuple | None = None) -> dict:
     """The hybrid on the card: HYBRID_ARCH sharded over every card
     (:func:`hybrid_world`, first, while this process holds nothing on the
-    card); at full width and depth the train step, the prefill, the
-    decode steps at decode_32k's cut and long_500k uncut, greedy run to
-    run, decode against prefill, the card against the CPU at
-    HYBRID_CHECK_LAYERS. Two subprocesses on the host's CPU
+    card); at full width and HYBRID_TIMED_LAYERS the train step, the
+    prefill, the decode steps at decode_32k's cut and long_500k uncut,
+    greedy run to run; at full depth decode against prefill; the card
+    against the CPU at HYBRID_CHECK_LAYERS. Two subprocesses on the host's CPU
     (:func:`hybrid_helpers`, ``helpers`` where the caller started them a
     phase early) run beside the sharded world and the train step,
     both device-bound, and are waited for before the prefill and the
@@ -4938,10 +5033,11 @@ def hybrid_phase(card: str, helpers: tuple | None = None) -> dict:
         part_s["mesh"] = time.perf_counter() - t0
         emit({"hybrid": {"card": card, "mesh": rec["mesh"]}})
         cfg = configs.get_config(HYBRID_ARCH)
-        params = lm.Model(cfg).init(
+        timed = cfg.replace(n_layers=HYBRID_TIMED_LAYERS)
+        params = lm.Model(timed).init(
             torch.Generator(device=DEVICE).manual_seed(SEED + 50))
         t = time.perf_counter()
-        rec["train"] = hybrid_train_run(cfg, params)
+        rec["train"] = hybrid_train_run(timed, params)
         torch.cuda.empty_cache()
         part_s["train"] = time.perf_counter() - t
         t = time.perf_counter()
@@ -4962,7 +5058,7 @@ def hybrid_phase(card: str, helpers: tuple | None = None) -> dict:
             cfg, configs.SHAPES[name], m) for m in CELLS_MESHES}
         for name in ("decode_32k", "long_500k")}
     t = time.perf_counter()
-    rec["prefill"] = prefill_cell_run(cfg, params)
+    rec["prefill"] = prefill_cell_run(timed, params)
     rec["prefill"]["tokens_per_s"] = (
         CELLS_PREFILL_BATCH * configs.SHAPES["prefill_32k"].seq_len
         / (rec["prefill"]["ms"] / 1e3))
@@ -4971,7 +5067,7 @@ def hybrid_phase(card: str, helpers: tuple | None = None) -> dict:
     emit({"hybrid": {"card": card, "train": rec["train"],
                      "prefill": rec["prefill"]}})
     t = time.perf_counter()
-    rec["decode"] = hybrid_decode(cfg, params)
+    rec["decode"] = hybrid_decode(timed, params)
     del params
     torch.cuda.empty_cache()
     part_s["decode"] = time.perf_counter() - t
@@ -6724,6 +6820,516 @@ def loop_mesh_only(card: str) -> None:
     emit({"loop_mesh": {"card": card, "phase_s": time.perf_counter() - t0}})
 
 
+# the paper's loop as a user starts it: each port-side twin of the
+# reference's last three examples (examples/*_torch.py) in a subprocess on
+# the card, all at once, against the kernels built above, with every
+# kernel's count zeroed right before the twin's main() and read right
+# after it (COUNTED_RUN); the lines each must print (the twin's LINES) and
+# their headline numbers. Meanwhile, in this process, the twins' stage
+# functions on the card and on the CPU on the same inputs at the runs'
+# shapes (examples_parity)
+QS, GC, E2E = ("quickstart_torch", "gated_cascade_torch",
+               "intelligent_sensing_e2e_torch")
+#: what training a gate and scoring frames with it launch
+GATE_KERNELS = ("hdc_encode_perm", "similarity", "sliding_scores_f32")
+#: name: (twin, arguments, its LINES' key or None, the kernels it launches)
+EXAMPLE_RUNS = {
+    "quickstart": (QS, (), None, GATE_KERNELS),
+    "gated_cascade": (GC, (), None, ("sliding_scores_f32",)),
+    "e2e": (E2E, (), "stream", GATE_KERNELS),
+    "e2e_sensors_4": (E2E, ("--sensors", "4"), "fleet", GATE_KERNELS),
+    "e2e_drift": (E2E, ("--drift",), "drift", GATE_KERNELS),
+    "e2e_control": (E2E, ("--control",), "control", GATE_KERNELS),
+}
+EXAMPLES_TIMEOUT_S = 300
+EXAMPLES_DIR = ROOT / "build" / "examples"
+#: ``python -c COUNTED_RUN <counts file> <{name: kernel module}> <script>
+#: <arguments>``: the script as ``__main__``, every module's LAUNCHES set to
+#: 0 right before it and written to the counts file right after it
+COUNTED_RUN = """\
+import importlib, json, runpy, sys
+out, names, sys.argv = sys.argv[1], json.loads(sys.argv[2]), sys.argv[3:]
+mods = {k: importlib.import_module(m) for k, m in names.items()}
+for m in mods.values():
+    m.LAUNCHES = 0
+runpy.run_path(sys.argv[0], run_name="__main__")
+with open(out, "w") as f:
+    json.dump({k: m.LAUNCHES for k, m in mods.items()}, f)
+"""
+# energy totals and savings, for equal stats (the CPU tests' bound)
+ENERGY_RTOL = 1e-6
+_TWINS: dict = {}
+
+
+def twin(name: str):
+    """The module ``examples/<name>.py``, loaded once from its file."""
+    if name not in _TWINS:
+        spec = importlib.util.spec_from_file_location(
+            name, ROOT / "examples" / f"{name}.py")
+        _TWINS[name] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(_TWINS[name])
+    return _TWINS[name]
+
+
+def example_lines(name: str) -> tuple:
+    """The patterns of the lines the run ``name`` must print."""
+    mod, mode = twin(EXAMPLE_RUNS[name][0]), EXAMPLE_RUNS[name][2]
+    return mod.LINES if mode is None else mod.LINES[mode]
+
+
+def example_numbers(name: str, out: str) -> dict:
+    """The numbers named in the patterns of :func:`example_lines`, each
+    matched in order on a line of the standard output ``out``; a pattern
+    that matches the lines right after its first too gives the list of
+    their numbers. Raises where a line is missing."""
+    lines, numbers, at = out.splitlines(), {}, 0
+    for pattern in example_lines(name):
+        hits = []
+        for i in range(at, len(lines)):
+            m = re.fullmatch(pattern, lines[i])
+            if m:
+                hits.append(m)
+                at = i + 1
+            elif hits:
+                break
+        check(bool(hits), f"examples: {name} printed no line "
+                          f"{pattern!r}:\n{out[-2000:]}")
+        for key in hits[0].groupdict():
+            values = [float(m[key]) for m in hits]
+            numbers[key] = values[0] if len(hits) == 1 else values
+    return numbers
+
+
+def counted(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` with every kernel's count zeroed right
+    before it: its result and the counts it left (those above 0)."""
+    for mod in ID_KERNELS.values():
+        mod.LAUNCHES = 0
+    out = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    return out, {k: mod.LAUNCHES for k, mod in ID_KERNELS.items()
+                 if mod.LAUNCHES}
+
+
+def launched(what: str, counts: dict, kernels) -> dict:
+    """``counts``, checked to hold every one of ``kernels``."""
+    for k in kernels:
+        check(counts.get(k, 0) > 0, f"examples: {what} never launched {k}")
+    return counts
+
+
+def score_err(got, want) -> float:
+    """The largest |difference| of two score arrays where both are finite
+    (the closed loop scores only the frames it samples)."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    check(got.shape == want.shape, f"scores {got.shape} vs {want.shape}")
+    both = np.isfinite(got) & np.isfinite(want)
+    return float(np.abs(got[both] - want[both]).max(initial=0.0))
+
+
+def auc_slack(scores, labels) -> float:
+    """Share of positive-negative pairs whose scores lie within
+    ``2 * SCORE_ATOL``: the most two AUCs of scores within SCORE_ATOL of
+    each other can differ by."""
+    s = np.asarray(scores, np.float64)
+    y = np.asarray(labels).astype(bool)
+    close = np.abs(s[y][:, None] - s[~y][None, :]) <= 2 * SCORE_ATOL
+    return float(close.sum()) / max(close.size, 1)
+
+
+def same_stats(got, want) -> bool:
+    return (np.array_equal(np.asarray(got.decisions),
+                           np.asarray(want.decisions))
+            and np.array_equal(np.asarray(got.gated_on),
+                               np.asarray(want.gated_on)))
+
+
+def rel_close(got: float, want: float, rtol: float = ENERGY_RTOL) -> bool:
+    return abs(got - want) <= rtol * abs(want)
+
+
+def decided(what: str, agree: bool, scores, t_score: float, got=None,
+            want=None) -> dict:
+    """The card's decisions against the CPU's. Every frame whose deciding
+    score (the CPU's, in ``scores``) sits more than DECISION_MARGIN from
+    ``t_score`` is decided alike (``got``, ``want``: the per-frame
+    decisions, where given), and the whole run agrees (``agree``: its
+    decisions, hysteresis and capture) unless a score sits nearer."""
+    s = np.asarray(scores, np.float64)
+    clear = np.isfinite(s) & (np.abs(s - t_score) > DECISION_MARGIN)
+    ties = int((np.isfinite(s) & ~clear).sum())
+    if got is not None:
+        check(np.array_equal(np.asarray(got)[clear], np.asarray(want)[clear]),
+              f"examples: {what}: the card decides a frame the CPU decides "
+              f"apart, its score beyond DECISION_MARGIN")
+    check(agree or ties > 0, f"examples: {what}: the card's run differs "
+          f"from the CPU's with no score within DECISION_MARGIN")
+    return {"decisions_agree": agree, "near_ties": ties}
+
+
+def scores_held(what: str, got, want) -> float:
+    err = score_err(got, want)
+    check(err <= SCORE_ATOL, f"examples: {what}: card vs CPU scores {err}")
+    return err
+
+
+def quiet(fn, *args):
+    """``fn(*args)`` with what it prints swallowed."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn(*args)
+
+
+def cpu_gen(seed: int) -> torch.Generator:
+    return torch.Generator().manual_seed(seed)
+
+
+def quickstart_parity() -> dict:
+    """``quickstart_torch``'s steps 3-5 at its shapes: the fragment model
+    trained on the card (counted) from a CPU generator's base; the
+    training's encode and similarity at its shapes held against their
+    plain versions on the same inputs; then ``fragment_auc`` and
+    ``frame_decisions`` of that model on the card (counted) and on the
+    CPU."""
+    qs = twin(QS)
+    h = qs.FRAG
+    frames, masks, _ = synthetic.make_dataset(
+        cpu_gen(SEED + 30), 80, synthetic.RadarConfig(height=qs.FRAME,
+                                                      width=qs.FRAME),
+        device="cpu")
+    lp = adc.quantize(frames, bits=4)
+    frags, flabels = fragments.sample_fragments(
+        lp.numpy(), masks.numpy(), h=h, w=h, per_frame=2, seed=0)
+    cut = int(len(frags) * 0.8)
+    (model, _), train_counts = counted(
+        fragment_model.train_fragment_model, cpu_gen(SEED + 31), frags[:cut],
+        flabels[:cut], dim=qs.DIM, epochs=qs.EPOCHS, device=DEVICE)
+    cpu = fragment_model.FragmentModel(
+        *(a.cpu() for a in (model.class_hvs, model.B, model.b)))
+    B0 = model.B.reshape(h, h, -1)[:, 0, :]
+    x = encoding.normalize_flat(torch.as_tensor(frags[:cut]).reshape(cut,
+                                                                     -1))
+    hv = enc_perm.hdc_encode_perm(x, B0.cpu(), cpu.b, h=h, w=h)
+    enc_err = float((enc_perm.hdc_encode_perm(
+        x.to(DEVICE), B0, model.b, h=h, w=h).cpu() - hv).abs().max())
+    check(enc_err <= HV_ATOL, f"examples: quickstart encode {enc_err}")
+    sim_err = float(
+        (fragment_model.scores(model.class_hvs, hv.to(DEVICE)).cpu()
+         - fragment_model.scores(cpu.class_hvs, hv)).abs().max())
+    check(sim_err <= SCORE_ATOL, f"examples: quickstart similarity "
+                                 f"{sim_err}")
+
+    (got, auc), auc_counts = counted(qs.fragment_auc, model, frags[cut:],
+                                     flabels[cut:])
+    want, want_auc = qs.fragment_auc(cpu, frags[cut:], flabels[cut:])
+    err = scores_held("quickstart fragment scores", got, want)
+    check(abs(auc - want_auc) <= auc_slack(want, flabels[cut:]),
+          f"examples: quickstart AUC {auc} vs {want_auc}")
+    dec, dec_counts = counted(qs.frame_decisions, model,
+                              lp[:16].to(DEVICE))
+    hs = hypersense.from_fragment_model(cpu, B0.cpu(), h=h, w=h,
+                                        stride=qs.STRIDE)
+    want_dec = qs.frame_decisions(cpu, lp[:16])
+    return dict(
+        train_launches=launched("quickstart training", train_counts,
+                                ("hdc_encode_perm", "similarity")),
+        encode_max_abs_err=enc_err, similarity_max_abs_err=sim_err,
+        fragment_scores_max_abs_err=err, auc_card=auc, auc_cpu=want_auc,
+        launches=launched("quickstart scoring", {
+            k: auc_counts.get(k, 0) + dec_counts.get(k, 0)
+            for k in {**auc_counts, **dec_counts}},
+            ("similarity", "sliding_scores_f32")),
+        frames=decided("quickstart frame decisions",
+                       np.array_equal(dec, want_dec),
+                       hypersense.frame_scores_batch(hs, lp[:16]).numpy(),
+                       hs.t_score, dec, want_dec))
+
+
+def e2e_gate(e2e, size: int, frag: int, dim: int, stride: int):
+    """``train_gate`` at one of the twin's sizes on the card (counted),
+    its print swallowed: the card's gate and the same gate on the CPU,
+    and the counts."""
+    cfg = synthetic.RadarConfig(height=size, width=size)
+    op, counts = counted(quiet, e2e.train_gate, DEVICE, cfg, frag, dim,
+                         stride)
+    return cfg, op["gate"], op["gate"].to("cpu"), launched(
+        f"e2e train_gate at {size}x{size}", counts, GATE_KERNELS)
+
+
+def e2e_parity() -> dict:
+    """``intelligent_sensing_e2e_torch``'s four modes at their shapes, on
+    gates trained on the card: ``operating_point``, ``single_stream``,
+    ``sensor_fleet``, ``drift`` and ``closed_loop`` on the card (counted)
+    and on the CPU on the same frames, drawn from CPU generators."""
+    e2e = twin(E2E)
+    n = 150
+    cfg, gate, cpu, counts64 = e2e_gate(e2e, 64, 16, 2048, 8)
+    out = {"train_gate_64_launches": counts64}
+
+    te, _, te_labels = synthetic.make_dataset(cpu_gen(SEED + 32), 24, cfg,
+                                              device="cpu")
+    te = adc.quantize(te, 4)
+    op, c = counted(e2e.operating_point, gate, te.to(DEVICE), te_labels)
+    want = e2e.operating_point(cpu, te, te_labels)
+    slack = auc_slack(want["scores"], te_labels)
+    check(abs(op["t_score"] - want["t_score"]) <= SCORE_ATOL
+          and (slack > 0 or op["tpr"] == want["tpr"]),
+          f"examples: operating point {op['t_score']}, {op['tpr']} vs "
+          f"{want['t_score']}, {want['tpr']}")
+    out["operating_point"] = dict(
+        scores_max_abs_err=scores_held("operating point", op["scores"],
+                                       want["scores"]),
+        t_score_card=op["t_score"], t_score_cpu=want["t_score"],
+        tpr_card=op["tpr"], tpr_cpu=want["tpr"], auc_slack=slack,
+        launches=launched("operating point", c, ("sliding_scores_f32",)))
+
+    control = ControllerConfig(hold_frames=3)
+    stream, labels = synthetic.make_stream(cpu_gen(SEED + 33), n, cfg,
+                                           event_prob=0.03, event_len=10,
+                                           device="cpu")
+    labels = labels.numpy()
+    lp = adc.quantize(stream, 4)
+    r, c = counted(e2e.single_stream, gate, stream.to(DEVICE), labels,
+                   control)
+    w = e2e.single_stream(cpu, stream, labels, control)
+    rec = decided("single stream", same_stats(r["stats"], w["stats"]),
+                  hypersense.frame_scores_batch(cpu, lp).numpy(),
+                  cpu.t_score, r["stats"].decisions, w["stats"].decisions)
+    if rec["decisions_agree"] and "energy" in w:
+        check(all(rel_close(r[k], w[k]) for k in ("total_saving",
+                                                  "edge_saving"))
+              and rel_close(r["energy"].total, w["energy"].total),
+              "examples: single stream energy")
+    out["single_stream"] = dict(
+        rec, scores_max_abs_err=scores_held(
+            "single stream", hypersense.frame_scores_batch(
+                gate, lp.to(DEVICE)).cpu().numpy(),
+            hypersense.frame_scores_batch(cpu, lp).numpy()),
+        launches=launched("single stream", c, ("sliding_scores_f32",)))
+
+    streams = [synthetic.make_stream(cpu_gen(SEED + 34 + s), n, cfg,
+                                     event_prob=0.03, event_len=10,
+                                     device="cpu") for s in range(4)]
+    fr = torch.stack([f for f, _ in streams])
+    fl = np.stack([lb.numpy() for _, lb in streams])
+    r, c = counted(e2e.sensor_fleet, gate, fr.to(DEVICE), fl, control)
+    w = e2e.sensor_fleet(cpu, fr, fl, control)
+    rec = decided("fleet", all(same_stats(a, b)
+                               for a, b in zip(r.stats, w.stats)),
+                  hypersense.frame_scores_batch(
+                      cpu, adc.quantize(fr.reshape(-1, 64, 64), 4)).numpy(),
+                  cpu.t_score,
+                  np.concatenate([st.decisions for st in r.stats]),
+                  np.concatenate([st.decisions for st in w.stats]))
+    if rec["decisions_agree"]:
+        check(r.duty_cycle == w.duty_cycle
+              and all(rel_close(getattr(r, k), getattr(w, k)) for k in (
+                  "energy_total_j", "baseline_total_j", "total_saving")),
+              "examples: fleet duty and energy")
+    out["sensor_fleet"] = dict(rec, launches=launched(
+        "fleet", c, ("sliding_scores_f32",)))
+
+    cfg, gate, cpu, counts32 = e2e_gate(e2e, 32, 8, 1024, 4)
+    out["train_gate_32_launches"] = counts32
+    shift = synthetic.DriftConfig(background_gain=(0.0, 0.6),
+                                  noise_sigma=(0.12, 0.28),
+                                  object_intensity=(0.8, 0.35))
+    stream, labels = synthetic.make_drift_stream(
+        cpu_gen(SEED + 38), n, cfg, shift, event_prob=0.05, event_len=10,
+        device="cpu")
+    labels = labels.numpy()
+    r, c = counted(e2e.drift, gate, stream.to(DEVICE), labels, control)
+    w = e2e.drift(cpu, stream, labels, control)
+    half = n // 2
+    drift_rec = {}
+    for name in w:
+        got, want = r[name], w[name]
+        check(abs(got["auc"] - want["auc"]) <= auc_slack(
+            want["scores"][half:], labels[half:]),
+            f"examples: drift {name} AUC {got['auc']} vs {want['auc']}")
+        drift_rec[name] = dict(
+            scores_max_abs_err=scores_held(f"drift {name}", got["scores"],
+                                           want["scores"]),
+            auc_card=got["auc"], auc_cpu=want["auc"])
+    out["drift"] = dict(drift_rec, launches=launched(
+        "drift", c, ("sliding_scores_f32",)))
+
+    rates = ControllerConfig(base_rate_hz=10, active_rate_hz=60,
+                             hold_frames=6)
+    stream, labels = synthetic.make_stream(cpu_gen(SEED + 39), n, cfg,
+                                           event_prob=0.01, event_len=12,
+                                           device="cpu")
+    labels = labels.numpy()
+    r, c = counted(e2e.closed_loop, gate, stream.to(DEVICE), labels, rates)
+    w = e2e.closed_loop(cpu, stream, labels, rates)
+    agree = (same_stats(r["stats"], w["stats"])
+             and np.array_equal(r["log"].sampled, w["log"].sampled)
+             and np.array_equal(r["log"].gated, w["log"].gated))
+    rec = decided("closed loop", agree, w["scores"], cpu.t_score,
+                  r["stats"].decisions, w["stats"].decisions)
+    if agree:
+        check(np.array_equal(r["hp_idx"], w["hp_idx"])
+              and np.array_equal(np.asarray(r["hp_frames"]),
+                                 np.asarray(w["hp_frames"]))
+              and r["hp_dropped"] == w["hp_dropped"]
+              and all(rel_close(r[k].total, w[k].total)
+                      for k in ("ours", "always", "conv"))
+              and rel_close(r["saving"], w["saving"]),
+              "examples: closed loop HP drain and energy")
+    out["closed_loop"] = dict(
+        rec, scores_max_abs_err=scores_held("closed loop", r["scores"],
+                                            w["scores"]),
+        saving_card=r["saving"], saving_cpu=w["saving"],
+        launches=launched("closed loop", c, ("sliding_scores_f32",)))
+    return out
+
+
+def gated_cascade_parity() -> dict:
+    """``gated_cascade_torch``'s loop, drawn as its ``main()`` draws it
+    (CPU generators), on the card (counted) and on the CPU: the open-loop
+    scores, then at the CPU's q75 threshold the capture log, the
+    backbone's batches and logits, one build, and the system energy."""
+    gc = twin(GC)
+    hw = (gc.FRAME, gc.FRAME)
+
+    def gen(seed):
+        return cpu_gen(gc.SEED + seed)
+
+    B0, b = encoding.make_perm_base_rows(gen(1), 8, 256)
+    cpu = hypersense.HyperSenseModel(
+        torch.randn((2, 256), generator=gen(2)), B0, b, h=8, w=8, stride=4,
+        t_score=0.0, t_detection=1)
+    stream, _ = synthetic.make_drift_stream(
+        gen(3), 8 * gc.CHUNK, synthetic.RadarConfig(height=gc.FRAME,
+                                                    width=gc.FRAME),
+        event_prob=0.03, event_len=10, device="cpu")
+    (card, got), c0 = counted(gc.open_loop_threshold, cpu.to(DEVICE),
+                              stream.to(DEVICE))
+    cpu, want = gc.open_loop_threshold(cpu, stream)
+    open_err = scores_held("cascade open loop", got, want)
+    card = dataclasses.replace(card, t_score=cpu.t_score)
+    cfg = configs.get_smoke("hubert-xlarge")
+    params = steps.init_detector_params(gen(7), cfg, frame_hw=hw, patch=8)
+    r, c = counted(gc.gated_cascade, card, stream.to(DEVICE),
+                   CascadeService(params, cfg, batch_size=gc.BATCH,
+                                  frame_hw=hw, device=DEVICE))
+    w = gc.gated_cascade(cpu, stream,
+                         CascadeService(params, cfg, batch_size=gc.BATCH,
+                                        frame_hw=hw, device="cpu"))
+    check(r["builds"] == 1, f"examples: cascade {r['builds']} builds")
+    log, wlog = r["runner"].capture_log, w["runner"].capture_log
+    agree = (np.array_equal(log.sampled, wlog.sampled)
+             and np.array_equal(log.gated, wlog.gated))
+    rec = decided("cascade", agree,
+                  hypersense.frame_scores_batch(cpu, stream).numpy(),
+                  cpu.t_score)
+    check(len(w["batches"]) > 0, "examples: the CPU cascade saw no frame")
+    if agree:
+        idx = np.concatenate([x.frame_idx for x in r["batches"]])
+        check(np.array_equal(idx, np.concatenate(
+            [x.frame_idx for x in w["batches"]])),
+            "examples: cascade frame indices")
+        logits = np.concatenate([x.logits for x in r["batches"]])
+        want_l = np.concatenate([x.logits for x in w["batches"]])
+        rec["logits_max_abs_err"] = float(np.abs(logits - want_l).max())
+        rec["max_abs_logit"] = float(np.abs(want_l).max())
+        check(rec["logits_max_abs_err"]
+              <= CASCADE_F32_RTOL * rec["max_abs_logit"],
+              f"examples: cascade logits {rec['logits_max_abs_err']}")
+        e, we = r["energy"], w["energy"]
+        check(all(rel_close(e[k].total, we[k].total)
+                  for k in ("cascade", "always_on")),
+              "examples: cascade system energy")
+    return dict(rec, open_loop_max_abs_err=open_err, builds=r["builds"],
+                batches=len(r["batches"]), duty_card=r["duty"],
+                duty_cpu=w["duty"],
+                launches=launched("cascade", {
+                    k: c0.get(k, 0) + c.get(k, 0) for k in {**c0, **c}},
+                    ("sliding_scores_f32",)))
+
+
+def examples_parity() -> dict:
+    t0 = time.perf_counter()
+    out = {"quickstart": quickstart_parity(),
+           "gated_cascade": gated_cascade_parity(), "e2e": e2e_parity()}
+    out["parity_s"] = time.perf_counter() - t0
+    return out
+
+
+def examples_phase(card: str) -> dict:
+    """Every run of EXAMPLE_RUNS as its own process on the card, all
+    started at once (the kernels already built under ``build/kernels``),
+    and :func:`examples_parity` in this process meanwhile: each run must
+    exit 0, print its lines and launch its kernels;
+    ``gated_cascade_torch.py`` one backbone build across its ragged
+    drains. Records each run's wall seconds (from its start to its exit,
+    beside the five others and the parity), its counts and its headline
+    numbers; every process is stopped on the way out."""
+    torch.cuda.empty_cache()
+    shutil.rmtree(EXAMPLES_DIR, ignore_errors=True)
+    EXAMPLES_DIR.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    modules = json.dumps({k: m.__name__ for k, m in ID_KERNELS.items()})
+    t0 = time.perf_counter()
+    procs, files, walls, waiters = {}, [], {}, []
+
+    def wait(name, p, start):
+        p.wait()
+        walls[name] = time.perf_counter() - start
+
+    try:
+        for name, (script, args, _, _) in EXAMPLE_RUNS.items():
+            out = open(EXAMPLES_DIR / f"{name}.out", "w")
+            err = open(EXAMPLES_DIR / f"{name}.err", "w")
+            files += [out, err]
+            p = subprocess.Popen(
+                [sys.executable, "-c", COUNTED_RUN,
+                 str(EXAMPLES_DIR / f"{name}.json"), modules,
+                 str(ROOT / "examples" / f"{script}.py"), *args],
+                cwd=ROOT, env=env, stdout=out, stderr=err)
+            procs[name] = p
+            waiters.append(threading.Thread(
+                target=wait, args=(name, p, time.perf_counter()),
+                daemon=True))
+            waiters[-1].start()
+        parity = examples_parity()
+        for th in waiters:
+            th.join(max(0.0, EXAMPLES_TIMEOUT_S - (time.perf_counter() - t0)))
+        check(len(walls) == len(procs),
+              f"examples: {sorted(set(procs) - set(walls))} still running "
+              f"after {EXAMPLES_TIMEOUT_S} s")
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in files:
+            f.close()
+    runs = {}
+    for name, (script, args, _, kernels) in EXAMPLE_RUNS.items():
+        p = procs[name]
+        out = (EXAMPLES_DIR / f"{name}.out").read_text()
+        err = (EXAMPLES_DIR / f"{name}.err").read_text()
+        check(p.returncode == 0, f"examples: {script} {' '.join(args)} "
+              f"exited {p.returncode}:\n{err[-3000:]}")
+        counts = json.loads((EXAMPLES_DIR / f"{name}.json").read_text())
+        runs[name] = dict(
+            command=" ".join([f"examples/{script}.py", *args]),
+            wall_s=walls[name],
+            launches=launched(name, {k: v for k, v in counts.items() if v},
+                              kernels),
+            **example_numbers(name, out))
+    check(runs["gated_cascade"]["builds"] == 1,
+          f"gated_cascade: {runs['gated_cascade']['builds']} backbone "
+          f"builds across its ragged drains, 1 expected")
+    check(0.0 <= runs["quickstart"]["auc"] <= 1.0, "quickstart: AUC")
+    shutil.rmtree(EXAMPLES_DIR, ignore_errors=True)
+    rec = {"card": card, "concurrent_processes": len(runs), "runs": runs,
+           "parity": parity, "phase_s": time.perf_counter() - t0}
+    emit({"examples": rec})
+    return rec
+
+
 TRAIN_KERNELS = {"hdc_encode_perm": enc_perm, "hdc_encode": enc,
                  "similarity": sim, "sliding_scores_f32": ss}
 
@@ -8090,7 +8696,7 @@ def main(argv=None) -> int:
     parser.add_argument(
         "--only", choices=("mesh", "cells", "lm", "decode", "mesh_decode",
                            "moe", "hybrid", "hybrid_mesh", "xlstm",
-                           "xlstm_mesh", "loop", "loop_mesh"),
+                           "xlstm_mesh", "loop", "loop_mesh", "examples"),
         help="mesh: build the kernels and run the mesh phase alone (on a "
              "host with several cards: the NCCL world takes every card); "
              "cells, lm, decode, moe, hybrid, xlstm, loop: that phase alone "
@@ -8100,7 +8706,8 @@ def main(argv=None) -> int:
              "sharded runs alone, in an NCCL world of every card; "
              "loop_mesh: the train loop over a mesh of every card and the "
              "launcher over a process a card (none of these runs any of "
-             "the kernels)")
+             "the kernels); examples: build the kernels and run the "
+             "examples phase alone")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -8164,6 +8771,10 @@ def run_phases(args, smi: str, dry) -> int:
         name: [ln.strip() for ln in log.splitlines()
                if "registers" in ln or "spill" in ln or "entry" in ln]
         for name, log in logs.items()}})
+    if args.only == "examples":
+        examples_phase(smi)
+        ok_line()
+        return 0
 
     sim_launches = similarity_launches()
     emit({"similarity_launches": sim_launches})
@@ -8223,6 +8834,7 @@ def run_phases(args, smi: str, dry) -> int:
     hybrid_phase(smi, helpers)
     xlstm_phase(smi)
     loop_phase(smi)
+    examples_phase(smi)
     train, train_launches, train_records = train_phase(g)
     emit({"train": train})
     for r in train_records:

@@ -599,8 +599,10 @@ class FleetService:
         """The ``(S, C, H, W)`` tick on the device: host arrivals through
         ring buffer ``k`` (pinned on the card) and one ``non_blocking``
         copy, arrivals on the card copied there, zeros in the other slots.
-        Integer codes are range-checked on the host buffer (codes on the
-        card by :func:`~repro_torch.sensing.adc.check_codes_range`)."""
+        Integer codes are range-checked on the host buffer, and the codes
+        on the card, all at once, by
+        :func:`~repro_torch.sensing.adc.check_codes_range`: one read back a
+        tick, as the reference's one check of its assembled tick."""
         S, C = self.n_slots, self.chunk_size
         shape = (S, C, *self._frame_hw)
         dtype = torch.int32 if codes else torch.float32
@@ -620,11 +622,11 @@ class FleetService:
             tick = buf.to(self.device, non_blocking=True, copy=True)
         else:
             tick = torch.zeros(shape, dtype=dtype, device=self.device)
-        for sid, fr in arrivals.items():
-            if _on_card(fr):
-                if codes:
-                    adc_sim.check_codes_range(fr, self.adc_bits)
-                tick[self._by_sid[sid]].copy_(fr)
+        card = {sid: fr for sid, fr in arrivals.items() if _on_card(fr)}
+        if codes and card:
+            adc_sim.check_codes_range(list(card.values()), self.adc_bits)
+        for sid, fr in card.items():
+            tick[self._by_sid[sid]].copy_(fr)
         return tick
 
     def _hp_stream(self, rec: _InFlight):

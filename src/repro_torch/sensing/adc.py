@@ -105,13 +105,18 @@ def unpack_nibbles(packed: torch.Tensor) -> torch.Tensor:
         *p.shape[:-1], -1)
 
 
-def check_codes_range(codes: torch.Tensor, bits: int) -> None:
+def check_codes_range(codes, bits: int) -> None:
     """Reject codes outside ``[0, 2^bits - 1]``: packing them would silently
-    wrap. One fused min/max reduction and one device->host fetch; a no-op
-    on empty tensors."""
-    if codes.numel() == 0:
+    wrap. ``codes`` is one tensor or a sequence of tensors on one device:
+    one fused min/max reduction over all of them and one device->host
+    fetch; a no-op on empty tensors."""
+    parts = [codes] if isinstance(codes, torch.Tensor) else list(codes)
+    parts = [c for c in parts if c.numel()]
+    if not parts:
         return
-    lo, hi = torch.stack(torch.aminmax(codes.to(torch.int64))).tolist()
+    ext = torch.stack([torch.stack(torch.aminmax(c.to(torch.int64)))
+                       for c in parts])
+    lo, hi = torch.stack([ext[:, 0].min(), ext[:, 1].max()]).tolist()
     check_codes_bounds(lo, hi, bits)
 
 

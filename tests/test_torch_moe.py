@@ -287,3 +287,98 @@ def test_the_block_makes_no_host_sync():
         for bad in (".item()", ".tolist()", ".cpu()", "nonzero", "bincount",
                     "int(", "float(", "bool("):
             assert bad not in src, (fn.__name__, bad)
+
+
+#: bf16's rounding: the gap between 1 and the next bf16 (8 significand
+#: bits); a routing margin above it no rounding of a bf16 pipeline reaches
+BF16_EPS = float(torch.finfo(torch.bfloat16).eps)
+#: router columns made near copies of one another, each pair at its own
+#: distance, so that many tokens' experts sit near a tie
+TIE_PAIRS = ((0, 1, 1e-7), (2, 3, 1e-6), (4, 5, 1e-5))
+
+
+def expert_sets(gate_e) -> list:
+    return [frozenset(row) for row in np.asarray(gate_e).tolist()]
+
+
+def test_bf16_routing_near_ties_equals_the_reference(monkeypatch,
+                                                     record_property):
+    """The bf16 block of both packages on the same bf16 tokens and float32
+    router, whose column pairs ``TIE_PAIRS`` are near copies (capacity at
+    ``E / k``, so no slot drops and only the routing can differ): every
+    token whose boundary margin (the gap between its k-th and (k+1)-th
+    router probabilities, in float64 on the same bf16 tokens) exceeds
+    ``BF16_EPS`` goes to the same experts in both packages, those of the
+    float64 routing; each package's flips against float64 among the
+    tokens inside that margin are recorded (``flips_port``,
+    ``flips_reference``, ``near_ties``) and lie within ``ROUTING_MARGIN``
+    of a tie, and where both packages pick the same experts their outputs
+    agree within ``BF16_RTOL``."""
+    cfg, jcfg = moe_cfgs("qwen3")
+    cfg = cfg._replace(capacity_factor=cfg.n_experts / cfg.top_k)
+    jcfg = jcfg._replace(capacity_factor=jcfg.n_experts / jcfg.top_k)
+    rng = np.random.default_rng(7)
+    params = {k: (WEIGHT_STD * rng.standard_normal(p.shape)).astype(
+        np.float32) for k, p in sorted(mlp.moe_spec(cfg).items())}
+    router = params["router"]
+    for a, b, eps in TIE_PAIRS:
+        router[:, b] = router[:, a] + eps * rng.standard_normal(
+            router.shape[0]).astype(np.float32)
+    tx = torch.from_numpy(rng.standard_normal(
+        (4, 64, cfg.d_model)).astype(np.float32)).to(torch.bfloat16)
+    x64 = tx.to(torch.float64).reshape(-1, cfg.d_model).numpy()
+    n, k = x64.shape[0], cfg.top_k
+
+    # the exact routing of the same bf16 tokens
+    logits = x64 @ router.astype(np.float64)
+    p = np.exp(logits - logits.max(-1, keepdims=True))
+    p /= p.sum(-1, keepdims=True)
+    order = np.argsort(-p, axis=-1, kind="stable")
+    exact = expert_sets(order[:, :k])
+    top = np.take_along_axis(p, order[:, :k + 1], axis=-1)
+    boundary = top[:, k - 1] - top[:, k]
+
+    seen = {}
+    route = mlp.route
+
+    def port_route(lg, c):
+        seen["port"] = route(lg, c).gate_e
+        return route(lg, c)
+    monkeypatch.setattr(mlp, "route", port_route)
+    top_k = jax.lax.top_k
+
+    def ref_top_k(a, kk):
+        vals, idx = top_k(a, kk)
+        seen["reference"] = np.asarray(idx)
+        return vals, idx
+    monkeypatch.setattr(jax.lax, "top_k", ref_top_k)
+
+    with torch.no_grad():
+        got, _ = mlp.moe_apply({k_: torch.from_numpy(a)
+                                for k_, a in params.items()}, tx, cfg)
+    want, _ = jmlp.moe_apply({k_: jnp.asarray(a) for k_, a in params.items()},
+                             jnp.asarray(tx.to(torch.float32).numpy()).astype(
+                                 jnp.bfloat16), jcfg)
+    port, ref = expert_sets(seen["port"]), expert_sets(seen["reference"])
+    assert len(port) == len(ref) == n
+
+    clear = boundary > BF16_EPS
+    assert clear.sum() > n // 2 and (~clear).sum() > 0
+    for i in np.flatnonzero(clear):
+        assert port[i] == ref[i] == exact[i], i
+    near = np.flatnonzero(~clear)
+    flips = {"port": sum(port[i] != exact[i] for i in near),
+             "reference": sum(ref[i] != exact[i] for i in near)}
+    for name, count in flips.items():
+        record_property(f"flips_{name}", int(count))
+    # a flip is float32 summation order at a tie (ROUTING_MARGIN, the
+    # float32 cases' precondition), never a rounding of bf16's size
+    for sets in (port, ref):
+        for i in near:
+            assert sets[i] == exact[i] or boundary[i] <= ROUTING_MARGIN, (
+                i, boundary[i])
+    record_property("near_ties", int(len(near)))
+    same = np.array([a == b for a, b in zip(port, ref)])
+    got = got.to(torch.float32).reshape(n, -1).numpy()[same]
+    want = np.asarray(want, np.float32).reshape(n, -1)[same]
+    assert np.abs(got - want).max() <= BF16_RTOL * np.abs(want).max()

@@ -28,6 +28,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from torch.overrides import TorchFunctionMode
 
 from _torch_parity import (SCORE_ATOL, assert_margin, frames, models,
                            pick_threshold, t)
@@ -41,6 +42,8 @@ from repro_torch.core.hypersense import frame_detection_score
 from repro_torch.core.online import AdaptConfig
 from repro_torch.core.sensor_control import CaptureConfig, ControllerConfig
 from repro_torch.kernels import ops
+from repro_torch.analysis import sanitize
+from repro_torch.launch import serve as tserve
 from repro_torch.launch.serve import FleetService
 from repro_torch.sensing import adc as tadc
 from repro_torch.sensing import fleet as tfleet
@@ -567,6 +570,70 @@ def test_tensor_arrivals_bitwise_match_numpy_arrivals():
                                   adc_bits=5, device="cpu")
     for a, b in zip(host, runner.process(codes)):
         np.testing.assert_array_equal(a, b)
+
+
+class _HostReads(TorchFunctionMode):
+    """Every implicit host read of a tensor (``sanitize``'s list: ``item``,
+    ``tolist``, ``numpy``, ``bool``, ``int``, ...) made inside the block."""
+
+    def __init__(self):
+        super().__init__()
+        self.reads = []
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if func in sanitize._IMPLICIT:
+            self.reads.append(sanitize._IMPLICIT[func])
+        return func(*args, **(kwargs or {}))
+
+
+def test_card_codes_are_range_checked_with_one_read(monkeypatch):
+    """Integer codes arriving on the card at every slot are range-checked
+    together: a warm tick of three card arrivals makes exactly one host
+    read (the fused min/max, as the reference's one check of its assembled
+    tick), not one a sensor. The bits equal host (numpy) arrivals of the
+    same codes, and a bad code on any sensor raises before anything is
+    copied, an int64 code past int32's range (which the tick's int32 copy
+    would wrap into range) too."""
+    model, trace = port_model()
+    codes = np.clip(np.abs(trace[:3, :2 * C]) * 8, 0, 31).astype(np.int32)
+
+    def service():
+        svc = FleetService(model, CFG, n_slots=3, chunk_size=C,
+                           precision="int8", adc_bits=5, max_inflight=4,
+                           device="cpu")
+        for s in range(3):
+            svc.attach(s)
+        return svc
+
+    def tick(k, arrival_of):
+        return {s: arrival_of(codes[s, k * C:(k + 1) * C]) for s in range(3)}
+
+    host = service()
+    for k in range(2):
+        host.dispatch(tick(k, lambda a: a))
+    want = {}
+    drain(host, want)
+
+    # on the CPU, tensors stand in for arrivals on the card
+    monkeypatch.setattr(tserve, "_on_card",
+                        lambda fr: isinstance(fr, torch.Tensor))
+    svc = service()
+    svc.dispatch(tick(0, torch.from_numpy))
+    with _HostReads() as counted:
+        svc.dispatch(tick(1, torch.from_numpy))
+    assert counted.reads == ["tolist()"], counted.reads
+    got = {}
+    drain(svc, got)
+    for s in range(3):
+        for a, b in zip(cat(got[s]), cat(want[s])):
+            np.testing.assert_array_equal(a, b)
+
+    for bad, dtype in ((32, torch.int32), (-1, torch.int32),
+                       (2 ** 32 + 3, torch.int64)):
+        arrivals = tick(0, lambda a: torch.from_numpy(a).to(dtype))
+        arrivals[2][1, 0, 0] = bad
+        with pytest.raises(ValueError, match="5-bit range"):
+            service().dispatch(arrivals)
 
 
 def test_the_default_device_needs_a_card(monkeypatch):
